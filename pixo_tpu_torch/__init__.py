@@ -1,0 +1,31 @@
+"""pixo_tpu_torch: the PyTorch and CUDA port of the JAX package.
+
+The port runs on one NVIDIA H100 (Hopper, sm_90a). The per-block pixel math
+is written by hand in CUDA (``csrc/``), with a plain PyTorch version of every
+kernel beside it, which is what runs for tensors on the CPU. The bit-serial
+entropy packing runs in the same C++ host tier as the JAX package, compiled
+from its source. The JAX package stays the reference: for the
+same input and options the port emits the same bytes.
+
+Ported so far is the batched baseline JPEG encode with the standard tables:
+
+    from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
+
+    opts = JpegOptions(width=512, height=512, quality=85, subsampling=Subsampling.S420)
+    files = encode_jpeg_batch_sharded(batch_u8, opts, device="cuda")
+"""
+
+from . import errors
+from .color import ColorType, rgb_to_ycbcr
+from .options import JpegOptions, Subsampling
+from .parallel import encode_jpeg_batch_sharded, jpeg_coeffs_sharded
+
+__all__ = [
+    "ColorType",
+    "JpegOptions",
+    "Subsampling",
+    "encode_jpeg_batch_sharded",
+    "errors",
+    "jpeg_coeffs_sharded",
+    "rgb_to_ycbcr",
+]

@@ -1,0 +1,197 @@
+"""JPEG quantization + Huffman table machinery.
+
+Behavioral parity:
+  - Annex-K base tables, libjpeg quality scaling, zigzag order
+    (pixo ``src/jpeg/quantize.rs:4-113``).
+  - Standard K.3 DC/AC Huffman tables and canonical bits/vals code
+    assignment (pixo ``src/jpeg/huffman.rs:17-212``).
+
+Copied from the JAX package up to the standard tables: these arrays are the
+port's "weights". The optimize-Huffman builders (``optimized_from_counts``
+and the ``build_*`` functions behind it) are not ported yet (ROADMAP queue 1
+item 6).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+
+# Annex K base quantization tables (natural order).
+STD_LUMINANCE_TABLE = np.array(
+    [
+        16, 11, 10, 16, 24, 40, 51, 61,
+        12, 12, 14, 19, 26, 58, 60, 55,
+        14, 13, 16, 24, 40, 57, 69, 56,
+        14, 17, 22, 29, 51, 87, 80, 62,
+        18, 22, 37, 56, 68, 109, 103, 77,
+        24, 35, 55, 64, 81, 104, 113, 92,
+        49, 64, 78, 87, 103, 121, 120, 101,
+        72, 92, 95, 98, 112, 100, 103, 99,
+    ],
+    dtype=np.uint32,
+)
+
+STD_CHROMINANCE_TABLE = np.array(
+    [
+        17, 18, 24, 47, 99, 99, 99, 99,
+        18, 21, 26, 66, 99, 99, 99, 99,
+        24, 26, 56, 99, 99, 99, 99, 99,
+        47, 66, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+        99, 99, 99, 99, 99, 99, 99, 99,
+    ],
+    dtype=np.uint32,
+)
+
+# Zigzag scan order: ZIGZAG[i] = natural-order index of the i-th zigzag element.
+ZIGZAG = np.array(
+    [
+        0, 1, 8, 16, 9, 2, 3, 10,
+        17, 24, 32, 25, 18, 11, 4, 5,
+        12, 19, 26, 33, 40, 48, 41, 34,
+        27, 20, 13, 6, 7, 14, 21, 28,
+        35, 42, 49, 56, 57, 50, 43, 36,
+        29, 22, 15, 23, 30, 37, 44, 51,
+        58, 59, 52, 45, 38, 31, 39, 46,
+        53, 60, 61, 54, 47, 55, 62, 63,
+    ],
+    dtype=np.int32,
+)
+
+# Inverse: natural index -> zigzag position.
+ZIGZAG_INV = np.argsort(ZIGZAG).astype(np.int32)
+
+
+class QuantizationTables:
+    """Quality-scaled quantization tables (zigzag for headers, natural for math)."""
+
+    def __init__(self, quality: int = 75):
+        quality = min(max(int(quality), 1), 100)
+        scale = (5000 // quality) if quality < 50 else (200 - 2 * quality)
+        lum = np.clip((STD_LUMINANCE_TABLE * scale + 50) // 100, 1, 255)
+        chrom = np.clip((STD_CHROMINANCE_TABLE * scale + 50) // 100, 1, 255)
+        # Natural order, for the divide in the quantize kernel.
+        self.luminance_table = lum.astype(np.float32)
+        self.chrominance_table = chrom.astype(np.float32)
+        self.luminance_table_int = lum.astype(np.uint16)
+        self.chrominance_table_int = chrom.astype(np.uint16)
+        # Zigzag order, for DQT marker output.
+        self.luminance = lum[ZIGZAG].astype(np.uint8)
+        self.chrominance = chrom[ZIGZAG].astype(np.uint8)
+
+
+# Standard K.3 Huffman specifications: (bits per length 1..16, values).
+DC_LUM_BITS = bytes([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0])
+DC_LUM_VALS = bytes(range(12))
+DC_CHROM_BITS = bytes([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0])
+DC_CHROM_VALS = bytes(range(12))
+
+AC_LUM_BITS = bytes([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 125])
+AC_LUM_VALS = bytes(
+    [
+        0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+        0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xA1, 0x08,
+        0x23, 0x42, 0xB1, 0xC1, 0x15, 0x52, 0xD1, 0xF0, 0x24, 0x33, 0x62, 0x72,
+        0x82, 0x09, 0x0A, 0x16, 0x17, 0x18, 0x19, 0x1A, 0x25, 0x26, 0x27, 0x28,
+        0x29, 0x2A, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44, 0x45,
+        0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+        0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74, 0x75,
+        0x76, 0x77, 0x78, 0x79, 0x7A, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+        0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A, 0xA2, 0xA3,
+        0xA4, 0xA5, 0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4, 0xB5, 0xB6,
+        0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7, 0xC8, 0xC9,
+        0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA, 0xE1, 0xE2,
+        0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF1, 0xF2, 0xF3, 0xF4,
+        0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA,
+    ]
+)
+AC_CHROM_BITS = bytes([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 119])
+AC_CHROM_VALS = bytes(
+    [
+        0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+        0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+        0xA1, 0xB1, 0xC1, 0x09, 0x23, 0x33, 0x52, 0xF0, 0x15, 0x62, 0x72, 0xD1,
+        0x0A, 0x16, 0x24, 0x34, 0xE1, 0x25, 0xF1, 0x17, 0x18, 0x19, 0x1A, 0x26,
+        0x27, 0x28, 0x29, 0x2A, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3A, 0x43, 0x44,
+        0x45, 0x46, 0x47, 0x48, 0x49, 0x4A, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+        0x59, 0x5A, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6A, 0x73, 0x74,
+        0x75, 0x76, 0x77, 0x78, 0x79, 0x7A, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+        0x88, 0x89, 0x8A, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9A,
+        0xA2, 0xA3, 0xA4, 0xA5, 0xA6, 0xA7, 0xA8, 0xA9, 0xAA, 0xB2, 0xB3, 0xB4,
+        0xB5, 0xB6, 0xB7, 0xB8, 0xB9, 0xBA, 0xC2, 0xC3, 0xC4, 0xC5, 0xC6, 0xC7,
+        0xC8, 0xC9, 0xCA, 0xD2, 0xD3, 0xD4, 0xD5, 0xD6, 0xD7, 0xD8, 0xD9, 0xDA,
+        0xE2, 0xE3, 0xE4, 0xE5, 0xE6, 0xE7, 0xE8, 0xE9, 0xEA, 0xF2, 0xF3, 0xF4,
+        0xF5, 0xF6, 0xF7, 0xF8, 0xF9, 0xFA,
+    ]
+)
+
+
+def build_code_table(bits: bytes, vals: bytes, table_len: int):
+    """Canonical JPEG code assignment from a bits/vals spec.
+
+    Returns (codes, lengths) uint16/uint8 arrays indexed by symbol, or None
+    if the spec is inconsistent (mirrors the reference's fallback contract).
+    """
+    codes = np.zeros(table_len, dtype=np.uint16)
+    lengths = np.zeros(table_len, dtype=np.uint8)
+    code = 0
+    val_idx = 0
+    for length_minus_1, count in enumerate(bits):
+        for _ in range(count):
+            if val_idx >= len(vals):
+                return None
+            symbol = vals[val_idx]
+            if symbol >= table_len:
+                return None
+            codes[symbol] = code
+            lengths[symbol] = length_minus_1 + 1
+            val_idx += 1
+            code += 1
+        code <<= 1
+    return codes, lengths
+
+
+class HuffmanTables:
+    """Encoder Huffman tables: header specs + symbol-indexed code lookups."""
+
+    def __init__(
+        self,
+        dc_lum: Tuple[bytes, bytes] = (DC_LUM_BITS, DC_LUM_VALS),
+        dc_chrom: Tuple[bytes, bytes] = (DC_CHROM_BITS, DC_CHROM_VALS),
+        ac_lum: Tuple[bytes, bytes] = (AC_LUM_BITS, AC_LUM_VALS),
+        ac_chrom: Tuple[bytes, bytes] = (AC_CHROM_BITS, AC_CHROM_VALS),
+    ):
+        self.dc_lum_bits, self.dc_lum_vals = dc_lum
+        self.dc_chrom_bits, self.dc_chrom_vals = dc_chrom
+        self.ac_lum_bits, self.ac_lum_vals = ac_lum
+        self.ac_chrom_bits, self.ac_chrom_vals = ac_chrom
+        t = build_code_table(*dc_lum, 12)
+        if t is None:
+            raise ValueError("invalid dc_lum huffman spec")
+        self.dc_lum_codes, self.dc_lum_lengths = t
+        t = build_code_table(*dc_chrom, 12)
+        if t is None:
+            raise ValueError("invalid dc_chrom huffman spec")
+        self.dc_chrom_codes, self.dc_chrom_lengths = t
+        t = build_code_table(*ac_lum, 256)
+        if t is None:
+            raise ValueError("invalid ac_lum huffman spec")
+        self.ac_lum_codes, self.ac_lum_lengths = t
+        t = build_code_table(*ac_chrom, 256)
+        if t is None:
+            raise ValueError("invalid ac_chrom huffman spec")
+        self.ac_chrom_codes, self.ac_chrom_lengths = t
+
+    @classmethod
+    @functools.lru_cache(maxsize=1)
+    def default(cls) -> "HuffmanTables":
+        """The Annex-K standard tables, built once per process. All four
+        code arrays are read-only by convention (nothing in the package
+        mutates a constructed table); non-optimized encodes share this
+        instance instead of re-deriving ~600 canonical codes per image."""
+        return cls()

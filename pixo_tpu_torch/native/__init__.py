@@ -1,0 +1,288 @@
+"""ctypes bindings to the C++ host tier.
+
+The port shares the JAX package's ``native/core.cpp`` (read by path, not
+copied) and compiles it into its own library in ``pixo_tpu_torch/_build/``
+with the plain flags of the JAX package's build. The JAX package's
+profile-guided build is not used: its training script imports the JAX
+package. Only the entry points of the baseline encode slice are bound:
+
+- ``jpeg_pack_scan`` / ``jpeg_pack_scan_batch``: dense [nblocks, 64] packers
+  (the compaction-overflow fallback);
+- ``jpeg_pack_scan_padded``: the packer that reads the device's padded
+  per-block streams (``ops/sparse_pack.py``);
+- ``jpeg_coefficients`` and ``jpeg_encode_scan_fused``: the host
+  coefficient pipeline and the fused host encode, the references that the
+  device path is held against.
+
+Unlike the JAX package, a failed build or load raises: there is no Python
+fallback tier here, and a silent ``None`` would hide the failure.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import threading
+from typing import Optional, Sequence
+
+import numpy as np
+
+from ..ops.blockify import num_blocks
+from ..utils.build import build_shared_library
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+SOURCE = os.path.join(_REPO, "pixo_tpu", "native", "core.cpp")
+
+COMMAND = [
+    "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+    "-march=native", "-fno-exceptions", "-fvisibility=hidden", "-pthread",
+    # the AAN DCT of jpeg_coefficients is bit-exact only without FMA contraction
+    "-ffp-contract=off",
+]
+
+# Coefficient modes, as numbered by the host library and the CUDA kernel.
+MODES = {"gray": 0, "444": 1, "420": 2, "422": 3}
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = 0.0  # time the first load() of this process spent compiling
+
+
+def _cpu_flags() -> str:
+    """The host CPU's feature flags: a ``-march=native`` library is valid
+    only on a CPU that has them, so they are part of the build's key."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((line for line in f if line.startswith("flags")), "")
+    except OSError:
+        return ""
+
+
+def load():
+    """Build (at first use) and load the host library; raises on failure."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            built = build_shared_library(
+                "pixo_core", COMMAND, [SOURCE], timeout=600, key=_cpu_flags()
+            )
+            build_seconds = built.seconds
+            lib = ctypes.CDLL(built.path)
+            _configure(lib)
+            _lib = lib
+    return _lib
+
+
+_u8p = ctypes.POINTER(ctypes.c_uint8)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
+_i16p = ctypes.POINTER(ctypes.c_int16)
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_f32p = ctypes.POINTER(ctypes.c_float)
+
+# dc lum codes/lens, dc chrom codes/lens, ac lum codes/lens, ac chrom codes/lens
+_HUFF = [_u16p, _u8p, _u16p, _u8p, _u16p, _u8p, _u16p, _u8p]
+
+
+def _configure(lib) -> None:
+    lib.jpeg_pack_scan.restype = ctypes.c_int64
+    lib.jpeg_pack_scan.argtypes = [
+        _i16p, ctypes.c_int64,           # zz coeffs, nblocks
+        _u8p, ctypes.c_int32,            # pattern, blocks per mcu
+        *_HUFF,
+        ctypes.c_int32,                  # restart interval (0 = off)
+        _u8p, ctypes.c_int64,            # out buffer, capacity
+    ]
+    lib.jpeg_pack_scan_padded.restype = ctypes.c_int64
+    lib.jpeg_pack_scan_padded.argtypes = [
+        _i16p, _u8p, _u8p, _i16p,        # dc, counts, positions, values
+        ctypes.c_int64, ctypes.c_int32,  # nblocks, per-block row stride
+        _u8p, ctypes.c_int32,            # pattern, blocks per mcu
+        *_HUFF,
+        ctypes.c_int32,                  # restart interval (0 = off)
+        _u8p, ctypes.c_int64,            # out buffer, capacity
+    ]
+    lib.jpeg_pack_scan_batch.restype = ctypes.c_int32
+    lib.jpeg_pack_scan_batch.argtypes = [
+        _i16p, ctypes.c_int32, ctypes.c_int64,  # zz, batch, blocks per image
+        _u8p, ctypes.c_int32,                   # pattern, blocks per mcu
+        *_HUFF,
+        ctypes.c_int32,                         # restart interval (0 = off)
+        _u8p, ctypes.c_int64,                   # out buffer, per-image capacity
+        _i64p,                                  # out lengths [batch]
+        ctypes.c_int32,                         # threads
+    ]
+    lib.jpeg_coefficients.restype = ctypes.c_int64
+    lib.jpeg_coefficients.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,  # img, h, w, c_in
+        ctypes.c_int32,                                        # mode
+        _f32p, _f32p,                                          # qlum, qchrom (natural [64])
+        _i16p,                                                 # out [nblocks, 64]
+    ]
+    lib.jpeg_encode_scan_fused.restype = ctypes.c_int64
+    lib.jpeg_encode_scan_fused.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,  # img, h, w, c_in
+        ctypes.c_int32,                                        # mode
+        _f32p, _f32p,                                          # qlum, qchrom (natural [64])
+        _u8p, ctypes.c_int32,                                  # pattern, blocks per mcu
+        *_HUFF,
+        ctypes.c_int32,                                        # restart interval (0 = off)
+        _u8p, ctypes.c_int64,                                  # out buffer, capacity
+    ]
+
+
+def _ptr(arr: np.ndarray, ptype):
+    return arr.ctypes.data_as(ptype)
+
+
+def _huff_args(tables):
+    """The eight code/length pointers of ``tables`` (arrays it keeps alive)."""
+    arrays = (
+        tables.dc_lum_codes, tables.dc_lum_lengths,
+        tables.dc_chrom_codes, tables.dc_chrom_lengths,
+        tables.ac_lum_codes, tables.ac_lum_lengths,
+        tables.ac_chrom_codes, tables.ac_chrom_lengths,
+    )
+    for a, ptype in zip(arrays, _HUFF):
+        want = np.uint16 if ptype is _u16p else np.uint8
+        if a.dtype != want or not a.flags.c_contiguous:
+            raise ValueError("Huffman code tables must be contiguous uint16/uint8 arrays")
+    return [_ptr(a, p) for a, p in zip(arrays, _HUFF)]
+
+
+def _scan_capacity(nblocks: int) -> int:
+    # worst case ~16 bits/symbol * 64 symbols/block, plus stuffing margin
+    return nblocks * 64 * 4 + 4096
+
+
+def native_pack_scan(
+    zz: np.ndarray, pattern: Sequence[int], tables, restart_interval: Optional[int]
+) -> bytes:
+    """Entropy-pack one image's dense [nblocks, 64] int16 zigzag blocks."""
+    lib = load()
+    zz = np.ascontiguousarray(zz, dtype=np.int16)
+    pat = np.asarray(pattern, dtype=np.uint8)
+    cap = _scan_capacity(zz.shape[0])
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_pack_scan(
+        _ptr(zz, _i16p), zz.shape[0], _ptr(pat, _u8p), len(pattern),
+        *_huff_args(tables), restart_interval or 0, _ptr(out, _u8p), cap,
+    )
+    if n < 0:
+        raise RuntimeError("native jpeg_pack_scan failed")
+    return out[:n].tobytes()
+
+
+def native_pack_scan_padded(
+    dc: np.ndarray,
+    counts: np.ndarray,
+    poss: np.ndarray,
+    vals: np.ndarray,
+    pattern: Sequence[int],
+    tables,
+    restart_interval: Optional[int],
+) -> bytes:
+    """Pack one scan straight from the padded per-block layout: ``poss``/
+    ``vals`` are [nblocks, cap] rows, block i's ``counts[i]`` live entries
+    at the head of row i. Byte-identical to ``native_pack_scan`` on the
+    dense blocks the streams were compacted from."""
+    lib = load()
+    dc = np.ascontiguousarray(dc, dtype=np.int16)
+    counts = np.ascontiguousarray(counts, dtype=np.uint8)
+    poss = np.ascontiguousarray(poss, dtype=np.uint8)
+    vals = np.ascontiguousarray(vals, dtype=np.int16)
+    nblocks = dc.shape[0]
+    if counts.shape != (nblocks,) or poss.shape != vals.shape or poss.shape[0] != nblocks:
+        raise ValueError("padded streams disagree in shape")
+    if int(counts.max(initial=0)) > poss.shape[1]:
+        raise ValueError("a block holds more nonzeros than its padded row")
+    pat = np.asarray(pattern, dtype=np.uint8)
+    cap = _scan_capacity(nblocks)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_pack_scan_padded(
+        _ptr(dc, _i16p), _ptr(counts, _u8p), _ptr(poss, _u8p), _ptr(vals, _i16p),
+        nblocks, poss.shape[1], _ptr(pat, _u8p), len(pattern),
+        *_huff_args(tables), restart_interval or 0, _ptr(out, _u8p), cap,
+    )
+    if n < 0:
+        raise RuntimeError("native jpeg_pack_scan_padded failed")
+    return out[:n].tobytes()
+
+
+def native_pack_scan_batch(
+    zz_batch: np.ndarray,
+    pattern: Sequence[int],
+    tables,
+    restart_interval: Optional[int],
+    nthreads: int,
+) -> list:
+    """Pack [B, nblocks, 64] coefficient streams on ``nthreads`` C++ threads."""
+    lib = load()
+    zz_batch = np.ascontiguousarray(zz_batch, dtype=np.int16)
+    b, nblocks = zz_batch.shape[0], zz_batch.shape[1]
+    pat = np.asarray(pattern, dtype=np.uint8)
+    cap = _scan_capacity(nblocks)
+    out = np.empty(b * cap, dtype=np.uint8)
+    lens = np.zeros(b, dtype=np.int64)
+    rc = lib.jpeg_pack_scan_batch(
+        _ptr(zz_batch, _i16p), b, nblocks, _ptr(pat, _u8p), len(pattern),
+        *_huff_args(tables), restart_interval or 0, _ptr(out, _u8p), cap,
+        _ptr(lens, _i64p), max(1, nthreads),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native jpeg_pack_scan_batch failed ({rc})")
+    return [out[i * cap: i * cap + int(lens[i])].tobytes() for i in range(b)]
+
+
+def _image_args(img: np.ndarray, mode: str, qlum: np.ndarray, qchrom: np.ndarray):
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    h, w = img.shape[:2]
+    c_in = 1 if img.ndim == 2 else img.shape[2]
+    ql = np.ascontiguousarray(np.asarray(qlum, dtype=np.float32).reshape(64))
+    qc = np.ascontiguousarray(np.asarray(qchrom, dtype=np.float32).reshape(64))
+    return img, h, w, c_in, MODES[mode], ql, qc
+
+
+def native_jpeg_coefficients(
+    img: np.ndarray, mode: str, qlum: np.ndarray, qchrom: np.ndarray
+) -> np.ndarray:
+    """Host coefficient pipeline for one [h, w] or [h, w, 3] uint8 image
+    (clamp-pad -> YCbCr -> blockify -> AAN DCT -> quantize -> zigzag).
+    ``mode`` is "gray", "444", "420" or "422"; the tables are natural-order
+    [64] f32. Returns [nblocks, 64] int16 in scan order."""
+    lib = load()
+    img, h, w, c_in, m, ql, qc = _image_args(img, mode, qlum, qchrom)
+    nblocks = num_blocks(h, w, mode)
+    out = np.empty((nblocks, 64), np.int16)
+    rc = lib.jpeg_coefficients(
+        _ptr(img, _u8p), h, w, c_in, m, _ptr(ql, _f32p), _ptr(qc, _f32p), _ptr(out, _i16p)
+    )
+    if rc != nblocks:
+        raise RuntimeError(f"native jpeg_coefficients failed ({rc}; needs AVX2)")
+    return out
+
+
+def native_jpeg_encode_scan(
+    img: np.ndarray,
+    mode: str,
+    qlum: np.ndarray,
+    qchrom: np.ndarray,
+    pattern: Sequence[int],
+    tables,
+    restart_interval: Optional[int],
+) -> bytes:
+    """Coefficients and entropy packing of one image in one host call: the
+    scan payload, byte-identical to ``native_jpeg_coefficients`` followed by
+    ``native_pack_scan``."""
+    lib = load()
+    img, h, w, c_in, m, ql, qc = _image_args(img, mode, qlum, qchrom)
+    pat = np.asarray(pattern, dtype=np.uint8)
+    cap = _scan_capacity(num_blocks(h, w, mode))
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_encode_scan_fused(
+        _ptr(img, _u8p), h, w, c_in, m, _ptr(ql, _f32p), _ptr(qc, _f32p),
+        _ptr(pat, _u8p), len(pattern),
+        *_huff_args(tables), restart_interval or 0, _ptr(out, _u8p), cap,
+    )
+    if n < 0:
+        raise RuntimeError("native jpeg_encode_scan_fused failed (needs AVX2)")
+    return out[:n].tobytes()

@@ -1,0 +1,231 @@
+"""Hand-written Hopper kernels of the baseline encode slice, and their wrappers.
+
+Counterpart of the JAX package's ``ops/pallas_kernels.py``. The CUDA sources
+live in ``pixo_tpu_torch/csrc/``; they are compiled with ``nvcc`` at first use
+into one shared library with a plain C interface (``_build/``) and called
+through ctypes on PyTorch's current stream.
+
+- ``coeffs``: uint8 pixels -> int16 zigzag coefficients, the whole per-block
+  chain of the encoder (``csrc/coeffs.cu``). It replaces ``dct8x8_aan_pallas``
+  widened to ``jpeg/encoder.py::_device_coeffs``.
+- ``dct8x8_aan``: the standalone [N, 8, 8] f32 AAN DCT, sharing the
+  coefficient kernel's butterfly (``csrc/aan.cuh``): the direct counterpart
+  of ``dct8x8_aan_pallas``.
+- ``compact_padded``: per-block compaction of the coefficient stream
+  (``csrc/compact.cu``), replacing the ``lax.top_k`` of
+  ``ops/sparse_pack.py::sparsify_blocks_padded``.
+
+Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
+for a CUDA tensor launches its kernel or raises; it never falls back. Each
+keeps a count of its kernel launches in its ``launches`` attribute.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import numpy as np
+import torch
+
+from ..native import MODES
+from ..utils.build import build_shared_library
+from .blockify import blocks_420, blocks_422, blocks_444, blocks_gray, num_blocks
+from .dct import dct8x8_aan as dct8x8_aan_plain
+from .quantize import quantize_blocks, zigzag_blocks
+from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "aan.cuh")]
+
+# -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
+# only without contraction); IEEE division stays the default (no fast math).
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}",
+]
+
+_PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = 0.0  # time the first load() of this process spent compiling
+build_log = ""  # the compiler's output of that build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    return os.path.join(home, "bin", "nvcc")
+
+
+def load():
+    """Build (at first use) and load the CUDA kernel library; raises on failure."""
+    global _lib, build_seconds, build_log
+    with _lock:
+        if _lib is None:
+            built = build_shared_library(
+                "pixo_kernels", [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"], SOURCES, timeout=900
+            )
+            build_seconds, build_log = built.seconds, built.log
+            lib = ctypes.CDLL(built.path)
+            vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+            lib.pixo_coeffs.restype = ctypes.c_int
+            lib.pixo_coeffs.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp, vp, vp]
+            lib.pixo_dct8x8_aan.restype = ctypes.c_int
+            lib.pixo_dct8x8_aan.argtypes = [vp, vp, i64, vp]
+            lib.pixo_compact.restype = ctypes.c_int
+            lib.pixo_compact.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, vp]
+            lib.pixo_cuda_error_string.restype = ctypes.c_char_p
+            lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+    return _lib
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: {lib.pixo_cuda_error_string(rc).decode()}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _device_kind(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def _table(q) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(q, dtype=np.float32).reshape(64))
+
+
+def coeffs_plain(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
+    """The plain PyTorch chain on ``imgs``' device: blockify -> AAN DCT ->
+    quantize -> zigzag. ``imgs`` is [B, H, W] (gray) or [B, H, W, C] uint8;
+    the tables are natural-order [64] or [8, 8] f32. Returns
+    [B, nblocks, 64] int16 in scan order."""
+    blocks = _PLAIN_BLOCKS[mode](imgs)
+    lum = torch.as_tensor(_table(lum_q), device=imgs.device).reshape(8, 8)
+    chrom = torch.as_tensor(_table(chrom_q), device=imgs.device).reshape(8, 8)
+    if mode == "gray":
+        qmap = lum[None]
+    elif mode == "420":
+        qmap = torch.stack([lum] * 4 + [chrom] * 2)
+    elif mode == "422":
+        qmap = torch.stack([lum] * 2 + [chrom] * 2)
+    else:
+        qmap = torch.stack([lum, chrom, chrom])
+    b, bpm = blocks.shape[0], qmap.shape[0]
+    dct = dct8x8_aan_plain(blocks).reshape(b, -1, bpm, 8, 8)
+    return zigzag_blocks(quantize_blocks(dct, qmap)).reshape(b, -1, 64)
+
+
+def coeffs(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
+    """[B, H, W] (gray) or [B, H, W, C>=3] uint8 pixels -> [B, nblocks, 64]
+    int16 zigzag coefficients in scan order, on ``imgs``' device.
+
+    ``mode`` is "gray", "444", "420" or "422"; ``lum_q``/``chrom_q`` are the
+    natural-order f32 quantization tables (numpy, [64] or [8, 8])."""
+    if mode not in MODES:
+        raise ValueError(f"unknown coefficient mode {mode!r}")
+    _require(imgs, torch.uint8, "imgs")
+    if mode == "gray":
+        if imgs.dim() != 3:
+            raise ValueError(f"gray input must be [B, H, W], got {tuple(imgs.shape)}")
+        b, h, w = imgs.shape
+        c = 1
+    else:
+        if imgs.dim() != 4 or imgs.shape[3] < 3:
+            raise ValueError(f"color input must be [B, H, W, C>=3], got {tuple(imgs.shape)}")
+        b, h, w, c = imgs.shape
+    if _device_kind(imgs) == "cpu":
+        return coeffs_plain(imgs, lum_q, chrom_q, mode)
+    if b * h * w == 0:
+        raise ValueError("empty batch")
+    lib = load()
+    lum, chrom = _table(lum_q), _table(chrom_q)
+    out = torch.empty((b, num_blocks(h, w, mode), 64), dtype=torch.int16, device=imgs.device)
+    with torch.cuda.device(imgs.device):
+        rc = lib.pixo_coeffs(
+            imgs.data_ptr(), b, h, w, c, MODES[mode],
+            lum.ctypes.data, chrom.ctypes.data, out.data_ptr(), _stream(imgs),
+        )
+    _check(lib, rc, "coeffs")
+    coeffs.launches += 1
+    return out
+
+
+coeffs.launches = 0
+
+
+def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:
+    """Forward AAN DCT over [N, 8, 8] f32 blocks, bit-exact with
+    ``ops/dct.py::dct8x8_aan``."""
+    _require(blocks, torch.float32, "blocks")
+    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (8, 8):
+        raise ValueError(f"blocks must be [N, 8, 8], got {tuple(blocks.shape)}")
+    if _device_kind(blocks) == "cpu":
+        return dct8x8_aan_plain(blocks)
+    if blocks.shape[0] == 0:
+        raise ValueError("empty batch")
+    lib = load()
+    out = torch.empty_like(blocks)
+    with torch.cuda.device(blocks.device):
+        rc = lib.pixo_dct8x8_aan(blocks.data_ptr(), out.data_ptr(), blocks.shape[0], _stream(blocks))
+    _check(lib, rc, "dct8x8_aan")
+    dct8x8_aan.launches += 1
+    return out
+
+
+dct8x8_aan.launches = 0
+
+
+def compact_padded(zz: torch.Tensor, cap_per_block: int):
+    """[B, N, 64] int16 zigzag blocks -> per-block padded streams
+    (dc [B, N] i16, counts [B, N] u8, poss [B, N, cap] u8, vals [B, N, cap]
+    i16, total [B] i32, maxcount [B] i32), equal to
+    ``ops/sparse_pack.py::sparsify_blocks_padded_batch``."""
+    if cap_per_block not in PADDED_CAP_TIERS:
+        raise ValueError(f"cap_per_block must be one of {PADDED_CAP_TIERS}")
+    _require(zz, torch.int16, "zz")
+    if zz.dim() != 3 or zz.shape[2] != 64:
+        raise ValueError(f"zz must be [B, N, 64], got {tuple(zz.shape)}")
+    if _device_kind(zz) == "cpu":
+        return sparsify_blocks_padded_batch(zz, cap_per_block)
+    b, n = zz.shape[0], zz.shape[1]
+    if not (1 <= b <= 65535 and n >= 1):
+        raise ValueError(f"unsupported batch shape {tuple(zz.shape)}")
+    lib = load()
+    dev = zz.device
+    dc = torch.empty((b, n), dtype=torch.int16, device=dev)
+    counts = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    poss = torch.empty((b, n, cap_per_block), dtype=torch.uint8, device=dev)
+    vals = torch.empty((b, n, cap_per_block), dtype=torch.int16, device=dev)
+    total = torch.empty((b,), dtype=torch.int32, device=dev)
+    maxcount = torch.empty((b,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.pixo_compact(
+            zz.data_ptr(), b, n, cap_per_block, dc.data_ptr(), counts.data_ptr(),
+            poss.data_ptr(), vals.data_ptr(), total.data_ptr(), maxcount.data_ptr(), _stream(zz),
+        )
+    _check(lib, rc, "compact")
+    compact_padded.launches += 1
+    return dc, counts, poss, vals, total, maxcount
+
+
+compact_padded.launches = 0
