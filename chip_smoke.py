@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's batched baseline JPEG encode.
+"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -12,22 +12,35 @@ printing its own lines:
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of both native libraries from the checkout's
    sources (the CUDA kernels and the C++ host tier), with their build times;
-2. every kernel of the path against its plain PyTorch version on the card,
-   for bit equality: the coefficient kernel in all four modes on the
+2. every kernel of both paths against its plain PyTorch version on the
+   card, for bit equality: the coefficient kernel in all four modes on the
    16x512x512 gradient batch and on a 4x517x389 noise batch (odd sizes pad),
    also held against the host library's coefficients image by image; the
    standalone AAN DCT on 100k random blocks; the compaction kernel at caps
-   8, 16 and 32;
-3. the main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on the
-   16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
+   8, 16 and 32; the PNG filter bank and the fused filter kernel for bpp 1,
+   2, 3, 4, 6 and 8 (odd row lengths, one-row images, rows no longer than
+   a pixel, 262,140-byte rows, the corpus batch), the fused kernel in every
+   ported strategy with the sticky rule off and on, also held against the
+   host library's filter image by image;
+3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
+   the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
    the launch count of each kernel; then noise batches that escalate the
    compaction cap to 16 and to 32, one that falls back to the dense stream,
-   and a 4:4:4 batch with restart markers;
+   and a 4:4:4 batch with restart markers. Then the PNG main path,
+   ``encode_png_batch_sharded(..., device="cuda")``, on (a) 16 512x512 RGB
+   photos (the four corpus fixtures and three shifts of each) under the
+   balanced preset, with the fused filter kernel's launch count, (b) the
+   16x512x512 gradient batch under the fast preset and (c) a 512x512 RGBA
+   batch that takes every route (pass, strip, gray-alpha) and both
+   per-image fallbacks (gray, palette); every file is held against the
+   per-image ``png.encode`` (which filters on the host) and (a) and (b)
+   also decode back to their input;
 4. median timings over warm runs: each kernel against its plain version,
    the copy of the pixels to the card, the device stage with kernels and
-   with plain PyTorch, the copy of the streams to the host, the host pack
-   and the whole encode.
+   with plain PyTorch, the copy of the results to the host, the host pack
+   or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
+   (b).
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -36,6 +49,7 @@ record; the last line is the run's JSON result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -44,6 +58,8 @@ import time
 
 BATCH, SIZE, QUALITY = 16, 512, 85
 WARM_RUNS = 20
+CORPUS = ("browser", "playground", "rocket", "web")
+CORPUS_SHIFTS = ((0, 0), (0, 64), (128, 0), (200, 300))
 
 
 class Failed(Exception):
@@ -62,6 +78,56 @@ def _median(xs):
     return s[n // 2] if n % 2 else 0.5 * (s[n // 2 - 1] + s[n // 2])
 
 
+def read_png(path: str):
+    """The pixels of the PNG file at ``path`` (see ``decode_png``)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def decode_png(data: bytes):
+    """An 8-bit, non-interlaced PNG of colour type 0, 2, 4 or 6 -> [H, W, C]
+    uint8, read with the stdlib's zlib and a numpy unfilter, so the card's
+    machine needs no image library. Each anti-diagonal y + x = d of pixels
+    depends only on earlier ones (left, up, upper-left), so the unfilter
+    runs one vectorized step per diagonal."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG file")
+    pos, idat, header = 8, [], None
+    while pos < len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        pos += 12 + length
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or interlace or ctype not in (0, 2, 4, 6):
+        raise ValueError("only 8-bit non-interlaced gray/RGB(A) PNGs are read")
+    c = {0: 1, 2: 3, 4: 2, 6: 4}[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8).reshape(h, w * c + 1)
+    types = raw[:, 0].astype(np.int32)
+    filt = raw[:, 1:].reshape(h, w, c).astype(np.int32)
+    recon = np.zeros((h + 1, w + 1, c), np.int32)  # a zero row above, a zero column left
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h - 1, d) + 1)
+        xs = d - ys
+        a, b, ul = recon[ys + 1, xs], recon[ys, xs + 1], recon[ys, xs]
+        p = a + b - ul
+        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - ul)
+        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, ul))
+        t = types[ys][:, None]
+        pred = np.select([t == 0, t == 1, t == 2, t == 3], [np.zeros_like(a), a, b, (a + b) >> 1],
+                         paeth)
+        recon[ys + 1, xs + 1] = (filt[ys, xs] + pred) & 0xFF
+    return recon[1:, 1:].astype(np.uint8)
+
+
 def gradient_batch(batch: int, size: int):
     """The bench's input: shifted copies of one synthetic gradient."""
     import numpy as np
@@ -71,6 +137,97 @@ def gradient_batch(batch: int, size: int):
     base = synth_gradient(size, size)
     shifts = np.random.default_rng(0).integers(0, 17, batch)
     return np.stack([np.roll(base, int(s), axis=1) for s in shifts])
+
+
+def corpus_batch():
+    """PNG batch (a): each corpus fixture and three np.roll shifts of it."""
+    import numpy as np
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    imgs = []
+    for name in CORPUS:
+        img = read_png(os.path.join(here, "tests", "fixtures", f"corpus_{name}_512.png"))
+        imgs += [np.roll(img, shift, axis=(0, 1)) for shift in CORPUS_SHIFTS]
+    return np.stack(imgs)
+
+
+def routing_batch(size: int):
+    """PNG batch (c), as tests/test_parallel.py:72-116 builds it: one RGBA
+    image per route of the balanced batch (pass, strip, gray-alpha), one per
+    per-image fallback (gray, palette) and three of noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    h = w = size
+    noisy = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    noisy[::7, ::3, 3] = 0
+    opaque = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    opaque[..., 3] = 255
+    g = rng.integers(0, 256, (h, w, 1), dtype=np.uint8)
+    gray_alpha = np.concatenate([g, g, g, rng.integers(0, 255, (h, w, 1), dtype=np.uint8)], -1)
+    gray = np.concatenate([g, g, g, np.full((h, w, 1), 255, np.uint8)], -1)
+    palette = np.zeros((h, w, 4), np.uint8)
+    palette[..., 0] = (np.arange(w) % 7 * 30).astype(np.uint8)
+    palette[..., 3] = 255
+    rest = [rng.integers(0, 256, (h, w, 4), dtype=np.uint8) for _ in range(3)]
+    return np.stack([noisy, opaque, gray_alpha, gray, palette, *rest])
+
+
+def png_cases(corpus, grad) -> dict:
+    """The PNG main path's batches (a) and (b): (label, options, images)."""
+    from pixo_tpu_torch import ColorType, PngOptions
+
+    rgb = dict(color_type=ColorType.RGB)
+    return {
+        "a": ("corpus RGB balanced", PngOptions.balanced(SIZE, SIZE).replace(**rgb), corpus),
+        "b": ("gradient RGB fast", PngOptions.fast(SIZE, SIZE).replace(**rgb), grad),
+    }
+
+
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from pixo_tpu_torch.ops import kernels
+
+    for fn in (kernels.coeffs, kernels.compact_padded, kernels.dct8x8_aan,
+               kernels.filter_bank, kernels.filter_rows):
+        fn.launches = 0
+
+
+def event_ms(fn, calls=10, reps=5):
+    """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
+    calls, per call: the device time whenever the device, and not the host's
+    launching, is the bound."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return _median(times)
+
+
+def wall_ms(fn):
+    """Median host-clock time of WARM_RUNS calls, each synchronized."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times)
 
 
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
@@ -184,8 +341,7 @@ def check_main_path(dev, grad) -> dict:
 
     b, size = grad.shape[0], grad.shape[1]
     opts = JpegOptions(width=size, height=size, quality=QUALITY, subsampling=Subsampling.S420)
-    kernels.coeffs.launches = 0
-    kernels.compact_padded.launches = 0
+    reset_counts()
     outs = encode_jpeg_batch_sharded(grad, opts, device=dev)
     launches = {"coeffs": kernels.coeffs.launches, "compact": kernels.compact_padded.launches}
     same = sum(a == c for a, c in zip(outs, _host_reference(grad, opts)))
@@ -219,37 +375,6 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     from pixo_tpu_torch.ops.dct import dct8x8_aan as dct_plain
     from pixo_tpu_torch.ops.sparse_pack import sparsify_blocks_padded_batch
     from pixo_tpu_torch.parallel.pipeline import _fetch_compacted, _pack_hosted, jpeg_coeffs_sharded
-
-    def event_ms(fn, calls=10, reps=5):
-        """Median over ``reps`` of the CUDA-event time of ``calls``
-        back-to-back calls, per call: the device time whenever the device,
-        and not the host's launching, is the bound."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end) / calls)
-        return _median(times)
-
-    def wall_ms(fn):
-        """Median host-clock time of WARM_RUNS calls, each synchronized."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(WARM_RUNS):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return _median(times)
 
     b, size = grad.shape[0], grad.shape[1]
     shape = f"{b}x{size}x{size}"
@@ -295,6 +420,173 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     return k_ms
 
 
+def check_png_kernels(dev, corpus) -> dict:
+    """Phase 2, PNG: both filter kernels against their plain versions on
+    ``dev``, and the fused kernel against the host library's filter image by
+    image. Returns the largest absolute error of each kernel."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.native import native_png_filter
+    from pixo_tpu_torch.ops import kernels, png_filters
+
+    rng = np.random.default_rng(4)
+    strategies = [s for s in FilterStrategy if s != FilterStrategy.BIGRAMS]
+    errs = {"filter_bank": 0, "filter_rows": 0}
+    y, x = np.mgrid[0:16, 0:300]
+    ramp = np.broadcast_to(((y + x) % 256).astype(np.uint8), (2, 16, 300))  # tied scores
+    for bpp in (1, 2, 3, 4, 6, 8):
+        cases = [
+            ("noise 4x33x1001", rng.integers(0, 256, (4, 33, 1001), dtype=np.uint8)),
+            ("low noise 2x40x1001", rng.integers(0, 12, (2, 40, 1001), dtype=np.uint8)),
+            ("ramp 2x16x300", np.ascontiguousarray(ramp)),
+            ("one row 2x1x77", rng.integers(0, 256, (2, 1, 77), dtype=np.uint8)),
+            (f"RB=bpp 2x5x{bpp}", rng.integers(0, 256, (2, 5, bpp), dtype=np.uint8)),
+            (f"RB<=bpp 2x3x{max(bpp // 2, 1)}",
+             rng.integers(0, 256, (2, 3, max(bpp // 2, 1)), dtype=np.uint8)),
+            ("long rows 1x3x262140", rng.integers(0, 256, (1, 3, 262140), dtype=np.uint8)),
+        ]
+        if bpp == 3:
+            cases.append((f"corpus {corpus.shape[0]}x{SIZE}x{SIZE * 3}",
+                          corpus.reshape(corpus.shape[0], SIZE, SIZE * 3)))
+        for label, host in cases:
+            rows = torch.from_numpy(host).to(dev)
+            got, ref = kernels.filter_bank(rows, bpp), kernels.filter_bank_plain(rows, bpp)
+            err_bank = max(int((g.int() - r.int()).abs().max()) for g, r in zip(got, ref))
+            err_rows, host_bad, n = 0, 0, 0
+            for strategy in strategies:
+                for sticky in (False, True):
+                    kw = dict(bpp=bpp, strategy=strategy, small_image=False, sticky_fast=sticky)
+                    out = kernels.filter_rows(rows, **kw)
+                    plain = png_filters.filter_rows_plain(rows, **kw)
+                    err_rows = max(err_rows, int((out.int() - plain.int()).abs().max()))
+                    mode = png_filters.native_mode(strategy)
+                    out_h = out.cpu().numpy()
+                    host_bad += sum(
+                        not np.array_equal(out_h[i], native_png_filter(host[i], bpp, mode,
+                                                                       sticky and mode == 6))
+                        for i in range(len(host))
+                    )
+                    n += len(host)
+            errs["filter_bank"] = max(errs["filter_bank"], err_bank)
+            errs["filter_rows"] = max(errs["filter_rows"], err_rows)
+            _verdict(f"check filter bpp={bpp} {label}: filter_bank max_abs_err vs plain {err_bank}; "
+                     f"filter_rows, {len(strategies)} strategies x sticky off/on: max_abs_err vs "
+                     f"plain {err_rows}, images differing from the host filter {host_bad}/{n}",
+                     err_bank == 0 and err_rows == 0 and host_bad == 0)
+    return errs
+
+
+def _check_png_bytes(dev, label, imgs, opts, roundtrip: bool) -> None:
+    """Every file of the batch encode against the per-image ``png.encode``,
+    which filters on the host; with ``roundtrip``, also decoded back."""
+    import numpy as np
+
+    from pixo_tpu_torch import encode_png_batch_sharded, png
+
+    outs = encode_png_batch_sharded(imgs, opts, device=dev)
+    same = sum(o == png.encode(img, opts) for o, img in zip(outs, imgs))
+    back = sum(np.array_equal(decode_png(o), img) for o, img in zip(outs, imgs)) if roundtrip else None
+    _verdict(f"main path png {label} {'x'.join(map(str, imgs.shape))}: {same}/{len(imgs)} files "
+             f"byte-equal to the per-image png.encode, "
+             f"{'not decoded' if back is None else f'{back}/{len(imgs)} decode to their input'}, "
+             f"mean {sum(map(len, outs)) / len(outs):.0f} B/file",
+             same == len(imgs) and back in (None, len(imgs)))
+
+
+def check_png_main_path(dev, corpus, grad) -> dict:
+    """Phase 3, PNG: batch (a) with the launch count of the fused filter
+    kernel, then (b) and the routing batch (c). Returns the launch counts of
+    run (a)."""
+    import torch
+
+    from pixo_tpu_torch import ColorType, PngOptions
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.parallel.pipeline import _png_route_batch
+
+    cases = png_cases(corpus, grad)
+    label, opts, imgs = cases["a"]
+    reset_counts()
+    _check_png_bytes(dev, f"(a) {label}", imgs, opts, roundtrip=True)
+    launches = {"filter_rows": kernels.filter_rows.launches}
+    _verdict(f"main path png (a): launches {launches}", launches["filter_rows"] >= 1)
+
+    label, opts, imgs = cases["b"]
+    _check_png_bytes(dev, f"(b) {label}", imgs, opts, roundtrip=True)
+
+    routing = routing_batch(SIZE)
+    opts = PngOptions.balanced(SIZE, SIZE)
+    groups, fallback = _png_route_batch(torch.from_numpy(routing).to(dev).reshape(len(routing), -1, 4),
+                                        opts)
+    want = {("pass", ColorType.RGBA), ("strip", ColorType.RGB), ("ga", ColorType.GRAY_ALPHA)}
+    routes = sorted(f"{m}->{c.name}" for m, c in groups)
+    _verdict(f"png routing (c): groups {routes}, per-image fallbacks {sorted(fallback.tolist())}",
+             set(groups) == want and sorted(fallback.tolist()) == [3, 4])
+    _check_png_bytes(dev, "(c) routing RGBA balanced", routing, opts, roundtrip=False)
+    return launches
+
+
+def time_png(dev, corpus, grad, card: str) -> dict:
+    """Phase 4, PNG: the filter kernels against their plain versions, then
+    the stages of batches (a) and (b). Returns the kernels' (ms, plain ms)
+    at batch (a)'s shape and strategy."""
+    import torch
+
+    from pixo_tpu_torch import encode_png_batch_sharded
+    from pixo_tpu_torch.ops import kernels, png_filters
+    from pixo_tpu_torch.parallel.pipeline import (
+        _png_route_batch,
+        png_filter_kwargs,
+        png_frame,
+        png_group_rows,
+    )
+
+    k_ms = {}
+    for key, (label, opts, imgs) in png_cases(corpus, grad).items():
+        b = imgs.shape[0]
+        at = f"({key}) {label} {b}x{SIZE}x{SIZE}"
+        mp = b * SIZE * SIZE / 1e6
+        px = torch.from_numpy(imgs).to(dev).reshape(b, -1, 3)
+        (((mode, ct), gidx),) = _png_route_batch(px, opts)[0].items()  # one group: pass RGB
+        raw = png_group_rows(px, gidx, mode, ct, opts)
+        kw = png_filter_kwargs(ct, opts)
+        times = {"filter_rows": (event_ms(lambda: kernels.filter_rows(raw, **kw)),
+                                 event_ms(lambda: png_filters.filter_rows_plain(raw, **kw)))}
+        if key == "a":
+            times["filter_bank"] = (event_ms(lambda: kernels.filter_bank(raw, 3)),
+                                    event_ms(lambda: kernels.filter_bank_plain(raw, 3)))
+            k_ms = times
+        for name, (ms, plain_ms) in times.items():
+            print(f"kernel {name} {at} {opts.filter_strategy.name}: {ms:.4f} ms per call, "
+                  f"plain PyTorch {plain_ms:.4f} ms [{card}]")
+
+        def device(filter_fn):
+            groups, _ = _png_route_batch(px, opts)
+            return [filter_fn(png_group_rows(px, g, m, c, opts), **png_filter_kwargs(c, opts))
+                    for (m, c), g in groups.items()]
+
+        filtered_dev = kernels.filter_rows(raw, **kw)
+        filtered = filtered_dev.cpu().numpy()
+
+        def deflate():
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                return list(ex.map(lambda f: png_frame(f, ct, opts), filtered))
+
+        stages = {
+            "png_h2d": wall_ms(lambda: torch.from_numpy(imgs).to(dev)),
+            "png_device": wall_ms(lambda: device(kernels.filter_rows)),
+            "png_device_plain": wall_ms(lambda: device(png_filters.filter_rows_plain)),
+            "png_d2h": wall_ms(lambda: filtered_dev.cpu()),
+            "png_deflate": wall_ms(deflate),
+            "png_end_to_end": wall_ms(lambda: encode_png_batch_sharded(imgs, opts, device=dev)),
+        }
+        for name, ms in stages.items():
+            print(f"stage {name} {at}: median {ms:.4f} ms, {mp / (ms / 1e3):.1f} MP/s over "
+                  f"{WARM_RUNS} warm runs [{card}]")
+    return k_ms
+
+
 def main() -> int:
     import torch
 
@@ -303,6 +595,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 
     import numpy as np
 
@@ -319,8 +612,9 @@ def main() -> int:
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    kernels.load()
-    native.load()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:  # both builds at once
+        for built in [ex.submit(kernels.load), ex.submit(native.load)]:
+            built.result()
     print(f"build: cuda kernels {kernels.build_seconds:.1f} s, host library "
           f"{native.build_seconds:.1f} s")
     for line in kernels.build_log.splitlines():
@@ -329,9 +623,12 @@ def main() -> int:
 
     grad = gradient_batch(BATCH, SIZE)
     noise = np.random.default_rng(1).integers(0, 256, (4, 517, 389, 3), dtype=np.uint8)
+    corpus = corpus_batch()
     try:
         errs = check_kernels(dev, grad, noise, 100_000)
+        errs.update(check_png_kernels(dev, corpus))
         launches = check_main_path(dev, grad)
+        launches.update(check_png_main_path(dev, corpus, grad))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -340,9 +637,14 @@ def main() -> int:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
     k_ms = time_everything(dev, grad, 100_000, card)
+    k_ms.update(time_png(dev, corpus, grad, card))
 
+    # filter_bank (the TPU kernel's own contract) is on no main path: its
+    # check and its time have lines of their own above
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
-               "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117")}
+               "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
+               "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
+                               "pixo_tpu/ops/pallas_kernels.py:57")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],

@@ -7,24 +7,33 @@ entropy packing runs in the same C++ host tier as the JAX package, compiled
 from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
-Ported so far is the batched baseline JPEG encode with the standard tables:
+Ported so far are the batched baseline JPEG encode with the standard tables
+and the batched 8-bit lossless PNG encode:
 
     from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
 
     opts = JpegOptions(width=512, height=512, quality=85, subsampling=Subsampling.S420)
     files = encode_jpeg_batch_sharded(batch_u8, opts, device="cuda")
+
+    from pixo_tpu_torch import ColorType, PngOptions, encode_png_batch_sharded
+
+    opts = PngOptions.balanced(512, 512).replace(color_type=ColorType.RGB)
+    files = encode_png_batch_sharded(batch_u8, opts, device="cuda")
 """
 
 from . import errors
 from .color import ColorType, rgb_to_ycbcr
-from .options import JpegOptions, Subsampling
-from .parallel import encode_jpeg_batch_sharded, jpeg_coeffs_sharded
+from .options import FilterStrategy, JpegOptions, PngOptions, Subsampling
+from .parallel import encode_jpeg_batch_sharded, encode_png_batch_sharded, jpeg_coeffs_sharded
 
 __all__ = [
     "ColorType",
+    "FilterStrategy",
     "JpegOptions",
+    "PngOptions",
     "Subsampling",
     "encode_jpeg_batch_sharded",
+    "encode_png_batch_sharded",
     "errors",
     "jpeg_coeffs_sharded",
     "rgb_to_ycbcr",

@@ -4,7 +4,7 @@ The port shares the JAX package's ``native/core.cpp`` (read by path, not
 copied) and compiles it into its own library in ``pixo_tpu_torch/_build/``
 with the plain flags of the JAX package's build. The JAX package's
 profile-guided build is not used: its training script imports the JAX
-package. Only the entry points of the baseline encode slice are bound:
+package. Only the entry points of the ported slices are bound:
 
 - ``jpeg_pack_scan`` / ``jpeg_pack_scan_batch``: dense [nblocks, 64] packers
   (the compaction-overflow fallback);
@@ -12,7 +12,12 @@ package. Only the entry points of the baseline encode slice are bound:
   per-block streams (``ops/sparse_pack.py``);
 - ``jpeg_coefficients`` and ``jpeg_encode_scan_fused``: the host
   coefficient pipeline and the fused host encode, the references that the
-  device path is held against.
+  device path is held against;
+- ``deflate_compress`` / ``deflate_compress_parity``: the zlib-wrapped
+  DEFLATE of every PNG encode (``compress/deflate.py``);
+- ``png_filter_apply``: the host PNG filter tier of the per-image encode,
+  and an oracle for the filter kernel;
+- ``crc32``: the PNG chunk checksum.
 
 Unlike the JAX package, a failed build or load raises: there is no Python
 fallback tier here, and a silent ``None`` would hide the failure.
@@ -38,6 +43,10 @@ COMMAND = [
     "-march=native", "-fno-exceptions", "-fvisibility=hidden", "-pthread",
     # the AAN DCT of jpeg_coefficients is bit-exact only without FMA contraction
     "-ffp-contract=off",
+    # core.cpp exports crc32 and adler32 under zlib's names and calls them
+    # itself; without this, in a process that loaded libz first (torch's CUDA
+    # libraries do), those calls bind to zlib's functions of other signatures
+    "-Wl,-Bsymbolic",
 ]
 
 # Coefficient modes, as numbered by the host library and the CUDA kernel.
@@ -128,6 +137,30 @@ def _configure(lib) -> None:
         ctypes.c_int32,                                        # restart interval (0 = off)
         _u8p, ctypes.c_int64,                                  # out buffer, capacity
     ]
+    lib.deflate_compress.restype = ctypes.c_int64
+    lib.deflate_compress.argtypes = [
+        _u8p, ctypes.c_int64,            # input
+        ctypes.c_int32,                  # level 1-9
+        ctypes.c_int32,                  # zlib wrap (0/1)
+        _u8p, ctypes.c_int64,            # out, capacity
+    ]
+    lib.deflate_compress_parity.restype = ctypes.c_int64
+    lib.deflate_compress_parity.argtypes = [
+        _u8p, ctypes.c_int64,            # input
+        ctypes.c_int32,                  # level 1-9
+        ctypes.c_int32,                  # zlib wrap (0/1)
+        ctypes.c_int32,                  # packed semantics (0/1)
+        _u8p, ctypes.c_int64,            # out, capacity
+    ]
+    lib.png_filter_apply.restype = ctypes.c_int32
+    lib.png_filter_apply.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64,  # rows, height, row bytes
+        ctypes.c_int32, ctypes.c_int32,        # bpp, mode
+        ctypes.c_int32,                        # sticky (0/1)
+        _u8p,                                  # out [height, row bytes + 1]
+    ]
+    lib.crc32.restype = ctypes.c_uint32
+    lib.crc32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
 
 
 def _ptr(arr: np.ndarray, ptype):
@@ -286,3 +319,56 @@ def native_jpeg_encode_scan(
     if n < 0:
         raise RuntimeError("native jpeg_encode_scan_fused failed (needs AVX2)")
     return out[:n].tobytes()
+
+
+def _byte_view(data) -> np.ndarray:
+    """bytes or a contiguous uint8 array -> 1-D uint8 array (no copy), with
+    one zero byte in place of an empty input, so the pointer is valid."""
+    src = np.frombuffer(data, dtype=np.uint8)
+    return src if src.size else np.zeros(1, dtype=np.uint8)
+
+
+def native_deflate(data, level: int, zlib_wrap: bool, parity: bool = False,
+                   packed: bool = False) -> bytes:
+    """DEFLATE ``data`` (bytes or a contiguous uint8 array) at ``level`` 1-9.
+
+    ``parity`` selects the reference-parity decision layer; ``packed`` (read
+    only in parity mode) its deflate_zlib_packed policy, the one every PNG
+    encode takes: no block splitting, literal-only streams >= 8 KiB stored."""
+    lib = load()
+    n_in = len(np.frombuffer(data, dtype=np.uint8))
+    src = _byte_view(data)
+    cap = n_in + (n_in >> 3) + 4096
+    out = np.empty(cap, dtype=np.uint8)
+    if parity:
+        n = lib.deflate_compress_parity(
+            _ptr(src, _u8p), n_in, level, int(zlib_wrap), int(packed), _ptr(out, _u8p), cap
+        )
+    else:
+        n = lib.deflate_compress(_ptr(src, _u8p), n_in, level, int(zlib_wrap), _ptr(out, _u8p), cap)
+    if n < 0:
+        raise RuntimeError(f"native deflate failed ({n})")
+    return out[:n].tobytes()
+
+
+def native_png_filter(rows: np.ndarray, bpp: int, mode: int, sticky: bool) -> np.ndarray:
+    """Forward-filter [H, RB] uint8 rows -> [H, RB+1] rows with the filter id
+    as each row's leading byte.
+
+    ``mode``: 0-4 a fixed filter; 5 adaptive/min-sum; 6 adaptive-fast, whose
+    row-0 choice holds for every row when ``sticky``; 7 bigrams."""
+    lib = load()
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    height, rb = rows.shape
+    out = np.empty((height, rb + 1), dtype=np.uint8)
+    rc = lib.png_filter_apply(_ptr(rows, _u8p), height, rb, bpp, mode, int(sticky), _ptr(out, _u8p))
+    if rc != 0:
+        raise RuntimeError(f"native png_filter_apply failed ({rc})")
+    return out
+
+
+def native_crc32(data: bytes, crc: int = 0) -> int:
+    """CRC-32 (the zlib polynomial) of ``data``, continuing from ``crc``."""
+    lib = load()
+    src = _byte_view(data)
+    return int(lib.crc32(_ptr(src, _u8p), len(data), crc))

@@ -1,9 +1,10 @@
-"""Hand-written Hopper kernels of the baseline encode slice, and their wrappers.
+"""Hand-written Hopper kernels of the ported slices, and their wrappers.
 
 Counterpart of the JAX package's ``ops/pallas_kernels.py``. The CUDA sources
-live in ``pixo_tpu_torch/csrc/``; they are compiled with ``nvcc`` at first use
-into one shared library with a plain C interface (``_build/``) and called
-through ctypes on PyTorch's current stream.
+live in ``pixo_tpu_torch/csrc/``; they are compiled with ``nvcc`` at first use,
+one process per source, all at once, and linked into one shared library with
+a plain C interface (``_build/``), called through ctypes on PyTorch's current
+stream.
 
 - ``coeffs``: uint8 pixels -> int16 zigzag coefficients, the whole per-block
   chain of the encoder (``csrc/coeffs.cu``). It replaces ``dct8x8_aan_pallas``
@@ -14,6 +15,12 @@ through ctypes on PyTorch's current stream.
 - ``compact_padded``: per-block compaction of the coefficient stream
   (``csrc/compact.cu``), replacing the ``lax.top_k`` of
   ``ops/sparse_pack.py::sparsify_blocks_padded``.
+- ``filter_bank``: the five PNG filter candidates and their scores
+  (``csrc/filter_bank.cu``), the direct counterpart of ``filter_bank_pallas``.
+- ``filter_rows``: the PNG encode's filter stage in one kernel (scores,
+  the reference's selection rule, the chosen filter with its type byte),
+  sharing ``filter_bank``'s source; it replaces ``filter_bank_pallas`` with
+  the selection of ``ops/png_filters.py::filter_image_batch`` fused in.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -34,18 +41,25 @@ from ..native import MODES
 from ..utils.build import build_shared_library
 from .blockify import blocks_420, blocks_422, blocks_444, blocks_gray, num_blocks
 from .dct import dct8x8_aan as dct8x8_aan_plain
+from .png_filters import (
+    MODE_ADAPTIVE_FAST,
+    _candidates,
+    _signed_abs_scores,
+    early_stop,
+    filter_rows_plain,
+    native_mode,
+    resolve_strategy,
+)
 from .quantize import quantize_blocks, zigzag_blocks
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "aan.cuh")]
+SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "aan.cuh")]
 
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
 # only without contraction); IEEE division stays the default (no fast math).
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", f"-I{CSRC}",
-]
+NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", f"-I{CSRC}"]
 
 _PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
 
@@ -69,7 +83,8 @@ def load():
     with _lock:
         if _lib is None:
             built = build_shared_library(
-                "pixo_kernels", [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"], SOURCES, timeout=900
+                "pixo_kernels", [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v"], SOURCES, timeout=900,
+                link=[_nvcc(), *_ARCH, "-shared"],
             )
             build_seconds, build_log = built.seconds, built.log
             lib = ctypes.CDLL(built.path)
@@ -80,6 +95,10 @@ def load():
             lib.pixo_dct8x8_aan.argtypes = [vp, vp, i64, vp]
             lib.pixo_compact.restype = ctypes.c_int
             lib.pixo_compact.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, vp]
+            lib.pixo_filter_bank.restype = ctypes.c_int
+            lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, vp, vp, vp]
+            lib.pixo_filter_rows.restype = ctypes.c_int
+            lib.pixo_filter_rows.argtypes = [vp, i64, i64, i64, i32, i32, i32, i32, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -229,3 +248,78 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
 
 
 compact_padded.launches = 0
+
+
+def _filter_input(rows: torch.Tensor, bpp: int):
+    # the filter kernels load bytes one at a time: any offset is fine
+    if rows.dtype != torch.uint8:
+        raise TypeError(f"rows must be torch.uint8, got {rows.dtype}")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    if rows.dim() != 3 or rows.numel() == 0:
+        raise ValueError(f"rows must be a non-empty [B, H, RB] tensor, got {tuple(rows.shape)}")
+    if not 1 <= bpp <= 8:
+        raise ValueError(f"bpp must be 1..8, got {bpp}")
+    b, h, rb = rows.shape
+    if b * h > 2**31 - 1:
+        raise ValueError(f"{b * h} rows exceed the kernel's grid")
+    return b, h, rb
+
+
+def filter_bank_plain(rows: torch.Tensor, bpp: int):
+    """The plain version of ``filter_bank`` on ``rows``' device."""
+    cands = _candidates(rows, bpp)
+    return cands.to(torch.uint8), _signed_abs_scores(cands)
+
+
+def filter_bank(rows: torch.Tensor, bpp: int):
+    """[B, H, RB] uint8 raw rows -> (candidates [B, 5, H, RB] uint8 for None,
+    Sub, Up, Average, Paeth, scores [B, H, 5] int32 sum of |byte as i8|), on
+    ``rows``' device; the row above row 0 is zeros. Equal to
+    ``ops/png_filters.py::_candidates`` and ``_signed_abs_scores``."""
+    b, h, rb = _filter_input(rows, bpp)
+    if _device_kind(rows) == "cpu":
+        return filter_bank_plain(rows, bpp)
+    lib = load()
+    cands = torch.empty((b, 5, h, rb), dtype=torch.uint8, device=rows.device)
+    scores = torch.empty((b, h, 5), dtype=torch.int32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = lib.pixo_filter_bank(
+            rows.data_ptr(), b, h, rb, bpp, cands.data_ptr(), scores.data_ptr(), _stream(rows)
+        )
+    _check(lib, rc, "filter_bank")
+    filter_bank.launches += 1
+    return cands, scores
+
+
+filter_bank.launches = 0
+
+
+def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
+                sticky_fast: bool) -> torch.Tensor:
+    """[B, H, RB] uint8 raw rows -> [B, H, RB+1] uint8 PNG rows, each led by
+    its filter id, on ``rows``' device: the fused filter stage of the batch
+    encode. Arguments as ``ops/png_filters.py::filter_image_batch``
+    (``strategy`` a FilterStrategy or its value; ``small_image``: area <=
+    4096; ``sticky_fast``: height <= 32), whose result it equals."""
+    b, h, rb = _filter_input(rows, bpp)
+    strat = resolve_strategy(strategy, small_image)
+    if _device_kind(rows) == "cpu":
+        return filter_rows_plain(
+            rows, bpp=bpp, strategy=strat, small_image=small_image, sticky_fast=sticky_fast
+        )
+    mode = native_mode(strat)
+    sticky = sticky_fast and mode == MODE_ADAPTIVE_FAST
+    lib = load()
+    out = torch.empty((b, h, rb + 1), dtype=torch.uint8, device=rows.device)
+    with torch.cuda.device(rows.device):
+        rc = lib.pixo_filter_rows(
+            rows.data_ptr(), b, h, rb, bpp, mode, early_stop(mode, rb), int(sticky),
+            out.data_ptr(), _stream(rows),
+        )
+    _check(lib, rc, "filter_rows")
+    filter_rows.launches += 1
+    return out
+
+
+filter_rows.launches = 0

@@ -1,4 +1,4 @@
-"""Batched baseline JPEG encode on one device.
+"""Batched baseline JPEG and lossless PNG encode on one device.
 
 Counterpart of the JAX package's ``parallel/pipeline.py``, for one device
 named by ``device=`` instead of a mesh:
@@ -9,10 +9,17 @@ named by ``device=`` instead of a mesh:
   (``ops/kernels.py::compact_padded``), one copy of the compacted streams to
   the host, and native entropy packing on a thread pool (ctypes releases the
   GIL, so the threads pack in parallel), then the marker frame.
+- ``encode_png_batch_sharded``: the batch goes to the device once; the
+  reduction analysis, each group's layout transform and the fused filter
+  kernel (``ops/kernels.py::filter_rows``) run there; one copy per group
+  brings the filtered rows back, and native DEFLATE and chunk framing run on
+  a thread pool. Images whose layout depends on their content (palette,
+  sub-8-bit gray) take the per-image ``png.encode`` on the same pool.
 
-Only the baseline path with the standard Huffman tables is ported. The
-stream pipelines, PNG batches, decode batches and the thumbnail pipeline
-are not (ROADMAP queue 1 items 7, 8, 10 and 12).
+Only the baseline JPEG path with the standard Huffman tables and the 8-bit
+non-interlaced lossless PNG path are ported. The stream pipelines, the
+row-sharded PNG encode, decode batches and the thumbnail pipeline are not
+(ROADMAP queue 1 items 7, 8, 10 and 12).
 """
 
 from __future__ import annotations
@@ -28,10 +35,13 @@ from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
 from ..native import native_pack_scan_batch, native_pack_scan_padded
-from ..options import JpegOptions
+from ..options import JpegOptions, PngOptions
 from ..ops.blockify import scan_layout
-from ..ops.kernels import compact_padded
+from ..ops.kernels import compact_padded, filter_rows
+from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
+from ..png import chunks as pchunks
+from ..png import encoder as penc
 
 
 def _color_sub(options: JpegOptions):
@@ -144,3 +154,121 @@ def encode_jpeg_batch_sharded(
     compacted = compact_padded(zz_dev, PADDED_CAP_PER_BLOCK)
     scans = _pack_hosted(_fetch_compacted(zz_dev, compacted), options, pattern, host_workers)
     return [_assemble_jpeg(s, options, quant) for s in scans]
+
+
+def _png_route_batch(px: torch.Tensor, options: PngOptions):
+    """Route each image to a fused-batch group or the per-image path.
+
+    ``px`` is the batch as [B, N, bpp] uint8 on its device. Mirrors the
+    decision order of ``png/reduce.py::maybe_reduce_color_type`` (pixo
+    ``src/png/mod.rs:683-836``): palette screen first, then gray/opacity
+    reductions. Returns (groups, fallback_idx): groups maps (mode,
+    out_color_type) -> host index array; an image is grouped only when the
+    device predicates prove the per-image encoder would take exactly that
+    layout (so grouped bytes == per-image bytes).
+    """
+    b = px.shape[0]
+    ct = options.color_type
+    idx = np.arange(b)
+
+    if ct in (ColorType.GRAY, ColorType.GRAY_ALPHA):
+        return {("pass", ct): idx}, idx[:0]
+    if not (options.reduce_color_type or options.reduce_palette):
+        return {("pass", ct): idx}, idx[:0]
+
+    all_gray, all_opaque, palette_possible = analyze_png_batch(px)
+    fallback = palette_possible.copy() if options.reduce_palette else np.zeros(b, bool)
+
+    groups = {}
+    if ct == ColorType.RGB:
+        if options.reduce_color_type:
+            fallback |= all_gray
+        keep = idx[~fallback]
+        if keep.size:
+            groups[("pass", ct)] = keep
+        return groups, idx[fallback]
+
+    # RGBA
+    if options.reduce_color_type:
+        fallback |= all_opaque & all_gray  # gray path: sub-8-bit packing
+        strip = ~fallback & all_opaque
+        ga = ~fallback & ~all_opaque & all_gray
+        plain = ~fallback & ~all_opaque & ~all_gray
+        if strip.any():
+            groups[("strip", ColorType.RGB)] = idx[strip]
+        if ga.any():
+            groups[("ga", ColorType.GRAY_ALPHA)] = idx[ga]
+        if plain.any():
+            groups[("pass", ct)] = idx[plain]
+    else:
+        keep = idx[~fallback]
+        if keep.size:
+            groups[("pass", ct)] = keep
+    return groups, idx[fallback]
+
+
+def png_group_rows(px: torch.Tensor, gidx: np.ndarray, mode: str, out_ct: ColorType,
+                   options: PngOptions) -> torch.Tensor:
+    """Layout stage of one group: the images ``gidx`` of the [B, N, bpp]
+    batch ``px``, in the group's layout -> [Bg, H, RB] uint8 raw rows on
+    ``px``'s device."""
+    opt_alpha = options.optimize_alpha and out_ct in (ColorType.RGBA, ColorType.GRAY_ALPHA)
+    sel = px if len(gidx) == px.shape[0] else px[torch.as_tensor(gidx, device=px.device)]
+    payload = sel if mode == "pass" and not opt_alpha else transform_png_group(sel, mode, opt_alpha)
+    return payload.reshape(len(gidx), options.height, options.width * out_ct.bytes_per_pixel)
+
+
+def png_filter_kwargs(out_ct: ColorType, options: PngOptions) -> dict:
+    """The filter stage's arguments for a group of color type ``out_ct``."""
+    w, h = options.width, options.height
+    return dict(bpp=out_ct.bytes_per_pixel, strategy=options.filter_strategy,
+                small_image=w * h <= 4096, sticky_fast=h <= 32)
+
+
+def png_frame(filtered: np.ndarray, out_ct: ColorType, options: PngOptions) -> bytes:
+    """Host stage of one grouped image: DEFLATE its filtered rows and frame
+    the file (signature, IHDR, IDAT, IEND)."""
+    out = bytearray()
+    out += pchunks.PNG_SIGNATURE
+    pchunks.write_ihdr(out, options.width, options.height, 8, out_ct.png_color_type)
+    return penc._finish(out, filtered, options)
+
+
+def encode_png_batch_sharded(
+    imgs, options: PngOptions, *, device, host_workers: int = 8
+) -> List[bytes]:
+    """Encode a batch of same-shape 8-bit images ([B, H, W, C] uint8, numpy
+    or tensor; C the bytes per pixel of ``options.color_type``) to PNG bytes,
+    computing on ``device`` ("cpu" or a CUDA device) and compressing on the
+    host with ``host_workers`` threads.
+
+    Byte-identical, image by image, to the JAX package's
+    ``encode_png_batch_sharded`` and ``png.encode``. Interlace, 16-bit,
+    quantization, Bigrams and optimal compression raise
+    ``NotImplementedError``."""
+    penc.check_ported(options)
+    b = len(imgs)
+    if b == 0:
+        return []
+    if imgs.dtype not in (np.uint8, torch.uint8):
+        raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
+    bpp = options.color_type.bytes_per_pixel
+    penc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
+    px = _to_device(imgs, device).reshape(b, -1, bpp)
+    groups, fallback_idx = _png_route_batch(px, options)
+
+    def fallback_encode(i: int) -> bytes:
+        img = imgs[i].cpu().numpy() if torch.is_tensor(imgs) else imgs[i]
+        return penc.encode(img, options)
+
+    results: List[bytes] = [b""] * b
+    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
+        futures = {i: ex.submit(fallback_encode, i) for i in fallback_idx}
+        for (mode, out_ct), gidx in groups.items():
+            raw = png_group_rows(px, gidx, mode, out_ct, options)
+            filtered = filter_rows(raw, **png_filter_kwargs(out_ct, options)).cpu().numpy()
+            for i, filt in zip(gidx, filtered):
+                futures[i] = ex.submit(png_frame, filt, out_ct, options)
+        for i, fut in futures.items():
+            results[i] = fut.result()
+    return results

@@ -11,9 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
+from pixo_tpu_torch import (
+    FilterStrategy,
+    JpegOptions,
+    PngOptions,
+    Subsampling,
+    encode_jpeg_batch_sharded,
+    encode_png_batch_sharded,
+    png,
+)
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
-from pixo_tpu_torch.ops import dct, kernels, sparse_pack
+from pixo_tpu_torch.native import native_png_filter
+from pixo_tpu_torch.ops import dct, kernels, png_filters, sparse_pack
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +110,66 @@ def test_main_path_launches_both_kernels_and_matches_cpu(dev, seeded):
         outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
         assert kernels.coeffs.launches == 1 and kernels.compact_padded.launches >= 1
         assert outs == encode_jpeg_batch_sharded(imgs, opts, device="cpu")
+
+
+FILTER_BPPS = [1, 2, 3, 4, 6, 8]
+STRATEGIES = [s for s in FilterStrategy if s != FilterStrategy.BIGRAMS]
+
+
+@pytest.mark.parametrize("bpp", FILTER_BPPS)
+def test_filter_bank_kernel_equals_plain(dev, seeded, bpp):
+    """Odd RB, H = 1, RB = bpp, RB < bpp and a 262,140-byte row."""
+    for h, rb in ((1, 37), (17, 301), (5, bpp), (3, max(bpp // 2, 1)), (2, 262140)):
+        rows = torch.from_numpy(seeded.integers(0, 256, (2, h, rb), dtype=np.uint8)).to(dev)
+        cands, scores = kernels.filter_bank(rows, bpp)
+        plain_cands, plain_scores = kernels.filter_bank_plain(rows, bpp)
+        assert torch.equal(cands, plain_cands) and torch.equal(scores, plain_scores)
+
+
+@pytest.mark.parametrize("sticky", [False, True])
+@pytest.mark.parametrize("strategy", STRATEGIES, ids=lambda s: s.value)
+def test_filter_rows_kernel_equals_plain_and_host(dev, seeded, strategy, sticky):
+    for bpp in FILTER_BPPS:
+        for h, w in ((20, 97), (1, 5), (3, 65535 if bpp == 4 else 9)):
+            host = seeded.integers(0, 24 if h == 20 else 256, (2, h, w * bpp), dtype=np.uint8)
+            rows = torch.from_numpy(host).to(dev)
+            kw = dict(bpp=bpp, strategy=strategy, small_image=False, sticky_fast=sticky)
+            out = kernels.filter_rows(rows, **kw)
+            assert torch.equal(out, png_filters.filter_rows_plain(rows, **kw))
+            mode = png_filters.native_mode(strategy)
+            for i in range(2):
+                np.testing.assert_array_equal(
+                    out[i].cpu().numpy(), native_png_filter(host[i], bpp, mode, sticky and mode == 6))
+
+
+def test_filter_kernels_take_rows_at_any_offset(dev, seeded):
+    """A batch sliced from a larger one starts at any byte."""
+    flat = torch.from_numpy(seeded.integers(0, 256, 1 + 2 * 7 * 21, dtype=np.uint8)).to(dev)
+    rows = flat[1:].view(2, 7, 21)
+    assert rows.data_ptr() % 16
+    got, ref = kernels.filter_bank(rows, 3), kernels.filter_bank_plain(rows, 3)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    kw = dict(bpp=3, strategy=FilterStrategy.PAETH, small_image=False, sticky_fast=False)
+    assert torch.equal(kernels.filter_rows(rows, **kw), png_filters.filter_rows_plain(rows, **kw))
+
+
+def test_png_batch_on_the_card_equals_per_image_encode(dev):
+    rng = np.random.default_rng(7)
+    h, w = 64, 80
+    g = rng.integers(0, 256, (h, w, 1), dtype=np.uint8)
+    noisy = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    noisy[::7, ::3, 3] = 0
+    opaque = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    opaque[..., 3] = 255
+    gray_alpha = np.concatenate([g, g, g, rng.integers(0, 255, (h, w, 1), dtype=np.uint8)], -1)
+    gray = np.concatenate([g, g, g, np.full((h, w, 1), 255, np.uint8)], -1)
+    palette = np.zeros((h, w, 4), np.uint8)
+    palette[..., 0] = np.arange(w) % 7 * 30
+    palette[..., 3] = 255
+    imgs = np.stack([noisy, opaque, gray_alpha, gray, palette])
+    opts = PngOptions.balanced(w, h)
+    kernels.filter_rows.launches = 0
+    outs = encode_png_batch_sharded(imgs, opts, device=dev)
+    assert kernels.filter_rows.launches == 3  # the pass, strip and ga groups
+    assert outs == [png.encode(img, opts) for img in imgs]
+    assert outs == encode_png_batch_sharded(torch.from_numpy(imgs).to(dev), opts, device=dev)

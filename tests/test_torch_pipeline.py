@@ -165,3 +165,23 @@ def test_failed_build_raises(tmp_path):
         build.build_shared_library(
             "broken_test", ["g++", "-shared", "-fPIC"], [str(src)], timeout=60
         )
+
+
+def test_parallel_build_links_every_source(tmp_path):
+    """With a link command, each source compiles on its own and the objects
+    are linked into one library."""
+    import ctypes
+
+    for i in (1, 2):
+        (tmp_path / f"part{i}.cpp").write_text(f'extern "C" int part{i}() {{ return {i}; }}\n')
+    built = build.build_shared_library(
+        "parallel_test", ["g++", "-fPIC", "-O1"],
+        [str(tmp_path / "part1.cpp"), str(tmp_path / "part2.cpp")], timeout=60,
+        link=["g++", "-shared"],
+    )
+    try:
+        lib = ctypes.CDLL(built.path)
+        assert (lib.part1(), lib.part2()) == (1, 2)
+        assert not [f for f in os.listdir(build.BUILD_DIR) if f.endswith(".o")]
+    finally:
+        os.remove(built.path)
