@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes.
+"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes and
+its batched JPEG decode.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -21,7 +22,10 @@ printing its own lines:
    2, 3, 4, 6 and 8 (odd row lengths, one-row images, rows no longer than
    a pixel, 262,140-byte rows, the corpus batch), the fused kernel in every
    ported strategy with the sticky rule off and on, also held against the
-   host library's filter image by image;
+   host library's filter image by image; the decode-tail kernel on the
+   coefficients of decode batches (d1) and (d3) and on 100k blocks at the
+   int16 extremes with tables of 255 and 65535 (int32 wraps), and the
+   standalone integer IDCT on the same blocks;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -35,12 +39,27 @@ printing its own lines:
    batch that takes every route (pass, strip, gray-alpha) and both
    per-image fallbacks (gray, palette); every file is held against the
    per-image ``png.encode`` (which filters on the host) and (a) and (b)
-   also decode back to their input;
+   also decode back to their input. Then the decode main path,
+   ``decode_jpeg_batch(files, device="cuda")``, on (d1) the 16 gradient
+   JPEGs of the encode phase, (d2) the corpus batch encoded by the port,
+   (d3) the golden oracle set's 9 baseline files (up to 3220x1812) and the
+   four progressive photo fixtures in one mixed batch, and (d4) gray,
+   4:4:4, 4:2:2 and restart batches of odd sizes, fancy upsampling off (and
+   on for (d2) and (d3)); every image is held against the host library's
+   two-stage decode and each baseline one against its fused decode, and the
+   decode-tail kernel launches once per batch. The oracle set's 7
+   progressive files, which the reference decoder rejects, must be rejected;
 4. median timings over warm runs: each kernel against its plain version,
    the copy of the pixels to the card, the device stage with kernels and
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
-   (b).
+   (b); and for decode batches (d1) and (d3) the host stage with 8 workers
+   and with 1, and its parts (parse, buffer, the Python work of each call,
+   the library calls on 1 and 8 threads, the progressive files), the copy
+   of the coefficients, the kernel, the upsampling and colour, the device
+   stage with the kernel and in plain PyTorch, the copy of the pixels back,
+   the whole decode, and the host library's decode of the same batch on 8
+   threads and on 1; for (d3) also each file's host stage alone.
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -184,12 +203,42 @@ def png_cases(corpus, grad) -> dict:
     }
 
 
+def host_decode(data: bytes, fancy: bool = False, fused: bool = False):
+    """The host library's decode of one JPEG, the oracle the device decode
+    is held against: the file's entropy stage (the native baseline scan
+    decoder, or the native progressive segments) into coefficient planes,
+    then the native pixel tail ``jpeg_decode_pixels``; with ``fused``, the
+    fused baseline decode ``jpeg_decode_baseline`` instead. Returns the
+    pixels, or None where the host library declines the geometry."""
+    import numpy as np
+
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+
+    scan = jd._parse(data)
+    comps = scan.components
+    ch, cv = [c.h for c in comps], [c.v for c in comps]
+    geometry = (scan.mcu_cols, scan.mcu_rows, scan.max_h, scan.max_v, scan.width, scan.height)
+    if fused:
+        segments, _ = jd._split_entropy(data[scan.pos:])
+        return native.native_jpeg_decode_baseline(
+            segments, scan.restart_interval, scan.mcu_cols * scan.mcu_rows, scan.mcu_cols,
+            scan.mcu_rows, ch, cv, scan.max_h, scan.max_v, scan.width, scan.height,
+            [scan.dc_specs[c.dc_table] for c in comps], [scan.ac_specs[c.ac_table] for c in comps],
+            [scan.qtables[c.quant_id] for c in comps], fancy=fancy,
+        )
+    planes = [np.zeros((bw * bh, 64), np.int16) for bw, bh in scan.plane_blocks()]
+    qtables = jd._decode_entropy(scan, planes)
+    return native.native_jpeg_decode_pixels(planes, qtables, ch, cv, *geometry, fancy=fancy)
+
+
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from pixo_tpu_torch.ops import kernels
 
     for fn in (kernels.coeffs, kernels.compact_padded, kernels.dct8x8_aan,
-               kernels.filter_bank, kernels.filter_rows):
+               kernels.filter_bank, kernels.filter_rows, kernels.idct_planes,
+               kernels.idct8x8_int):
         fn.launches = 0
 
 
@@ -587,6 +636,268 @@ def time_png(dev, corpus, grad, card: str) -> dict:
     return k_ms
 
 
+I16_EXTREMES = (-32768, -32767, -1024, -1, 0, 1, 1023, 32766, 32767)
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def decode_cases(dev, grad, corpus) -> dict:
+    """The decode main path's batches: key -> (label, files, fancy modes).
+    (d1) the JPEG encode phase's 16 gradient files; (d2) the corpus batch
+    encoded by the port; (d3) the golden oracle set's baseline files and the
+    four progressive photo fixtures in one mixed batch; (d4) gray, 4:4:4,
+    4:2:2 and restart batches of odd sizes from the port's encoder."""
+    import glob
+
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, JpegOptions, Subsampling, encode_jpeg_batch_sharded
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+
+    def encode(imgs, sub=Subsampling.S420, restart=None):
+        gray = imgs.ndim == 3
+        opts = JpegOptions(width=imgs.shape[2], height=imgs.shape[1], quality=QUALITY,
+                           subsampling=sub, restart_interval=restart,
+                           color_type=ColorType.GRAY if gray else ColorType.RGB)
+        return encode_jpeg_batch_sharded(np.ascontiguousarray(imgs), opts, device=dev)
+
+    rng = np.random.default_rng(5)
+
+    def noisy(h, w, gray=False):
+        imgs = grad[:4, :h, :w, 0] if gray else grad[:4, :h, :w]
+        return (imgs + rng.normal(0, 6, imgs.shape)).clip(0, 255).astype(np.uint8)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    oracle = [_read(p) for p in sorted(glob.glob(os.path.join(here, "tests", "golden", "oracle",
+                                                              "jpeg-*.bin")))]
+    photos = [_read(p) for p in sorted(glob.glob(os.path.join(here, "tests", "fixtures",
+                                                              "progressive_*.jpg")))]
+    baseline = [d for d in oracle if not jd._parse(d).progressive]
+    return {
+        "d1": (f"gradient {BATCH}x{SIZE}x{SIZE} q{QUALITY} 4:2:0", encode(grad), (False,)),
+        "d2": (f"corpus {len(corpus)}x{SIZE}x{SIZE} q{QUALITY} 4:2:0", encode(corpus), (False, True)),
+        "d3": (f"oracle baseline {len(baseline)} + progressive photos {len(photos)}",
+               baseline + photos, (False, True)),
+        "d4 gray": ("gray 4x257x333", encode(noisy(257, 333, gray=True)), (False,)),
+        "d4 444": ("4:4:4 4x383x509", encode(noisy(383, 509), Subsampling.S444), (False,)),
+        "d4 422": ("4:2:2 4x131x250", encode(noisy(131, 250), Subsampling.S422), (False,)),
+        "d4 restart": ("4:2:0 restart 3 4x200x300", encode(noisy(200, 300), restart=3), (False,)),
+        "oracle progressive": ("oracle progressive",
+                               [d for d in oracle if jd._parse(d).progressive], ()),
+    }
+
+
+def check_decode_kernels(dev, cases, n_blocks: int) -> dict:
+    """Phase 2, decode: idct_planes against its plain version on ``dev`` on
+    the coefficients of batches (d1) and (d3) and on ``n_blocks`` random
+    blocks at the int16 extremes with tables of 255 and 65535 (int32 wraps
+    on them), the plain version also against the CPU's; idct8x8_int on the
+    same blocks. Returns the largest absolute error of each kernel."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+    from pixo_tpu_torch.jpeg.tables import ZIGZAG_INV
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.jpeg_decode import idct8x8_int as idct_plain
+
+    errs = {"idct_planes": 0, "idct8x8_int": 0}
+
+    def held(label, zz, qtables, planes, cpu_too=False):
+        got = kernels.idct_planes(zz, qtables, planes)
+        ref = kernels.idct_planes_plain(zz, qtables, planes)
+        err = int((got.int() - ref.int()).abs().max())
+        errs["idct_planes"] = max(errs["idct_planes"], err)
+        cpu_ok = torch.equal(ref.cpu(), kernels.idct_planes(zz.cpu(), qtables, planes)) if cpu_too else True
+        _verdict(f"check idct_planes {label}: {zz.shape[0]} blocks, {len(planes)} planes, "
+                 f"max_abs_err vs plain {err}"
+                 + (f", plain on the card equal to plain on the CPU {cpu_ok}" if cpu_too else ""),
+                 err == 0 and cpu_ok)
+
+    for key in ("d1", "d3"):
+        label, files, _ = cases[key]
+        batch = jd._host_stage(files, 8)
+        held(f"({key}) {label}", torch.from_numpy(batch.coeffs).to(dev), batch.qtables,
+             batch.layout.planes)
+
+    rng = np.random.default_rng(6)
+    zz = rng.choice(np.array(I16_EXTREMES, np.int16), (n_blocks, 64))
+    half, bw = n_blocks // 2, 500
+    planes = np.array([[0, bw, half // bw, 0, 8 * bw],
+                       [half, bw, half // bw, 64 * half, 8 * bw]], np.int64)
+    qtables = np.stack([np.full(64, 255), np.full(64, 65535)])
+    held(f"int16 extremes, tables 255 and 65535", torch.from_numpy(zz).to(dev), qtables, planes,
+         cpu_too=True)
+
+    q = np.repeat(qtables, half, axis=0)
+    natural = (zz[: 2 * half].astype(np.int32) * q.astype(np.int32))[:, ZIGZAG_INV]
+    blocks = torch.from_numpy(np.ascontiguousarray(natural.reshape(-1, 8, 8))).to(dev)
+    got, ref = kernels.idct8x8_int(blocks), idct_plain(blocks)
+    err = int((got.int() - ref.int()).abs().max())
+    errs["idct8x8_int"] = err
+    _verdict(f"check idct8x8_int {blocks.shape[0]} dequantized int16-extreme blocks: "
+             f"max_abs_err vs plain {err}", err == 0)
+    return errs
+
+
+def _held_to_host(images, files, fancy: bool):
+    """(images equal to the host two-stage decode, images equal to the fused
+    host decode, baseline files), image by image."""
+    import numpy as np
+
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+
+    two = fused = nbase = 0
+    for img, data in zip(images, files):
+        two += bool(np.array_equal(img.pixels, host_decode(data, fancy)))
+        if not jd._parse(data).progressive:
+            nbase += 1
+            fused += bool(np.array_equal(img.pixels, host_decode(data, fancy, fused=True)))
+    return two, fused, nbase
+
+
+def check_decode_main_path(dev, cases) -> dict:
+    """Phase 3, decode: ``decode_jpeg_batch(files, device="cuda")`` on every
+    batch, fancy off (and on for (d2) and (d3)), each image held against the
+    host library's decodes, with idct_planes launched once per call; the
+    counts are read around (d1). Returns the launch counts of run (d1)."""
+    from pixo_tpu_torch import errors
+    from pixo_tpu_torch.decode import decode_jpeg, decode_jpeg_batch
+    from pixo_tpu_torch.ops import kernels
+
+    launches = None
+    for key, (label, files, fancies) in cases.items():
+        for fancy in fancies:
+            reset_counts()
+            images = decode_jpeg_batch(files, fancy_upsampling=fancy, device=dev)
+            calls = kernels.idct_planes.launches
+            if launches is None:
+                launches = {"idct_planes": calls}
+            two, fused, nbase = _held_to_host(images, files, fancy)
+            mp = sum(i.width * i.height for i in images) / 1e6
+            _verdict(f"main path decode ({key}) {label} {'fancy' if fancy else 'nearest'}: "
+                     f"{two}/{len(files)} images equal to the host two-stage decode, "
+                     f"{fused}/{nbase} baseline images equal to the fused host decode, "
+                     f"{mp:.2f} MP, idct_planes launches {calls}",
+                     two == len(files) and fused == nbase and calls == 1)
+    label, files, _ = cases["oracle progressive"]
+    messages = []
+    for data in files:
+        try:
+            decode_jpeg(data, device=dev)
+        except errors.InvalidDecode as e:
+            messages.append(str(e))
+    _verdict(f"decode {label} (the pixo encoder's output, which the reference decoder rejects "
+             f"with InvalidDecode): {len(messages)}/{len(files)} rejected, {sorted(set(messages))}",
+             len(messages) == len(files))
+    return launches
+
+
+def host_stage_split(files) -> dict:
+    """Medians of the parts of ``_host_stage``, each timed alone: the marker
+    parse, the zeroed coefficient buffer, the Python work that makes each
+    baseline scan's library call ready, the calls themselves on one thread
+    and on the decode's 8-thread pool, and the progressive files' decode
+    (their parse and zeroed planes included: a refinement scan reads the
+    coefficients that the scans before it left)."""
+    import numpy as np
+
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+
+    scans = [jd._parse(d) for d in files]
+    layout = jd._Layout(scans)
+    coeffs = np.zeros((layout.total_blocks, 64), np.int16)
+    planes = [[coeffs[f: f + n] for f, n in views] for views in layout.views]
+    base = [k for k, s in enumerate(scans) if not s.progressive]
+    calls = [jd._baseline_call(scans[k], planes[k])[1] for k in base]
+    pool = jd._pool(8)
+    return {
+        "parse": wall_ms(lambda: [jd._parse(d) for d in files]),
+        "buffer": wall_ms(lambda: np.zeros((layout.total_blocks, 64), np.int16)),
+        "prepare": wall_ms(lambda: [jd._baseline_call(scans[k], planes[k]) for k in base]),
+        "library_calls_1_thread": wall_ms(lambda: [c() for c in calls]),
+        "library_calls_8_threads": wall_ms(lambda: [f.result() for f in [pool.submit(c) for c in calls]]),
+        "progressive": wall_ms(lambda: [
+            jd._decode_progressive(jd._parse(files[k]), [np.zeros_like(p) for p in planes[k]])
+            for k, s in enumerate(scans) if s.progressive]),
+    }
+
+
+def time_decode(dev, cases, card: str) -> dict:
+    """Phase 4, decode: for (d1) and (d3), the stages of the decode and the
+    host library's decode of the same batch on 8 threads. Returns
+    idct_planes' (ms, plain ms) at (d1)."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.decode import decode_jpeg_batch
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+    from pixo_tpu_torch.ops import kernels
+
+    k_ms = {}
+    for key in ("d1", "d3"):
+        label, files, _ = cases[key]
+        at = f"({key}) {label}"
+        batch = jd._host_stage(files, 8)
+        mp = sum(s.width * s.height for s in batch.scans) / 1e6
+        zz = torch.from_numpy(batch.coeffs).to(dev)
+        args = (zz, batch.qtables, batch.layout.planes)
+        planes = kernels.idct_planes(*args)
+        pixels = jd._upsample_colour(planes, batch, False)
+        ms = (event_ms(lambda: kernels.idct_planes(*args)),
+              event_ms(lambda: kernels.idct_planes_plain(*args)))
+        if key == "d1":
+            k_ms["idct_planes"] = ms
+        desc, out = kernels._plane_descriptors(*args)
+        alone = event_ms(lambda: kernels._launch_idct_planes(zz, desc, out))
+        print(f"kernel idct_planes {at}: {ms[0]:.4f} ms per call, plain PyTorch {ms[1]:.4f} ms; "
+              f"the launch alone, its plane table already on the card, {alone:.4f} ms; "
+              f"{batch.coeffs.shape[0]} blocks, {batch.coeffs.nbytes / 1e6:.1f} MB of coefficients "
+              f"[{card}]")
+
+        def host_tier(data):  # the reference's CPU tier: fused for baseline files
+            return host_decode(data, fused=not jd._parse(data).progressive)
+
+        def host_decode_all():
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                return list(ex.map(host_tier, files))
+
+        split = host_stage_split(files)
+        print(f"decode host stage split {at}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+              + f" (medians over {WARM_RUNS} warm runs) [{card}]")
+        stages = {
+            "decode_host_entropy": wall_ms(lambda: jd._host_stage(files, 8)),
+            "decode_host_entropy_1_worker": wall_ms(lambda: jd._host_stage(files, 1)),
+            "decode_h2d": wall_ms(lambda: torch.from_numpy(batch.coeffs).to(dev)),
+            "decode_idct_planes": wall_ms(lambda: kernels.idct_planes(*args)),
+            "decode_upsample_colour": wall_ms(lambda: jd._upsample_colour(planes, batch, False)),
+            "decode_device": wall_ms(
+                lambda: jd._upsample_colour(kernels.idct_planes(*args), batch, False)),
+            "decode_device_plain": wall_ms(
+                lambda: jd._upsample_colour(kernels.idct_planes_plain(*args), batch, False)),
+            "decode_d2h": wall_ms(lambda: pixels.cpu()),
+            "decode_end_to_end": wall_ms(lambda: decode_jpeg_batch(files, device=dev)),
+            "decode_host_library_8_threads": wall_ms(host_decode_all),
+            "decode_host_library_1_thread": wall_ms(lambda: [host_tier(d) for d in files]),
+        }
+        for name, t in stages.items():
+            print(f"stage {name} {at}: median {t:.4f} ms, {mp / (t / 1e3):.1f} MP/s over "
+                  f"{WARM_RUNS} warm runs [{card}]")
+        if key == "d3":
+            per_file = [f"{s.width}x{s.height} {'progressive' if s.progressive else 'baseline'} "
+                        f"{wall_ms(lambda: jd._host_stage([d], 1)):.4f} ms"
+                        for d, s in zip(files, batch.scans)]
+            print(f"decode host stage per file {at}, one file a call: {'; '.join(per_file)} [{card}]")
+        gpu, host = stages["decode_end_to_end"], stages["decode_host_library_8_threads"]
+        print(f"decode {at}: the card's decode {gpu:.4f} ms, the host library's on 8 threads "
+              f"{host:.4f} ms: {'the card' if gpu < host else 'the host library'} is faster "
+              f"by {max(gpu, host) / min(gpu, host):.2f}x [{card}]")
+    return k_ms
+
+
 def main() -> int:
     import torch
 
@@ -627,8 +938,11 @@ def main() -> int:
     try:
         errs = check_kernels(dev, grad, noise, 100_000)
         errs.update(check_png_kernels(dev, corpus))
+        cases = decode_cases(dev, grad, corpus)
+        errs.update(check_decode_kernels(dev, cases, 100_000))
         launches = check_main_path(dev, grad)
         launches.update(check_png_main_path(dev, corpus, grad))
+        launches.update(check_decode_main_path(dev, cases))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -638,13 +952,15 @@ def main() -> int:
         return 1
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
+    k_ms.update(time_decode(dev, cases, card))
 
-    # filter_bank (the TPU kernel's own contract) is on no main path: its
-    # check and its time have lines of their own above
+    # filter_bank and idct8x8_int (the TPU kernels' own contracts) are on no
+    # main path: their checks and times have lines of their own above
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
-                               "pixo_tpu/ops/pallas_kernels.py:57")}
+                               "pixo_tpu/ops/pallas_kernels.py:57"),
+               "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "max_abs_err": errs[name],

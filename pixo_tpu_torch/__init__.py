@@ -7,8 +7,9 @@ entropy packing runs in the same C++ host tier as the JAX package, compiled
 from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
-Ported so far are the batched baseline JPEG encode with the standard tables
-and the batched 8-bit lossless PNG encode:
+Ported so far are the batched baseline JPEG encode with the standard tables,
+the batched 8-bit lossless PNG encode and the batched baseline and
+progressive JPEG decode:
 
     from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
 
@@ -19,12 +20,21 @@ and the batched 8-bit lossless PNG encode:
 
     opts = PngOptions.balanced(512, 512).replace(color_type=ColorType.RGB)
     files = encode_png_batch_sharded(batch_u8, opts, device="cuda")
+
+    from pixo_tpu_torch import decode_jpeg_batch
+
+    images = decode_jpeg_batch(jpeg_files, device="cuda")  # [H, W, 3] uint8 .pixels
 """
 
 from . import errors
 from .color import ColorType, rgb_to_ycbcr
 from .options import FilterStrategy, JpegOptions, PngOptions, Subsampling
-from .parallel import encode_jpeg_batch_sharded, encode_png_batch_sharded, jpeg_coeffs_sharded
+from .parallel import (
+    decode_jpeg_batch,
+    encode_jpeg_batch_sharded,
+    encode_png_batch_sharded,
+    jpeg_coeffs_sharded,
+)
 
 __all__ = [
     "ColorType",
@@ -32,6 +42,7 @@ __all__ = [
     "JpegOptions",
     "PngOptions",
     "Subsampling",
+    "decode_jpeg_batch",
     "encode_jpeg_batch_sharded",
     "encode_png_batch_sharded",
     "errors",

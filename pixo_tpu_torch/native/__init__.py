@@ -17,7 +17,15 @@ package. Only the entry points of the ported slices are bound:
   DEFLATE of every PNG encode (``compress/deflate.py``);
 - ``png_filter_apply``: the host PNG filter tier of the per-image encode,
   and an oracle for the filter kernel;
-- ``crc32``: the PNG chunk checksum.
+- ``crc32``: the PNG chunk checksum;
+- ``jpeg_decode_scan``, ``jpeg_prog_dc_segment`` and ``jpeg_prog_ac_segment``:
+  the JPEG decode's entropy stage, baseline and progressive, writing int16
+  zigzag coefficient planes in place (a baseline scan as a prepared call that
+  may run on another thread; a progressive scan segment by segment);
+- ``jpeg_decode_pixels`` and ``jpeg_decode_baseline``: the host pixel tail
+  and the fused host decode, oracles only (tests and ``chip_smoke.py``
+  hold the decode's device tail against them; no path of the port runs
+  them).
 
 Unlike the JAX package, a failed build or load raises: there is no Python
 fallback tier here, and a silent ``None`` would hide the failure.
@@ -28,7 +36,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -85,8 +93,10 @@ def load():
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u16p = ctypes.POINTER(ctypes.c_uint16)
 _i16p = ctypes.POINTER(ctypes.c_int16)
+_i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
 _f32p = ctypes.POINTER(ctypes.c_float)
+_i16pp = ctypes.POINTER(_i16p)
 
 # dc lum codes/lens, dc chrom codes/lens, ac lum codes/lens, ac chrom codes/lens
 _HUFF = [_u16p, _u8p, _u16p, _u8p, _u16p, _u8p, _u16p, _u8p]
@@ -161,6 +171,49 @@ def _configure(lib) -> None:
     ]
     lib.crc32.restype = ctypes.c_uint32
     lib.crc32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
+    i32, i64 = ctypes.c_int32, ctypes.c_int64
+    huff = [_u8p, _u8p, _i32p]           # bits [n x 16], values, value offsets [n]
+    lib.jpeg_decode_scan.restype = i32
+    lib.jpeg_decode_scan.argtypes = [
+        _u8p, _i64p, i32,                # segments, offsets [nseg + 1], nseg
+        i64, i64, i32,                   # restart interval, total mcus, mcu cols
+        i32, _i32p, _i32p,               # ncomp, comp h, comp v
+        *huff, *huff,                    # dc tables, ac tables
+        _i16pp, _i32p,                   # coefficient planes, dc predictors
+    ]
+    lib.jpeg_prog_dc_segment.restype = i32
+    lib.jpeg_prog_dc_segment.argtypes = [
+        ctypes.c_void_p, i64, i64, i64,  # segment, length, unit start, unit end
+        i32, i32, i32,                   # mcu cols, interleaved, ns
+        _i32p, _i32p, _i32p,             # comp h, comp v, block width
+        *huff,                           # dc tables
+        i32, i32,                        # ah, al
+        _i16pp, _i32p,                   # coefficient planes, dc predictors
+    ]
+    lib.jpeg_prog_ac_segment.restype = i32
+    lib.jpeg_prog_ac_segment.argtypes = [
+        ctypes.c_void_p, i64, i64, i64,  # segment, length, unit start, unit end
+        i32, i32,                        # stride, block width
+        i32, i32, i32, i32,              # ss, se, ah, al
+        _u8p, _u8p,                      # ac bits [16], values
+        _i16p, _i64p,                    # plane, eob run
+    ]
+    lib.jpeg_decode_pixels.restype = i64
+    lib.jpeg_decode_pixels.argtypes = [
+        _i16p, _i64p, _u16p,             # coefficients, comp offsets, zigzag tables
+        _i32p, _i32p, i32,               # comp h, comp v, ncomp
+        i32, i32, i32, i32,              # mcu cols, mcu rows, max h, max v
+        i32, i32, i32, _u8p,             # width, height, fancy, out
+    ]
+    lib.jpeg_decode_baseline.restype = i32
+    lib.jpeg_decode_baseline.argtypes = [
+        _u8p, _i64p, i32,                # segments, offsets, nseg
+        i64, i64, i32, i32,              # restart interval, total mcus, mcu cols, rows
+        i32, _i32p, _i32p,               # ncomp, comp h, comp v
+        i32, i32, i32, i32,              # max h, max v, width, height
+        *huff, *huff,                    # dc tables, ac tables
+        _u16p, i32, _u8p,                # zigzag tables, fancy, out
+    ]
 
 
 def _ptr(arr: np.ndarray, ptype):
@@ -372,3 +425,169 @@ def native_crc32(data: bytes, crc: int = 0) -> int:
     lib = load()
     src = _byte_view(data)
     return int(lib.crc32(_ptr(src, _u8p), len(data), crc))
+
+
+class NativeDecodeError(Exception):
+    """Malformed entropy stream detected by a native decode segment."""
+
+
+def _huff_arrays(specs):
+    """(bits [n x 16], values, value offsets [n]) of ``specs``, a list of
+    (bits16, values) Huffman specs, as the native decoders take them. An
+    empty value list takes one zero byte, so every offset is valid."""
+    bits = np.concatenate([np.frombuffer(bytes(b), np.uint8) for b, _ in specs])
+    vals = [np.frombuffer(bytes(v), np.uint8) if v else np.zeros(1, np.uint8) for _, v in specs]
+    offs = np.zeros(len(specs), np.int32)
+    np.cumsum([len(v) for v in vals[:-1]], out=offs[1:])
+    return bits, np.concatenate(vals), offs
+
+
+def _huff_ptrs(arrays):
+    bits, vals, offs = arrays
+    return [_ptr(bits, _u8p), _ptr(vals, _u8p), _ptr(offs, _i32p)]
+
+
+def _segments(segments):
+    """The restart segments joined, with their [nseg + 1] offsets."""
+    joined = np.frombuffer(b"".join(segments), np.uint8)
+    offs = np.zeros(len(segments) + 1, np.int64)
+    np.cumsum([len(s) for s in segments], out=offs[1:])
+    return (joined if joined.size else np.zeros(1, np.uint8)), offs
+
+
+def _plane_ptr(plane: np.ndarray):
+    if plane.dtype != np.int16 or not plane.flags.c_contiguous or not plane.flags.writeable:
+        raise ValueError("coefficient planes must be writable contiguous int16 arrays")
+    return _ptr(plane, _i16p)
+
+
+def _planes_arg(planes):
+    return (_i16p * len(planes))(*[_plane_ptr(p) for p in planes])
+
+
+def native_jpeg_decode_scan_call(segments, restart_interval: int, total_mcus: int,
+                                 mcu_cols: int, comp_h, comp_v, dc_specs, ac_specs,
+                                 coeff_planes) -> Callable[[], bool]:
+    """The entropy decode of every restart segment of a baseline scan into
+    ``coeff_planes`` (one writable int16 [nblocks, 64] zigzag array per
+    component, over its MCU-padded block grid; every block is written), with
+    its arguments made ready here. The returned call runs it in one library
+    call, which releases the GIL, so it may run on any thread; it returns
+    False when the stream is corrupt, and the caller's Python decoder then
+    names the error."""
+    lib = load()
+    seg, seg_off = _segments(segments)
+    ch = np.asarray(comp_h, np.int32)
+    cv = np.asarray(comp_v, np.int32)
+    dc, ac = _huff_arrays(dc_specs), _huff_arrays(ac_specs)
+    prev_dc = np.zeros(len(ch), np.int32)
+    args = (
+        _ptr(seg, _u8p), _ptr(seg_off, _i64p), len(segments), restart_interval, total_mcus,
+        mcu_cols, len(ch), _ptr(ch, _i32p), _ptr(cv, _i32p), *_huff_ptrs(dc), *_huff_ptrs(ac),
+        _planes_arg(coeff_planes), _ptr(prev_dc, _i32p),
+    )  # each pointer keeps its array alive (numpy's data_as)
+
+    def call() -> bool:
+        return lib.jpeg_decode_scan(*args) == 0
+
+    return call
+
+
+def native_jpeg_prog_dc_scan(segments, ranges, mcu_cols: int, interleaved: bool, comp_h, comp_v,
+                             blk_w, dc_specs, ah: int, al: int, coeff_planes) -> None:
+    """Decode a whole progressive DC scan in place: restart segment i over
+    the units ``ranges[i]`` = [start, end) (empty ranges are skipped), the
+    DC predictors reset at each. ``dc_specs`` per scan component, or None
+    for a refinement pass. The arguments are made once for the scan, so a
+    scan of many short segments pays one library call per segment and
+    little else. Raises ``NativeDecodeError`` on a malformed segment."""
+    lib = load()
+    ns = len(comp_h)
+    seg, seg_off = _segments(segments)
+    base, offs = seg.ctypes.data, seg_off.tolist()
+    ch = np.asarray(comp_h, np.int32)
+    cv = np.asarray(comp_v, np.int32)
+    bw = np.asarray(blk_w, np.int32)
+    dc = (_huff_arrays(dc_specs) if dc_specs is not None
+          else (np.zeros(16 * ns, np.uint8), np.zeros(1, np.uint8), np.zeros(ns, np.int32)))
+    prev_dc = np.zeros(ns, np.int32)
+    fixed = (mcu_cols, int(interleaved), ns, _ptr(ch, _i32p), _ptr(cv, _i32p), _ptr(bw, _i32p),
+             *_huff_ptrs(dc), ah, al, _planes_arg(coeff_planes), _ptr(prev_dc, _i32p))
+    for i, (u0, u1) in enumerate(ranges):
+        if u0 >= u1:
+            continue
+        prev_dc[:] = 0
+        if lib.jpeg_prog_dc_segment(base + offs[i], offs[i + 1] - offs[i], u0, u1, *fixed):
+            raise NativeDecodeError("progressive DC segment")
+
+
+def native_jpeg_prog_ac_scan(segments, ranges, stride: int, blk_w: int, ss: int, se: int,
+                             ah: int, al: int, ac_spec, plane: np.ndarray) -> None:
+    """Decode a whole progressive AC scan into ``plane`` in place, segment
+    by segment as ``native_jpeg_prog_dc_scan`` does; the EOB run resets at
+    each segment and carries across units within one. Raises
+    ``NativeDecodeError`` on a malformed segment."""
+    lib = load()
+    seg, seg_off = _segments(segments)
+    base, offs = seg.ctypes.data, seg_off.tolist()
+    bits, vals, _ = _huff_arrays([ac_spec])
+    eobrun = np.zeros(1, np.int64)
+    fixed = (stride, blk_w, ss, se, ah, al, _ptr(bits, _u8p), _ptr(vals, _u8p),
+             _plane_ptr(plane), _ptr(eobrun, _i64p))
+    for i, (u0, u1) in enumerate(ranges):
+        if u0 >= u1:
+            continue
+        eobrun[0] = 0
+        if lib.jpeg_prog_ac_segment(base + offs[i], offs[i + 1] - offs[i], u0, u1, *fixed):
+            raise NativeDecodeError("progressive AC segment")
+
+
+def _pixels_out(ncomp: int, width: int, height: int) -> np.ndarray:
+    return np.empty((height, width, 3) if ncomp == 3 else (height, width), np.uint8)
+
+
+def native_jpeg_decode_pixels(comp_coeffs, qtables_zz, comp_h, comp_v, mcu_cols: int,
+                              mcu_rows: int, max_h: int, max_v: int, width: int, height: int,
+                              fancy: bool = False):
+    """Host pixel tail (oracle): dequantize, un-zigzag, jidctint, assemble,
+    upsample and colour-convert. ``comp_coeffs``: one int16 [nblocks, 64]
+    zigzag array per component; ``qtables_zz``: one [64] zigzag table each.
+    Returns [H, W, 3] (or [H, W] gray) uint8, or None where the host tier
+    declines the geometry."""
+    lib = load()
+    coeffs = np.ascontiguousarray(np.concatenate([np.asarray(c, np.int16) for c in comp_coeffs]))
+    offs = np.zeros(len(comp_coeffs) + 1, np.int64)
+    np.cumsum([len(c) for c in comp_coeffs], out=offs[1:])
+    qt = np.ascontiguousarray(np.stack([np.asarray(q, np.uint16) for q in qtables_zz]))
+    ch = np.asarray(comp_h, np.int32)
+    cv = np.asarray(comp_v, np.int32)
+    out = _pixels_out(len(comp_coeffs), width, height)
+    rc = lib.jpeg_decode_pixels(
+        _ptr(coeffs, _i16p), _ptr(offs, _i64p), _ptr(qt, _u16p), _ptr(ch, _i32p),
+        _ptr(cv, _i32p), len(ch), mcu_cols, mcu_rows, max_h, max_v, width, height,
+        int(fancy), _ptr(out, _u8p),
+    )
+    return out if rc == 0 else None
+
+
+def native_jpeg_decode_baseline(segments, restart_interval: int, total_mcus: int, mcu_cols: int,
+                                mcu_rows: int, comp_h, comp_v, max_h: int, max_v: int,
+                                width: int, height: int, dc_specs, ac_specs, qtables_zz,
+                                fancy: bool = False):
+    """Fused host baseline decode (oracle): entropy, IDCT, upsample and
+    colour in one call. Returns the pixels as ``native_jpeg_decode_pixels``
+    does, or None for a corrupt stream or a geometry it declines."""
+    lib = load()
+    seg, seg_off = _segments(segments)
+    ch = np.asarray(comp_h, np.int32)
+    cv = np.asarray(comp_v, np.int32)
+    dc, ac = _huff_arrays(dc_specs), _huff_arrays(ac_specs)
+    qt = np.ascontiguousarray(np.stack([np.asarray(q, np.uint16) for q in qtables_zz]))
+    out = _pixels_out(len(ch), width, height)
+    rc = lib.jpeg_decode_baseline(
+        _ptr(seg, _u8p), _ptr(seg_off, _i64p), len(segments), restart_interval, total_mcus,
+        mcu_cols, mcu_rows, len(ch), _ptr(ch, _i32p), _ptr(cv, _i32p), max_h, max_v,
+        width, height, *_huff_ptrs(dc), *_huff_ptrs(ac), _ptr(qt, _u16p), int(fancy),
+        _ptr(out, _u8p),
+    )
+    return out if rc == 0 else None

@@ -21,6 +21,13 @@ stream.
   the reference's selection rule, the chosen filter with its type byte),
   sharing ``filter_bank``'s source; it replaces ``filter_bank_pallas`` with
   the selection of ``ops/png_filters.py::filter_image_batch`` fused in.
+- ``idct_planes``: the JPEG decode's tail up to the planes (dequantize,
+  un-zigzag, jidctint IDCT, plane assembly) over every plane of a batch in
+  one launch (``csrc/idct.cu``); it replaces ``idct8x8_int_pallas`` widened
+  to ``ops/jpeg_decode.py::dequant_idct_blocks`` and ``assemble_plane``.
+- ``idct8x8_int``: the standalone [N, 8, 8] integer IDCT, sharing the decode
+  kernel's butterfly (``csrc/idct.cuh``): the direct counterpart of
+  ``idct8x8_int_pallas``.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -41,6 +48,8 @@ from ..native import MODES
 from ..utils.build import build_shared_library
 from .blockify import blocks_420, blocks_422, blocks_444, blocks_gray, num_blocks
 from .dct import dct8x8_aan as dct8x8_aan_plain
+from .jpeg_decode import dequant_idct_blocks
+from .jpeg_decode import idct8x8_int as idct8x8_int_plain
 from .png_filters import (
     MODE_ADAPTIVE_FAST,
     _candidates,
@@ -54,7 +63,8 @@ from .quantize import quantize_blocks, zigzag_blocks
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "aan.cuh")]
+SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
+                                           "aan.cuh", "idct.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -99,6 +109,10 @@ def load():
             lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, vp, vp, vp]
             lib.pixo_filter_rows.restype = ctypes.c_int
             lib.pixo_filter_rows.argtypes = [vp, i64, i64, i64, i32, i32, i32, i32, vp, vp]
+            lib.pixo_idct_planes.restype = ctypes.c_int
+            lib.pixo_idct_planes.argtypes = [vp, i64, vp, i32, vp, vp]
+            lib.pixo_idct8x8_int.restype = ctypes.c_int
+            lib.pixo_idct8x8_int.argtypes = [vp, vp, i64, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -323,3 +337,125 @@ def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
 
 
 filter_rows.launches = 0
+
+
+def _plane_table(qtables, planes, n: int):
+    """Checks the decode tail's plane table against ``n`` coefficient blocks.
+
+    ``planes`` is [P, 5] int64: each plane's first block, blocks per row,
+    block rows, output byte offset and output pitch; ``qtables`` is [P, 64],
+    each plane's zigzag table, taken as int32. Returns (planes, qtables,
+    output bytes) as numpy arrays and an int."""
+    planes = np.ascontiguousarray(np.asarray(planes, dtype=np.int64))
+    q = np.ascontiguousarray(np.asarray(qtables).astype(np.int32))
+    if planes.ndim != 2 or planes.shape[1] != 5 or planes.shape[0] == 0:
+        raise ValueError(f"planes must be a non-empty [P, 5] table, got {planes.shape}")
+    if q.shape != (planes.shape[0], 64):
+        raise ValueError(f"qtables must be [{planes.shape[0]}, 64], got {q.shape}")
+    first, bpr, brows, off, pitch = planes.T
+    nb = bpr * brows
+    if (bpr < 1).any() or (brows < 1).any():
+        raise ValueError("every plane needs at least one block")
+    if first[0] < 0 or (first[1:] < first[:-1] + nb[:-1]).any() or first[-1] + nb[-1] > n:
+        raise ValueError("plane block ranges must be sorted, disjoint and inside the coefficients")
+    if (off < 0).any() or (off % 8).any() or (pitch % 8).any() or (pitch < 8 * bpr).any():
+        raise ValueError("offsets and pitches must be multiples of 8, each pitch a full row")
+    return planes, q, int((off + 8 * brows * pitch).max())
+
+
+def _plane_output(planes: np.ndarray, out_size: int, device) -> torch.Tensor:
+    """The output buffer: left unset where the planes tile it, zeroed where
+    bytes lie outside every plane."""
+    tiled = int((64 * planes[:, 1] * planes[:, 2]).sum()) == out_size
+    return (torch.empty if tiled else torch.zeros)(out_size, dtype=torch.uint8, device=device)
+
+
+def idct_planes_plain(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
+    """The plain version of ``idct_planes`` on ``coeffs``' device:
+    ``dequant_idct_blocks`` over every block of every plane, then a scatter
+    of each 8x8 block to its plane's raster."""
+    planes, q, out_size = _plane_table(qtables, planes, coeffs.shape[0])
+    dev = coeffs.device
+    nb_host = planes[:, 1] * planes[:, 2]
+    first, bpr, _, off, pitch = torch.from_numpy(planes).to(dev).unbind(1)
+    nb = torch.from_numpy(nb_host).to(dev)
+    pid = torch.repeat_interleave(torch.arange(len(planes), device=dev), nb,
+                                  output_size=int(nb_host.sum()))
+    k = torch.arange(pid.numel(), device=dev) - (torch.cumsum(nb, 0) - nb)[pid]
+    blocks = dequant_idct_blocks(coeffs[first[pid] + k], torch.from_numpy(q).to(dev)[pid])
+    by, bx = k // bpr[pid], k % bpr[pid]
+    p = pitch[pid][:, None, None]
+    r = torch.arange(8, device=dev)
+    idx = (off[pid] + 8 * by * pitch[pid] + 8 * bx)[:, None, None] + r[:, None] * p + r
+    out = _plane_output(planes, out_size, dev)
+    out[idx.reshape(-1)] = blocks.reshape(-1)
+    return out
+
+
+def idct_planes(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
+    """[N, 64] int16 zigzag coefficient blocks -> one uint8 buffer holding
+    every plane's pixels, on ``coeffs``' device: the decode tail's dequantize,
+    un-zigzag, jidctint IDCT and plane assembly in one launch.
+
+    ``planes`` ([P, 5] int64, host) gives each plane's first block, blocks
+    per row, block rows, byte offset and pitch; a plane's blocks are in
+    raster order and block (by, bx) lands at offset + 8 by pitch + 8 bx.
+    ``qtables`` ([P, 64], host) gives each plane's zigzag table (uint16
+    values, taken as int32). Each plane equals ``assemble_plane`` of
+    ``ops/jpeg_decode.py::dequant_idct_blocks`` of its blocks. Planes must
+    not overlap in the output."""
+    _require(coeffs, torch.int16, "coeffs")
+    if coeffs.dim() != 2 or coeffs.shape[1] != 64:
+        raise ValueError(f"coeffs must be [N, 64], got {tuple(coeffs.shape)}")
+    if _device_kind(coeffs) == "cpu":
+        return idct_planes_plain(coeffs, qtables, planes)
+    if coeffs.shape[0] == 0:
+        raise ValueError("empty batch")
+    return _launch_idct_planes(coeffs, *_plane_descriptors(coeffs, qtables, planes))
+
+
+def _plane_descriptors(coeffs: torch.Tensor, qtables, planes):
+    """The plane table packed as ``csrc/idct.cu``'s PlaneDesc array (38
+    int64 a plane: the int32 zigzag table, then the five geometry fields)
+    and copied to ``coeffs``' device, and the output buffer."""
+    planes, q, out_size = _plane_table(qtables, planes, coeffs.shape[0])
+    packed = np.zeros((len(planes), 38), np.int64)
+    packed[:, :32] = q.view(np.int64)
+    packed[:, 32:37] = planes
+    return torch.from_numpy(packed).to(coeffs.device), _plane_output(planes, out_size, coeffs.device)
+
+
+def _launch_idct_planes(coeffs: torch.Tensor, desc: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    lib = load()
+    with torch.cuda.device(coeffs.device):
+        rc = lib.pixo_idct_planes(coeffs.data_ptr(), coeffs.shape[0], desc.data_ptr(),
+                                  desc.shape[0], out.data_ptr(), _stream(coeffs))
+    _check(lib, rc, "idct_planes")
+    idct_planes.launches += 1
+    return out
+
+
+idct_planes.launches = 0
+
+
+def idct8x8_int(blocks: torch.Tensor) -> torch.Tensor:
+    """[N, 8, 8] int32 natural-order dequantized blocks -> [N, 8, 8] uint8,
+    bit-exact with ``ops/jpeg_decode.py::idct8x8_int`` (int32 wraparound)."""
+    _require(blocks, torch.int32, "blocks")
+    if blocks.dim() != 3 or tuple(blocks.shape[1:]) != (8, 8):
+        raise ValueError(f"blocks must be [N, 8, 8], got {tuple(blocks.shape)}")
+    if _device_kind(blocks) == "cpu":
+        return idct8x8_int_plain(blocks)
+    if blocks.shape[0] == 0:
+        raise ValueError("empty batch")
+    lib = load()
+    out = torch.empty(blocks.shape, dtype=torch.uint8, device=blocks.device)
+    with torch.cuda.device(blocks.device):
+        rc = lib.pixo_idct8x8_int(blocks.data_ptr(), out.data_ptr(), blocks.shape[0],
+                                  _stream(blocks))
+    _check(lib, rc, "idct8x8_int")
+    idct8x8_int.launches += 1
+    return out
+
+
+idct8x8_int.launches = 0

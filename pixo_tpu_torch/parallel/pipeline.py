@@ -16,21 +16,26 @@ named by ``device=`` instead of a mesh:
   a thread pool. Images whose layout depends on their content (palette,
   sub-8-bit gray) take the per-image ``png.encode`` on the same pool.
 
+- ``decode_jpeg_batch``: the alias of ``decode.decode_jpeg_batch`` under the
+  reference's ``host_workers`` keyword.
+
 Only the baseline JPEG path with the standard Huffman tables and the 8-bit
 non-interlaced lossless PNG path are ported. The stream pipelines, the
-row-sharded PNG encode, decode batches and the thumbnail pipeline are not
-(ROADMAP queue 1 items 7, 8, 10 and 12).
+row-sharded PNG encode, the PNG decode batch and the thumbnail pipeline are
+not (ROADMAP queue 1 items 7, 8, 10 and 12).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
 
 from ..color import ColorType
+from ..decode import decode_jpeg_batch as _decode_jpeg_batch
+from ..decode import JpegImage
 from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
@@ -272,3 +277,12 @@ def encode_png_batch_sharded(
         for i, fut in futures.items():
             results[i] = fut.result()
     return results
+
+
+def decode_jpeg_batch(encoded: Sequence[bytes], host_workers: int = 8, *,
+                      device) -> List[JpegImage]:
+    """Batched JPEG decode on ``device``: the alias of
+    ``pixo_tpu_torch.decode.decode_jpeg_batch`` (which also takes
+    ``fancy_upsampling``), kept for the reference's ``host_workers``
+    keyword."""
+    return _decode_jpeg_batch(encoded, workers=host_workers, device=device)

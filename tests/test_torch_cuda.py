@@ -7,11 +7,15 @@ without JAX it runs on its own:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import host_decode
 from pixo_tpu_torch import (
+    ColorType,
     FilterStrategy,
     JpegOptions,
     PngOptions,
@@ -20,9 +24,10 @@ from pixo_tpu_torch import (
     encode_png_batch_sharded,
     png,
 )
+from pixo_tpu_torch.decode import decode_jpeg_batch
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
 from pixo_tpu_torch.native import native_png_filter
-from pixo_tpu_torch.ops import dct, kernels, png_filters, sparse_pack
+from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, sparse_pack
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +178,95 @@ def test_png_batch_on_the_card_equals_per_image_encode(dev):
     assert kernels.filter_rows.launches == 3  # the pass, strip and ga groups
     assert outs == [png.encode(img, opts) for img in imgs]
     assert outs == encode_png_batch_sharded(torch.from_numpy(imgs).to(dev), opts, device=dev)
+
+
+I16 = np.array([-32768, -32767, -1024, -1, 0, 1, 1023, 32766, 32767], np.int16)
+
+
+def _blocks(rng, n, kind):
+    if kind == "extreme":  # int16 extremes: int32 wraps once dequantized
+        return rng.choice(I16, (n, 64))
+    zz = np.zeros((n, 64), np.int16)
+    zz[:, 0] = rng.integers(-1024, 1024, n)
+    zz[:, 1:] = np.where(rng.random((n, 63)) < 0.3, rng.integers(-200, 201, (n, 63)), 0)
+    return zz
+
+
+@pytest.mark.parametrize("kind", ["conforming", "extreme"])
+def test_idct_planes_kernel_equals_plain(dev, seeded, kind):
+    """Many planes of odd block grids, a gap of blocks between two, a pitch
+    wider than its row, tables of 255 and 65535."""
+    dims = [(int(seeded.integers(1, 40)), int(seeded.integers(1, 30))) for _ in range(60)]
+    planes, first, off = [], 0, 0
+    for k, (bw, bh) in enumerate(dims):
+        pitch = 8 * bw + (16 if k % 7 == 3 else 0)
+        planes.append((first, bw, bh, off, pitch))
+        first += bw * bh + (5 if k % 11 == 4 else 0)
+        off += 8 * bh * pitch
+    planes = np.asarray(planes, np.int64)
+    zz = torch.from_numpy(_blocks(seeded, first, kind)).to(dev)
+    q = np.stack([np.full(64, (255, 65535, 1)[k % 3], np.uint16) for k in range(len(planes))])
+    kernels.idct_planes.launches = 0
+    got = kernels.idct_planes(zz, q, planes)
+    assert kernels.idct_planes.launches == 1 and got.device.type == "cuda"
+    assert torch.equal(got, kernels.idct_planes_plain(zz, q, planes))
+    assert torch.equal(got.cpu(), kernels.idct_planes(zz.cpu(), q, planes))
+
+
+@pytest.mark.parametrize("kind", ["conforming", "extreme", "int32"])
+def test_idct8x8_int_kernel_equals_plain(dev, seeded, kind):
+    if kind == "int32":
+        natural = seeded.integers(-2**31, 2**31, (20_000, 8, 8)).astype(np.int32)
+    else:
+        deq = _blocks(seeded, 20_000, kind).astype(np.int32) * 65535
+        natural = np.ascontiguousarray(deq.reshape(-1, 8, 8))
+    blocks = torch.from_numpy(natural).to(dev)
+    got = kernels.idct8x8_int(blocks)
+    assert torch.equal(got, jpeg_decode.idct8x8_int(blocks))
+    assert torch.equal(got.cpu(), jpeg_decode.idct8x8_int(blocks.cpu()))
+
+
+def test_idct_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    planes = np.asarray([[0, 1, 1, 0, 8]])
+    q = np.ones((1, 64))
+    misaligned = torch.zeros(1 + 64, dtype=torch.int16, device=dev)[1:].view(1, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.idct_planes(misaligned, q, planes)
+    with pytest.raises(ValueError, match="empty"):
+        kernels.idct_planes(torch.zeros((0, 64), dtype=torch.int16, device=dev), q, planes)
+    with pytest.raises(ValueError, match="empty"):
+        kernels.idct8x8_int(torch.zeros((0, 8, 8), dtype=torch.int32, device=dev))
+
+
+def _decode_batch_files():
+    rng = np.random.default_rng(9)
+    files = []
+    for sub, gray, (h, w), restart in (
+        (Subsampling.S420, False, (61, 47), None), (Subsampling.S420, False, (61, 47), 2),
+        (Subsampling.S444, True, (37, 29), None), (Subsampling.S444, False, (23, 45), 1),
+        (Subsampling.S422, False, (50, 19), 3), (Subsampling.S420, False, (64, 64), None),
+    ):
+        img = rng.integers(0, 256, (1, h, w) if gray else (1, h, w, 3), dtype=np.uint8)
+        opts = JpegOptions(width=w, height=h, quality=85, subsampling=sub, restart_interval=restart,
+                           color_type=ColorType.GRAY if gray else ColorType.RGB)
+        files.append(encode_jpeg_batch_sharded(img, opts, device="cpu")[0])
+    here = os.path.dirname(os.path.abspath(__file__))
+    for name in ("web", "playground"):
+        with open(os.path.join(here, "fixtures", f"progressive_{name}.jpg"), "rb") as f:
+            files.append(f.read())
+    return files
+
+
+@pytest.mark.parametrize("fancy", [False, True], ids=["nearest", "fancy"])
+def test_decode_batch_on_the_card_equals_host_decode(dev, fancy):
+    """A mixed batch (gray, 4:4:4, 4:2:0, 4:2:2, odd sizes, restarts,
+    progressive) decoded on the card in one tail equals the host library's
+    two-stage decode and the port's decode on the CPU, image by image."""
+    files = _decode_batch_files()
+    kernels.idct_planes.launches = 0
+    got = decode_jpeg_batch(files, fancy_upsampling=fancy, device=dev)
+    assert kernels.idct_planes.launches == 1
+    on_cpu = decode_jpeg_batch(files, fancy_upsampling=fancy, device="cpu")
+    for img, cpu, data in zip(got, on_cpu, files):
+        np.testing.assert_array_equal(img.pixels, host_decode(data, fancy))
+        np.testing.assert_array_equal(img.pixels, cpu.pixels)
