@@ -15,10 +15,14 @@ printing its own lines:
    sources (the CUDA kernels and the C++ host tier), with their build times;
 2. every kernel of both paths against its plain PyTorch version on the
    card, for bit equality: the coefficient kernel in all four modes on the
-   16x512x512 gradient batch and on a 4x517x389 noise batch (odd sizes pad),
-   also held against the host library's coefficients image by image; the
-   standalone AAN DCT on 100k random blocks; the compaction kernel at caps
-   8, 16 and 32; the PNG filter bank and the fused filter kernel for bpp 1,
+   16x512x512 gradient batch, on a 4x517x389 noise batch (odd sizes pad)
+   and at the tiled kernel's edges (``coeff_edge_cases``: batch 1, 8x8 and
+   17x23 images, rows whose W*C is no multiple of 16, widths that end inside
+   a tile, RGBA, one 3220x1812 image), also held against the host library's
+   coefficients image by image; the standalone AAN DCT on 100k random
+   blocks; the compaction kernel at caps 8, 16 and 32 on those coefficients
+   and on blocks with 0, cap, cap + 1 and 63 nonzeros
+   (``compact_edge_batch``); the PNG filter bank and the fused filter kernel for bpp 1,
    2, 3, 4, 6 and 8 (odd row lengths, one-row images, rows no longer than
    a pixel, 262,140-byte rows, the corpus batch), the fused kernel in every
    ported strategy with the sticky rule off and on, also held against the
@@ -49,8 +53,10 @@ printing its own lines:
    two-stage decode and each baseline one against its fused decode, and the
    decode-tail kernel launches once per batch. The oracle set's 7
    progressive files, which the reference decoder rejects, must be rejected;
-4. median timings over warm runs: each kernel against its plain version,
-   the copy of the pixels to the card, the device stage with kernels and
+4. median timings over warm runs: each kernel four ways (``time_kernel``:
+   the profiler's device time, the launch alone, the wrapper call and the
+   plain version) beside its bound (``kernel_bound``), the copy of the
+   pixels to the card, the device stage with kernels and
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
    (b); and for decode batches (d1) and (d3) the host stage with 8 workers
@@ -64,6 +70,16 @@ printing its own lines:
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
 record; the last line is the run's JSON result.
+
+Two checkouts compare on one card with
+
+    python3 chip_smoke.py --compare PARENT . . PARENT
+
+which runs ``measure_tree`` on each directory in turn, each in a process of
+its own (the coefficient and compaction kernels three ways, the device
+stage and the end-to-end stages), and prints the numbers side by side.
+``python3 chip_smoke.py --coeffs-parts`` times the coefficient kernel as it
+is and with each of its parts taken out (``coeffs_parts``).
 """
 
 from __future__ import annotations
@@ -279,6 +295,111 @@ def wall_ms(fn):
     return _median(times)
 
 
+def profiler_ms(fn, kernel: str, calls: int = 20):
+    """Device time of one launch of the kernel whose name holds ``kernel``,
+    from ``torch.profiler``'s ``key_averages()`` over ``calls`` warm calls of
+    ``fn``: the kernel's own time, whatever its wrapper costs on the host.
+    None where the profiler shows no device time for it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        total = max(e.device_time_total, e.self_device_time_total)
+        if kernel in e.key and total > 0 and e.count:
+            return total / e.count / 1e3
+    return None
+
+
+# The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes and
+# float32 operations outside the tensor cores, per second.
+H100_BYTES_PER_S = 3.35e12
+H100_F32_OPS_PER_S = 67e12
+# f32 operations of one block through the coefficient chain: 16 AAN passes
+# of 5 multiplies, 29 adds and 8 scales, then per coefficient the level
+# shift, the division and the rounding.
+AAN_OPS = 16 * (5 + 29 + 8)
+COEFF_OPS = AAN_OPS + 3 * 64
+
+
+def kernel_work(name: str, **shape):
+    """(bytes, f32 operations) that kernel ``name`` must at least move and
+    do at ``shape``: each input byte read once, each output byte written
+    once. Shapes: coeffs (b, h, w, c, mode); compact (b, n, cap);
+    filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
+    dct8x8_aan and idct8x8_int (n). The integer kernels count no f32
+    operations."""
+    s = shape
+    if name == "coeffs":
+        from pixo_tpu_torch.ops.blockify import num_blocks
+
+        blocks = s["b"] * num_blocks(s["h"], s["w"], s["mode"])
+        return s["b"] * s["h"] * s["w"] * s["c"] + 128 * blocks, COEFF_OPS * blocks
+    if name == "compact":  # zz in; dc, counts, poss, vals out
+        return s["b"] * s["n"] * (128 + 3 + 3 * s["cap"]), 0
+    if name == "filter_rows":
+        return s["b"] * s["h"] * (2 * s["rb"] + 1), 0
+    if name == "filter_bank":  # rows in; five candidates and [5] int32 scores a row out
+        return s["b"] * s["h"] * (6 * s["rb"] + 20), 0
+    if name == "idct_planes":
+        return 128 * s["n"] + s["out_bytes"], 0
+    if name == "dct8x8_aan":
+        return 512 * s["n"], AAN_OPS * s["n"]
+    if name == "idct8x8_int":
+        return 320 * s["n"], 0
+    raise ValueError(f"no work model for kernel {name!r}")
+
+
+def kernel_bound(name: str, **shape):
+    """(bound_ms, bound_by): the least time the card could take for kernel
+    ``name`` at ``shape``, the larger of its bytes over the memory rate and
+    its f32 operations over the f32 rate, and which of the two it is."""
+    nbytes, ops = kernel_work(name, **shape)
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def coeff_edge_cases(rng):
+    """The coefficient kernel's edge shapes, (label, [B, H, W, C] uint8
+    noise): batch 1 of one 8x8 image, 17x23 images, rows whose W*C is no
+    multiple of 16 and widths that end inside a tile of 128 pixels, RGBA
+    input and one 3220x1812 image (heights no multiple of 16 too)."""
+    import numpy as np
+
+    shapes = (("batch 1 8x8", (1, 8, 8, 3)), ("17x23", (2, 17, 23, 3)),
+              ("40x133, W*C 399, ends mid-tile", (2, 40, 133, 3)),
+              ("33x200, W*C 600, ends mid-MCU", (3, 33, 200, 3)),
+              ("RGBA 31x130, W*C 520", (2, 31, 130, 4)), ("1812x3220", (1, 1812, 3220, 3)))
+    return [(label, rng.integers(0, 256, shape, dtype=np.uint8)) for label, shape in shapes]
+
+
+EDGE_COUNTS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 62, 63)
+
+
+def compact_edge_batch(rng, b: int, n: int):
+    """[b, n, 64] int16 zigzag blocks whose nonzero AC counts cycle through
+    ``EDGE_COUNTS`` (0, each cap, each cap + 1, 63, ...), at random
+    positions, with values at the int16 extremes among them; the DC is
+    random and sometimes 0. The compaction kernel's thread blocks (128
+    rows each) then span several images when n is small."""
+    import numpy as np
+
+    zz = np.zeros((b * n, 64), np.int16)
+    vals = np.array([-32768, -1024, -1, 1, 2, 1023, 32767], np.int16)
+    for i in range(b * n):
+        k = EDGE_COUNTS[i % len(EDGE_COUNTS)]
+        pos = 1 + rng.choice(63, k, replace=False)
+        zz[i, pos] = rng.choice(vals, k)
+        zz[i, 0] = 0 if i % 5 == 0 else rng.integers(-2048, 2048)
+    return zz.reshape(b, n, 64)
+
+
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
     """Phase 2: each kernel against its plain version on ``dev``, and the
     coefficient kernel against the host library. Returns the largest
@@ -296,8 +417,9 @@ def check_kernels(dev, grad, noise, n_dct: int) -> dict:
     lum, chrom = quant.luminance_table, quant.chrominance_table
     errs = {"coeffs": 0, "compact": 0}
     zz_cases = []
-    for name, batch in (("gradient", grad), ("noise", noise)):
-        label = f"{name} {'x'.join(map(str, batch.shape[:3]))}"
+    named = [(f"{name} {'x'.join(map(str, batch.shape[:3]))}", batch)
+             for name, batch in (("gradient", grad), ("noise", noise))]
+    for label, batch in named + coeff_edge_cases(np.random.default_rng(8)):
         for mode in ("gray", "444", "420", "422"):
             host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
             x = torch.from_numpy(host).to(dev)
@@ -306,15 +428,19 @@ def check_kernels(dev, grad, noise, n_dct: int) -> dict:
             err = int((got.int() - ref.int()).abs().max())
             errs["coeffs"] = max(errs["coeffs"], err)
             got_h = got.cpu().numpy()
+            rgb = host if mode == "gray" else np.ascontiguousarray(host[..., :3])
             host_bad = sum(
-                not np.array_equal(got_h[i], native.native_jpeg_coefficients(host[i], mode, lum, chrom))
+                not np.array_equal(got_h[i], native.native_jpeg_coefficients(rgb[i], mode, lum, chrom))
                 for i in range(len(host))
             )
             _verdict(f"check coeffs mode={mode} {label} q{QUALITY}: max_abs_err vs plain {err}, "
                      f"images differing from the host library {host_bad}/{len(host)}",
                      err == 0 and host_bad == 0)
-            if mode in ("420", "444"):
+            if mode in ("420", "444") and label in dict(named):
                 zz_cases.append((f"{label} {mode}", got))
+    rng = np.random.default_rng(9)
+    zz_cases += [(f"edge counts {b}x{n}", torch.from_numpy(compact_edge_batch(rng, b, n)).to(dev))
+                 for b, n in ((3, 101), (70, 1), (1, 64))]
 
     blocks = torch.from_numpy(
         np.random.default_rng(2).uniform(-128, 127, (n_dct, 8, 8)).astype(np.float32)
@@ -410,10 +536,32 @@ def check_main_path(dev, grad) -> dict:
     return launches
 
 
+def time_kernel(name: str, at: str, call, plain, alone, card: str, **shape) -> dict:
+    """Times kernel ``name`` four ways and prints one line: the profiler's
+    device time (the kernel's own), the launch alone (the C function with
+    everything made beforehand), the wrapper call and the
+    plain version (CUDA events, per call), beside its bound at ``shape``
+    (``kernel_bound``) and the share of the bound that the device time
+    reaches. No single PyTorch call computes any kernel's function, so
+    ``library_ms`` is None."""
+    bound, by = kernel_bound(name, **shape)
+    t = {"ms": event_ms(call), "plain_ms": event_ms(plain),
+         "device_ms": profiler_ms(call, f"{name}_kernel"),
+         "launch_ms": event_ms(alone),
+         "bound_ms": bound, "bound_by": by, "library_ms": None}
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
+    share = "not measured" if t["device_ms"] is None else f"{bound / t['device_ms']:.1%}"
+    print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler), launch alone "
+          f"{t['launch_ms']:.4f} ms, per call {t['ms']:.4f} ms, plain PyTorch {t['plain_ms']:.4f} ms; "
+          f"bound {bound:.4f} ms ({by}, {kernel_work(name, **shape)[0]} B), device time at "
+          f"{share} of it [{card}]")
+    return t
+
+
 def time_everything(dev, grad, n_dct: int, card: str) -> dict:
-    """Phase 4: median times on the card. Kernel times are CUDA-event times
-    per call (``event_ms``); stage times are host-clock times of one call
-    ending in a synchronize (``wall_ms``)."""
+    """Phase 4: median times on the card. Kernel times as ``time_kernel``
+    gives them; stage times are host-clock times of one call ending in a
+    synchronize (``wall_ms``)."""
     import numpy as np
     import torch
 
@@ -432,23 +580,28 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     quant = QuantizationTables(QUALITY)
     lum, chrom = quant.luminance_table, quant.chrominance_table
     grad_dev = torch.from_numpy(grad).to(dev)
-    zz = kernels.coeffs(grad_dev, lum, chrom, "420")
+    zz, launchers = main_path_launchers(kernels, grad_dev, lum, chrom)
     blocks = torch.from_numpy(
         np.random.default_rng(2).uniform(-128, 127, (n_dct, 8, 8)).astype(np.float32)
     ).to(dev)
-
+    dct_out = torch.empty_like(blocks)
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    at = f"{shape} q{QUALITY} 4:2:0"
     k_ms = {
-        "coeffs": (event_ms(lambda: kernels.coeffs(grad_dev, lum, chrom, "420")),
-                   event_ms(lambda: kernels.coeffs_plain(grad_dev, lum, chrom, "420"))),
-        "compact": (event_ms(lambda: kernels.compact_padded(zz, 8)),
-                    event_ms(lambda: sparsify_blocks_padded_batch(zz, 8))),
-        "dct8x8_aan": (event_ms(lambda: kernels.dct8x8_aan(blocks)),
-                       event_ms(lambda: dct_plain(blocks))),
+        "coeffs": time_kernel(
+            "coeffs", at, launchers["coeffs"][0],
+            lambda: kernels.coeffs_plain(grad_dev, lum, chrom, "420"), launchers["coeffs"][1],
+            card, b=b, h=size, w=size, c=3, mode="420"),
+        "compact": time_kernel(
+            "compact", f"{at} cap 8", launchers["compact"][0],
+            lambda: sparsify_blocks_padded_batch(zz, 8), launchers["compact"][1],
+            card, b=b, n=zz.shape[1], cap=8),
+        "dct8x8_aan": time_kernel(
+            "dct8x8_aan", f"{n_dct} blocks", lambda: kernels.dct8x8_aan(blocks),
+            lambda: dct_plain(blocks),
+            lambda: lib.pixo_dct8x8_aan(blocks.data_ptr(), dct_out.data_ptr(), n_dct, stream),
+            card, n=n_dct),
     }
-    for name, (ms, plain_ms) in k_ms.items():
-        at = f"{n_dct} blocks" if name == "dct8x8_aan" else f"{shape} q{QUALITY} 4:2:0"
-        print(f"kernel {name} {at}: {ms:.4f} ms per call, plain PyTorch {plain_ms:.4f} ms "
-              f"[{card}]")
 
     _, _, pattern = scan_layout(size, size, "rgb", "420")
     compacted = kernels.compact_padded(zz, 8)
@@ -576,10 +729,28 @@ def check_png_main_path(dev, corpus, grad) -> dict:
     return launches
 
 
+def filter_rows_alone(raw, kw):
+    """The launch alone of ``filter_rows`` on ``raw`` with the keyword
+    arguments ``kw``: the C function with its output made beforehand."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels, png_filters
+
+    strat = png_filters.resolve_strategy(kw["strategy"], kw["small_image"])
+    mode = png_filters.native_mode(strat)
+    sticky = int(kw["sticky_fast"] and mode == png_filters.MODE_ADAPTIVE_FAST)
+    b, h, rb = raw.shape
+    out = torch.empty((b, h, rb + 1), dtype=torch.uint8, device=raw.device)
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    args = (raw.data_ptr(), b, h, rb, kw["bpp"], mode, png_filters.early_stop(mode, rb), sticky,
+            out.data_ptr(), stream)
+    return lambda: lib.pixo_filter_rows(*args)
+
+
 def time_png(dev, corpus, grad, card: str) -> dict:
     """Phase 4, PNG: the filter kernels against their plain versions, then
-    the stages of batches (a) and (b). Returns the kernels' (ms, plain ms)
-    at batch (a)'s shape and strategy."""
+    the stages of batches (a) and (b). Returns the kernels' times
+    (``time_kernel``) at batch (a)'s shape and strategy."""
     import torch
 
     from pixo_tpu_torch import encode_png_batch_sharded
@@ -600,15 +771,22 @@ def time_png(dev, corpus, grad, card: str) -> dict:
         (((mode, ct), gidx),) = _png_route_batch(px, opts)[0].items()  # one group: pass RGB
         raw = png_group_rows(px, gidx, mode, ct, opts)
         kw = png_filter_kwargs(ct, opts)
-        times = {"filter_rows": (event_ms(lambda: kernels.filter_rows(raw, **kw)),
-                                 event_ms(lambda: png_filters.filter_rows_plain(raw, **kw)))}
+        shape_kw = dict(zip(("b", "h", "rb"), raw.shape))
+        times = {"filter_rows": time_kernel(
+            "filter_rows", f"{at} {opts.filter_strategy.name}", lambda: kernels.filter_rows(raw, **kw),
+            lambda: png_filters.filter_rows_plain(raw, **kw), filter_rows_alone(raw, kw), card,
+            **shape_kw)}
         if key == "a":
-            times["filter_bank"] = (event_ms(lambda: kernels.filter_bank(raw, 3)),
-                                    event_ms(lambda: kernels.filter_bank_plain(raw, 3)))
+            cands = torch.empty((raw.shape[0], 5, *raw.shape[1:]), dtype=torch.uint8, device=dev)
+            scores = torch.empty((*raw.shape[:2], 5), dtype=torch.int32, device=dev)
+            lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+            times["filter_bank"] = time_kernel(
+                "filter_bank", at, lambda: kernels.filter_bank(raw, 3),
+                lambda: kernels.filter_bank_plain(raw, 3),
+                lambda: lib.pixo_filter_bank(raw.data_ptr(), *raw.shape, 3, cands.data_ptr(),
+                                             scores.data_ptr(), stream),
+                card, **shape_kw)
             k_ms = times
-        for name, (ms, plain_ms) in times.items():
-            print(f"kernel {name} {at} {opts.filter_strategy.name}: {ms:.4f} ms per call, "
-                  f"plain PyTorch {plain_ms:.4f} ms [{card}]")
 
         def device(filter_fn):
             groups, _ = _png_route_batch(px, opts)
@@ -826,16 +1004,18 @@ def host_stage_split(files) -> dict:
     }
 
 
-def time_decode(dev, cases, card: str) -> dict:
+def time_decode(dev, cases, card: str, n_idct: int) -> dict:
     """Phase 4, decode: for (d1) and (d3), the stages of the decode and the
-    host library's decode of the same batch on 8 threads. Returns
-    idct_planes' (ms, plain ms) at (d1)."""
+    host library's decode of the same batch on 8 threads; the standalone
+    integer IDCT on ``n_idct`` blocks. Returns the times of idct_planes at
+    (d1) and of idct8x8_int (``time_kernel``)."""
     import numpy as np
     import torch
 
     from pixo_tpu_torch.decode import decode_jpeg_batch
     from pixo_tpu_torch.decode import jpeg_decoder as jd
     from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.jpeg_decode import idct8x8_int as idct_plain
 
     k_ms = {}
     for key in ("d1", "d3"):
@@ -847,16 +1027,25 @@ def time_decode(dev, cases, card: str) -> dict:
         args = (zz, batch.qtables, batch.layout.planes)
         planes = kernels.idct_planes(*args)
         pixels = jd._upsample_colour(planes, batch, False)
-        ms = (event_ms(lambda: kernels.idct_planes(*args)),
-              event_ms(lambda: kernels.idct_planes_plain(*args)))
-        if key == "d1":
-            k_ms["idct_planes"] = ms
         desc, out = kernels._plane_descriptors(*args)
-        alone = event_ms(lambda: kernels._launch_idct_planes(zz, desc, out))
-        print(f"kernel idct_planes {at}: {ms[0]:.4f} ms per call, plain PyTorch {ms[1]:.4f} ms; "
-              f"the launch alone, its plane table already on the card, {alone:.4f} ms; "
-              f"{batch.coeffs.shape[0]} blocks, {batch.coeffs.nbytes / 1e6:.1f} MB of coefficients "
-              f"[{card}]")
+        lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+        t = time_kernel(
+            "idct_planes", f"{at}, {batch.coeffs.shape[0]} blocks (launch alone: its plane table "
+            "already on the card)", lambda: kernels.idct_planes(*args),
+            lambda: kernels.idct_planes_plain(*args),
+            lambda: lib.pixo_idct_planes(zz.data_ptr(), zz.shape[0], desc.data_ptr(), desc.shape[0],
+                                         out.data_ptr(), stream),
+            card, n=zz.shape[0], out_bytes=out.numel())
+        if key == "d1":
+            k_ms["idct_planes"] = t
+            nat = torch.from_numpy(np.random.default_rng(6).integers(
+                -1024, 1024, (n_idct, 8, 8)).astype(np.int32)).to(dev)
+            px = torch.empty(nat.shape, dtype=torch.uint8, device=dev)
+            k_ms["idct8x8_int"] = time_kernel(
+                "idct8x8_int", f"{n_idct} blocks", lambda: kernels.idct8x8_int(nat),
+                lambda: idct_plain(nat),
+                lambda: lib.pixo_idct8x8_int(nat.data_ptr(), px.data_ptr(), n_idct, stream),
+                card, n=n_idct)
 
         def host_tier(data):  # the reference's CPU tier: fused for baseline files
             return host_decode(data, fused=not jd._parse(data).progressive)
@@ -898,6 +1087,213 @@ def time_decode(dev, cases, card: str) -> dict:
     return k_ms
 
 
+def main_path_launchers(kernels, grad_dev, lum, chrom):
+    """For ``coeffs`` and ``compact`` (cap 8) on the gradient batch: (the
+    wrapper call, the launch alone). The launch alone calls the C function
+    with its outputs and tables made beforehand, so it times what the card
+    and the CUDA runtime do, without the wrapper's checks and allocations."""
+    import torch
+
+    b, h, w, c = grad_dev.shape
+    lib = kernels.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    lum32, chrom32 = kernels._table(lum), kernels._table(chrom)
+    zz = kernels.coeffs(grad_dev, lum, chrom, "420")
+    n = zz.shape[1]
+    dev = grad_dev.device
+    # laid out as the wrapper lays them out (total and maxcount side by
+    # side); written here so that an earlier checkout is timed alike
+    outs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
+        ((b, n), torch.int16), ((b, n), torch.uint8), ((b, n, 8), torch.uint8),
+        ((b, n, 8), torch.int16))]
+    outs += torch.empty((2, b), dtype=torch.int32, device=dev).unbind(0)
+    zz_out = torch.empty_like(zz)
+    ptrs = [t.data_ptr() for t in outs]
+    mode420 = 2
+
+    def coeffs_alone():
+        return lib.pixo_coeffs(grad_dev.data_ptr(), b, h, w, c, mode420, lum32.ctypes.data,
+                               chrom32.ctypes.data, zz_out.data_ptr(), stream)
+
+    def compact_alone():
+        return lib.pixo_compact(zz.data_ptr(), b, n, 8, *ptrs, stream)
+
+    if coeffs_alone() or compact_alone():
+        raise Failed("a launch-alone call returned an error")
+    torch.cuda.synchronize()
+    return zz, {
+        "coeffs": (lambda: kernels.coeffs(grad_dev, lum, chrom, "420"), coeffs_alone),
+        "compact": (lambda: kernels.compact_padded(zz, 8), compact_alone),
+    }
+
+
+def measure_tree(root: str) -> dict:
+    """The same-call comparison's numbers for the checkout at ``root`` (this
+    slice or an earlier one): for ``coeffs`` and ``compact`` at 16x512x512
+    q85 4:2:0, the profiler's device time, the launch alone and the wrapper
+    call; the JPEG device stage and the end-to-end stages of phase 4 (JPEG
+    encode, PNG (a) and (b), decode (d1) and (d3)). Every kernel result is
+    first held against its plain version."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from pixo_tpu_torch import (
+        JpegOptions,
+        Subsampling,
+        encode_jpeg_batch_sharded,
+        encode_png_batch_sharded,
+        native,
+    )
+    from pixo_tpu_torch.decode import decode_jpeg_batch
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.sparse_pack import sparsify_blocks_padded_batch
+    from pixo_tpu_torch.parallel.pipeline import jpeg_coeffs_sharded
+
+    if not kernels.__file__.startswith(os.path.abspath(root)):
+        raise Failed(f"pixo_tpu_torch came from {kernels.__file__}, not from {root}")
+    dev = torch.device("cuda")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:
+        for built in [ex.submit(kernels.load), ex.submit(native.load)]:
+            built.result()
+    for line in kernels.build_log.splitlines():
+        if any(k in line for k in ("registers", "spill", "entry function")):
+            print(f"ptxas [{root}]: {line.strip()}")
+    grad = gradient_batch(BATCH, SIZE)
+    quant = QuantizationTables(QUALITY)
+    lum, chrom = quant.luminance_table, quant.chrominance_table
+    grad_dev = torch.from_numpy(grad).to(dev)
+    zz, launchers = main_path_launchers(kernels, grad_dev, lum, chrom)
+    if not torch.equal(zz, kernels.coeffs_plain(grad_dev, lum, chrom, "420")):
+        raise Failed(f"coeffs of {root} differs from its plain version")
+    for g, r in zip(kernels.compact_padded(zz, 8), sparsify_blocks_padded_batch(zz, 8)):
+        if not torch.equal(g, r):
+            raise Failed(f"compact of {root} differs from its plain version")
+    res = {"tree": root, "kernels": {}, "stages": {}}
+    for name, (call, alone) in launchers.items():
+        res["kernels"][name] = {
+            "device_ms": profiler_ms(call, f"{name}_kernel"),
+            "launch_ms": event_ms(alone),
+            "call_ms": event_ms(call),
+        }
+    opts = JpegOptions(width=SIZE, height=SIZE, quality=QUALITY, subsampling=Subsampling.S420)
+    corpus = corpus_batch()
+    stages = res["stages"]
+    stages["device_kernels"] = wall_ms(
+        lambda: kernels.compact_padded(jpeg_coeffs_sharded(grad_dev, opts, device=dev), 8))
+    stages["end_to_end"] = wall_ms(lambda: encode_jpeg_batch_sharded(grad, opts, device=dev))
+    for key, (_, popts, imgs) in png_cases(corpus, grad).items():
+        stages[f"png_end_to_end ({key})"] = wall_ms(
+            lambda: encode_png_batch_sharded(imgs, popts, device=dev))
+    cases = decode_cases(dev, grad, corpus)
+    for key in ("d1", "d3"):
+        files = cases[key][1]
+        stages[f"decode_end_to_end ({key})"] = wall_ms(lambda: decode_jpeg_batch(files, device=dev))
+    return res
+
+
+def same_call_comparison(roots) -> int:
+    """Runs ``measure_tree`` for each of ``roots`` in turn, each in a process
+    of its own (e.g. parent, change, change, parent), and prints each run's
+    numbers side by side. Exit code 0 when every run passed."""
+    runs = []
+    for root in roots:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--measure", root],
+                              capture_output=True, text=True, timeout=900)
+        sys.stdout.write(proc.stdout)
+        sys.stderr.write(proc.stderr[-4000:])
+        if proc.returncode:
+            print(f"compare: the run of {root} failed ({proc.returncode})", file=sys.stderr)
+            return 1
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
+    print("compare, in run order: " + ", ".join(r["tree"] for r in runs))
+    for name in runs[0]["kernels"]:
+        for metric in runs[0]["kernels"][name]:
+            print(f"compare kernel {name} {metric}: "
+                  + ", ".join(fmt(r["kernels"][name][metric]) for r in runs) + " ms")
+    for stage in runs[0]["stages"]:
+        print(f"compare stage {stage}: " + ", ".join(fmt(r["stages"][stage]) for r in runs) + " ms")
+    return 0
+
+
+# Parts of csrc/coeffs.cu that ``coeffs_parts`` takes out, one at a time and
+# all together: (name, [(source text, replacement)]). A part's time is what
+# the kernel saves without it; the results are wrong, only timed.
+COEFF_PARTS = {
+    "division": [("__fdiv_rn(v[k], tq[k])", "__fmul_rn(v[k], tq[k])")],
+    "quantizer": [("roundf(__fdiv_rn(v[k], tq[k]))", "v[k]")],
+    "dct": [("    aan_1d<1>(v);\n", "\n")],
+    "colour conversion": [("        const Ycc a = ycc(s + xa), b = ycc(s + xb);",
+                           "        const Ycc a = {xa, xa, xa}, b = {xb, xb, xb};")],
+    "staging copies": [("        cp_async16(dst, reinterpret_cast<const void*>(g));", "        ;")],
+}
+COEFF_PARTS["all of them"] = [r for k in ("quantizer", "dct", "colour conversion", "staging copies")
+                              for r in COEFF_PARTS[k]]
+
+
+def coeffs_parts(card: str) -> int:
+    """Where the coefficient kernel's time goes: builds csrc/coeffs.cu as it
+    is and with each of ``COEFF_PARTS`` taken out, all at once, and times
+    each at 16x512x512 q85 4:2:0 (CUDA events over 50 launches of the C
+    function, median of 5), the full build also held to the plain version."""
+    import ctypes
+
+    import torch
+
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
+
+    src = open(os.path.join(kernels.CSRC, "coeffs.cu")).read()
+    variants = {"as it is": src}
+    for name, edits in COEFF_PARTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise Failed(f"coeffs parts: {name!r} no longer matches csrc/coeffs.cu")
+            text = text.replace(old, new)
+        variants[name] = text
+    os.makedirs(BUILD_DIR, exist_ok=True)
+
+    def build(i):
+        key, text = list(variants.items())[i]
+        path = os.path.join(BUILD_DIR, f"coeffs_part_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        nvcc = kernels._nvcc()
+        return key, build_shared_library(f"coeffs_part_{i}", [nvcc, *kernels.NVCC_FLAGS],
+                                         [path, os.path.join(kernels.CSRC, "aan.cuh")], timeout=900,
+                                         link=[nvcc, *kernels._ARCH, "-shared"]).path
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants)) as ex:
+        libs = dict(ex.map(build, range(len(variants))))
+    dev = torch.device("cuda")
+    quant = QuantizationTables(QUALITY)
+    lum, chrom = kernels._table(quant.luminance_table), kernels._table(quant.chrominance_table)
+    grad = torch.from_numpy(gradient_batch(BATCH, SIZE)).to(dev)
+    ref = kernels.coeffs_plain(grad, lum, chrom, "420")
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for key, path in libs.items():
+        lib = ctypes.CDLL(path)
+        lib.pixo_coeffs.argtypes = [ctypes.c_void_p, *[ctypes.c_int64] * 3, *[ctypes.c_int32] * 2,
+                                    *[ctypes.c_void_p] * 4]
+        out = torch.empty_like(ref)
+        args = (grad.data_ptr(), BATCH, SIZE, SIZE, 3, 2, lum.ctypes.data, chrom.ctypes.data,
+                out.data_ptr(), stream)
+        if lib.pixo_coeffs(*args):
+            raise Failed(f"coeffs parts: the launch without {key!r} failed")
+        times[key] = event_ms(lambda: lib.pixo_coeffs(*args), calls=50)
+        if key == "as it is" and not torch.equal(out, ref):
+            raise Failed("coeffs parts: the kernel as it is differs from its plain version")
+    full = times.pop("as it is")
+    print(f"coeffs parts 16x512x512 q85 4:2:0: as it is {full * 1e3:.1f} us; without "
+          + "; ".join(f"{k} {t * 1e3:.1f} us (saves {(full - t) * 1e3:.1f})" for k, t in times.items())
+          + f" [{card}]")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -905,6 +1301,18 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available; this check runs only on the card",
               file=sys.stderr)
         return 1
+    sys.stdout.reconfigure(line_buffering=True)
+    if sys.argv[1:2] == ["--measure"]:
+        print(json.dumps(measure_tree(sys.argv[2])))
+        return 0
+    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"]):
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                              capture_output=True, text=True, timeout=60).stdout.strip()
+        print(card)
+        if sys.argv[1] == "--compare":
+            return same_call_comparison(sys.argv[2:])
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return coeffs_parts(card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 
@@ -929,7 +1337,7 @@ def main() -> int:
     print(f"build: cuda kernels {kernels.build_seconds:.1f} s, host library "
           f"{native.build_seconds:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("registers", "spill", "entry function")):
             print(f"ptxas: {line.strip()}")
 
     grad = gradient_batch(BATCH, SIZE)
@@ -952,10 +1360,12 @@ def main() -> int:
         return 1
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
-    k_ms.update(time_decode(dev, cases, card))
+    k_ms.update(time_decode(dev, cases, card, 100_000))
 
-    # filter_bank and idct8x8_int (the TPU kernels' own contracts) are on no
-    # main path: their checks and times have lines of their own above
+    # dct8x8_aan, filter_bank and idct8x8_int (the TPU kernels' own
+    # contracts) are on no main path: their checks and times have lines of
+    # their own above. Each path's run in phase 3 is one call of its entry
+    # point, so its launches are the launches per call.
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
@@ -963,8 +1373,9 @@ def main() -> int:
                "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-         "launches": launches[name], "max_abs_err": errs[name],
-         "ms": k_ms[name][0], "plain_ms": k_ms[name][1]}
+         "launches": launches[name], "launches_per_call": launches[name],
+         "max_abs_err": errs[name], **{k: k_ms[name][k] for k in (
+             "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")}}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

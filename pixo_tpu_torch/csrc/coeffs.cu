@@ -8,22 +8,48 @@
 // [B, H, W, C] uint8 pixels and writes [B, nblocks, 64] int16 zigzag blocks
 // in scan order, the layout the host packer and the compaction kernel read.
 //
-// What bounds it on the card: memory. Per pixel it moves about 3 bytes in
-// (1 for gray) and 2 x 64 / 64 = 2 bytes per coefficient out, against some
-// 20 float operations per coefficient: far below the H100's
-// operations-per-byte balance. Design: one thread per 8x8 output block,
-// working in registers (the block, the butterfly, the quantizer), with the
-// pixel reads left to the L1/L2 caches: threads of one MCU read the same
-// source rows. The quantization tables travel by value in the kernel's
-// parameters, so a launch needs no table copy to the device. Each thread
-// writes its 128-byte zigzag row with eight 16-byte stores.
+// What bounds it on the card: memory, in principle. Per pixel it moves C
+// bytes in and 2 x 64 / 64 = 2 bytes per coefficient out, against some 14
+// float operations per coefficient: the byte bound is 3 to 4 times the
+// operation bound. In practice the instructions bound it: the IEEE division
+// of the quantizer (about 10 instructions with its range check, kept
+// because a reciprocal multiply changes the bits), the rounding, the DCT's
+// explicitly rounded operations and the shared-memory traffic come to
+// several dozen instructions per coefficient, so the design spends as few
+// as it can:
+//
+// - a persistent thread block (CTA) per resident slot walks over tiles; a
+//   tile is one image's run of MCUs inside one MCU row, 128 pixels wide and
+//   one MCU high (8 or 16 rows); while the CTA works on one tile, its next
+//   tile's rows are already on their way into shared memory (cp.async, two
+//   buffers);
+// - a warp copies a row with 16-byte cp.async for every aligned 16-byte
+//   granule inside the row's bytes and single bytes for the granules at the
+//   row's two ends, so any pitch W*C and any image offset work; rows and
+//   columns past the image edge are clamped (repeat the last row and
+//   column) when the pixels are read back;
+// - every pixel is converted to Y, Cb and Cr once: luma into a uint8 plane,
+//   chroma into uint8 planes (4:4:4) or, at 4:2:0 and 4:2:2, straight into
+//   the integer sum of each chroma sample's pixels: the plain version's f32
+//   sums ((a + b) + c) + d of u8 values are exact, so the integer sum
+//   converted once is the same float, then * 0.25 (or 0.5) - 128 as before;
+// - eight lanes work on one 8x8 block: lane j loads its row with one 8- or
+//   16-byte shared load, runs the row pass, the block goes through shared
+//   memory, and lane j runs the column pass on column j, with aan_1d's exact
+//   operation sequence; the tile's blocks are ordered so that the four
+//   blocks of a warp are all luma or all of one chroma component, so no
+//   warp runs both load paths;
+// - each lane keeps its eight divisors and zigzag destinations in
+//   registers, quantizes its column and writes it in zigzag order into the
+//   tile's output in shared memory; a run of MCUs in one MCU row is one
+//   contiguous range of scan-order blocks, so the tile leaves with
+//   coalesced 16-byte stores.
 //
 // The second entry point, pixo_dct8x8_aan, is the standalone [N, 8, 8] f32
 // DCT: the direct counterpart of dct8x8_aan_pallas, sharing the butterfly.
 
 #include <cstdint>
 #include <cstring>
-#include <utility>
 
 #include <cuda_runtime.h>
 
@@ -38,153 +64,307 @@ struct QTables {
 
 enum Mode { kGray = 0, k444 = 1, k420 = 2, k422 = 3 };
 
-struct Image {
-  const uint8_t* px;  // [h, w, c] of one image
-  int64_t h, w;
-  int c;
+// The zigzag position of each natural-order index.
+__constant__ uint8_t kZigzagPos[64] = {
+    0,  1,  5,  6,  14, 15, 27, 28, 2,  4,  7,  13, 16, 26, 29, 42, 3,  8,  12, 17, 25, 30,
+    41, 43, 9,  11, 18, 24, 31, 40, 44, 53, 10, 19, 23, 32, 39, 45, 52, 54, 20, 22, 33, 38,
+    46, 51, 55, 60, 21, 34, 37, 47, 50, 56, 59, 61, 35, 36, 48, 49, 57, 58, 62, 63};
 
-  __device__ __forceinline__ const uint8_t* at(int64_t y, int64_t x) const {
-    y = y < h ? y : h - 1;  // clamp-pad: repeat the last row and column
-    x = x < w ? x : w - 1;
-    return px + (y * w + x) * c;
+constexpr int kTileW = 128;  // pixels a tile spans
+constexpr int kPlanePitch = kTileW + 8;  // bytes a uint8 plane row takes: 8-byte rows
+constexpr int kSumPitch = kTileW / 2 + 8;  // uint16 entries a chroma-sum row takes: 16-byte rows
+constexpr int kBlockPitch = 72;  // floats an 8x8 block takes: rows of 9, no bank conflicts
+constexpr int kOutPitch = 72;  // int16 an output block takes: its zigzag stores spread over the banks
+
+// The tile of each mode: MCU size, MCUs a tile, blocks an MCU, and its
+// chroma planes: full uint8 planes (4:4:4), or the integer sums of each
+// chroma sample's 2x2 (4:2:0) or 1x2 (4:2:2) pixels as uint16.
+template <int MODE>
+struct Tile {
+  static constexpr int kMcuW = (MODE == k420 || MODE == k422) ? 16 : 8;
+  static constexpr int kRows = MODE == k420 ? 16 : 8;
+  static constexpr int kMcus = kTileW / kMcuW;
+  static constexpr int kBpm = MODE == kGray ? 1 : (MODE == k444 ? 3 : (MODE == k420 ? 6 : 4));
+  static constexpr int kBlocks = kMcus * kBpm;
+  static constexpr int kThreads = 8 * kBlocks;
+  static constexpr int kLumaSlots = MODE == kGray ? kBlocks : (MODE == k444 ? kMcus : kMcus * (kBpm - 2));
+  // per chroma component; gray has none (1 keeps the dead branch's division defined)
+  static constexpr int kChromaSlots = MODE == kGray ? 1 : (kBlocks - kLumaSlots) / 2;
+  static constexpr int kChromaBytes =
+      MODE == kGray ? 0 : (MODE == k444 ? kRows * kPlanePitch : 8 * kSumPitch * 2);
+};
+
+// Byte offsets in the dynamic shared memory: two buffers of staged raw rows
+// and their row offsets, the blocks between the two DCT passes, the tile's
+// output, the luma plane and the two chroma planes.
+__host__ __device__ inline int raw_pitch(int c) { return kTileW * c + 32; }
+
+template <int MODE>
+struct Smem {
+  using T = Tile<MODE>;
+  int raw, fblk, otile, luma, chroma, rowoff, total;
+  __host__ __device__ explicit Smem(int c) {
+    raw = 0;
+    fblk = raw + 2 * T::kRows * raw_pitch(c);
+    otile = fblk + T::kBlocks * kBlockPitch * 4;
+    luma = otile + T::kBlocks * kOutPitch * 2;
+    chroma = luma + T::kRows * kPlanePitch;
+    rowoff = chroma + 2 * T::kChromaBytes;
+    total = rowoff + 2 * T::kRows * 4;
   }
 };
 
 // Fixed-point BT.601 (pixo src/color.rs:60-77): arithmetic shift, clamp.
 __device__ __forceinline__ int clamp255(int v) { return v < 0 ? 0 : (v > 255 ? 255 : v); }
-__device__ __forceinline__ int luma(const uint8_t* p) {
-  return clamp255((77 * p[0] + 150 * p[1] + 29 * p[2] + 128) >> 8);
-}
-__device__ __forceinline__ int chroma(const uint8_t* p, int which) {  // 0 = Cb, 1 = Cr
-  const int r = p[0], g = p[1], b = p[2];
-  const int v = which == 0 ? ((-43 * r - 85 * g + 128 * b + 128) >> 8)
-                           : ((128 * r - 107 * g - 21 * b + 128) >> 8);
-  return clamp255(v + 128);
-}
 
-__device__ __forceinline__ float shifted(int v) { return __fsub_rn(static_cast<float>(v), 128.0f); }
+struct Ycc {
+  int y, cb, cr;
+};
 
-// 8x8 block of level-shifted samples whose top-left pixel is (y0, x0);
-// comp -1 = the raw first channel (gray), 0 = Y, 1 = Cb, 2 = Cr.
-__device__ __forceinline__ void load_full(const Image& im, int64_t y0, int64_t x0, int comp,
-                                          float* x) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const uint8_t* p = im.at(y0 + r, x0 + c);
-      const int v = comp < 0 ? p[0] : (comp == 0 ? luma(p) : chroma(p, comp - 1));
-      x[8 * r + c] = shifted(v);
-    }
-  }
+__device__ __forceinline__ Ycc ycc(const uint8_t* s) {
+  const int r = s[0], g = s[1], b = s[2];
+  return {clamp255((77 * r + 150 * g + 29 * b + 128) >> 8),
+          clamp255(((-43 * r - 85 * g + 128 * b + 128) >> 8) + 128),
+          clamp255(((128 * r - 107 * g - 21 * b + 128) >> 8) + 128)};
 }
 
-// 4:2:0 chroma block: each sample is the f32 mean of a 2x2 pixel quad of the
-// u8 chroma plane, (((a + b) + c) + d) * 0.25 - 128 in that order.
-__device__ __forceinline__ void load_420_chroma(const Image& im, int64_t y0, int64_t x0,
-                                                int which, float* x) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int64_t y = y0 + 2 * r, xx = x0 + 2 * c;
-      const float a = static_cast<float>(chroma(im.at(y, xx), which));
-      const float b = static_cast<float>(chroma(im.at(y, xx + 1), which));
-      const float cc = static_cast<float>(chroma(im.at(y + 1, xx), which));
-      const float d = static_cast<float>(chroma(im.at(y + 1, xx + 1), which));
-      const float s = __fadd_rn(__fadd_rn(__fadd_rn(a, b), cc), d);
-      x[8 * r + c] = __fsub_rn(__fmul_rn(s, 0.25f), 128.0f);
-    }
-  }
+// Byte k of w, level-shifted, as the plain version computes it: u8 -> f32 - 128.
+__device__ __forceinline__ float shifted_byte(uint32_t w, int k) {
+  return __fsub_rn(static_cast<float>((w >> (8 * k)) & 0xFFu), 128.0f);
 }
 
-// 4:2:2 chroma block: horizontal pair mean, (a + b) * 0.5 - 128.
-__device__ __forceinline__ void load_422_chroma(const Image& im, int64_t y0, int64_t x0,
-                                                int which, float* x) {
-#pragma unroll
-  for (int r = 0; r < 8; ++r) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float a = static_cast<float>(chroma(im.at(y0 + r, x0 + 2 * c), which));
-      const float b = static_cast<float>(chroma(im.at(y0 + r, x0 + 2 * c + 1), which));
-      x[8 * r + c] = __fsub_rn(__fmul_rn(__fadd_rn(a, b), 0.5f), 128.0f);
-    }
-  }
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
 
-__device__ __forceinline__ uint32_t pack2(int16_t lo, int16_t hi) {
-  return static_cast<uint32_t>(static_cast<uint16_t>(lo)) |
-         (static_cast<uint32_t>(static_cast<uint16_t>(hi)) << 16);
-}
+// Where tile t lies: tiles run over images, then MCU rows, then runs of MCUs.
+struct TilePos {
+  int64_t img, my, mx0;
+  int n_mcus;
+};
 
-// Writes q (natural order) as one 64-entry zigzag row; Z... is the zigzag
-// order, so every register index below is a compile-time constant.
-template <int... Z>
-__device__ __forceinline__ void store_zigzag(const int16_t* q, int16_t* dst,
-                                             std::integer_sequence<int, Z...>) {
-  const int16_t zz[64] = {q[Z]...};
-  int4* out = reinterpret_cast<int4*>(dst);
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int16_t* s = zz + 8 * k;
-    out[k] = make_int4(static_cast<int>(pack2(s[0], s[1])), static_cast<int>(pack2(s[2], s[3])),
-                       static_cast<int>(pack2(s[4], s[5])), static_cast<int>(pack2(s[6], s[7])));
-  }
-}
-
-using Zigzag = std::integer_sequence<
-    int, 0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34,
-    27, 20, 13, 6, 7, 14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63>;
-
+// Tile counts fit in 31 bits (the launch checks), so the divisions are
+// 32-bit ones: a 64-bit division is a subroutine of some 70 instructions.
 template <int MODE>
-__global__ void __launch_bounds__(128) coeffs_kernel(const uint8_t* __restrict__ imgs,
-                                                     int64_t batch, int64_t h, int64_t w, int c,
-                                                     int64_t n_mcu_x, int64_t nblocks, QTables qt,
-                                                     int16_t* __restrict__ out) {
-  constexpr int kBpm = MODE == kGray ? 1 : (MODE == k444 ? 3 : (MODE == k420 ? 6 : 4));
-  const int64_t gid = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (gid >= batch * nblocks) return;
-  const int64_t img_idx = gid / nblocks;
-  const int64_t k = gid - img_idx * nblocks;
-  const Image im{imgs + img_idx * h * w * c, h, w, c};
-  const int64_t mcu = k / kBpm;
-  const int comp = static_cast<int>(k - mcu * kBpm);
-  const int64_t my = mcu / n_mcu_x, mx = mcu - my * n_mcu_x;
+__device__ __forceinline__ TilePos tile_pos(uint32_t t, int64_t n_mcu_x, uint32_t n_tiles_x,
+                                            uint32_t tiles_per_img) {
+  using T = Tile<MODE>;
+  TilePos p;
+  const uint32_t img = t / tiles_per_img, rem = t - img * tiles_per_img, my = rem / n_tiles_x;
+  p.img = img;
+  p.my = my;
+  p.mx0 = static_cast<int64_t>(rem - my * n_tiles_x) * T::kMcus;
+  p.n_mcus = static_cast<int>(n_mcu_x - p.mx0 < T::kMcus ? n_mcu_x - p.mx0 : T::kMcus);
+  return p;
+}
 
-  float x[64];
-  bool is_chroma = false;
-  if (MODE == kGray) {
-    load_full(im, my * 8, mx * 8, -1, x);
-  } else if (MODE == k444) {
-    load_full(im, my * 8, mx * 8, comp, x);
-    is_chroma = comp > 0;
-  } else if (MODE == k420) {
-    if (comp < 4) {
-      load_full(im, my * 16 + (comp >> 1) * 8, mx * 16 + (comp & 1) * 8, 0, x);
-    } else {
-      load_420_chroma(im, my * 16, mx * 16, comp - 4, x);
-      is_chroma = true;
+// Starts the copy of tile p's pixel rows into raw (their offsets into
+// rowoff), a warp a row. Granule k of a row covers the 16 bytes at the
+// row's first byte rounded down to 16, plus 16 k; it lands at the same
+// offset from raw + r * pitch, so a whole granule is one 16-byte cp.async
+// and only the granules at the row's two ends are copied byte by byte. Rows
+// past the image's last row repeat it.
+template <int MODE>
+__device__ __forceinline__ void stage_tile(const uint8_t* __restrict__ imgs, int64_t h, int64_t w,
+                                           int c, const TilePos& p, uint8_t* raw, int* rowoff) {
+  using T = Tile<MODE>;
+  const int64_t x0 = p.mx0 * T::kMcuW, y0 = p.my * T::kRows;
+  const int64_t xend = x0 + kTileW < w ? x0 + kTileW : w;  // x0 < w always
+  const int nbytes = static_cast<int>((xend - x0) * c);
+  const int rp = raw_pitch(c);
+  const uint8_t* base = imgs + p.img * h * w * c;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < T::kRows; r += T::kThreads / 32) {
+    const int64_t y = y0 + r < h ? y0 + r : h - 1;
+    const uintptr_t first = reinterpret_cast<uintptr_t>(base + (y * w + x0) * c);
+    const uintptr_t last = first + nbytes, g0 = first & ~static_cast<uintptr_t>(15);
+    if (lane == 0) rowoff[r] = static_cast<int>(first & 15);
+    for (int k = lane; g0 + 16 * k < last; k += 32) {
+      const uintptr_t g = g0 + 16 * static_cast<uintptr_t>(k);
+      uint8_t* dst = raw + r * rp + 16 * k;
+      if (g >= first && g + 16 <= last) {
+        cp_async16(dst, reinterpret_cast<const void*>(g));
+      } else {
+        for (int b = 0; b < 16; ++b) {
+          if (g + b >= first && g + b < last) dst[b] = __ldg(reinterpret_cast<const uint8_t*>(g + b));
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// One colour conversion per pixel of the staged tile: the luma plane and
+// the chroma planes (4:4:4), or the chroma sums (4:2:0 over 2x2 pixels,
+// 4:2:2 over 1x2): the plain version's f32 sums of u8 values are exact
+// integers, so an integer sum converted once gives the same float. Columns
+// past the image's last repeat it.
+template <int MODE>
+__device__ __forceinline__ void convert_tile(const uint8_t* raw, const int* rowoff, int rp, int c,
+                                             int last, uint8_t* luma, uint8_t* chroma) {
+  using T = Tile<MODE>;
+  const int tid = threadIdx.x;
+  if (MODE == kGray || MODE == k444) {
+    for (int q = tid; q < T::kRows * kTileW; q += T::kThreads) {
+      const int r = q / kTileW, px = q - r * kTileW;
+      const uint8_t* s = raw + r * rp + rowoff[r] + (px < last ? px : last) * c;
+      uint8_t* d = luma + r * kPlanePitch + px;
+      if (MODE == kGray) {
+        d[0] = s[0];
+      } else {
+        const Ycc v = ycc(s);
+        d[0] = static_cast<uint8_t>(v.y);
+        d[T::kRows * kPlanePitch] = static_cast<uint8_t>(v.cb);
+        d[T::kRows * kPlanePitch + T::kChromaBytes] = static_cast<uint8_t>(v.cr);
+      }
     }
   } else {
-    if (comp < 2) {
-      load_full(im, my * 8, mx * 16 + comp * 8, 0, x);
-    } else {
-      load_422_chroma(im, my * 8, mx * 16, comp - 2, x);
-      is_chroma = true;
+    // a thread takes the 2x2 (4:2:0) or 1x2 (4:2:2) pixels of one chroma sample
+    constexpr int kRowsPer = MODE == k420 ? 2 : 1;
+    uint16_t* cbs = reinterpret_cast<uint16_t*>(chroma);
+    uint16_t* crs = reinterpret_cast<uint16_t*>(chroma + T::kChromaBytes);
+    for (int q = tid; q < 8 * (kTileW / 2); q += T::kThreads) {
+      const int sy = q / (kTileW / 2), sx = q - sy * (kTileW / 2);
+      const int xa = (2 * sx < last ? 2 * sx : last) * c, xb = (2 * sx + 1 < last ? 2 * sx + 1 : last) * c;
+      int cb = 0, cr = 0;
+#pragma unroll
+      for (int dy = 0; dy < kRowsPer; ++dy) {
+        const int r = kRowsPer * sy + dy;
+        const uint8_t* s = raw + r * rp + rowoff[r];
+        const Ycc a = ycc(s + xa), b = ycc(s + xb);
+        *reinterpret_cast<uint16_t*>(luma + r * kPlanePitch + 2 * sx) =
+            static_cast<uint16_t>(a.y | (b.y << 8));
+        cb += a.cb + b.cb;
+        cr += a.cr + b.cr;
+      }
+      cbs[sy * kSumPitch + sx] = static_cast<uint16_t>(cb);
+      crs[sy * kSumPitch + sx] = static_cast<uint16_t>(cr);
     }
   }
+}
 
-  dct8x8_aan(x);
+// A persistent loop over tiles: while a CTA converts and transforms one
+// tile, the copy of its next tile's rows is in flight.
+template <int MODE>
+__global__ void __launch_bounds__(Tile<MODE>::kThreads) coeffs_kernel(
+    const uint8_t* __restrict__ imgs, int64_t h, int64_t w, int c, int64_t n_mcu_x,
+    uint32_t n_tiles_x, uint32_t tiles_per_img, uint32_t n_tiles, int64_t nblocks, QTables qt,
+    int16_t* __restrict__ out) {
+  using T = Tile<MODE>;
+  extern __shared__ int4 smem[];
+  const Smem<MODE> lay(c);
+  uint8_t* const sm = reinterpret_cast<uint8_t*>(smem);
+  const int rp = raw_pitch(c);
+  float* fblk = reinterpret_cast<float*>(sm + lay.fblk);
+  int16_t* otile = reinterpret_cast<int16_t*>(sm + lay.otile);
+  uint8_t* luma = sm + lay.luma;
+  uint8_t* chroma = sm + lay.chroma;
+  int* rowoffs = reinterpret_cast<int*>(sm + lay.rowoff);
 
-  int16_t q[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const float t = is_chroma ? qt.chrom[i] : qt.lum[i];
-    // IEEE division, then roundf: round half away from zero (Rust f32::round)
-    q[i] = static_cast<int16_t>(static_cast<int>(roundf(__fdiv_rn(x[i], t))));
+  // slot -> (MCU in the tile, plane, position in the MCU's scan order,
+  // sample origin): fixed for the whole loop
+  const int tid = threadIdx.x, slot = tid >> 3, j = tid & 7;
+  int mcu, plane, comp, ry = 0, cx;
+  if (slot < T::kLumaSlots) {
+    plane = 0;
+    if (MODE == k420) {
+      mcu = slot >> 2;
+      comp = slot & 3;
+      ry = (comp >> 1) * 8;
+      cx = mcu * 16 + (comp & 1) * 8;
+    } else if (MODE == k422) {
+      mcu = slot >> 1;
+      comp = slot & 1;
+      cx = mcu * 16 + comp * 8;
+    } else {
+      mcu = slot;
+      comp = 0;
+      cx = mcu * 8;
+    }
+  } else {
+    const int s = slot - T::kLumaSlots;
+    plane = 1 + s / T::kChromaSlots;
+    mcu = s - (plane - 1) * T::kChromaSlots;
+    comp = T::kBpm - 3 + plane;
+    cx = mcu * T::kMcuW;
   }
-  store_zigzag(q, out + gid * 64, Zigzag{});
+  // this lane's quantizer divisors and zigzag destinations, in registers
+  float tq[8];
+  int zo[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    tq[k] = plane > 0 ? qt.chrom[8 * k + j] : qt.lum[8 * k + j];
+    zo[k] = (mcu * T::kBpm + comp) * kOutPitch + kZigzagPos[8 * k + j];
+  }
+  // where the lane's row of samples starts
+  const uint8_t* src8 = plane == 0 ? luma + (ry + j) * kPlanePitch + cx
+                                   : chroma + (plane - 1) * T::kChromaBytes + j * kPlanePitch + cx;
+  const uint16_t* src16 = reinterpret_cast<const uint16_t*>(chroma + (plane > 0 ? plane - 1 : 0) *
+                                                                         T::kChromaBytes) +
+                          j * kSumPitch + cx / 2;
+  float* blk = fblk + slot * kBlockPitch;
+
+  int buf = 0;
+  TilePos next = tile_pos<MODE>(blockIdx.x, n_mcu_x, n_tiles_x, tiles_per_img);
+  if (blockIdx.x < n_tiles) stage_tile<MODE>(imgs, h, w, c, next, sm + lay.raw, rowoffs);
+  for (uint32_t t = blockIdx.x; t < n_tiles; t += gridDim.x, buf ^= 1) {
+    const TilePos p = next;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // this tile's rows are in; the last tile's work is done
+    if (t + gridDim.x < n_tiles) {
+      next = tile_pos<MODE>(t + gridDim.x, n_mcu_x, n_tiles_x, tiles_per_img);
+      stage_tile<MODE>(imgs, h, w, c, next, sm + lay.raw + (buf ^ 1) * T::kRows * rp,
+                       rowoffs + (buf ^ 1) * T::kRows);
+    }
+    const int64_t x0 = p.mx0 * T::kMcuW;
+    const int last = static_cast<int>(w - 1 - x0 < kTileW - 1 ? w - 1 - x0 : kTileW - 1);
+    convert_tile<MODE>(sm + lay.raw + buf * T::kRows * rp, rowoffs + buf * T::kRows, rp, c, last,
+                       luma, chroma);
+    __syncthreads();
+
+    // row pass on row j of the block
+    float v[8];
+    if (plane > 0 && (MODE == k420 || MODE == k422)) {
+      // the chroma mean: (sum * 0.25 or 0.5) - 128, as the plain version rounds it
+      constexpr float kMean = MODE == k420 ? 0.25f : 0.5f;
+      const uint4 s = *reinterpret_cast<const uint4*>(src16);
+      const uint32_t words[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float sum = static_cast<float>((words[k >> 1] >> (16 * (k & 1))) & 0xFFFFu);
+        v[k] = __fsub_rn(__fmul_rn(sum, kMean), 128.0f);
+      }
+    } else {
+      const uint2 s = *reinterpret_cast<const uint2*>(src8);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) v[k] = shifted_byte(k < 4 ? s.x : s.y, k & 3);
+    }
+    aan_1d<1>(v);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) blk[9 * j + k] = v[k];
+    __syncwarp();
+
+    // column pass on column j, then quantize and zigzag into the tile
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = blk[9 * k + j];
+    aan_1d<1>(v);
+    if (mcu < p.n_mcus) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        // IEEE division, then roundf: round half away from zero (Rust f32::round)
+        otile[zo[k]] = static_cast<int16_t>(static_cast<int>(roundf(__fdiv_rn(v[k], tq[k]))));
+      }
+    }
+    __syncthreads();
+
+    // the tile's blocks are one contiguous range of the scan order
+    const int64_t first_block = p.img * nblocks + (p.my * n_mcu_x + p.mx0) * T::kBpm;
+    int4* dst = reinterpret_cast<int4*>(out + first_block * 64);
+    const int4* src = reinterpret_cast<const int4*>(otile);
+    for (int k = tid; k < p.n_mcus * T::kBpm * 8; k += T::kThreads)
+      dst[k] = src[(k >> 3) * (kOutPitch / 8) + (k & 7)];
+  }
 }
 
 __global__ void __launch_bounds__(128) dct8x8_aan_kernel(const float* __restrict__ in,
@@ -208,14 +388,53 @@ __global__ void __launch_bounds__(128) dct8x8_aan_kernel(const float* __restrict
 }
 
 constexpr int kThreads = 128;
+constexpr int kMaxChannels = 16;  // a tile's two raw buffers then take at most 65 KB
+constexpr int kMaxDevices = 64;
 
 inline unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
+
+template <int MODE>
+cudaError_t launch_coeffs(const uint8_t* imgs, int64_t batch, int64_t h, int64_t w, int c,
+                          const QTables& qt, int16_t* out, cudaStream_t s) {
+  using T = Tile<MODE>;
+  const int64_t n_mcu_x = (w + T::kMcuW - 1) / T::kMcuW, n_mcu_y = (h + T::kRows - 1) / T::kRows;
+  const int64_t n_tiles_x = (n_mcu_x + T::kMcus - 1) / T::kMcus;
+  const int64_t tiles_per_img = n_tiles_x * n_mcu_y;
+  const int smem = Smem<MODE>(c).total;
+  if (c > kMaxChannels || batch * tiles_per_img > 0x7FFFFFFF) return cudaErrorInvalidValue;
+  // CTAs that fit on the card at once, per device and channel count
+  static int resident[kMaxDevices][kMaxChannels + 1];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (resident[dev][c] == 0) {
+    if (smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(coeffs_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, coeffs_kernel<MODE>, T::kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    resident[dev][c] = sms * per_sm;
+  }
+  const int64_t n_tiles = batch * tiles_per_img;
+  const unsigned grid = static_cast<unsigned>(n_tiles < resident[dev][c] ? n_tiles : resident[dev][c]);
+  coeffs_kernel<MODE><<<grid, T::kThreads, smem, s>>>(
+      imgs, h, w, c, n_mcu_x, static_cast<uint32_t>(n_tiles_x), static_cast<uint32_t>(tiles_per_img),
+      static_cast<uint32_t>(n_tiles), n_mcu_x * n_mcu_y * T::kBpm, qt, out);
+  return cudaGetLastError();
+}
 
 }  // namespace pixo
 
 extern "C" {
 
-// imgs: [batch, h, w, c] uint8 on the device (c = 1 for gray, 3 otherwise);
+// imgs: [batch, h, w, c] uint8 on the device (c = 1 for gray, 3 or more
+// otherwise, at most kMaxChannels = 16);
 // lum/chrom: natural-order [64] f32 in HOST memory (passed by value to the
 // kernel); out: [batch, nblocks, 64] int16 on the device, 16-byte aligned.
 // Returns cudaGetLastError() after the launch.
@@ -223,37 +442,18 @@ int pixo_coeffs(const uint8_t* imgs, int64_t batch, int64_t h, int64_t w, int32_
                 int32_t mode, const float* lum, const float* chrom, int16_t* out,
                 void* stream) {
   using namespace pixo;
+  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
   QTables qt;
   std::memcpy(qt.lum, lum, sizeof(qt.lum));
   std::memcpy(qt.chrom, chrom, sizeof(qt.chrom));
-  int64_t n_mcu_x, n_mcu_y, bpm;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kGray: n_mcu_x = (w + 7) / 8; n_mcu_y = (h + 7) / 8; bpm = 1; break;
-    case k444: n_mcu_x = (w + 7) / 8; n_mcu_y = (h + 7) / 8; bpm = 3; break;
-    case k420: n_mcu_x = (w + 15) / 16; n_mcu_y = (h + 15) / 16; bpm = 6; break;
-    case k422: n_mcu_x = (w + 15) / 16; n_mcu_y = (h + 7) / 8; bpm = 4; break;
+    case kGray: return static_cast<int>(launch_coeffs<kGray>(imgs, batch, h, w, c, qt, out, s));
+    case k444: return static_cast<int>(launch_coeffs<k444>(imgs, batch, h, w, c, qt, out, s));
+    case k420: return static_cast<int>(launch_coeffs<k420>(imgs, batch, h, w, c, qt, out, s));
+    case k422: return static_cast<int>(launch_coeffs<k422>(imgs, batch, h, w, c, qt, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int64_t nblocks = n_mcu_x * n_mcu_y * bpm;
-  const int64_t total = batch * nblocks;
-  if (total <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(total);
-  switch (mode) {
-    case kGray:
-      coeffs_kernel<kGray><<<grid, kThreads, 0, s>>>(imgs, batch, h, w, c, n_mcu_x, nblocks, qt, out);
-      break;
-    case k444:
-      coeffs_kernel<k444><<<grid, kThreads, 0, s>>>(imgs, batch, h, w, c, n_mcu_x, nblocks, qt, out);
-      break;
-    case k420:
-      coeffs_kernel<k420><<<grid, kThreads, 0, s>>>(imgs, batch, h, w, c, n_mcu_x, nblocks, qt, out);
-      break;
-    default:
-      coeffs_kernel<k422><<<grid, kThreads, 0, s>>>(imgs, batch, h, w, c, n_mcu_x, nblocks, qt, out);
-      break;
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 // in/out: [n, 8, 8] f32 on the device, 16-byte aligned.

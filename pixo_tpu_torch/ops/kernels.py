@@ -36,6 +36,7 @@ keeps a count of its kernel launches in its ``launches`` attribute.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import shutil
@@ -70,6 +71,8 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
 # only without contraction); IEEE division stays the default (no fast math).
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", f"-I{CSRC}"]
+
+MAX_CHANNELS = 16  # csrc/coeffs.cu's kMaxChannels: two tiles of raw rows in shared memory
 
 _PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
 
@@ -125,7 +128,16 @@ def _check(lib, rc: int, what: str) -> None:
 
 
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def _device_guard(t: torch.Tensor):
+    """Makes ``t``'s device the current one for a launch; no guard where it
+    already is (the guard's enter and exit are a measurable part of a
+    wrapper's host time)."""
+    idx = t.get_device()
+    return contextlib.nullcontext() if torch._C._cuda_getDevice() == idx else torch.cuda.device(idx)
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -190,10 +202,12 @@ def coeffs(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
         return coeffs_plain(imgs, lum_q, chrom_q, mode)
     if b * h * w == 0:
         raise ValueError("empty batch")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the coefficient kernel takes at most {MAX_CHANNELS} channels, got {c}")
     lib = load()
     lum, chrom = _table(lum_q), _table(chrom_q)
     out = torch.empty((b, num_blocks(h, w, mode), 64), dtype=torch.int16, device=imgs.device)
-    with torch.cuda.device(imgs.device):
+    with _device_guard(imgs):
         rc = lib.pixo_coeffs(
             imgs.data_ptr(), b, h, w, c, MODES[mode],
             lum.ctypes.data, chrom.ctypes.data, out.data_ptr(), _stream(imgs),
@@ -218,7 +232,7 @@ def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:
         raise ValueError("empty batch")
     lib = load()
     out = torch.empty_like(blocks)
-    with torch.cuda.device(blocks.device):
+    with _device_guard(blocks):
         rc = lib.pixo_dct8x8_aan(blocks.data_ptr(), out.data_ptr(), blocks.shape[0], _stream(blocks))
     _check(lib, rc, "dct8x8_aan")
     dct8x8_aan.launches += 1
@@ -226,6 +240,16 @@ def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:
 
 
 dct8x8_aan.launches = 0
+
+
+def _compact_outputs(b: int, n: int, cap: int, device):
+    """``compact_padded``'s six outputs; total and maxcount are the two rows
+    of one [2, B] buffer, so the kernel library zeroes both with one memset."""
+    total, maxcount = torch.empty((2, b), dtype=torch.int32, device=device).unbind(0)
+    return (torch.empty((b, n), dtype=torch.int16, device=device),
+            torch.empty((b, n), dtype=torch.uint8, device=device),
+            torch.empty((b, n, cap), dtype=torch.uint8, device=device),
+            torch.empty((b, n, cap), dtype=torch.int16, device=device), total, maxcount)
 
 
 def compact_padded(zz: torch.Tensor, cap_per_block: int):
@@ -244,14 +268,8 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
     if not (1 <= b <= 65535 and n >= 1):
         raise ValueError(f"unsupported batch shape {tuple(zz.shape)}")
     lib = load()
-    dev = zz.device
-    dc = torch.empty((b, n), dtype=torch.int16, device=dev)
-    counts = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    poss = torch.empty((b, n, cap_per_block), dtype=torch.uint8, device=dev)
-    vals = torch.empty((b, n, cap_per_block), dtype=torch.int16, device=dev)
-    total = torch.empty((b,), dtype=torch.int32, device=dev)
-    maxcount = torch.empty((b,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    dc, counts, poss, vals, total, maxcount = _compact_outputs(b, n, cap_per_block, zz.device)
+    with _device_guard(zz):
         rc = lib.pixo_compact(
             zz.data_ptr(), b, n, cap_per_block, dc.data_ptr(), counts.data_ptr(),
             poss.data_ptr(), vals.data_ptr(), total.data_ptr(), maxcount.data_ptr(), _stream(zz),
@@ -297,7 +315,7 @@ def filter_bank(rows: torch.Tensor, bpp: int):
     lib = load()
     cands = torch.empty((b, 5, h, rb), dtype=torch.uint8, device=rows.device)
     scores = torch.empty((b, h, 5), dtype=torch.int32, device=rows.device)
-    with torch.cuda.device(rows.device):
+    with _device_guard(rows):
         rc = lib.pixo_filter_bank(
             rows.data_ptr(), b, h, rb, bpp, cands.data_ptr(), scores.data_ptr(), _stream(rows)
         )
@@ -326,7 +344,7 @@ def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
     sticky = sticky_fast and mode == MODE_ADAPTIVE_FAST
     lib = load()
     out = torch.empty((b, h, rb + 1), dtype=torch.uint8, device=rows.device)
-    with torch.cuda.device(rows.device):
+    with _device_guard(rows):
         rc = lib.pixo_filter_rows(
             rows.data_ptr(), b, h, rb, bpp, mode, early_stop(mode, rb), int(sticky),
             out.data_ptr(), _stream(rows),
@@ -427,7 +445,7 @@ def _plane_descriptors(coeffs: torch.Tensor, qtables, planes):
 
 def _launch_idct_planes(coeffs: torch.Tensor, desc: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     lib = load()
-    with torch.cuda.device(coeffs.device):
+    with _device_guard(coeffs):
         rc = lib.pixo_idct_planes(coeffs.data_ptr(), coeffs.shape[0], desc.data_ptr(),
                                   desc.shape[0], out.data_ptr(), _stream(coeffs))
     _check(lib, rc, "idct_planes")
@@ -450,7 +468,7 @@ def idct8x8_int(blocks: torch.Tensor) -> torch.Tensor:
         raise ValueError("empty batch")
     lib = load()
     out = torch.empty(blocks.shape, dtype=torch.uint8, device=blocks.device)
-    with torch.cuda.device(blocks.device):
+    with _device_guard(blocks):
         rc = lib.pixo_idct8x8_int(blocks.data_ptr(), out.data_ptr(), blocks.shape[0],
                                   _stream(blocks))
     _check(lib, rc, "idct8x8_int")

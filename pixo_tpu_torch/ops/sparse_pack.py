@@ -10,7 +10,7 @@ its first ``cap`` nonzero (zigzag position, value) pairs, and the native
 
 This plain version uses ``torch.topk`` over a packed key, as the reference
 uses ``lax.top_k``. The CUDA kernel (``ops/kernels.py::compact_padded``)
-scans each block in order instead. The flat layout (``sparsify_blocks``) is
+places each block's nonzeros by a prefix sum over its eight lanes instead. The flat layout (``sparsify_blocks``) is
 not ported.
 """
 

@@ -1,0 +1,112 @@
+"""The kernels' bounds, and the plain versions at the kernels' edge shapes,
+on the CPU.
+
+``chip_smoke.kernel_work`` counts the bytes each kernel must move (each
+input byte read once, each output byte written once); the card's bound is
+those bytes over its memory rate. The counts are held to hand counts at the
+main paths' shapes. The plain versions of the two main-path kernels are held
+bit for bit against the JAX package at the shapes where the tiled kernels
+have their edges: the card tests hold the kernels to these plain versions.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from pixo_tpu.color import ColorType as JaxColorType
+from pixo_tpu.jpeg import tables as jtables
+from pixo_tpu.jpeg.encoder import compute_coefficients_host
+from pixo_tpu.ops import sparse_pack as jsparse
+from pixo_tpu.options import JpegOptions as JaxJpegOptions
+from pixo_tpu.options import Subsampling as JaxSubsampling
+
+from chip_smoke import (
+    EDGE_COUNTS,
+    H100_BYTES_PER_S,
+    coeff_edge_cases,
+    compact_edge_batch,
+    kernel_bound,
+    kernel_work,
+)
+from pixo_tpu_torch.jpeg.tables import QuantizationTables
+from pixo_tpu_torch.ops import kernels
+from pixo_tpu_torch.ops.sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
+
+MODES = ["gray", "444", "420", "422"]
+BLOCKS_420 = 16 * 6 * 32 * 32  # 16 images of 512x512 at 4:2:0: 98,304 blocks
+
+# (kernel, shape, bytes counted by hand, bound in microseconds as PERF.md's
+# table rounds it, where the table gives one)
+HAND_COUNTS = [
+    ("coeffs", dict(b=16, h=512, w=512, c=3, mode="420"), 12_582_912 + BLOCKS_420 * 128, 7.51),
+    ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=8),
+     12_582_912 + 196_608 + 98_304 + 786_432 + 1_572_864, 4.55),
+    ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=16), 12_582_912 + BLOCKS_420 * (3 + 48), None),
+    ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=32), 12_582_912 + BLOCKS_420 * (3 + 96), None),
+    ("filter_rows", dict(b=16, h=512, rb=1536), 12_582_912 + 16 * 512 * 1537, 7.51),
+    ("filter_bank", dict(b=16, h=512, rb=1536), 6 * 12_582_912 + 16 * 512 * 5 * 4, 22.59),
+    ("idct_planes", dict(n=BLOCKS_420, out_bytes=16 * (512 * 512 + 2 * 256 * 256)),
+     12_582_912 + 6_291_456, 5.63),
+    ("dct8x8_aan", dict(n=100_000), 51_200_000, 15.28),
+    ("idct8x8_int", dict(n=100_000), 32_000_000, 9.55),
+]
+
+
+@pytest.mark.parametrize("name,shape,nbytes,us", HAND_COUNTS,
+                         ids=[f"{n}-{s.get('cap', '')}" for n, s, _, _ in HAND_COUNTS])
+def test_kernel_bytes_match_hand_counts(name, shape, nbytes, us):
+    assert kernel_work(name, **shape)[0] == nbytes
+    bound, by = kernel_bound(name, **shape)
+    assert by == "bytes"  # every kernel moves more than it computes
+    assert bound == pytest.approx(nbytes / H100_BYTES_PER_S * 1e3)
+    if us is not None:
+        assert round(bound * 1e3, 2) == us
+
+
+def test_coeffs_operations_under_the_byte_bound():
+    nbytes, ops = kernel_work("coeffs", b=16, h=512, w=512, c=3, mode="420")
+    assert ops == BLOCKS_420 * (16 * 42 + 3 * 64)
+    assert 0 < ops / 67e12 < nbytes / H100_BYTES_PER_S
+
+
+def test_unknown_kernel_has_no_work_model():
+    with pytest.raises(ValueError):
+        kernel_work("resize", n=1)
+
+
+def _jax_options(mode, h, w):
+    opts = JaxJpegOptions(width=w, height=h, quality=85,
+                          subsampling=JaxSubsampling("444" if mode == "gray" else mode))
+    return opts.replace(color_type=JaxColorType.GRAY) if mode == "gray" else opts
+
+
+CASES = coeff_edge_cases(np.random.default_rng(8))
+
+
+@pytest.mark.parametrize("case", range(len(CASES)), ids=[label for label, _ in CASES])
+@pytest.mark.parametrize("mode", MODES)
+def test_plain_coeffs_at_edge_shapes_match_jax_host(mode, case):
+    _, batch = CASES[case]
+    host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
+    qt = QuantizationTables(85)
+    got = kernels.coeffs(torch.from_numpy(host), qt.luminance_table, qt.chrominance_table, mode)
+    assert got.dtype == torch.int16
+    ref_q = jtables.QuantizationTables(85)
+    opts = _jax_options(mode, host.shape[1], host.shape[2])
+    for i in range(len(host)):
+        rgb = host[i] if mode == "gray" else np.ascontiguousarray(host[i, ..., :3])
+        np.testing.assert_array_equal(got[i].numpy(), compute_coefficients_host(rgb, opts, ref_q))
+
+
+@pytest.mark.parametrize("b,n", [(3, 101), (70, 1), (1, 64)])
+@pytest.mark.parametrize("cap", PADDED_CAP_TIERS)
+def test_plain_compaction_at_edge_counts_matches_jax(cap, b, n):
+    zz = compact_edge_batch(np.random.default_rng(9), b, n)
+    counts = (zz[..., 1:] != 0).sum(-1)
+    assert set(counts.ravel()) == set(EDGE_COUNTS)
+    got = sparsify_blocks_padded_batch(torch.from_numpy(zz), cap)
+    ref = jsparse.sparsify_blocks_padded_batch(jnp.asarray(zz), cap_per_block=cap)
+    for g, r in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))

@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import host_decode
+from chip_smoke import coeff_edge_cases, compact_edge_batch, host_decode
 from pixo_tpu_torch import (
     ColorType,
     FilterStrategy,
@@ -26,7 +26,7 @@ from pixo_tpu_torch import (
 )
 from pixo_tpu_torch.decode import decode_jpeg_batch
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
-from pixo_tpu_torch.native import native_png_filter
+from pixo_tpu_torch.native import native_jpeg_coefficients, native_png_filter
 from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, sparse_pack
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +71,51 @@ def test_coeffs_kernel_rgba_input(dev, seeded):
     assert torch.equal(kernels.coeffs(rgba, *args), kernels.coeffs_plain(rgba, *args))
 
 
+EDGE_LABELS = [label for label, _ in coeff_edge_cases(np.random.default_rng(8))]
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_LABELS)), ids=EDGE_LABELS)
+@pytest.mark.parametrize("mode", MODES)
+def test_coeffs_kernel_at_tile_edges(dev, mode, case):
+    """Batch 1, 8x8 and 17x23 images, rows whose W*C is no multiple of 16,
+    widths that end inside a tile, RGBA, a 3220x1812 image: equal to the
+    plain version and, image by image, to the host library."""
+    _, batch = coeff_edge_cases(np.random.default_rng(8))[case]
+    host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
+    qt = QuantizationTables(85)
+    args = (qt.luminance_table, qt.chrominance_table, mode)
+    imgs = torch.from_numpy(host).to(dev)
+    got = kernels.coeffs(imgs, *args)
+    assert torch.equal(got, kernels.coeffs_plain(imgs, *args))
+    for i in range(len(host)):
+        rgb = host[i] if mode == "gray" else np.ascontiguousarray(host[i, ..., :3])
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      native_jpeg_coefficients(rgb, mode, *args[:2]))
+
+
+def test_coeffs_kernel_at_any_image_offset(dev, seeded):
+    """A batch sliced from a larger one: every image's rows start at an odd
+    byte, though the batch itself is 16-byte aligned."""
+    flat = seeded.integers(0, 256, 3 * 21 * 37 * 3 + 16, dtype=np.uint8)
+    imgs = torch.from_numpy(flat).to(dev)[16:].view(3, 21, 37, 3)
+    qt = QuantizationTables(85)
+    for mode in ("444", "420", "422"):
+        args = (qt.luminance_table, qt.chrominance_table, mode)
+        assert torch.equal(kernels.coeffs(imgs, *args), kernels.coeffs_plain(imgs, *args))
+
+
+@pytest.mark.parametrize("b,n", [(3, 101), (70, 1), (1, 64)])
+@pytest.mark.parametrize("cap", sparse_pack.PADDED_CAP_TIERS)
+def test_compact_kernel_edge_counts(dev, cap, b, n):
+    """Blocks with 0, cap, cap + 1 and 63 nonzeros; thread blocks that span
+    several images (n = 1); a second call leaves the first's outputs alone."""
+    zz = torch.from_numpy(compact_edge_batch(np.random.default_rng(9), b, n)).to(dev)
+    first = kernels.compact_padded(zz, cap)
+    kernels.compact_padded(torch.flip(zz, [1]).contiguous(), cap)
+    for got, ref in zip(first, sparse_pack.sparsify_blocks_padded_batch(zz, cap)):
+        assert torch.equal(got, ref)
+
+
 def test_dct_kernel_bit_exact(dev, seeded):
     blocks = torch.from_numpy(seeded.uniform(-128, 127, (20_000, 8, 8)).astype(np.float32))
     got = kernels.dct8x8_aan(blocks.to(dev)).cpu()
@@ -100,6 +145,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
         kernels.compact_padded(misaligned, 8)
     with pytest.raises(ValueError, match="empty"):
         kernels.dct8x8_aan(torch.zeros((0, 8, 8), device=dev))
+    with pytest.raises(ValueError, match="channels"):
+        kernels.coeffs(torch.zeros((1, 8, 8, 17), dtype=torch.uint8, device=dev),
+                       qt.luminance_table, qt.chrominance_table, "420")
 
 
 def test_main_path_launches_both_kernels_and_matches_cpu(dev, seeded):
