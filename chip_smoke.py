@@ -22,14 +22,20 @@ printing its own lines:
    coefficients image by image; the standalone AAN DCT on 100k random
    blocks; the compaction kernel at caps 8, 16 and 32 on those coefficients
    and on blocks with 0, cap, cap + 1 and 63 nonzeros
-   (``compact_edge_batch``); the PNG filter bank and the fused filter kernel for bpp 1,
-   2, 3, 4, 6 and 8 (odd row lengths, one-row images, rows no longer than
-   a pixel, 262,140-byte rows, the corpus batch), the fused kernel in every
-   ported strategy with the sticky rule off and on, also held against the
-   host library's filter image by image; the decode-tail kernel on the
-   coefficients of decode batches (d1) and (d3) and on 100k blocks at the
-   int16 extremes with tables of 255 and 65535 (int32 wraps), and the
-   standalone integer IDCT on the same blocks;
+   (``compact_edge_batch``); the PNG filter bank and the fused filter
+   kernel for every bpp 1 to 8, on rows at an odd byte offset (odd row
+   lengths, one-row images, rows no longer than a pixel, the edge shapes of
+   ``filter_edge_cases``: rows of 1 to 17 bytes, heights around a strip and
+   the sticky limit, tied rows, rows at the strip kernel's shared-memory
+   budget; 262,140-byte rows, which take the long-row kernel; the corpus
+   batch), the fused kernel in every ported strategy with the sticky rule
+   off and on, also held against the host library's filter image by image;
+   the decode-tail kernel on the coefficients of decode batches (d1) and
+   (d3), on the edge layout of ``plane_edge_case`` (three planes in one
+   thread block's range, a plane of one block, gaps, wide pitches) and on
+   100k blocks at the int16 extremes with tables of 255 and 65535 (int32
+   wraps), through both of its entry points, and the standalone integer
+   IDCT on the same blocks;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -76,10 +82,14 @@ Two checkouts compare on one card with
     python3 chip_smoke.py --compare PARENT . . PARENT
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
-its own (the coefficient and compaction kernels three ways, the device
-stage and the end-to-end stages), and prints the numbers side by side.
-``python3 chip_smoke.py --coeffs-parts`` times the coefficient kernel as it
-is and with each of its parts taken out (``coeffs_parts``).
+its own (the coefficient, compaction, filter and decode-tail kernels three
+ways, the device stages and the end-to-end stages), and prints the numbers
+side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
+kernel as it is and with each of its parts taken out (``coeffs_parts``);
+``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
+each strategy (``filter_parts``); ``python3 chip_smoke.py --sass NAME`` counts
+the instructions of the built kernels whose name holds NAME, loop by loop
+(``sass_loops``).
 """
 
 from __future__ import annotations
@@ -546,7 +556,7 @@ def time_kernel(name: str, at: str, call, plain, alone, card: str, **shape) -> d
     ``library_ms`` is None."""
     bound, by = kernel_bound(name, **shape)
     t = {"ms": event_ms(call), "plain_ms": event_ms(plain),
-         "device_ms": profiler_ms(call, f"{name}_kernel"),
+         "device_ms": profiler_ms(call, f"{name}_"),  # filter_rows_strip_kernel, coeffs_kernel, ...
          "launch_ms": event_ms(alone),
          "bound_ms": bound, "bound_by": by, "library_ms": None}
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
@@ -622,6 +632,36 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     return k_ms
 
 
+def filter_edge_cases(rng, bpp: int):
+    """The fused filter kernel's edge shapes for ``bpp``, (label, [B, H, RB]
+    uint8): rows of 1, bpp - 1, bpp, 15, 16 and 17 bytes; heights of 1, of
+    one strip of the strip kernel, of one strip and a row, 32 and 33 (the
+    sticky rule's limit); all-zero and all-255 rows (every score tied); and,
+    for bpp 4, the longest row the strip kernel takes and the shortest the
+    long-row kernel does (``filter_rows_plan``)."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels
+
+    strip = kernels.FILTER_STRIP_ROWS
+    shapes = [(2, 1, 1), (2, strip, 15), (2, strip + 1, 16), (3, 33, 17), (2, 32, bpp),
+              (1, 2 * strip + 3, 40 + bpp)]
+    if bpp > 1:
+        shapes.append((2, 3, bpp - 1))
+    cases = [(f"noise {b}x{h}x{rb}", rng.integers(0, 256, (b, h, rb), dtype=np.uint8))
+             for b, h, rb in shapes]
+    cases += [(f"all {v} 2x{strip + 2}x{3 * bpp + 1}", np.full((2, strip + 2, 3 * bpp + 1), v, np.uint8))
+              for v in (0, 255)]
+    if bpp == 4:
+        h = strip + 1
+        fits = max(rb for rb in range(1, 1 << 17) if kernels.filter_rows_plan(h, rb, False))
+        for rb in (fits, fits + 1):
+            plan = kernels.filter_rows_plan(h, rb, False)
+            cases.append((f"low noise 1x{h}x{rb} ({'strips of ' + str(plan) if plan else 'long rows'})",
+                          rng.integers(0, 9, (1, h, rb), dtype=np.uint8)))
+    return cases
+
+
 def check_png_kernels(dev, corpus) -> dict:
     """Phase 2, PNG: both filter kernels against their plain versions on
     ``dev``, and the fused kernel against the host library's filter image by
@@ -638,22 +678,25 @@ def check_png_kernels(dev, corpus) -> dict:
     errs = {"filter_bank": 0, "filter_rows": 0}
     y, x = np.mgrid[0:16, 0:300]
     ramp = np.broadcast_to(((y + x) % 256).astype(np.uint8), (2, 16, 300))  # tied scores
-    for bpp in (1, 2, 3, 4, 6, 8):
-        cases = [
+    for bpp in range(1, 9):
+        cases = filter_edge_cases(rng, bpp) + [
             ("noise 4x33x1001", rng.integers(0, 256, (4, 33, 1001), dtype=np.uint8)),
             ("low noise 2x40x1001", rng.integers(0, 12, (2, 40, 1001), dtype=np.uint8)),
             ("ramp 2x16x300", np.ascontiguousarray(ramp)),
             ("one row 2x1x77", rng.integers(0, 256, (2, 1, 77), dtype=np.uint8)),
-            (f"RB=bpp 2x5x{bpp}", rng.integers(0, 256, (2, 5, bpp), dtype=np.uint8)),
             (f"RB<=bpp 2x3x{max(bpp // 2, 1)}",
              rng.integers(0, 256, (2, 3, max(bpp // 2, 1)), dtype=np.uint8)),
-            ("long rows 1x3x262140", rng.integers(0, 256, (1, 3, 262140), dtype=np.uint8)),
         ]
+        if bpp in (3, 8):
+            cases.append(("long rows 1x3x262140",
+                          rng.integers(0, 256, (1, 3, 262140), dtype=np.uint8)))
         if bpp == 3:
             cases.append((f"corpus {corpus.shape[0]}x{SIZE}x{SIZE * 3}",
                           corpus.reshape(corpus.shape[0], SIZE, SIZE * 3)))
         for label, host in cases:
-            rows = torch.from_numpy(host).to(dev)
+            # at an odd byte offset of its buffer: the kernels take rows at any
+            flat = torch.empty(host.size + 1, dtype=torch.uint8, device=dev)
+            rows = flat[1:].view(host.shape).copy_(torch.from_numpy(host))
             got, ref = kernels.filter_bank(rows, bpp), kernels.filter_bank_plain(rows, bpp)
             err_bank = max(int((g.int() - r.int()).abs().max()) for g, r in zip(got, ref))
             err_rows, host_bad, n = 0, 0, 0
@@ -742,9 +785,34 @@ def filter_rows_alone(raw, kw):
     b, h, rb = raw.shape
     out = torch.empty((b, h, rb + 1), dtype=torch.uint8, device=raw.device)
     lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    # a checkout from before the strip kernel has no plan and no such argument
+    plan = [kernels.filter_rows_plan(h, rb, bool(sticky))] if hasattr(kernels, "filter_rows_plan") else []
     args = (raw.data_ptr(), b, h, rb, kw["bpp"], mode, png_filters.early_stop(mode, rb), sticky,
-            out.data_ptr(), stream)
+            *plan, out.data_ptr(), stream)
     return lambda: lib.pixo_filter_rows(*args)
+
+
+def png_group(dev, opts, imgs):
+    """Batch ``imgs`` as the PNG path hands it to the filter kernel: (the
+    pixels on the card, the one group's raw rows [B, H, RB], its colour
+    type, the filter's keyword arguments)."""
+    import torch
+
+    from pixo_tpu_torch.parallel.pipeline import _png_route_batch, png_filter_kwargs, png_group_rows
+
+    px = torch.from_numpy(imgs).to(dev).reshape(imgs.shape[0], -1, 3)
+    (((mode, ct), gidx),) = _png_route_batch(px, opts)[0].items()  # one group: pass RGB
+    return px, png_group_rows(px, gidx, mode, ct, opts), ct, png_filter_kwargs(ct, opts)
+
+
+def png_device_stage(px, opts, filter_fn):
+    """The PNG path's device stage on pixels ``px``: routing, each group's
+    rows and ``filter_fn`` on them."""
+    from pixo_tpu_torch.parallel.pipeline import _png_route_batch, png_filter_kwargs, png_group_rows
+
+    groups, _ = _png_route_batch(px, opts)
+    return [filter_fn(png_group_rows(px, g, m, c, opts), **png_filter_kwargs(c, opts))
+            for (m, c), g in groups.items()]
 
 
 def time_png(dev, corpus, grad, card: str) -> dict:
@@ -755,22 +823,14 @@ def time_png(dev, corpus, grad, card: str) -> dict:
 
     from pixo_tpu_torch import encode_png_batch_sharded
     from pixo_tpu_torch.ops import kernels, png_filters
-    from pixo_tpu_torch.parallel.pipeline import (
-        _png_route_batch,
-        png_filter_kwargs,
-        png_frame,
-        png_group_rows,
-    )
+    from pixo_tpu_torch.parallel.pipeline import png_frame
 
     k_ms = {}
     for key, (label, opts, imgs) in png_cases(corpus, grad).items():
         b = imgs.shape[0]
         at = f"({key}) {label} {b}x{SIZE}x{SIZE}"
         mp = b * SIZE * SIZE / 1e6
-        px = torch.from_numpy(imgs).to(dev).reshape(b, -1, 3)
-        (((mode, ct), gidx),) = _png_route_batch(px, opts)[0].items()  # one group: pass RGB
-        raw = png_group_rows(px, gidx, mode, ct, opts)
-        kw = png_filter_kwargs(ct, opts)
+        px, raw, ct, kw = png_group(dev, opts, imgs)
         shape_kw = dict(zip(("b", "h", "rb"), raw.shape))
         times = {"filter_rows": time_kernel(
             "filter_rows", f"{at} {opts.filter_strategy.name}", lambda: kernels.filter_rows(raw, **kw),
@@ -783,15 +843,11 @@ def time_png(dev, corpus, grad, card: str) -> dict:
             times["filter_bank"] = time_kernel(
                 "filter_bank", at, lambda: kernels.filter_bank(raw, 3),
                 lambda: kernels.filter_bank_plain(raw, 3),
-                lambda: lib.pixo_filter_bank(raw.data_ptr(), *raw.shape, 3, cands.data_ptr(),
-                                             scores.data_ptr(), stream),
+                lambda: lib.pixo_filter_bank(raw.data_ptr(), *raw.shape, 3,
+                                             kernels.filter_rows_plan(*raw.shape[1:], False),
+                                             cands.data_ptr(), scores.data_ptr(), stream),
                 card, **shape_kw)
             k_ms = times
-
-        def device(filter_fn):
-            groups, _ = _png_route_batch(px, opts)
-            return [filter_fn(png_group_rows(px, g, m, c, opts), **png_filter_kwargs(c, opts))
-                    for (m, c), g in groups.items()]
 
         filtered_dev = kernels.filter_rows(raw, **kw)
         filtered = filtered_dev.cpu().numpy()
@@ -802,8 +858,9 @@ def time_png(dev, corpus, grad, card: str) -> dict:
 
         stages = {
             "png_h2d": wall_ms(lambda: torch.from_numpy(imgs).to(dev)),
-            "png_device": wall_ms(lambda: device(kernels.filter_rows)),
-            "png_device_plain": wall_ms(lambda: device(png_filters.filter_rows_plain)),
+            "png_device": wall_ms(lambda: png_device_stage(px, opts, kernels.filter_rows)),
+            "png_device_plain": wall_ms(
+                lambda: png_device_stage(px, opts, png_filters.filter_rows_plain)),
             "png_d2h": wall_ms(lambda: filtered_dev.cpu()),
             "png_deflate": wall_ms(deflate),
             "png_end_to_end": wall_ms(lambda: encode_png_batch_sharded(imgs, opts, device=dev)),
@@ -868,6 +925,28 @@ def decode_cases(dev, grad, corpus) -> dict:
     }
 
 
+def plane_edge_case(rng):
+    """(coefficients [333, 64] int16 at the int16 extremes, tables, planes)
+    for the decode-tail kernel's edges: blocks before the first plane, a
+    first thread block (128 coefficient blocks) that spans three planes, a
+    plane of one block, gaps between planes, a plane that crosses into the
+    next thread block, a block count that is no multiple of 128, pitches
+    wider than their planes and gaps in the output, tables of 255 and
+    65535 among random ones."""
+    import numpy as np
+
+    zz = rng.choice(np.array(I16_EXTREMES, np.int16), (333, 64))
+    planes = np.array([[7, 5, 10, 0, 64],          # 50 blocks, pitch 40 + 24
+                       [60, 1, 1, 5120, 8],        # one block, after a gap of 3
+                       [61, 3, 7, 5184, 24],
+                       [100, 8, 4, 6600, 72],      # blocks 100..131: crosses block 128
+                       [140, 9, 21, 8904, 80]],    # 189 blocks, to 328 of 333
+                      np.int64)
+    qtables = rng.integers(1, 256, (5, 64))
+    qtables[1], qtables[3] = 255, 65535
+    return zz, qtables, planes
+
+
 def check_decode_kernels(dev, cases, n_blocks: int) -> dict:
     """Phase 2, decode: idct_planes against its plain version on ``dev`` on
     the coefficients of batches (d1) and (d3) and on ``n_blocks`` random
@@ -888,6 +967,9 @@ def check_decode_kernels(dev, cases, n_blocks: int) -> dict:
         got = kernels.idct_planes(zz, qtables, planes)
         ref = kernels.idct_planes_plain(zz, qtables, planes)
         err = int((got.int() - ref.int()).abs().max())
+        table = kernels.PlaneTable(planes, zz.shape[0], qtables)
+        packed = kernels.idct_planes_table(zz, table, kernels.upload_pinned(table.packed, dev))
+        err = max(err, int((packed.int() - ref.int()).abs().max()))
         errs["idct_planes"] = max(errs["idct_planes"], err)
         cpu_ok = torch.equal(ref.cpu(), kernels.idct_planes(zz.cpu(), qtables, planes)) if cpu_too else True
         _verdict(f"check idct_planes {label}: {zz.shape[0]} blocks, {len(planes)} planes, "
@@ -897,11 +979,13 @@ def check_decode_kernels(dev, cases, n_blocks: int) -> dict:
 
     for key in ("d1", "d3"):
         label, files, _ = cases[key]
-        batch = jd._host_stage(files, 8)
-        held(f"({key}) {label}", torch.from_numpy(batch.coeffs).to(dev), batch.qtables,
-             batch.layout.planes)
+        batch = jd._host_stage(files, 8, pinned=True)
+        held(f"({key}) {label}", batch.to_device(dev)[0], batch.qtables, batch.layout.planes)
 
     rng = np.random.default_rng(6)
+    zz, qtables, planes = plane_edge_case(rng)
+    held("edge planes (three in one thread block, one of a single block, gaps, wide pitches)",
+         torch.from_numpy(zz).to(dev), qtables, planes, cpu_too=True)
     zz = rng.choice(np.array(I16_EXTREMES, np.int16), (n_blocks, 64))
     half, bw = n_blocks // 2, 500
     planes = np.array([[0, bw, half // bw, 0, 8 * bw],
@@ -1004,6 +1088,39 @@ def host_stage_split(files) -> dict:
     }
 
 
+def decode_launchers(dev, files):
+    """For the decode tail on ``files``: the host batch, its coefficients on
+    the card, and ``idct_planes`` three ways: as the decode calls it, the
+    launch alone (the C function, its plane table and output already on the
+    card) and the plain version. A checkout from before the packed plane
+    table is driven as its decode drove it."""
+    import torch
+
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+    from pixo_tpu_torch.ops import kernels
+
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    if hasattr(kernels, "idct_planes_table"):
+        batch = jd._host_stage(files, 8, pinned=True)
+        zz, desc = batch.to_device(dev)
+        table = batch.layout.table
+        out = table.output(dev)
+        call = lambda: kernels.idct_planes_table(zz, table, desc)  # noqa: E731
+        h2d = lambda: batch.to_device(dev)  # noqa: E731
+        host = lambda: jd._host_stage(files, 8, pinned=True)  # noqa: E731
+    else:
+        batch = jd._host_stage(files, 8)
+        zz = torch.from_numpy(batch.coeffs).to(dev)
+        desc, out = kernels._plane_descriptors(zz, batch.qtables, batch.layout.planes)
+        call = lambda: kernels.idct_planes(zz, batch.qtables, batch.layout.planes)  # noqa: E731
+        h2d = lambda: torch.from_numpy(batch.coeffs).to(dev)  # noqa: E731
+        host = lambda: jd._host_stage(files, 8)  # noqa: E731
+    args = (zz.data_ptr(), zz.shape[0], desc.data_ptr(), desc.shape[0], out.data_ptr(), stream)
+    return {"batch": batch, "zz": zz, "out_bytes": out.numel(), "call": call, "h2d": h2d,
+            "host": host, "alone": lambda: lib.pixo_idct_planes(*args),
+            "plain": lambda: kernels.idct_planes_plain(zz, batch.qtables, batch.layout.planes)}
+
+
 def time_decode(dev, cases, card: str, n_idct: int) -> dict:
     """Phase 4, decode: for (d1) and (d3), the stages of the decode and the
     host library's decode of the same batch on 8 threads; the standalone
@@ -1021,21 +1138,20 @@ def time_decode(dev, cases, card: str, n_idct: int) -> dict:
     for key in ("d1", "d3"):
         label, files, _ = cases[key]
         at = f"({key}) {label}"
-        batch = jd._host_stage(files, 8)
+        run = decode_launchers(dev, files)
+        batch, zz = run["batch"], run["zz"]
         mp = sum(s.width * s.height for s in batch.scans) / 1e6
-        zz = torch.from_numpy(batch.coeffs).to(dev)
         args = (zz, batch.qtables, batch.layout.planes)
-        planes = kernels.idct_planes(*args)
+        planes = run["call"]()
         pixels = jd._upsample_colour(planes, batch, False)
-        desc, out = kernels._plane_descriptors(*args)
         lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
         t = time_kernel(
-            "idct_planes", f"{at}, {batch.coeffs.shape[0]} blocks (launch alone: its plane table "
-            "already on the card)", lambda: kernels.idct_planes(*args),
-            lambda: kernels.idct_planes_plain(*args),
-            lambda: lib.pixo_idct_planes(zz.data_ptr(), zz.shape[0], desc.data_ptr(), desc.shape[0],
-                                         out.data_ptr(), stream),
-            card, n=zz.shape[0], out_bytes=out.numel())
+            "idct_planes", f"{at}, {batch.coeffs.shape[0]} blocks (per call: as the decode calls "
+            "it, its plane table packed once a batch and on the card)", run["call"], run["plain"],
+            run["alone"], card, n=zz.shape[0], out_bytes=run["out_bytes"])
+        print(f"kernel idct_planes {at}: per call with the table as numpy arrays (checked, "
+              f"packed and sent up through pinned memory in the call) "
+              f"{event_ms(lambda: kernels.idct_planes(*args)):.4f} ms [{card}]")
         if key == "d1":
             k_ms["idct_planes"] = t
             nat = torch.from_numpy(np.random.default_rng(6).integers(
@@ -1058,13 +1174,12 @@ def time_decode(dev, cases, card: str, n_idct: int) -> dict:
         print(f"decode host stage split {at}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
               + f" (medians over {WARM_RUNS} warm runs) [{card}]")
         stages = {
-            "decode_host_entropy": wall_ms(lambda: jd._host_stage(files, 8)),
+            "decode_host_entropy": wall_ms(run["host"]),
             "decode_host_entropy_1_worker": wall_ms(lambda: jd._host_stage(files, 1)),
-            "decode_h2d": wall_ms(lambda: torch.from_numpy(batch.coeffs).to(dev)),
-            "decode_idct_planes": wall_ms(lambda: kernels.idct_planes(*args)),
+            "decode_h2d": wall_ms(run["h2d"]),
+            "decode_idct_planes": wall_ms(run["call"]),
             "decode_upsample_colour": wall_ms(lambda: jd._upsample_colour(planes, batch, False)),
-            "decode_device": wall_ms(
-                lambda: jd._upsample_colour(kernels.idct_planes(*args), batch, False)),
+            "decode_device": wall_ms(lambda: jd._upsample_colour(run["call"](), batch, False)),
             "decode_device_plain": wall_ms(
                 lambda: jd._upsample_colour(kernels.idct_planes_plain(*args), batch, False)),
             "decode_d2h": wall_ms(lambda: pixels.cpu()),
@@ -1130,8 +1245,10 @@ def main_path_launchers(kernels, grad_dev, lum, chrom):
 def measure_tree(root: str) -> dict:
     """The same-call comparison's numbers for the checkout at ``root`` (this
     slice or an earlier one): for ``coeffs`` and ``compact`` at 16x512x512
-    q85 4:2:0, the profiler's device time, the launch alone and the wrapper
-    call; the JPEG device stage and the end-to-end stages of phase 4 (JPEG
+    q85 4:2:0, ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
+    decode (d1) and (d3), the profiler's device time, the launch alone and
+    the call as the path makes it; the device stages, the decode's host
+    stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
     encode, PNG (a) and (b), decode (d1) and (d3)). Every kernel result is
     first held against its plain version."""
     sys.path.insert(0, os.path.abspath(root))
@@ -1145,8 +1262,9 @@ def measure_tree(root: str) -> dict:
         native,
     )
     from pixo_tpu_torch.decode import decode_jpeg_batch
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
     from pixo_tpu_torch.jpeg.tables import QuantizationTables
-    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops import kernels, png_filters
     from pixo_tpu_torch.ops.sparse_pack import sparsify_blocks_padded_batch
     from pixo_tpu_torch.parallel.pipeline import jpeg_coeffs_sharded
 
@@ -1172,22 +1290,40 @@ def measure_tree(root: str) -> dict:
     res = {"tree": root, "kernels": {}, "stages": {}}
     for name, (call, alone) in launchers.items():
         res["kernels"][name] = {
-            "device_ms": profiler_ms(call, f"{name}_kernel"),
+            "device_ms": profiler_ms(call, f"{name}_"),  # filter_rows_strip_kernel, coeffs_kernel, ...
             "launch_ms": event_ms(alone),
             "call_ms": event_ms(call),
         }
     opts = JpegOptions(width=SIZE, height=SIZE, quality=QUALITY, subsampling=Subsampling.S420)
     corpus = corpus_batch()
     stages = res["stages"]
+
+    def three_ways(name, kernel, call, alone, plain):
+        if not torch.equal(call(), plain()):
+            raise Failed(f"{name} of {root} differs from its plain version")
+        res["kernels"][name] = {"device_ms": profiler_ms(call, kernel), "launch_ms": event_ms(alone),
+                                "call_ms": event_ms(call)}
+
     stages["device_kernels"] = wall_ms(
         lambda: kernels.compact_padded(jpeg_coeffs_sharded(grad_dev, opts, device=dev), 8))
     stages["end_to_end"] = wall_ms(lambda: encode_jpeg_batch_sharded(grad, opts, device=dev))
     for key, (_, popts, imgs) in png_cases(corpus, grad).items():
+        px, raw, _, kw = png_group(dev, popts, imgs)
+        three_ways(f"filter_rows ({key})", "filter_rows_", lambda: kernels.filter_rows(raw, **kw),
+                   filter_rows_alone(raw, kw), lambda: png_filters.filter_rows_plain(raw, **kw))
+        stages[f"png_device ({key})"] = wall_ms(lambda: png_device_stage(px, popts, kernels.filter_rows))
         stages[f"png_end_to_end ({key})"] = wall_ms(
             lambda: encode_png_batch_sharded(imgs, popts, device=dev))
     cases = decode_cases(dev, grad, corpus)
     for key in ("d1", "d3"):
         files = cases[key][1]
+        run = decode_launchers(dev, files)
+        three_ways(f"idct_planes ({key})", "idct_planes_kernel", run["call"], run["alone"],
+                   run["plain"])
+        stages[f"decode_host_stage ({key})"] = wall_ms(run["host"])
+        stages[f"decode_h2d ({key})"] = wall_ms(run["h2d"])
+        stages[f"decode_device ({key})"] = wall_ms(
+            lambda: jd._upsample_colour(run["call"](), run["batch"], False))
         stages[f"decode_end_to_end ({key})"] = wall_ms(lambda: decode_jpeg_batch(files, device=dev))
     return res
 
@@ -1294,6 +1430,79 @@ def coeffs_parts(card: str) -> int:
     return 0
 
 
+def filter_parts(card: str) -> int:
+    """Where the fused filter kernel's time goes: its device time (the
+    profiler's) on the rows of PNG batches (a) and (b) under each strategy.
+    None is the kernel's skeleton (the copy in, a sweep that moves the words,
+    the copy out); a fixed filter adds that filter's arithmetic to the one
+    sweep; the adaptive rules add their scoring sweeps. Each result is first
+    held against the plain version."""
+    import torch
+
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.ops import kernels, png_filters
+
+    dev = torch.device("cuda")
+    grad = gradient_batch(BATCH, SIZE)
+    for key, (label, opts, imgs) in png_cases(corpus_batch(), grad).items():
+        _, raw, _, kw = png_group(dev, opts, imgs)
+        times = []
+        for strategy in FilterStrategy:
+            if strategy == FilterStrategy.BIGRAMS:
+                continue
+            kws = dict(kw, strategy=strategy)
+            if not torch.equal(kernels.filter_rows(raw, **kws),
+                               png_filters.filter_rows_plain(raw, **kws)):
+                raise Failed(f"filter parts: {strategy.name} differs from its plain version")
+            ms = profiler_ms(lambda: kernels.filter_rows(raw, **kws), "filter_rows_")
+            times.append(f"{strategy.name} {ms * 1e3:.1f} us")
+        print(f"filter parts ({key}) {'x'.join(map(str, raw.shape))}, strips of "
+              f"{kernels.filter_rows_plan(*raw.shape[1:], False)}: {'; '.join(times)} [{card}]")
+    return 0
+
+
+def sass_loops(kernel: str) -> int:
+    """The machine code of the kernels whose name holds ``kernel``, from
+    ``cuobjdump -sass`` on the library built from the checkout: each kernel's
+    instruction count and, for every inner loop (a backward branch over 12 to
+    400 instructions), its length and its counts of shared-memory loads and
+    stores and of the byte-SIMD VABSDIFF4 (with ``.ACC``: a score's sum). An
+    instruction-rate floor is these counts times the trips the shapes give."""
+    import re
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.utils.build import BUILD_DIR
+
+    kernels.load()
+    lib = max((os.path.join(BUILD_DIR, f) for f in os.listdir(BUILD_DIR)
+               if f.startswith("libpixo_kernels-") and f.endswith(".so")), key=os.path.getmtime)
+    tool = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    for part in text.split("Function : ")[1:]:
+        name = part.split()[0]
+        if kernel not in name:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2)) for m in
+               re.finditer(r"^\s+/\*([0-9a-f]{4,6})\*/\s+(.*?);", part, re.M)]
+        index = {a: k for k, (a, _) in enumerate(ins)}
+        print(f"sass {name}: {len(ins)} instructions")
+        for k, (a, t) in enumerate(ins):
+            m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
+            target = int(m.group(1), 16) if m else a
+            if target < a and target in index and 12 <= k - index[target] + 1 <= 400:
+                # a predicated instruction starts with its predicate, "@P0 LDS ..."
+                body = [x.split(" ", 1)[-1] if x.startswith("@") else x
+                        for _, x in ins[index[target]: k + 1]]
+                counts = ", ".join(
+                    f"{label} {sum(x.startswith(prefix) for x in body)}" for label, prefix in (
+                        ("LDS", "LDS"), ("STS", "STS"), ("LDG", "LDG"), ("STG", "STG"),
+                        ("VABSDIFF4", "VABSDIFF4.U8 "), ("VABSDIFF4.ACC", "VABSDIFF4.U8.ACC"),
+                        ("SHFL", "SHFL")))
+                print(f"sass   loop at {target:#x}: {len(body)} instructions, {counts}")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1305,14 +1514,17 @@ def main() -> int:
     if sys.argv[1:2] == ["--measure"]:
         print(json.dumps(measure_tree(sys.argv[2])))
         return 0
-    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"]):
+    if sys.argv[1:2] == ["--sass"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        return sass_loops(sys.argv[2])
+    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
         if sys.argv[1] == "--compare":
             return same_call_comparison(sys.argv[2:])
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        return coeffs_parts(card)
+        return coeffs_parts(card) if sys.argv[1] == "--coeffs-parts" else filter_parts(card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 

@@ -13,22 +13,69 @@
 //   type byte: what ops/png_filters.py::filter_image_batch computes, laid out
 //   as PNG rows [B, H, RB+1].
 //
-// What bounds it on the card: bytes. Each output byte costs a few integer
-// operations; filter_rows reads each input byte about three times (its own
-// row twice, and once more as the row above the next one; the second reads
-// come from L1/L2) and writes it once. Design: one thread block per
-// (image, row), rows on grid.x (B*H can exceed gridDim.y's 65,535). The
-// threads stride the row byte by byte, neighbouring threads on neighbouring
-// bytes; the five scores are reduced with warp shuffles and shared memory,
-// and every thread applies the selection rule to the reduced sums. A row
-// never has to fit in shared memory (a row may hold 65,535 x 4 bytes): the
-// second sweep reads it again from global memory. With the sticky
-// adaptive-fast rule (height <= 32) each block computes row 0's scores itself,
-// so no block waits on another. All arithmetic is int32, as on the TPU:
-// every result is exact.
+// What bounds it on the card: bytes by the count (each input byte read once,
+// each output byte written once, a few integer operations a byte), but
+// the instruction rate in fact: a byte-at-a-time kernel spends some 50
+// instructions a byte.
+//
+// Design of pixo_filter_rows, the strip kernel (rows that fit the
+// shared-memory budget; the wrapper picks it by shape alone,
+// ops/kernels.py::filter_rows_plan):
+// - a thread block takes a strip of up to 8 consecutive rows of one image and
+//   the row above the strip. The strip is contiguous in device memory, so it
+//   comes into shared memory as aligned 16-byte cp.async granules, landing at
+//   the same offset modulo 16 as in device memory, with single bytes at the
+//   two ends: any row length and any byte offset. Each input byte is fetched
+//   from device memory once (the row above a strip twice);
+// - a warp a row. A lane works on 32-bit words of four bytes: the row's words
+//   and those of its left, upper and upper-left neighbours are unaligned
+//   reads of shared memory (two aligned words and a funnel shift), the left
+//   edge is a mask on the row's first two words, which, with the row's last
+//   partial word, are taken apart from the loop over whole words. The
+//   filters are per-byte SIMD arithmetic on the word (__vsub4, __vhaddu4 for
+//   Average's floor, __vabsdiffu4); Paeth takes the order form: with pa = |b - c| and
+//   pb = |a - c|, pc = |a + b - 2c| is pa + pb (never the least) unless c lies
+//   between a and b, and there it is |pa - pb|, so every value fits a byte
+//   and the tie order a, b, c holds. The scores are __vsadu4 sums, reduced
+//   over the warp with shuffles: no barrier inside a row;
+// - the rule reads the scores in its own order, so they are taken in two
+//   sweeps of shared memory and the second is skipped where the rule has
+//   stopped (adaptive: None, Sub, Up, then Average, Paeth; adaptive-fast:
+//   Sub, then Up, Paeth);
+// - the chosen filter is applied from shared memory into a staging copy of
+//   the strip's output rows (contiguous in [B, H, RB+1], each type byte in
+//   place), which leaves as aligned 16-byte stores with single bytes at the
+//   two ends. Two block-wide barriers a strip: after the copy in, before the
+//   copy out;
+// - with the sticky adaptive-fast rule (height <= 32) every warp scores row 0
+//   of its image itself (staged beside the strip), so no block waits on
+//   another.
+// Rows above the budget (a row may hold 65,535 x 8 bytes) take the long-row
+// kernel, the first design: one thread block a row, byte by byte from device
+// memory in two sweeps, the scores reduced through shared memory. On the
+// main path's rows of 1,536 bytes it gave each thread six bytes, fetched
+// every byte with four 1-byte loads in each sweep and reached an eighth of
+// the byte bound. pixo_filter_bank has the same two kernels: its strip kernel
+// stages the rows alike and takes all five candidates of a word in one
+// sweep. All arithmetic is integer, as on the TPU: every result is exact.
+//
+// Device times (NVIDIA H100 80GB HBM3, 700 W, one run of both designs):
+// 8x512 rows of 1,536 bytes, adaptive: 0.0168 ms against the long-row
+// design's 0.0300; 16x512 rows, adaptive-fast: 0.0249 against 0.0556. By
+// strategy on the 8x512 rows: None, the skeleton (copy in, one sweep that
+// moves the words, copy out), 5.5 us; Sub 6.1; Paeth 8.5; adaptive 16.9: its
+// two scoring sweeps are half the time, at some 140 instructions a word over
+// the three sweeps, so the instruction rate holds the kernel above its byte
+// bound of 3.8 us. Tried, and no faster: strips of 1, 2, 3, 4 and 6 rows
+// (all within a tenth of strips of 8: the staging is not what holds it).
+// Tried and lost: the masks for the left edge and the last word
+// computed for every word instead of for the edge words alone (18.5 us).
+// Rows are named by offsets into the shared memory, not by pointers: with
+// pointers in a struct the loads compiled to generic LD instead of LDS.
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -178,7 +225,7 @@ __global__ void __launch_bounds__(kFilterThreads) filter_bank_kernel(
   if (threadIdx.x < kFilters) scores[r * kFilters + threadIdx.x] = s[threadIdx.x];
 }
 
-__global__ void __launch_bounds__(kFilterThreads) filter_rows_kernel(
+__global__ void __launch_bounds__(kFilterThreads) filter_rows_long_kernel(
     const uint8_t* __restrict__ rows, int64_t h, int64_t rb, int bpp, int mode, int early,
     int sticky, uint8_t* __restrict__ out) {
   const int64_t r = blockIdx.x;  // image * h + y
@@ -205,40 +252,421 @@ __global__ void __launch_bounds__(kFilterThreads) filter_rows_kernel(
   }
 }
 
+// ---- the strip kernel ----
+
+constexpr int kStripRows = 8;                  // rows a strip, a warp each
+constexpr int kStripMaxSmem = 200 * 1024;      // ops/kernels.py::FILTER_SMEM_BUDGET
+constexpr uint32_t kHigh = 0x80808080u;
+
+// The strip kernel's dynamic shared memory. Rows are named by their byte
+// offset in it, so that every access is known to be a shared-memory one.
+extern __shared__ __align__(16) uint8_t smem[];
+
+// Shared-memory bytes of a region that holds n staged bytes: 16 before them
+// (the left neighbours of a row's first bytes are read, then masked), up to
+// 15 of alignment, and room after them for a whole last word.
+__host__ __device__ inline int64_t region_bytes(int64_t n) { return (n + 63) & ~int64_t(15); }
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+// Copies g[0, n) into the 16-byte aligned region at offset `region` of the
+// shared memory, at the same offset modulo 16 as in device memory, with
+// every thread of the block; returns the offset where g[0] lands. The
+// caller commits and waits for the cp.async group.
+__device__ __forceinline__ int stage_in(int region, const uint8_t* __restrict__ g, int64_t n) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+  uint8_t* dst = smem + region + 16 + mis;
+  const int head = static_cast<int>(min(n, static_cast<int64_t>((16 - mis) & 15)));
+  const int64_t body = (n - head) & ~int64_t(15);
+  const int tail = static_cast<int>(n - head - body);
+  const int tid = threadIdx.x;
+  if (tid < head) dst[tid] = g[tid];
+  for (int64_t i = 16 * int64_t(tid); i < body; i += 16 * int64_t(blockDim.x)) {
+    cp_async16(dst + head + i, g + head + i);
+  }
+  if (tid < tail) dst[head + body + tid] = g[head + body + tid];
+  return region + 16 + mis;
+}
+
+// Copies n bytes from offset `src` of the shared memory, which is the same
+// modulo 16 as g, to g[0, n): aligned 16-byte stores, single bytes at the
+// two ends.
+__device__ __forceinline__ void stage_out(uint8_t* __restrict__ g, int src, int64_t n) {
+  const int mis = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+  const int head = static_cast<int>(min(n, static_cast<int64_t>((16 - mis) & 15)));
+  const int64_t body = (n - head) & ~int64_t(15);
+  const int tail = static_cast<int>(n - head - body);
+  const int tid = threadIdx.x;
+  if (tid < head) g[tid] = smem[src + tid];
+  for (int64_t i = 16 * int64_t(tid); i < body; i += 16 * int64_t(blockDim.x)) {
+    *reinterpret_cast<uint4*>(g + head + i) = *reinterpret_cast<const uint4*>(smem + src + head + i);
+  }
+  if (tid < tail) g[head + body + tid] = smem[src + head + body + tid];
+}
+
+// A stream of unaligned 32-bit words of the shared memory: word k holds the
+// bytes at offsets p + 4k .. p + 4k + 3, read as two aligned words and a
+// funnel shift.
+struct Words {
+  int word;
+  unsigned shift;
+  __device__ __forceinline__ explicit Words(int p) : word(p >> 2), shift(8u * (p & 3)) {}
+  __device__ __forceinline__ uint32_t operator[](int k) const {
+    const uint32_t* w = reinterpret_cast<const uint32_t*>(smem) + word + k;
+    return __funnelshift_r(w[0], w[1], shift);
+  }
+};
+
+// 0xFF in every byte j of word k of a row that has a left neighbour
+// (4k + j >= bpp), and in every byte that lies inside the row (4k + j < rb).
+__device__ __forceinline__ uint32_t left_mask(int k, int bpp) {
+  const int t = bpp - 4 * k;
+  return t <= 0 ? 0xFFFFFFFFu : (t >= 4 ? 0u : 0xFFFFFFFFu << (8 * t));
+}
+__device__ __forceinline__ uint32_t tail_mask(int k, int rb) {
+  const int t = rb - 4 * k;
+  return t >= 4 ? 0xFFFFFFFFu : (1u << (8 * t)) - 1u;
+}
+
+// Four bytes at once: x filtered with filter F from its neighbours, mod 256.
+template <int F>
+__device__ __forceinline__ uint32_t filter_word(uint32_t x, uint32_t a, uint32_t b, uint32_t c) {
+  if (F == 0) return x;
+  if (F == 1) return __vsub4(x, a);
+  if (F == 2) return __vsub4(x, b);
+  if (F == 3) return __vsub4(x, __vhaddu4(a, b));
+  // Paeth. pa = |p - a| = |b - c|, pb = |p - b| = |a - c|; pc = |p - c| is
+  // pa + pb, never below either, unless c lies between a and b, where it is
+  // |pa - pb|. So: a or b by pa <= pb, and c instead where c lies between
+  // and the lesser of pa and pb is above |pa - pb|.
+  const uint32_t pa = __vabsdiffu4(b, c), pb = __vabsdiffu4(a, c), pc = __vabsdiffu4(pa, pb);
+  const uint32_t between = __vcmpgtu4(a, c) ^ __vcmpgtu4(b, c);
+  const uint32_t le = __vcmpleu4(pa, pb);
+  const uint32_t ab = (a & le) | (b & ~le), least = (pa & le) | (pb & ~le);
+  const uint32_t use_c = between & __vcmpgtu4(least, pc);
+  return __vsub4(x, (c & use_c) | (ab & ~use_c));
+}
+
+// sum of |byte as i8| over the word's four bytes, added to acc
+__device__ __forceinline__ int score_word(uint32_t d, int acc) {
+  return static_cast<int>(__vsadu4(d ^ kHigh, kHigh)) + acc;
+}
+
+// One raw row in shared memory and the row above it (PREV false: none, zeros).
+struct RowIn {
+  int cur, prev;  // offsets in the shared memory
+  int rb, bpp;
+};
+
+// Calls step(k, edge) for every word k of a row of rb bytes, the words dealt
+// out to the warp's lanes. edge is std::true_type for the row's first two
+// words, whose bytes may have no left neighbour (bpp <= 8), and for its
+// last word where that is a partial one: only those pay for the masks.
+template <class Step>
+__device__ __forceinline__ void for_row_words(int rb, int lane, Step step) {
+  const int nfull = rb >> 2, nwords = (rb + 3) >> 2;
+  if (lane < 2 && lane < nwords) step(lane, std::true_type{});
+  if (lane == 2 && nfull >= 2 && nwords > nfull) step(nfull, std::true_type{});
+  for (int k = 2 + lane; k < nfull; k += 32) step(k, std::false_type{});
+}
+
+// Loads word k of the row and of the neighbours that the filters in MASK
+// (bit f: filter f) read; the others are 0.
+template <int MASK, bool PREV, bool EDGE>
+__device__ __forceinline__ void load_words(const Words& xs, const Words& as, const Words& bs,
+                                           const Words& cs, int k, int bpp, uint32_t& x,
+                                           uint32_t& a, uint32_t& b, uint32_t& c) {
+  constexpr bool kLeft = (MASK & 0b11010) != 0, kUp = PREV && (MASK & 0b11100) != 0;
+  constexpr bool kUpLeft = PREV && (MASK & 0b10000) != 0;
+  x = xs[k];
+  a = kLeft ? as[k] : 0u;
+  b = kUp ? bs[k] : 0u;
+  c = kUpLeft ? cs[k] : 0u;
+  if (EDGE && (kLeft || kUpLeft)) {
+    const uint32_t m = left_mask(k, bpp);
+    a &= m;
+    c &= m;
+  }
+}
+
+// Adds the row's scores of the filters in MASK to s, summed over the warp
+// (every lane receives the sums).
+template <int MASK, bool PREV>
+__device__ __forceinline__ void score_row(const RowIn& r, int lane, int (&s)[kFilters]) {
+  const Words xs(r.cur), as(r.cur - r.bpp), bs(r.prev), cs(r.prev - r.bpp);
+  int t[kFilters] = {0, 0, 0, 0, 0};
+  for_row_words(r.rb, lane, [&](int k, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    uint32_t x, a, b, c;
+    load_words<MASK, PREV, kEdge>(xs, as, bs, cs, k, r.bpp, x, a, b, c);
+    const uint32_t m = kEdge ? tail_mask(k, r.rb) : 0xFFFFFFFFu;
+    if (MASK & 1) t[0] = score_word(filter_word<0>(x, a, b, c) & m, t[0]);
+    if (MASK & 2) t[1] = score_word(filter_word<1>(x, a, b, c) & m, t[1]);
+    if (MASK & 4) t[2] = score_word(filter_word<2>(x, a, b, c) & m, t[2]);
+    if (MASK & 8) t[3] = score_word(filter_word<3>(x, a, b, c) & m, t[3]);
+    if (MASK & 16) t[4] = score_word(filter_word<4>(x, a, b, c) & m, t[4]);
+  });
+#pragma unroll
+  for (int f = 0; f < kFilters; ++f) {
+    if (MASK >> f & 1) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) t[f] += __shfl_xor_sync(0xFFFFFFFFu, t[f], off);
+      s[f] = t[f];
+    }
+  }
+}
+
+// The filter the selection rule of `mode` (5 adaptive, 6 adaptive-fast)
+// picks for the row: the scores the rule reads first, then, unless it has
+// stopped, the others.
+template <bool PREV>
+__device__ __forceinline__ int choose_filter(const RowIn& r, int mode, int early, int lane) {
+  int s[kFilters] = {INT_MAX, INT_MAX, INT_MAX, INT_MAX, INT_MAX};
+  if (mode == 5) {
+    score_row<0b00111, PREV>(r, lane, s);
+    if (min(s[0], min(s[1], s[2])) > early) score_row<0b11000, PREV>(r, lane, s);
+    return select_adaptive(s, early);
+  }
+  score_row<0b00010, PREV>(r, lane, s);
+  if (s[1] <= early) return 1;
+  score_row<0b10100, PREV>(r, lane, s);
+  return select_adaptive_fast(s, early);
+}
+
+// Filters the row with filter F into the rb bytes at offset `out` of the
+// shared memory (any alignment: byte stores).
+template <int F, bool PREV>
+__device__ __forceinline__ void apply_row(const RowIn& r, int lane, int out) {
+  const Words xs(r.cur), as(r.cur - r.bpp), bs(r.prev), cs(r.prev - r.bpp);
+  for_row_words(r.rb, lane, [&](int k, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    uint32_t x, a, b, c;
+    load_words<1 << F, PREV, kEdge>(xs, as, bs, cs, k, r.bpp, x, a, b, c);
+    const uint32_t d = filter_word<F>(x, a, b, c);
+    uint8_t* o = smem + out + 4 * k;
+    if (!kEdge || 4 * k + 4 <= r.rb) {
+      o[0] = static_cast<uint8_t>(d);
+      o[1] = static_cast<uint8_t>(d >> 8);
+      o[2] = static_cast<uint8_t>(d >> 16);
+      o[3] = static_cast<uint8_t>(d >> 24);
+    } else {
+      for (int j = 0; j < r.rb - 4 * k; ++j) o[j] = static_cast<uint8_t>(d >> (8 * j));
+    }
+  });
+}
+
+template <bool PREV>
+__device__ __forceinline__ void apply_chosen(const RowIn& r, int chosen, int lane, int out) {
+  switch (chosen) {  // uniform over the warp
+    case 0: apply_row<0, PREV>(r, lane, out); break;
+    case 1: apply_row<1, PREV>(r, lane, out); break;
+    case 2: apply_row<2, PREV>(r, lane, out); break;
+    case 3: apply_row<3, PREV>(r, lane, out); break;
+    default: apply_row<4, PREV>(r, lane, out); break;
+  }
+}
+
+// One thread block: rows [y0, y0 + strip) of one image, a warp a row.
+__global__ void __launch_bounds__(32 * kStripRows) filter_rows_strip_kernel(
+    const uint8_t* __restrict__ rows, int h, int rb, int bpp, int mode, int early, int sticky,
+    int strip, int strips, uint8_t* __restrict__ out) {
+  const int64_t img = blockIdx.x / strips;
+  const int y0 = static_cast<int>(blockIdx.x - img * strips) * strip;
+  const int ny = min(strip, h - y0);
+  const int above = y0 > 0 ? 1 : 0;
+  const uint8_t* image = rows + img * h * int64_t(rb);
+
+  int region = 0;
+  // raw is where row y0 - 1 lies (not staged, and not read, for y0 = 0)
+  const int raw = stage_in(region, image + int64_t(y0 - above) * rb, int64_t(ny + above) * rb) -
+                  (1 - above) * rb;
+  region += static_cast<int>(region_bytes(int64_t(strip + 1) * rb));
+  uint8_t* const out_g = out + (img * h + y0) * int64_t(rb + 1);
+  const int staged = region + static_cast<int>(reinterpret_cast<uintptr_t>(out_g) & 15);
+  region += static_cast<int>(region_bytes(int64_t(strip) * (rb + 1)));
+  int row0 = raw + rb;  // the image's row 0, for the sticky rule
+  if (sticky && y0 > 0) row0 = stage_in(region, image, rb);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp < ny) {
+    const int y = y0 + warp;
+    const RowIn r = {raw + (warp + 1) * rb, raw + warp * rb, rb, bpp};
+    int chosen = mode;
+    if (mode >= 5) {
+      if (sticky) {
+        chosen = choose_filter<false>({row0, row0, rb, bpp}, mode, early, lane);
+      } else {
+        chosen = y > 0 ? choose_filter<true>(r, mode, early, lane)
+                       : choose_filter<false>(r, mode, early, lane);
+      }
+    }
+    const int o = staged + warp * (rb + 1);
+    if (lane == 0) smem[o] = static_cast<uint8_t>(chosen);
+    if (y > 0) {
+      apply_chosen<true>(r, chosen, lane, o + 1);
+    } else {
+      apply_chosen<false>(r, chosen, lane, o + 1);
+    }
+  }
+  __syncthreads();
+  stage_out(out_g, staged, int64_t(ny) * (rb + 1));
+}
+
+// The contract's strip kernel: rows staged as in filter_rows_strip_kernel,
+// a warp a row, one sweep that takes all five candidates of a word, stores
+// them (as words where the rows are 4-byte aligned in the output, else as
+// bytes) and sums their scores.
+template <bool PREV>
+__device__ __forceinline__ void bank_row(const RowIn& r, int lane, uint8_t* __restrict__ cand0,
+                                         int64_t plane, int32_t* __restrict__ scores) {
+  const Words xs(r.cur), as(r.cur - r.bpp), bs(r.prev), cs(r.prev - r.bpp);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(cand0) | static_cast<uintptr_t>(plane)) & 3) == 0;
+  int t[kFilters] = {0, 0, 0, 0, 0};
+  for_row_words(r.rb, lane, [&](int k, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    uint32_t x, a, b, c;
+    load_words<0b11111, PREV, kEdge>(xs, as, bs, cs, k, r.bpp, x, a, b, c);
+    const uint32_t m = kEdge ? tail_mask(k, r.rb) : 0xFFFFFFFFu;
+    const uint32_t d[kFilters] = {filter_word<0>(x, a, b, c), filter_word<1>(x, a, b, c),
+                                  filter_word<2>(x, a, b, c), filter_word<3>(x, a, b, c),
+                                  filter_word<4>(x, a, b, c)};
+    const int nbytes = kEdge ? min(4, r.rb - 4 * k) : 4;
+#pragma unroll
+    for (int f = 0; f < kFilters; ++f) {
+      t[f] = score_word(d[f] & m, t[f]);
+      uint8_t* o = cand0 + f * plane + 4 * k;
+      if (aligned && nbytes == 4) {
+        *reinterpret_cast<uint32_t*>(o) = d[f];
+      } else {
+        for (int j = 0; j < nbytes; ++j) o[j] = static_cast<uint8_t>(d[f] >> (8 * j));
+      }
+    }
+  });
+#pragma unroll
+  for (int f = 0; f < kFilters; ++f) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) t[f] += __shfl_xor_sync(0xFFFFFFFFu, t[f], off);
+    if (lane == f) scores[f] = t[f];
+  }
+}
+
+__global__ void __launch_bounds__(32 * kStripRows) filter_bank_strip_kernel(
+    const uint8_t* __restrict__ rows, int h, int rb, int bpp, int strip, int strips,
+    uint8_t* __restrict__ cands, int32_t* __restrict__ scores) {
+  const int64_t img = blockIdx.x / strips;
+  const int y0 = static_cast<int>(blockIdx.x - img * strips) * strip;
+  const int ny = min(strip, h - y0);
+  const int above = y0 > 0 ? 1 : 0;
+  const uint8_t* image = rows + img * h * int64_t(rb);
+  const int raw = stage_in(0, image + int64_t(y0 - above) * rb, int64_t(ny + above) * rb) -
+                  (1 - above) * rb;
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= ny) return;
+  const int y = y0 + warp;
+  const RowIn r = {raw + (warp + 1) * rb, raw + warp * rb, rb, bpp};
+  const int64_t plane = int64_t(h) * rb;
+  uint8_t* cand0 = cands + (img * kFilters * h + y) * int64_t(rb);  // filter f at + f * plane
+  int32_t* s = scores + (img * h + y) * kFilters;
+  if (y > 0) {
+    bank_row<true>(r, lane, cand0, plane, s);
+  } else {
+    bank_row<false>(r, lane, cand0, plane, s);
+  }
+}
+
+// Shared memory of a strip kernel launch.
+inline int64_t strip_smem(int64_t strip, int64_t rb, bool sticky) {
+  return region_bytes((strip + 1) * rb) + region_bytes(strip * (rb + 1)) +
+         (sticky ? region_bytes(rb) : 0);
+}
+
 static bool valid_rows(int64_t batch, int64_t h, int64_t rb, int32_t bpp) {
   return batch >= 1 && h >= 1 && rb >= 1 && bpp >= 1 && bpp <= 8 && batch * h <= INT_MAX;
+}
+
+// Sets the strip kernels' launch shape: thread blocks and dynamic shared
+// memory (raised above the default limit where needed, per device, so on
+// every such launch). Returns cudaSuccess or why the launch cannot be made.
+template <class Kernel>
+static cudaError_t strip_launch(Kernel kernel, int64_t batch, int64_t h, int32_t strip, int64_t smem,
+                                int64_t* strips) {
+  *strips = (h + strip - 1) / strip;
+  if (smem > kStripMaxSmem || batch * *strips > INT_MAX) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kStripMaxSmem);
 }
 
 }  // namespace pixo
 
 extern "C" {
 
-// rows: [batch, h, rb] uint8 on the device; bpp 1..8. Outputs on the device:
-// cands [batch, 5, h, rb] uint8, scores [batch, h, 5] int32. Returns
+// rows: [batch, h, rb] uint8 on the device; bpp 1..8. strip: rows a thread
+// block of the strip kernel takes, 1 to 8, or 0 for the long-row kernel (as
+// for pixo_filter_rows). Outputs on the device: cands [batch, 5, h, rb]
+// uint8, 4-byte aligned, scores [batch, h, 5] int32. Returns
 // cudaGetLastError().
 int pixo_filter_bank(const uint8_t* rows, int64_t batch, int64_t h, int64_t rb, int32_t bpp,
-                     uint8_t* cands, int32_t* scores, void* stream) {
+                     int32_t strip, uint8_t* cands, int32_t* scores, void* stream) {
   using namespace pixo;
-  if (!valid_rows(batch, h, rb, bpp)) return static_cast<int>(cudaErrorInvalidValue);
-  filter_bank_kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(rows, h, rb, bpp, cands, scores);
+  if (!valid_rows(batch, h, rb, bpp) || strip < 0 || strip > kStripRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (strip == 0) {
+    filter_bank_kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, 0, s>>>(
+        rows, h, rb, bpp, cands, scores);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t smem = region_bytes((strip + 1) * rb);
+  int64_t strips;
+  const cudaError_t e = strip_launch(filter_bank_strip_kernel, batch, h, strip, smem, &strips);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  filter_bank_strip_kernel<<<static_cast<unsigned>(batch * strips), 32 * strip,
+                             static_cast<size_t>(smem), s>>>(
+      rows, static_cast<int>(h), static_cast<int>(rb), bpp, strip, static_cast<int>(strips), cands,
+      scores);
   return static_cast<int>(cudaGetLastError());
 }
 
 // rows: [batch, h, rb] uint8 on the device; bpp 1..8. mode: 0-4 a fixed
 // filter, 5 adaptive/min-sum, 6 adaptive-fast; early: the selection's stop
 // score (rb/4+1 for 5, rb/8+1 for 6); sticky (mode 6 only): every row takes
-// row 0's choice. out: [batch, h, rb + 1] uint8 on the device, each row's
-// filter id first. Returns cudaGetLastError().
+// row 0's choice. strip: rows a thread block of the strip kernel takes, 1 to
+// 8 (its shared memory must fit the budget), or 0 for the long-row kernel.
+// out: [batch, h, rb + 1] uint8 on the device, each row's filter id first.
+// Returns cudaGetLastError().
 int pixo_filter_rows(const uint8_t* rows, int64_t batch, int64_t h, int64_t rb, int32_t bpp,
-                     int32_t mode, int32_t early, int32_t sticky, uint8_t* out, void* stream) {
+                     int32_t mode, int32_t early, int32_t sticky, int32_t strip, uint8_t* out,
+                     void* stream) {
   using namespace pixo;
-  if (!valid_rows(batch, h, rb, bpp) || mode < 0 || mode > 6 || (sticky && mode != 6)) {
+  if (!valid_rows(batch, h, rb, bpp) || mode < 0 || mode > 6 || (sticky && mode != 6) ||
+      strip < 0 || strip > kStripRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  filter_rows_kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(rows, h, rb, bpp, mode, early,
-                                                            sticky, out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (strip == 0) {
+    filter_rows_long_kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, 0, s>>>(
+        rows, h, rb, bpp, mode, early, sticky, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int64_t smem = strip_smem(strip, rb, sticky != 0);
+  int64_t strips;
+  const cudaError_t e = strip_launch(filter_rows_strip_kernel, batch, h, strip, smem, &strips);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  filter_rows_strip_kernel<<<static_cast<unsigned>(batch * strips), 32 * strip,
+                             static_cast<size_t>(smem), s>>>(
+      rows, static_cast<int>(h), static_cast<int>(rb), bpp, mode, early, sticky, strip,
+      static_cast<int>(strips), out);
   return static_cast<int>(cudaGetLastError());
 }
 

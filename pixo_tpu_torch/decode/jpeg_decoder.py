@@ -46,7 +46,7 @@ from ..native import (
     native_jpeg_prog_dc_scan,
 )
 from ..ops.jpeg_decode import upsample_nearest, upsample_triangle, ycbcr_to_rgb_int
-from ..ops.kernels import idct_planes
+from ..ops.kernels import PlaneTable, idct_planes_table
 
 SOF_UNSUPPORTED = {0xC1, 0xC3, 0xC5, 0xC6, 0xC7, 0xC9, 0xCA, 0xCB,
                    0xCD, 0xCE, 0xCF}
@@ -718,7 +718,15 @@ class _Layout:
             self.groups.append((members, starts, pixel))
             pixel += len(members) * s.width * s.height * (3 if len(s.components) == 3 else 1)
         self.total_blocks, self.total_pixel_bytes = first, pixel
-        self.planes = np.asarray(rows, np.int64).reshape(-1, 5)
+        # checked and packed for the kernel here, once a batch; the tables
+        # follow when the entropy stage has read them
+        self.table = PlaneTable(np.asarray(rows, np.int64).reshape(-1, 5), first) if rows else None
+
+    @property
+    def planes(self) -> np.ndarray:
+        """[planes, 5] int64: first block, blocks per row, block rows, output
+        offset and pitch of each plane."""
+        return self.table.planes
 
 
 class _HostBatch(NamedTuple):
@@ -727,7 +735,20 @@ class _HostBatch(NamedTuple):
     scans: List[_Scan]
     layout: _Layout
     coeffs: np.ndarray  # [total blocks, 64] int16 zigzag, every plane of the batch
-    qtables: np.ndarray  # [planes, 64] int32 zigzag, one per plane of the layout
+    qtables: np.ndarray  # [planes, 64] int32 zigzag, one per plane: layout.table's
+    # For a batch bound for a card, pinned bytes: the coefficients (coeffs is
+    # a view of them), then layout.table.packed. None for the CPU.
+    staging: Optional[torch.Tensor]
+
+    def to_device(self, device: torch.device):
+        """(coefficients, packed plane table or None) on ``device``: for a
+        card, one copy of the pinned staging bytes on the current stream,
+        which the host does not wait for."""
+        if self.staging is None:
+            return torch.from_numpy(self.coeffs).to(device), None
+        on = self.staging.to(device, non_blocking=True)
+        return (on[: self.coeffs.nbytes].view(torch.int16).view(-1, 64),
+                on[self.coeffs.nbytes:].view(torch.int64).view(-1, 38))
 
 
 def _attempt(fn: Callable, *args):
@@ -752,10 +773,13 @@ def _pool(workers: int) -> concurrent.futures.ThreadPoolExecutor:
         return _pools[workers]
 
 
-def _host_stage(files: Sequence[bytes], workers: int) -> _HostBatch:
+def _host_stage(files: Sequence[bytes], workers: int, pinned: bool = False) -> _HostBatch:
     """Both host stages of a non-empty batch: every file's markers, then
     every file's entropy decode straight into its views of one zeroed
-    coefficient buffer. The Python work runs on the calling thread. With
+    coefficient buffer; with ``pinned`` (a batch bound for a card) that
+    buffer is pinned memory, with the packed plane table behind the
+    coefficients, so that both go up in one copy the host need not wait for.
+    The Python work runs on the calling thread. With
     ``workers`` > 1 the baseline scans' library calls, which release the
     GIL, go to that many threads once every call is ready, while the
     calling thread decodes the progressive files; with 1 they run inline.
@@ -765,7 +789,13 @@ def _host_stage(files: Sequence[bytes], workers: int) -> _HostBatch:
     parsed = [_attempt(_parse, data) for data in files]
     scans = [p for p in parsed if isinstance(p, _Scan)]
     layout = _Layout(scans)
-    coeffs = np.zeros((layout.total_blocks, 64), np.int16)
+    table = layout.table  # None where no file parsed: the first error is raised below
+    if pinned and table is not None:
+        staging = torch.zeros(128 * layout.total_blocks + table.packed.nbytes, dtype=torch.uint8,
+                              pin_memory=True)
+        coeffs = staging.numpy()[: 128 * layout.total_blocks].view(np.int16).reshape(-1, 64)
+    else:
+        staging, coeffs = None, np.zeros((layout.total_blocks, 64), np.int16)
     planes = [[coeffs[f: f + n] for f, n in views] for views in layout.views]
     baseline = {k: _attempt(_baseline_call, s, planes[k])
                 for k, s in enumerate(scans) if not s.progressive}
@@ -785,8 +815,10 @@ def _host_stage(files: Sequence[bytes], workers: int) -> _HostBatch:
     failed = next((r for r in results if isinstance(r, Exception)), None)
     if failed is not None:
         raise failed
-    qtables = np.stack([_qtables(scans[i])[ci] for i, ci in layout.qtable_of]).astype(np.int32)
-    return _HostBatch(scans, layout, coeffs, qtables)
+    table.set_qtables(np.stack([_qtables(scans[i])[ci] for i, ci in layout.qtable_of]))
+    if staging is not None:
+        staging.numpy()[coeffs.nbytes:] = table.packed.reshape(-1).view(np.uint8)
+    return _HostBatch(scans, layout, coeffs, table.qtables, staging)
 
 
 def _upsample_colour(planes: torch.Tensor, batch: _HostBatch, fancy_upsampling: bool) -> torch.Tensor:
@@ -832,15 +864,17 @@ def decode_files(files: Sequence[bytes], fancy_upsampling: bool, workers: int,
                  device) -> List[JpegImage]:
     """Decode a batch of JPEG files: the host stages (the baseline scans'
     library calls on ``workers`` threads), then the pixel tail for the whole
-    batch on ``device``: one copy of the coefficients to it, one
-    ``idct_planes`` for every plane, upsampling and colour per geometry
+    batch on ``device``: one copy of the coefficients and the plane table to
+    it, one ``idct_planes`` launch for every plane, upsampling and colour per
+    geometry
     group, one copy of every pixel back. Raises the error of the first file,
     in order, that fails."""
     if not files:
         return []
-    batch = _host_stage(files, workers)
-    coeffs = torch.from_numpy(batch.coeffs).to(torch.device(device))
-    planes = idct_planes(coeffs, batch.qtables, batch.layout.planes)
+    dev = torch.device(device)
+    batch = _host_stage(files, workers, pinned=dev.type == "cuda")
+    coeffs, desc = batch.to_device(dev)
+    planes = idct_planes_table(coeffs, batch.layout.table, desc)
     return _images(_upsample_colour(planes, batch, fancy_upsampling).cpu().numpy(), batch)
 
 

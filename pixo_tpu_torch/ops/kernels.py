@@ -25,6 +25,8 @@ stream.
   un-zigzag, jidctint IDCT, plane assembly) over every plane of a batch in
   one launch (``csrc/idct.cu``); it replaces ``idct8x8_int_pallas`` widened
   to ``ops/jpeg_decode.py::dequant_idct_blocks`` and ``assemble_plane``.
+  ``idct_planes_table`` is the same launch for a caller that keeps its
+  ``PlaneTable`` (the batch decoder, which packs it once a batch).
 - ``idct8x8_int``: the standalone [N, 8, 8] integer IDCT, sharing the decode
   kernel's butterfly (``csrc/idct.cuh``): the direct counterpart of
   ``idct8x8_int_pallas``.
@@ -109,9 +111,9 @@ def load():
             lib.pixo_compact.restype = ctypes.c_int
             lib.pixo_compact.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, vp]
             lib.pixo_filter_bank.restype = ctypes.c_int
-            lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, vp, vp, vp]
+            lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp, vp]
             lib.pixo_filter_rows.restype = ctypes.c_int
-            lib.pixo_filter_rows.argtypes = [vp, i64, i64, i64, i32, i32, i32, i32, vp, vp]
+            lib.pixo_filter_rows.argtypes = [vp, i64, i64, i64, i32, i32, i32, i32, i32, vp, vp]
             lib.pixo_idct_planes.restype = ctypes.c_int
             lib.pixo_idct_planes.argtypes = [vp, i64, vp, i32, vp, vp]
             lib.pixo_idct8x8_int.restype = ctypes.c_int
@@ -283,7 +285,7 @@ compact_padded.launches = 0
 
 
 def _filter_input(rows: torch.Tensor, bpp: int):
-    # the filter kernels load bytes one at a time: any offset is fine
+    # the filter kernels take rows at any byte offset
     if rows.dtype != torch.uint8:
         raise TypeError(f"rows must be torch.uint8, got {rows.dtype}")
     if not rows.is_contiguous():
@@ -317,7 +319,8 @@ def filter_bank(rows: torch.Tensor, bpp: int):
     scores = torch.empty((b, h, 5), dtype=torch.int32, device=rows.device)
     with _device_guard(rows):
         rc = lib.pixo_filter_bank(
-            rows.data_ptr(), b, h, rb, bpp, cands.data_ptr(), scores.data_ptr(), _stream(rows)
+            rows.data_ptr(), b, h, rb, bpp, filter_rows_plan(h, rb, False), cands.data_ptr(),
+            scores.data_ptr(), _stream(rows)
         )
     _check(lib, rc, "filter_bank")
     filter_bank.launches += 1
@@ -325,6 +328,35 @@ def filter_bank(rows: torch.Tensor, bpp: int):
 
 
 filter_bank.launches = 0
+
+
+FILTER_STRIP_ROWS = 8  # csrc/filter_bank.cu's kStripRows: rows a strip, a warp each
+FILTER_SMEM_BUDGET = 200 * 1024  # its kStripMaxSmem: shared memory a strip may take
+
+
+def _filter_region(nbytes: int) -> int:
+    """csrc/filter_bank.cu's region_bytes: the shared memory that holds
+    ``nbytes`` staged bytes at any alignment."""
+    return (nbytes + 63) & ~15
+
+
+def filter_rows_plan(h: int, rb: int, sticky: bool) -> int:
+    """Which kernel ``filter_rows`` launches for [*, h, rb] rows, by shape
+    alone: the rows a thread block of the strip kernel takes (1 to 8), or 0
+    for the long-row kernel.
+
+    A strip holds its rows, the row above them and its output rows in shared
+    memory (and row 0 of the image under the sticky rule). It takes as many
+    rows as fit the budget, up to 8 and the image's height; where fewer than
+    4 fit (and the image has more), a warp a row would leave most of the
+    card idle, and the long-row kernel (a thread block a row) takes over."""
+    def smem(strip):
+        return (_filter_region((strip + 1) * rb) + _filter_region(strip * (rb + 1))
+                + (_filter_region(rb) if sticky else 0))
+
+    most = min(FILTER_STRIP_ROWS, h)
+    strip = next((s for s in range(most, 0, -1) if smem(s) <= FILTER_SMEM_BUDGET), 0)
+    return strip if strip >= min(4, h) else 0
 
 
 def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
@@ -347,7 +379,7 @@ def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
     with _device_guard(rows):
         rc = lib.pixo_filter_rows(
             rows.data_ptr(), b, h, rb, bpp, mode, early_stop(mode, rb), int(sticky),
-            out.data_ptr(), _stream(rows),
+            filter_rows_plan(h, rb, sticky), out.data_ptr(), _stream(rows),
         )
     _check(lib, rc, "filter_rows")
     filter_rows.launches += 1
@@ -357,57 +389,84 @@ def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
 filter_rows.launches = 0
 
 
-def _plane_table(qtables, planes, n: int):
-    """Checks the decode tail's plane table against ``n`` coefficient blocks.
+class PlaneTable:
+    """The decode tail's plane table, checked against ``n`` coefficient
+    blocks and packed as ``csrc/idct.cu``'s PlaneDesc array, once.
 
     ``planes`` is [P, 5] int64: each plane's first block, blocks per row,
-    block rows, output byte offset and output pitch; ``qtables`` is [P, 64],
-    each plane's zigzag table, taken as int32. Returns (planes, qtables,
-    output bytes) as numpy arrays and an int."""
-    planes = np.ascontiguousarray(np.asarray(planes, dtype=np.int64))
-    q = np.ascontiguousarray(np.asarray(qtables).astype(np.int32))
-    if planes.ndim != 2 or planes.shape[1] != 5 or planes.shape[0] == 0:
-        raise ValueError(f"planes must be a non-empty [P, 5] table, got {planes.shape}")
-    if q.shape != (planes.shape[0], 64):
-        raise ValueError(f"qtables must be [{planes.shape[0]}, 64], got {q.shape}")
-    first, bpr, brows, off, pitch = planes.T
-    nb = bpr * brows
-    if (bpr < 1).any() or (brows < 1).any():
-        raise ValueError("every plane needs at least one block")
-    if first[0] < 0 or (first[1:] < first[:-1] + nb[:-1]).any() or first[-1] + nb[-1] > n:
-        raise ValueError("plane block ranges must be sorted, disjoint and inside the coefficients")
-    if (off < 0).any() or (off % 8).any() or (pitch % 8).any() or (pitch < 8 * bpr).any():
-        raise ValueError("offsets and pitches must be multiples of 8, each pitch a full row")
-    return planes, q, int((off + 8 * brows * pitch).max())
+    block rows, output byte offset and output pitch. ``packed`` is [P, 38]
+    int64: a plane's int32 zigzag table (32 int64), its five geometry fields
+    and a pad. The tables may come later (``set_qtables``): a decoder knows
+    a batch's geometry before its entropy stage has read every table."""
+
+    def __init__(self, planes, n: int, qtables=None):
+        planes = np.asarray(planes, dtype=np.int64)
+        if planes.ndim != 2 or planes.shape[1] != 5 or planes.shape[0] == 0:
+            raise ValueError(f"planes must be a non-empty [P, 5] table, got {planes.shape}")
+        first, bpr, brows, off, pitch = planes.T
+        nb = bpr * brows
+        if (bpr < 1).any() or (brows < 1).any():
+            raise ValueError("every plane needs at least one block")
+        if first[0] < 0 or (first[1:] < first[:-1] + nb[:-1]).any() or first[-1] + nb[-1] > n:
+            raise ValueError("plane block ranges must be sorted, disjoint and inside the coefficients")
+        if (off < 0).any() or (off % 8).any() or (pitch % 8).any() or (pitch < 8 * bpr).any():
+            raise ValueError("offsets and pitches must be multiples of 8, each pitch a full row")
+        self.n = n
+        self.packed = np.zeros((len(planes), 38), np.int64)
+        self.packed[:, 32:37] = planes
+        self.out_size = int((off + 8 * brows * pitch).max())
+        self.tiled = int(64 * nb.sum()) == self.out_size  # no byte outside every plane
+        if qtables is not None:
+            self.set_qtables(qtables)
+
+    @property
+    def planes(self) -> np.ndarray:
+        return self.packed[:, 32:37]
+
+    @property
+    def qtables(self) -> np.ndarray:
+        """[P, 64] int32, each plane's zigzag table: a view of ``packed``."""
+        return self.packed[:, :32].view(np.int32)
+
+    def set_qtables(self, qtables) -> None:
+        """``qtables`` is [P, 64], each plane's zigzag table, taken as int32."""
+        q = np.asarray(qtables)
+        if q.shape != self.qtables.shape:
+            raise ValueError(f"qtables must be {list(self.qtables.shape)}, got {list(q.shape)}")
+        self.qtables[...] = q.astype(np.int32)
+
+    def output(self, device) -> torch.Tensor:
+        """The output buffer: left unset where the planes tile it, zeroed
+        where bytes lie outside every plane."""
+        make = torch.empty if self.tiled else torch.zeros
+        return make(self.out_size, dtype=torch.uint8, device=device)
 
 
-def _plane_output(planes: np.ndarray, out_size: int, device) -> torch.Tensor:
-    """The output buffer: left unset where the planes tile it, zeroed where
-    bytes lie outside every plane."""
-    tiled = int((64 * planes[:, 1] * planes[:, 2]).sum()) == out_size
-    return (torch.empty if tiled else torch.zeros)(out_size, dtype=torch.uint8, device=device)
-
-
-def idct_planes_plain(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
-    """The plain version of ``idct_planes`` on ``coeffs``' device:
-    ``dequant_idct_blocks`` over every block of every plane, then a scatter
-    of each 8x8 block to its plane's raster."""
-    planes, q, out_size = _plane_table(qtables, planes, coeffs.shape[0])
+def _idct_table_plain(coeffs: torch.Tensor, table: PlaneTable) -> torch.Tensor:
     dev = coeffs.device
+    planes = np.ascontiguousarray(table.planes)
     nb_host = planes[:, 1] * planes[:, 2]
     first, bpr, _, off, pitch = torch.from_numpy(planes).to(dev).unbind(1)
     nb = torch.from_numpy(nb_host).to(dev)
     pid = torch.repeat_interleave(torch.arange(len(planes), device=dev), nb,
                                   output_size=int(nb_host.sum()))
     k = torch.arange(pid.numel(), device=dev) - (torch.cumsum(nb, 0) - nb)[pid]
-    blocks = dequant_idct_blocks(coeffs[first[pid] + k], torch.from_numpy(q).to(dev)[pid])
+    q = torch.from_numpy(np.ascontiguousarray(table.qtables)).to(dev)
+    blocks = dequant_idct_blocks(coeffs[first[pid] + k], q[pid])
     by, bx = k // bpr[pid], k % bpr[pid]
     p = pitch[pid][:, None, None]
     r = torch.arange(8, device=dev)
     idx = (off[pid] + 8 * by * pitch[pid] + 8 * bx)[:, None, None] + r[:, None] * p + r
-    out = _plane_output(planes, out_size, dev)
+    out = table.output(dev)
     out[idx.reshape(-1)] = blocks.reshape(-1)
     return out
+
+
+def idct_planes_plain(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
+    """The plain version of ``idct_planes`` on ``coeffs``' device:
+    ``dequant_idct_blocks`` over every block of every plane, then a scatter
+    of each 8x8 block to its plane's raster."""
+    return _idct_table_plain(coeffs, PlaneTable(planes, coeffs.shape[0], qtables))
 
 
 def idct_planes(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
@@ -421,30 +480,47 @@ def idct_planes(coeffs: torch.Tensor, qtables, planes) -> torch.Tensor:
     ``qtables`` ([P, 64], host) gives each plane's zigzag table (uint16
     values, taken as int32). Each plane equals ``assemble_plane`` of
     ``ops/jpeg_decode.py::dequant_idct_blocks`` of its blocks. Planes must
-    not overlap in the output."""
+    not overlap in the output. A caller that keeps a ``PlaneTable`` takes
+    ``idct_planes_table`` and spares the checks and the packing."""
+    _idct_input(coeffs)
+    return idct_planes_table(coeffs, PlaneTable(planes, coeffs.shape[0], qtables))
+
+
+def _idct_input(coeffs: torch.Tensor) -> None:
     _require(coeffs, torch.int16, "coeffs")
     if coeffs.dim() != 2 or coeffs.shape[1] != 64:
         raise ValueError(f"coeffs must be [N, 64], got {tuple(coeffs.shape)}")
-    if _device_kind(coeffs) == "cpu":
-        return idct_planes_plain(coeffs, qtables, planes)
-    if coeffs.shape[0] == 0:
+    if _device_kind(coeffs) == "cuda" and coeffs.shape[0] == 0:
         raise ValueError("empty batch")
-    return _launch_idct_planes(coeffs, *_plane_descriptors(coeffs, qtables, planes))
 
 
-def _plane_descriptors(coeffs: torch.Tensor, qtables, planes):
-    """The plane table packed as ``csrc/idct.cu``'s PlaneDesc array (38
-    int64 a plane: the int32 zigzag table, then the five geometry fields)
-    and copied to ``coeffs``' device, and the output buffer."""
-    planes, q, out_size = _plane_table(qtables, planes, coeffs.shape[0])
-    packed = np.zeros((len(planes), 38), np.int64)
-    packed[:, :32] = q.view(np.int64)
-    packed[:, 32:37] = planes
-    return torch.from_numpy(packed).to(coeffs.device), _plane_output(planes, out_size, coeffs.device)
+def upload_pinned(host: np.ndarray, device) -> torch.Tensor:
+    """``host`` on ``device``, copied through pinned memory on the current
+    stream without waiting for it. PyTorch's pinned-memory cache hands the
+    staging block out again only once the copy has run."""
+    pinned = torch.empty(host.shape, dtype=torch.from_numpy(host).dtype, pin_memory=True)
+    pinned.numpy()[...] = host
+    return pinned.to(device, non_blocking=True)
 
 
-def _launch_idct_planes(coeffs: torch.Tensor, desc: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+def idct_planes_table(coeffs: torch.Tensor, table: PlaneTable, desc=None) -> torch.Tensor:
+    """``idct_planes`` with its plane table checked and packed beforehand.
+    ``desc`` is ``table.packed`` on ``coeffs``' device where the caller has
+    copied it there already (with the coefficients, say); without it the
+    table goes up here, through pinned memory, without a wait."""
+    _idct_input(coeffs)
+    if coeffs.shape[0] != table.n:
+        raise ValueError(f"the plane table was checked for {table.n} blocks, got {coeffs.shape[0]}")
+    if _device_kind(coeffs) == "cpu":
+        return _idct_table_plain(coeffs, table)
+    if desc is None:
+        desc = upload_pinned(table.packed, coeffs.device)
+    elif (desc.device != coeffs.device or desc.dtype != torch.int64
+          or tuple(desc.shape) != table.packed.shape or not desc.is_contiguous()
+          or desc.data_ptr() % 16):
+        raise ValueError("desc must be the packed plane table on the coefficients' device")
     lib = load()
+    out = table.output(coeffs.device)
     with _device_guard(coeffs):
         rc = lib.pixo_idct_planes(coeffs.data_ptr(), coeffs.shape[0], desc.data_ptr(),
                                   desc.shape[0], out.data_ptr(), _stream(coeffs))

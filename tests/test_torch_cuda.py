@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import coeff_edge_cases, compact_edge_batch, host_decode
+from chip_smoke import (
+    coeff_edge_cases,
+    compact_edge_batch,
+    filter_edge_cases,
+    host_decode,
+    plane_edge_case,
+)
 from pixo_tpu_torch import (
     ColorType,
     FilterStrategy,
@@ -24,7 +30,7 @@ from pixo_tpu_torch import (
     encode_png_batch_sharded,
     png,
 )
-from pixo_tpu_torch.decode import decode_jpeg_batch
+from pixo_tpu_torch.decode import decode_jpeg_batch, jpeg_decoder
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
 from pixo_tpu_torch.native import native_jpeg_coefficients, native_png_filter
 from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, sparse_pack
@@ -206,6 +212,45 @@ def test_filter_kernels_take_rows_at_any_offset(dev, seeded):
     assert torch.equal(kernels.filter_rows(rows, **kw), png_filters.filter_rows_plain(rows, **kw))
 
 
+@pytest.mark.parametrize("bpp", range(1, 9))
+def test_filter_kernels_at_strip_and_row_edges(dev, bpp):
+    """``filter_edge_cases``: rows of 1, bpp - 1, bpp, 15, 16 and 17 bytes,
+    heights around a strip and the sticky limit, tied rows, rows at the
+    shared-memory budget (strip kernel and long-row kernel), every strategy,
+    the sticky rule off and on, rows at an odd byte offset: both kernels
+    against their plain versions and the fused one against the host filter."""
+    for label, host in filter_edge_cases(np.random.default_rng(40 + bpp), bpp):
+        flat = torch.empty(host.size + 1, dtype=torch.uint8, device=dev)
+        rows = flat[1:].view(host.shape).copy_(torch.from_numpy(host))
+        cands, scores = kernels.filter_bank(rows, bpp)
+        plain_cands, plain_scores = kernels.filter_bank_plain(rows, bpp)
+        assert torch.equal(cands, plain_cands) and torch.equal(scores, plain_scores), label
+        for strategy in STRATEGIES:
+            mode = png_filters.native_mode(strategy)
+            for sticky in (False, True):
+                kw = dict(bpp=bpp, strategy=strategy, small_image=False, sticky_fast=sticky)
+                out = kernels.filter_rows(rows, **kw)
+                assert torch.equal(out, png_filters.filter_rows_plain(rows, **kw)), (label, strategy)
+                for i in range(len(host)):
+                    np.testing.assert_array_equal(
+                        out[i].cpu().numpy(),
+                        native_png_filter(host[i], bpp, mode, sticky and mode == 6))
+
+
+def test_filter_rows_launches_the_kernel_its_plan_names(dev, seeded):
+    """Rows just under and just over the strip kernel's budget give equal
+    results through either kernel (the C function takes the plan)."""
+    h = kernels.FILTER_STRIP_ROWS + 1
+    fits = max(rb for rb in range(1, 1 << 17) if kernels.filter_rows_plan(h, rb, False))
+    assert kernels.filter_rows_plan(h, fits + 1, False) == 0
+    for rb in (fits, fits + 1):
+        rows = torch.from_numpy(seeded.integers(0, 7, (1, h, rb), dtype=np.uint8)).to(dev)
+        for strategy in (FilterStrategy.ADAPTIVE, FilterStrategy.ADAPTIVE_FAST):
+            kw = dict(bpp=4, strategy=strategy, small_image=False, sticky_fast=False)
+            assert torch.equal(kernels.filter_rows(rows, **kw),
+                               png_filters.filter_rows_plain(rows, **kw))
+
+
 def test_png_batch_on_the_card_equals_per_image_encode(dev):
     rng = np.random.default_rng(7)
     h, w = 64, 80
@@ -259,6 +304,55 @@ def test_idct_planes_kernel_equals_plain(dev, seeded, kind):
     assert kernels.idct_planes.launches == 1 and got.device.type == "cuda"
     assert torch.equal(got, kernels.idct_planes_plain(zz, q, planes))
     assert torch.equal(got.cpu(), kernels.idct_planes(zz.cpu(), q, planes))
+
+
+def test_idct_planes_kernel_at_plane_edges(dev):
+    """``plane_edge_case``: three planes in one thread block's range, a plane
+    of one block, gaps, wide pitches, blocks outside every plane, a block
+    count that is no multiple of a thread block's, int16 extremes."""
+    zz, q, planes = plane_edge_case(np.random.default_rng(15))
+    coeffs = torch.from_numpy(zz).to(dev)
+    got = kernels.idct_planes(coeffs, q, planes)
+    assert torch.equal(got, kernels.idct_planes_plain(coeffs, q, planes))
+    assert torch.equal(got.cpu(), kernels.idct_planes(coeffs.cpu(), q, planes))
+    table = kernels.PlaneTable(planes, len(zz), q)
+    desc = kernels.upload_pinned(table.packed, dev)
+    kernels.idct_planes.launches = 0
+    assert torch.equal(kernels.idct_planes_table(coeffs, table, desc), got)
+    assert torch.equal(kernels.idct_planes_table(coeffs, table), got)
+    assert kernels.idct_planes.launches == 2
+    with pytest.raises(ValueError, match="packed plane table"):
+        kernels.idct_planes_table(coeffs, table, desc[:-1])
+
+
+def test_idct_planes_kernel_with_many_tiny_planes(dev, seeded):
+    """Planes of one to three blocks: a thread block spans dozens of them,
+    more than it keeps descriptors for in shared memory."""
+    dims = [(int(seeded.integers(1, 4)), 1) for _ in range(300)]
+    planes, first, off = [], 3, 0
+    for bw, bh in dims:
+        planes.append((first, bw, bh, off, 8 * bw))
+        first += bw * bh
+        off += 64 * bw * bh
+    planes = np.asarray(planes, np.int64)
+    zz = torch.from_numpy(_blocks(seeded, first + 2, "extreme")).to(dev)
+    q = seeded.integers(1, 65536, (len(planes), 64))
+    assert torch.equal(kernels.idct_planes(zz, q, planes), kernels.idct_planes_plain(zz, q, planes))
+
+
+def test_decode_stages_coefficients_and_table_in_one_pinned_copy(dev):
+    files = _decode_batch_files()
+    batch = jpeg_decoder._host_stage(files, 4, pinned=True)
+    assert batch.staging.is_pinned() and batch.coeffs.base is not None
+    coeffs, desc = batch.to_device(dev)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(coeffs.cpu().numpy(), batch.coeffs)
+    np.testing.assert_array_equal(desc.cpu().numpy(), batch.layout.table.packed)
+    plain = jpeg_decoder._host_stage(files, 4)
+    assert plain.staging is None
+    np.testing.assert_array_equal(plain.coeffs, batch.coeffs)
+    assert torch.equal(kernels.idct_planes_table(coeffs, batch.layout.table, desc),
+                       kernels.idct_planes(coeffs, plain.qtables, plain.layout.planes))
 
 
 @pytest.mark.parametrize("kind", ["conforming", "extreme", "int32"])

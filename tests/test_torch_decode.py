@@ -27,6 +27,7 @@ from pixo_tpu.decode import decode_jpeg as ref_decode_jpeg
 from pixo_tpu.ops import jpeg_decode as jdec
 from pixo_tpu.ops.pallas_kernels import idct8x8_int_pallas
 
+import chip_smoke
 from chip_smoke import host_decode
 from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded, errors
 from pixo_tpu_torch.color import ColorType
@@ -214,6 +215,93 @@ def test_idct_planes_plain_equals_assembled_jnp_planes(kind):
         np.testing.assert_array_equal(raster[:, :8 * bw], plane)
         written[off: off + 8 * bh * pitch].reshape(8 * bh, pitch)[:, :8 * bw] = True
     assert not out[~written].any()  # bytes outside every plane are zero
+
+
+def _assembled(zz, q, planes, out):
+    """Checks ``out`` plane by plane against the JAX package's tail, and that
+    every byte outside the planes is zero."""
+    written = np.zeros(out.shape, bool)
+    for (first, bw, bh, off, pitch), qt in zip(planes, q):
+        blocks = jdec.dequant_idct_blocks(jnp.asarray(zz[first: first + bw * bh]),
+                                          jnp.asarray(qt.astype(np.int32))[None])
+        plane = np.asarray(jdec.assemble_plane(blocks, int(bw), int(bh)))
+        raster = out[off: off + 8 * bh * pitch].reshape(8 * bh, pitch)
+        np.testing.assert_array_equal(raster[:, :8 * bw], plane)
+        written[off: off + 8 * bh * pitch].reshape(8 * bh, pitch)[:, :8 * bw] = True
+    assert not out[~written].any()
+
+
+def test_idct_planes_at_the_kernel_edge_layout_equals_jnp_and_pallas():
+    """The layout the card checks the kernel at (three planes in one thread
+    block's 128 coefficient blocks, a plane of one block, gaps, pitches wider
+    than their planes, blocks before the first plane and after the last,
+    int16 extremes with tables of 255 and 65535): the wrapper on the CPU
+    against the JAX package's dequant + IDCT + assembly, and its blocks
+    against the Pallas kernel in interpret mode."""
+    zz, q, planes = chip_smoke.plane_edge_case(np.random.default_rng(15))
+    out = kernels.idct_planes(torch.from_numpy(zz), q, planes).numpy()
+    _assembled(zz, q, planes, out)
+    table = kernels.PlaneTable(planes, len(zz), q)
+    assert not table.tiled
+    np.testing.assert_array_equal(kernels.idct_planes_table(torch.from_numpy(zz), table).numpy(), out)
+    for (first, bw, bh, off, pitch), qt in zip(planes, q):
+        deq = zz[first: first + bw * bh].astype(np.int32) * qt.astype(np.int32)
+        natural = np.ascontiguousarray(deq[:, np.argsort(jdec.ZIGZAG)].reshape(-1, 8, 8))
+        pallas = np.asarray(idct8x8_int_pallas(jnp.asarray(natural), interpret=True))
+        raster = out[off: off + 8 * bh * pitch].reshape(bh, 8, pitch)[:, :, :8 * bw]
+        got = raster.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
+        np.testing.assert_array_equal(got, pallas)
+
+
+def _descriptors_as_the_wrapper_packed_them(qtables, planes, n):
+    """The plane table as ``idct_planes`` checked and packed it on every
+    call before the decoder's layout took that over: 38 int64 a plane, the
+    int32 zigzag table in the first 32, then the five geometry fields."""
+    planes = np.ascontiguousarray(np.asarray(planes, dtype=np.int64))
+    q = np.ascontiguousarray(np.asarray(qtables).astype(np.int32))
+    first, bpr, brows, off, pitch = planes.T
+    nb = bpr * brows
+    assert first[0] >= 0 and (first[1:] >= first[:-1] + nb[:-1]).all() and first[-1] + nb[-1] <= n
+    packed = np.zeros((len(planes), 38), np.int64)
+    packed[:, :32] = q.view(np.int64)
+    packed[:, 32:37] = planes
+    out_size = int((off + 8 * brows * pitch).max())
+    return packed, out_size, int((64 * nb).sum()) == out_size
+
+
+def test_layout_packs_the_plane_table_once_as_the_wrapper_did():
+    """A mixed batch (4:2:0, 4:4:4, gray, a progressive file): the table the
+    layout packs, with the tables the entropy stage read, equals the
+    wrapper's packing of the same planes, and a call with it equals a call
+    with the numpy tables."""
+    rng = np.random.default_rng(16)
+    files = [_port_jpeg(_photo(rng, 40, 56)), _port_jpeg(_photo(rng, 24, 24), Subsampling.S444),
+             _port_jpeg(_photo(rng, 33, 17, 1)), _port_jpeg(_photo(rng, 40, 56), quality=60),
+             open(FIXTURES[0], "rb").read()]
+    batch = jpeg_decoder._host_stage(files, 1)
+    assert batch.staging is None  # nothing is pinned for the CPU
+    table = batch.layout.table
+    scans = [jpeg_decoder._parse(f) for f in files]
+    qtables = np.stack([jpeg_decoder._qtables(scans[i])[ci] for i, ci in batch.layout.qtable_of])
+    packed, out_size, tiled = _descriptors_as_the_wrapper_packed_them(
+        qtables, batch.layout.planes, len(batch.coeffs))
+    np.testing.assert_array_equal(table.packed, packed)
+    assert table.packed.dtype == np.int64 and table.packed.flags.c_contiguous
+    assert (table.out_size, table.tiled, table.n) == (out_size, tiled, len(batch.coeffs))
+    np.testing.assert_array_equal(batch.qtables, qtables.astype(np.int32))
+    coeffs, desc = batch.to_device(torch.device("cpu"))
+    assert desc is None
+    np.testing.assert_array_equal(
+        kernels.idct_planes_table(coeffs, table).numpy(),
+        kernels.idct_planes(coeffs, qtables, batch.layout.planes.copy()).numpy())
+
+
+def test_plane_table_refuses_another_batch():
+    table = kernels.PlaneTable(np.asarray([[0, 1, 1, 0, 8]]), 4, np.ones((1, 64)))
+    with pytest.raises(ValueError, match="checked for 4 blocks"):
+        kernels.idct_planes_table(torch.zeros((5, 64), dtype=torch.int16), table)
+    with pytest.raises(ValueError, match="qtables"):
+        table.set_qtables(np.ones((2, 64)))
 
 
 def test_idct_planes_refuses_bad_tables():
@@ -522,13 +610,13 @@ def test_batch_raises_the_first_failing_file():
 
 def test_batch_runs_one_tail(monkeypatch):
     calls = []
-    real = jpeg_decoder.idct_planes
+    real = jpeg_decoder.idct_planes_table  # the launch with the batch's packed table
 
     def counting(*a):
         calls.append(a[0].shape[0])
         return real(*a)
 
-    monkeypatch.setattr(jpeg_decoder, "idct_planes", counting)
+    monkeypatch.setattr(jpeg_decoder, "idct_planes_table", counting)
     decode_jpeg_batch(_mixed_batch(), device="cpu")
     assert len(calls) == 1
 

@@ -146,6 +146,62 @@ def test_filter_rows_equals_native_host_filter(rng, strategy):
             np.testing.assert_array_equal(out[i].numpy(), host)
 
 
+# the strategies held against the JAX package at the edge shapes: the two
+# selection rules and the widest fixed filter; the host filter holds them all
+JAX_HELD = (FilterStrategy.ADAPTIVE, FilterStrategy.ADAPTIVE_FAST, FilterStrategy.PAETH)
+
+
+@pytest.mark.parametrize("bpp", range(1, 9))
+def test_filter_rows_at_the_kernel_edge_shapes_equals_jax_and_host(bpp):
+    """The shapes the card checks the strip and long-row kernels at (rows of
+    1, bpp - 1, bpp, 15, 16, 17 bytes, heights around a strip and the sticky
+    limit, all-0 and all-255 rows, rows at the shared-memory budget), here
+    through the wrapper's plain version: every strategy against the native
+    host filter, and ``JAX_HELD`` against the JAX package's
+    ``filter_image_batch``."""
+    for label, rows in chip_smoke.filter_edge_cases(np.random.default_rng(40 + bpp), bpp):
+        t = torch.from_numpy(rows)
+        for strategy in STRATEGIES:
+            mode = png_filters.native_mode(strategy)
+            for sticky in ((False, True) if mode == png_filters.MODE_ADAPTIVE_FAST else (False,)):
+                kw = dict(bpp=bpp, strategy=strategy.value, small_image=False, sticky_fast=sticky)
+                out = kernels.filter_rows(t, **kw).numpy()
+                for i in range(len(rows)):
+                    np.testing.assert_array_equal(
+                        out[i], native_png_filter(rows[i], bpp, mode, sticky), err_msg=label)
+                if strategy not in JAX_HELD:  # each shape compiles anew under JAX
+                    continue
+                jfilt, jids = jax_filters.filter_image_batch(jnp.asarray(rows), **kw)
+                np.testing.assert_array_equal(out[..., 1:], np.asarray(jfilt), err_msg=label)
+                np.testing.assert_array_equal(out[..., 0], np.asarray(jids), err_msg=label)
+
+
+def _strip_smem(strip, rb, sticky):
+    """Shared memory of a strip of ``strip`` rows, as csrc/filter_bank.cu
+    lays it out: the rows and the row above, the output rows, and row 0
+    under the sticky rule, each region with room for any alignment."""
+    region = lambda n: (n + 63) // 16 * 16  # noqa: E731
+    return region((strip + 1) * rb) + region(strip * (rb + 1)) + (region(rb) if sticky else 0)
+
+
+@pytest.mark.parametrize("sticky", [False, True])
+def test_filter_rows_plan_depends_on_the_shape_alone(sticky):
+    budget, most = kernels.FILTER_SMEM_BUDGET, kernels.FILTER_STRIP_ROWS
+    assert kernels.filter_rows_plan(512, 1536, sticky) == most  # the main path's rows
+    for h in (1, 2, 3, 4, 7, 8, 9, 32, 33, 512):
+        last = most
+        for rb in (1, 2, 15, 16, 17, 1536, 5000, 11000, 12288, 14000, 20000, 22733, 22734,
+                   30000, 60000, 70000, 262140, 65535 * 8):
+            plan = kernels.filter_rows_plan(h, rb, sticky)
+            assert 0 <= plan <= min(most, h) and plan <= last  # fewer rows as they grow
+            last = plan
+            fits = [s for s in range(1, min(most, h) + 1) if _strip_smem(s, rb, sticky) <= budget]
+            if plan:  # the most rows that fit, and at least 4 of an image that has them
+                assert plan == fits[-1] and plan >= min(4, h)
+            else:  # the long-row kernel: fewer than 4 (or than the image has) fit
+                assert not fits or fits[-1] < min(4, h)
+
+
 def test_filter_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="bpp"):
         kernels.filter_bank(torch.zeros((1, 2, 8), dtype=torch.uint8), 9)
