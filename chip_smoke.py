@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes and
-its batched JPEG decode.
+"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes, its
+batched JPEG decode and its thumbnail pipeline.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -35,7 +35,15 @@ printing its own lines:
    thread block's range, a plane of one block, gaps, wide pitches) and on
    100k blocks at the int16 extremes with tables of 255 and 65535 (int32
    wraps), through both of its entry points, and the standalone integer
-   IDCT on the same blocks;
+   IDCT on the same blocks; the Lanczos3 resize kernel on ``resize_cases``
+   (the thumbnail chunk 64x256x256x3 to 128x128, up- and downscales at odd
+   sizes with 1, 3 and 4 channels, a target of one pixel, sources one pixel
+   wide and high, one 3220x1812 image, batches of 1 and 64, each also from an
+   odd byte offset), also held against the host library's resize image by
+   image; and the kernels that the thumbnail path shares with the other
+   paths (``idct_planes``, ``coeffs`` in mode 444, ``compact`` at cap 8 and at
+   the escalated cap) on the tensors of every chunk of (t1) and (t2)
+   (``check_thumbnail_kernels``);
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -58,7 +66,18 @@ printing its own lines:
    on for (d2) and (d3)); every image is held against the host library's
    two-stage decode and each baseline one against its fused decode, and the
    decode-tail kernel launches once per batch. The oracle set's 7
-   progressive files, which the reference decoder rejects, must be rejected;
+   progressive files, which the reference decoder rejects, must be rejected.
+   Then the thumbnail path, ``thumbnail_pipeline(..., device="cuda")``, on
+   (t1) 1000 JPEGs of 256x256 to 128x128 at q85 in chunks of 64 (BASELINE.json
+   config 5 at the size of benches/pipeline.py) and (t2) one mixed call in
+   chunks of 5 (corpus PNGs, the files of (d3), a gray JPEG, RGBA and
+   gray+alpha PNGs, P6 and P5 files, a thumbnail-sized input): every output is
+   held byte for byte against the host composition (``host_thumbnails``: the
+   host library's JPEG decode, this script's own PNG reader, the host
+   library's resize and fused encode), with
+   the launch counts a call (``resize_lanczos3`` at least one a shape group,
+   ``coeffs`` and ``compact`` one a chunk, ``idct_planes`` one a chunk that
+   holds a JPEG), and a corrupt file in a call must raise InvalidDecode;
 4. median timings over warm runs: each kernel four ways (``time_kernel``:
    the profiler's device time, the launch alone, the wrapper call and the
    plain version) beside its bound (``kernel_bound``), the copy of the
@@ -71,7 +90,14 @@ printing its own lines:
    of the coefficients, the kernel, the upsampling and colour, the device
    stage with the kernel and in plain PyTorch, the copy of the pixels back,
    the whole decode, and the host library's decode of the same batch on 8
-   threads and on 1; for (d3) also each file's host stage alone.
+   threads and on 1; for (d3) also each file's host stage alone; and for the
+   thumbnail call (t1) the resize kernel and the shared kernels (``coeffs``,
+   ``compact``, ``idct_planes``) at its chunk shapes, the stages of
+   one chunk (host decode stage, decode device tail, resize, coefficients and
+   compaction, copy of the compacted streams, host pack) and the whole call,
+   in ms, images/s and input MP/s with least and most of five warm runs,
+   beside the same files through the two-call path (``decode_jpeg_batch`` to
+   host pixels, the host library's resize, ``encode_jpeg_batch_sharded``).
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -82,12 +108,14 @@ Two checkouts compare on one card with
     python3 chip_smoke.py --compare PARENT . . PARENT
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
-its own (the coefficient, compaction, filter and decode-tail kernels three
-ways, the device stages and the end-to-end stages), and prints the numbers
-side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
+its own (the coefficient, compaction, filter, decode-tail and resize kernels
+three ways, the device stages and the end-to-end stages; what a tree lacks
+is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
 ``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
-each strategy (``filter_parts``); ``python3 chip_smoke.py --sass NAME`` counts
+each strategy (``filter_parts``); ``python3 chip_smoke.py --pack-workers`` times
+the host pack stage on 1, 2, 4 and 8 threads (``pack_workers``);
+``python3 chip_smoke.py --sass NAME`` counts
 the instructions of the built kernels whose name holds NAME, loop by loop
 (``sass_loops``).
 """
@@ -105,6 +133,11 @@ BATCH, SIZE, QUALITY = 16, 512, 85
 WARM_RUNS = 20
 CORPUS = ("browser", "playground", "rocket", "web")
 CORPUS_SHIFTS = ((0, 0), (0, 64), (128, 0), (200, 300))
+# the thumbnail path's cell (t1): BASELINE.json config 5 at the size of
+# benches/pipeline.py (1000 JPEGs of 256x256 to 128x128 at q85, chunks of 64)
+THUMB, THUMB_QUALITY = 128, 85
+T1_COUNT, T1_SIZE, T1_CHUNK = 1000, 256, 64
+THUMB_RUNS = 5
 
 
 class Failed(Exception):
@@ -264,7 +297,7 @@ def reset_counts() -> None:
 
     for fn in (kernels.coeffs, kernels.compact_padded, kernels.dct8x8_aan,
                kernels.filter_bank, kernels.filter_rows, kernels.idct_planes,
-               kernels.idct8x8_int):
+               kernels.idct8x8_int, kernels.resize_lanczos3):
         fn.launches = 0
 
 
@@ -305,11 +338,28 @@ def wall_ms(fn):
     return _median(times)
 
 
+def wall_stats(fn, runs: int = THUMB_RUNS):
+    """(median, least, most) host-clock ms of ``runs`` calls after one warm
+    call, each synchronized."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return _median(times), min(times), max(times)
+
+
 def profiler_ms(fn, kernel: str, calls: int = 20):
-    """Device time of one launch of the kernel whose name holds ``kernel``,
+    """Device time a call of ``fn`` spends in the kernels whose name holds
+    ``kernel`` (one kernel for most wrappers; the two passes of the resize),
     from ``torch.profiler``'s ``key_averages()`` over ``calls`` warm calls of
-    ``fn``: the kernel's own time, whatever its wrapper costs on the host.
-    None where the profiler shows no device time for it."""
+    ``fn``: the kernels' own time, whatever the wrapper costs on the host.
+    None where the profiler shows no device time for them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -320,11 +370,9 @@ def profiler_ms(fn, kernel: str, calls: int = 20):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    for e in prof.key_averages():
-        total = max(e.device_time_total, e.self_device_time_total)
-        if kernel in e.key and total > 0 and e.count:
-            return total / e.count / 1e3
-    return None
+    found = [max(e.device_time_total, e.self_device_time_total) for e in prof.key_averages()
+             if kernel in e.key and e.count]
+    return sum(found) / calls / 1e3 if sum(found) > 0 else None
 
 
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes and
@@ -343,8 +391,11 @@ def kernel_work(name: str, **shape):
     do at ``shape``: each input byte read once, each output byte written
     once. Shapes: coeffs (b, h, w, c, mode); compact (b, n, cap);
     filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
-    dct8x8_aan and idct8x8_int (n). The integer kernels count no f32
-    operations."""
+    dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
+    kx: the taps of a vertical and a horizontal window). The integer kernels
+    count no f32 operations. The resize's uint8 intermediate (b * h * dw * c
+    bytes, written and read again) is its design's own traffic, not work
+    the function must do, and is not counted."""
     s = shape
     if name == "coeffs":
         from pixo_tpu_torch.ops.blockify import num_blocks
@@ -363,6 +414,9 @@ def kernel_work(name: str, **shape):
         return 512 * s["n"], AAN_OPS * s["n"]
     if name == "idct8x8_int":
         return 320 * s["n"], 0
+    if name == "resize_lanczos3":  # a multiply and an add a tap, each pass
+        mid, out = s["b"] * s["h"] * s["dw"] * s["c"], s["b"] * s["dh"] * s["dw"] * s["c"]
+        return s["b"] * s["h"] * s["w"] * s["c"] + out, 2 * (mid * s["kx"] + out * s["ky"])
     raise ValueError(f"no work model for kernel {name!r}")
 
 
@@ -555,7 +609,7 @@ def time_kernel(name: str, at: str, call, plain, alone, card: str, **shape) -> d
     reaches. No single PyTorch call computes any kernel's function, so
     ``library_ms`` is None."""
     bound, by = kernel_bound(name, **shape)
-    t = {"ms": event_ms(call), "plain_ms": event_ms(plain),
+    t = {"at": at, "ms": event_ms(call), "plain_ms": event_ms(plain),
          "device_ms": profiler_ms(call, f"{name}_"),  # filter_rows_strip_kernel, coeffs_kernel, ...
          "launch_ms": event_ms(alone),
          "bound_ms": bound, "bound_by": by, "library_ms": None}
@@ -1202,43 +1256,475 @@ def time_decode(dev, cases, card: str, n_idct: int) -> dict:
     return k_ms
 
 
-def main_path_launchers(kernels, grad_dev, lum, chrom):
-    """For ``coeffs`` and ``compact`` (cap 8) on the gradient batch: (the
-    wrapper call, the launch alone). The launch alone calls the C function
-    with its outputs and tables made beforehand, so it times what the card
-    and the CUDA runtime do, without the wrapper's checks and allocations."""
+def resize_cases(rng):
+    """The resize kernel's shapes, (label, [B, H, W, C] uint8 noise, dst_h,
+    dst_w): the thumbnail cell's chunk (64x256x256x3 to 128x128); up- and
+    downscales at odd sizes and a 16x16 to 3x5 with 1, 3 and 4 channels; a
+    target of one pixel; sources one pixel wide and one pixel high; the same
+    size (a pass at scale 1); one 3220x1812 image to 128x128 (windows of 153
+    and 87 taps); batches of 1 and of 64."""
+    import numpy as np
+
+    shapes = [("thumbnail chunk", (T1_CHUNK, T1_SIZE, T1_SIZE, 3), THUMB, THUMB)]
+    for sh, sw, dh, dw in ((48, 48, 96, 96), (37, 51, 100, 77), (100, 7, 13, 29), (16, 16, 3, 5),
+                           (128, 128, 32, 32)):
+        shapes += [(f"{c} channels", (2, sh, sw, c), dh, dw) for c in (1, 3, 4)]
+    shapes += [("target of one pixel", (3, 9, 14, 3), 1, 1),
+               ("source one pixel wide", (2, 30, 1, 4), 8, 5),
+               ("source one pixel high", (2, 1, 30, 1), 5, 8),
+               ("same size", (1, THUMB, THUMB, 3), THUMB, THUMB),
+               ("two channels, batch 64", (64, 20, 31, 2), 9, 13),
+               ("one large image", (1, 1812, 3220, 3), THUMB, THUMB)]
+    return [(f"{label} {'x'.join(map(str, shape))} -> {dh}x{dw}",
+             rng.integers(0, 256, shape, dtype=np.uint8), dh, dw) for label, shape, dh, dw in shapes]
+
+
+def check_resize_kernel(dev) -> dict:
+    """Phase 2, resize: ``resize_lanczos3`` against its plain version on
+    ``dev`` bit for bit, and against the host library's Lanczos3 image by
+    image, on ``resize_cases``; each case also from an odd byte offset of
+    its buffer, as a geometry group of a decoded batch lies. Returns the
+    kernel's largest absolute error."""
+    import numpy as np
     import torch
 
-    b, h, w, c = grad_dev.shape
+    from pixo_tpu_torch.native import native_resize_lanczos3
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.resize_kernels import lanczos_taps
+
+    worst = 0
+    for label, host, dh, dw in resize_cases(np.random.default_rng(10)):
+        taps = (*lanczos_taps(host.shape[2], dw), *lanczos_taps(host.shape[1], dh))
+        flat = torch.empty(host.size + 1, dtype=torch.uint8, device=dev)
+        shifted = flat[1:].view(host.shape).copy_(torch.from_numpy(host))
+        got = kernels.resize_lanczos3(torch.from_numpy(host).to(dev), *taps)
+        ref = kernels.resize_lanczos3_plain(shifted, *taps)
+        err = max(int((got.int() - ref.int()).abs().max()),
+                  int((kernels.resize_lanczos3(shifted, *taps).int() - ref.int()).abs().max()))
+        worst = max(worst, err)
+        got_h = got.cpu().numpy()
+        host_bad = sum(not np.array_equal(got_h[i], native_resize_lanczos3(host[i], *taps))
+                       for i in range(len(host)))
+        _verdict(f"check resize_lanczos3 {label}, taps {taps[1].shape[1]} and {taps[3].shape[1]}: "
+                 f"max_abs_err vs plain {err}, images differing from the host library "
+                 f"{host_bad}/{len(host)}", err == 0 and host_bad == 0)
+    return {"resize_lanczos3": worst}
+
+
+def thumbnail_cases(dev, cases) -> dict:
+    """The thumbnail path's calls: key -> (label, files, chunk size). (t1)
+    BASELINE.json config 5 as benches/pipeline.py builds it: 1000 JPEGs of
+    256x256 (one gradient rolled along x by seeded shifts, encoded by the
+    port at q90 4:4:4). (t2) one mixed call in chunks of 5: the four corpus
+    PNGs, the 13 files of decode batch (d3) (baseline and progressive, 16x16
+    to 3220x1812), a gray JPEG, an RGBA and a gray+alpha PNG, a P6 and a P5
+    file and an input that is thumbnail-sized already."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, JpegOptions, PngOptions, encode_jpeg_batch_sharded, png
+    from pixo_tpu_torch.utils.synthetic import synth_gradient
+
+    base = synth_gradient(T1_SIZE, T1_SIZE, 3)
+    shifts = np.random.default_rng(0).integers(0, 64, T1_COUNT)
+    imgs = np.stack([np.roll(base, int(s), axis=1) for s in shifts])
+    t1 = encode_jpeg_batch_sharded(imgs, JpegOptions.fast(T1_SIZE, T1_SIZE, 90), device=dev)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    rng = np.random.default_rng(12)
+    corpus = [_read(os.path.join(here, "tests", "fixtures", f"corpus_{name}_512.png"))
+              for name in CORPUS]
+    gray = rng.integers(0, 256, (1, 77, 120), dtype=np.uint8)
+    gray_jpeg = encode_jpeg_batch_sharded(
+        gray, JpegOptions(width=120, height=77, quality=90, color_type=ColorType.GRAY), device=dev)
+    rgba = rng.integers(0, 256, (90, 141, 4), dtype=np.uint8)
+    gray_alpha = rng.integers(0, 256, (141, 90, 2), dtype=np.uint8)
+    pngs = [png.encode(rgba, PngOptions.fast(141, 90).replace(color_type=ColorType.RGBA)),
+            png.encode(gray_alpha, PngOptions.fast(90, 141).replace(color_type=ColorType.GRAY_ALPHA))]
+    ppm = b"P6\n# made by chip_smoke\n200 150\n255\n" + rng.integers(
+        0, 256, (150, 200, 3), dtype=np.uint8).tobytes()
+    pgm = b"P5 150 200 255\n" + rng.integers(0, 256, (200, 150), dtype=np.uint8).tobytes()
+    small = encode_jpeg_batch_sharded(
+        rng.integers(0, 256, (1, THUMB, THUMB, 3), dtype=np.uint8),
+        JpegOptions.fast(THUMB, THUMB, 90), device=dev)
+    # the first chunk of 5 holds no JPEG, so it launches no decode tail
+    t2 = corpus + pngs[:1] + list(cases["d3"][1]) + gray_jpeg + pngs[1:] + [ppm, pgm] + small
+    return {
+        "t1": (f"{T1_COUNT} JPEGs {T1_SIZE}x{T1_SIZE} q90 4:4:4 -> {THUMB}x{THUMB} q{THUMB_QUALITY}",
+               t1, T1_CHUNK),
+        "t2": (f"mixed: {len(corpus)} corpus PNGs, {len(cases['d3'][1])} JPEGs of (d3), gray JPEG, "
+               f"RGBA and gray+alpha PNGs, P6, P5, a {THUMB}x{THUMB} JPEG -> {THUMB}x{THUMB} "
+               f"q{THUMB_QUALITY}", t2, 5),
+    }
+
+
+def host_pixels(data: bytes):
+    """One input's [H, W, C] pixels, by other means than the pipeline's:
+    ``host_decode`` (the host library) for a JPEG, this script's own zlib
+    and numpy reader (``decode_png``) for a PNG, the PNM parser otherwise."""
+    from pixo_tpu_torch.cli import _parse_pnm
+
+    if data[:2] == b"\xff\xd8":
+        px = host_decode(data)
+    elif data[:4] == b"\x89PNG":
+        px = decode_png(data)
+    else:
+        px = _parse_pnm(data)[0]
+    return px if px.ndim == 3 else px[..., None]
+
+
+def host_thumbnails(files, workers: int = 8):
+    """The host composition every thumbnail is held to: ``host_pixels``
+    (the host library's JPEG decode, this script's PNG reader), ``_to_rgb``,
+    the host library's Lanczos3 with ``lanczos_taps``, then its fused JPEG
+    encode in the pipeline's marker frame (``_host_reference``). Returns
+    (files, the inputs' pixel shapes)."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import ColorType, JpegOptions
+    from pixo_tpu_torch.native import native_resize_lanczos3
+    from pixo_tpu_torch.ops.resize_kernels import lanczos_taps
+    from pixo_tpu_torch.parallel.pipeline import _to_rgb
+
+    opts = JpegOptions(width=THUMB, height=THUMB, quality=THUMB_QUALITY, color_type=ColorType.RGB)
+
+    def one(data):
+        px = host_pixels(data)
+        rgb = _to_rgb(torch.from_numpy(np.array(px))).numpy()  # a copy: PNM pixels are read-only
+        thumb = native_resize_lanczos3(rgb, *lanczos_taps(rgb.shape[1], THUMB),
+                                       *lanczos_taps(rgb.shape[0], THUMB))
+        return _host_reference([thumb], opts)[0], px.shape
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        outs = list(ex.map(one, files))
+    return [o for o, _ in outs], [shape for _, shape in outs]
+
+
+def check_thumbnail_path(dev, tcases) -> dict:
+    """Phase 3, thumbnails: ``thumbnail_pipeline(..., device="cuda")`` on (t1)
+    and (t2), every output held byte for byte against ``host_thumbnails``,
+    with the launch counts a call: ``coeffs`` and ``compact`` one a chunk
+    (``compact`` more where the cap escalates), ``idct_planes`` one a chunk
+    that holds a JPEG, ``resize_lanczos3`` at least one a shape group of a
+    chunk and at most one an input. The port's decode of every PNG of (t2)
+    is also held to this script's own reader, and a corrupt file in a call must raise
+    InvalidDecode. Returns the launch counts of run (t1)."""
+    import numpy as np
+
+    from pixo_tpu_torch import errors, thumbnail_pipeline
+    from pixo_tpu_torch.decode import decode_png as port_decode_png
+    from pixo_tpu_torch.ops import kernels
+
+    wrappers = {"resize_lanczos3": kernels.resize_lanczos3, "coeffs": kernels.coeffs,
+                "compact": kernels.compact_padded, "idct_planes": kernels.idct_planes}
+    first = None
+    for key, (label, files, chunk) in tcases.items():
+        stats = {}
+        reset_counts()
+        outs = thumbnail_pipeline(files, thumb_size=THUMB, quality=THUMB_QUALITY, host_workers=8,
+                                  chunk_size=chunk, device=dev, stats=stats)
+        launches = {name: fn.launches for name, fn in wrappers.items()}
+        first = first or launches
+        want, shapes = host_thumbnails(files)
+        same = sum(a == b for a, b in zip(outs, want))
+        chunks = [range(lo, min(lo + chunk, len(files))) for lo in range(0, len(files), chunk)]
+        with_jpeg = sum(any(files[i][:2] == b"\xff\xd8" for i in c) for c in chunks)
+        groups = sum(len({(files[i][:2] == b"\xff\xd8", shapes[i]) for i in c}) for c in chunks)
+        counts_ok = (launches["coeffs"] == len(chunks) and launches["compact"] >= len(chunks)
+                     and launches["idct_planes"] == with_jpeg
+                     and groups <= launches["resize_lanczos3"] <= len(files))
+        _verdict(f"thumbnail path ({key}) {label}, chunks of {chunk}: {same}/{len(files)} thumbnails "
+                 f"byte-equal to the host composition, mean {sum(map(len, outs)) / len(outs):.0f} "
+                 f"B/thumbnail; {len(chunks)} chunks, {with_jpeg} with a JPEG, {groups} shape groups; "
+                 f"launches {launches}; stage seconds "
+                 + ", ".join(f"{k} {v:.4f}" for k, v in stats.items()),
+                 same == len(files) and counts_ok and set(stats) == {"decode_wait_s", "device_s",
+                                                                      "pack_s"})
+    _, files, chunk = tcases["t2"]
+    pngs = [d for d in files if d[:4] == b"\x89PNG"]
+    same = sum(np.array_equal(port_decode_png(d).pixels, decode_png(d)) for d in pngs)
+    _verdict(f"decode_png on the PNGs of (t2) (corpus, RGBA, gray+alpha): {same}/{len(pngs)} images "
+             f"equal to this script's zlib and numpy reader", same == len(pngs))
+    for what, bad in (("a truncated JPEG", files[6][: len(files[6]) // 2]),
+                      ("a PNG with a flipped byte",
+                       files[0][:200] + bytes([files[0][200] ^ 0xFF]) + files[0][201:])):
+        try:
+            thumbnail_pipeline(files[:7] + [bad] + files[7:9], thumb_size=THUMB, chunk_size=chunk,
+                               device=dev)
+            raised = "nothing"
+        except errors.InvalidDecode as e:
+            raised = f"InvalidDecode({e})"
+        _verdict(f"thumbnail path with {what} in the call raises {raised}",
+                 raised.startswith("InvalidDecode"))
+    return first
+
+
+def thumbnail_chunks(dev, files, chunk: int):
+    """The chunks of a thumbnail call as ``thumbnail_pipeline`` forms them:
+    for each, what its host decode stage hands to the device stage
+    (``_thumb_decode``: the JPEGs' host batch or None, their positions, the
+    other inputs' pixels)."""
+    from pixo_tpu_torch.cli import load_image
+    from pixo_tpu_torch.parallel.pipeline import _thumb_decode
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        loaded = [None if d[:2] == b"\xff\xd8" else ex.submit(load_image, d, device="cpu")
+                  for d in files]
+        for lo in range(0, len(files), chunk):
+            yield _thumb_decode(files[lo:lo + chunk], loaded[lo:lo + chunk], 8, dev)
+
+
+def check_thumbnail_kernels(dev, tcases) -> dict:
+    """Phase 2, thumbnails: the kernels that the thumbnail path shares with
+    the encode and the decode, each against its plain version on the very
+    tensors this path gives it, chunk by chunk of (t1) and (t2):
+    ``idct_planes`` (through ``idct_planes_table``, as ``_device_tail`` calls
+    it) on the chunk's JPEG coefficients, ``coeffs`` in mode 444 on the
+    chunk's thumbnails, ``compact`` on their coefficients at cap 8 and at the
+    cap that ``_fetch_compacted`` escalates to. Returns the largest absolute
+    error of each."""
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
+    from pixo_tpu_torch.parallel.pipeline import _thumb_resize
+
+    quant = QuantizationTables(THUMB_QUALITY)
+    lum, chrom = quant.luminance_table, quant.chrominance_table
+    worst = {"idct_planes": 0, "coeffs": 0, "compact": 0}
+    for key, (label, files, chunk) in tcases.items():
+        errs = {"idct_planes": 0, "coeffs": 0, "compact": 0}
+        blocks, chunks, caps = 0, 0, set()
+        for batch, jpegs, others in thumbnail_chunks(dev, files, chunk):
+            chunks += 1
+            if batch is not None:
+                zz, desc = batch.to_device(dev)
+                got = kernels.idct_planes_table(zz, batch.layout.table, desc)
+                ref = kernels.idct_planes_plain(zz, batch.qtables, batch.layout.planes)
+                errs["idct_planes"] = max(errs["idct_planes"], int((got.int() - ref.int()).abs().max()))
+                blocks += zz.shape[0]
+            thumbs = _thumb_resize(batch, jpegs, others, THUMB, dev)
+            zz = kernels.coeffs(thumbs, lum, chrom, "444")
+            ref = kernels.coeffs_plain(thumbs, lum, chrom, "444")
+            errs["coeffs"] = max(errs["coeffs"], int((zz.int() - ref.int()).abs().max()))
+            most = int(kernels.compact_padded(zz, 8)[5].max())
+            for cap in {8, next((t for t in PADDED_CAP_TIERS if most <= t), 8)}:
+                caps.add(cap)
+                pairs = zip(kernels.compact_padded(zz, cap), sparsify_blocks_padded_batch(zz, cap))
+                errs["compact"] = max([errs["compact"]]
+                                      + [int((g.int() - r.int()).abs().max()) for g, r in pairs])
+        _verdict(f"check the thumbnail path's shared kernels on ({key}) {label}, {chunks} chunks of "
+                 f"{chunk}: idct_planes on {blocks} coefficient blocks, coeffs mode=444 on "
+                 f"[<={chunk}, {THUMB}, {THUMB}, 3] thumbnails, compact at caps {sorted(caps)}: "
+                 f"max_abs_err vs plain {errs}", not any(errs.values()))
+        worst = {k: max(worst[k], v) for k, v in errs.items()}
+    return worst
+
+
+def resize_alone(imgs, dst: int):
+    """The launch alone of ``resize_lanczos3`` on ``imgs`` to ``dst`` square:
+    the C function with its taps, scratch and output on the card already."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.resize_kernels import _taps_on
+
+    b, h, w, c = imgs.shape
+    sx, wx = _taps_on(w, dst, imgs.device)
+    sy, wy = _taps_on(h, dst, imgs.device)
+    tmp = torch.empty((b, h, dst, c), dtype=torch.uint8, device=imgs.device)
+    out = torch.empty((b, dst, dst, c), dtype=torch.uint8, device=imgs.device)
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    args = (imgs.data_ptr(), b, h, w, c, sx.data_ptr(), wx.data_ptr(), wx.shape[1], dst,
+            sy.data_ptr(), wy.data_ptr(), wy.shape[1], dst, tmp.data_ptr(), out.data_ptr(), stream)
+    return (lambda: lib.pixo_resize_lanczos3(*args)), dict(
+        b=b, h=h, w=w, c=c, dh=dst, dw=dst, ky=wy.shape[1], kx=wx.shape[1])
+
+
+def two_call_thumbnails(dev, files, chunk: int):
+    """The thumbnails of ``files`` through the entry points that existed
+    before the thumbnail pipeline, chunk by chunk: ``decode_jpeg_batch`` to
+    host pixels, the host library's Lanczos3 on 8 threads,
+    ``encode_jpeg_batch_sharded`` of the thumbnails. The pixels cross to the
+    host after the decode and back before the encode."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, JpegOptions, encode_jpeg_batch_sharded
+    from pixo_tpu_torch.decode import decode_jpeg_batch
+    from pixo_tpu_torch.native import native_resize_lanczos3
+    from pixo_tpu_torch.ops.resize_kernels import lanczos_taps
+
+    opts = JpegOptions(width=THUMB, height=THUMB, quality=THUMB_QUALITY, color_type=ColorType.RGB)
+
+    def shrink(img):
+        px = img.pixels
+        return native_resize_lanczos3(px, *lanczos_taps(px.shape[1], THUMB),
+                                      *lanczos_taps(px.shape[0], THUMB))
+
+    outs = []
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        for lo in range(0, len(files), chunk):
+            images = decode_jpeg_batch(files[lo:lo + chunk], device=dev)
+            thumbs = np.stack(list(ex.map(shrink, images)))
+            outs += encode_jpeg_batch_sharded(thumbs, opts, device=dev)
+    return outs
+
+
+def time_thumbnail(dev, tcases, card: str) -> dict:
+    """Phase 4, thumbnails: ``resize_lanczos3`` at (t1)'s chunk shape
+    (``time_kernel``), then for (t1) the stages of one chunk of 64 (host
+    decode stage, the decode's device tail, resize, coefficients and
+    compaction, the copy of the compacted streams, host pack) and the whole
+    call of 1000 files, beside the same files through ``two_call_thumbnails``;
+    medians with least and most over ``THUMB_RUNS`` warm runs; and the
+    kernels this path shares with the encode and the decode (``coeffs`` in
+    mode 444, ``compact`` at cap 8 and at the cap its chunks escalate to,
+    ``idct_planes``) at one chunk's shapes, each beside its bound there.
+    Returns the resize kernel's times and the shared kernels' (name -> one
+    ``time_kernel`` record a shape)."""
+    from pixo_tpu_torch import ColorType, JpegOptions, thumbnail_pipeline
+    from pixo_tpu_torch.decode import jpeg_decoder as jd
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.blockify import scan_layout
+    from pixo_tpu_torch.ops.resize_kernels import _taps_on, resize_lanczos3_batch
+    from pixo_tpu_torch.ops.sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
+    from pixo_tpu_torch.parallel.pipeline import _assemble_jpeg, _fetch_compacted, _pack_hosted
+
+    label, files, chunk = tcases["t1"]
+    first = files[:chunk]
+    batch = jd._host_stage(first, 8, pinned=True)
+    pixels = jd._device_tail(batch, False, dev)
+    ((members, shape, offset),) = jd._pixel_groups(batch)  # one geometry group
+    imgs = pixels[offset:].view(len(members), *shape)
+    alone, work = resize_alone(imgs, THUMB)
+    taps = (*_taps_on(shape[1], THUMB, dev), *_taps_on(shape[0], THUMB, dev))
+    at = f"(t1) chunk {'x'.join(map(str, imgs.shape))} -> {THUMB}x{THUMB}"
+    k_ms = {"resize_lanczos3": time_kernel(
+        "resize_lanczos3", f"{at}, windows of {work['kx']} and {work['ky']} taps (its uint8 "
+        f"intermediate, {work['b'] * work['h'] * work['dw'] * work['c']} B written and read again, "
+        "is not in the bound)", lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
+        lambda: kernels.resize_lanczos3_plain(imgs, *taps), alone, card, **work)}
+
+    passes = {name: profiler_ms(lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
+                                f"resize_lanczos3_{name[0]}_kernel") for name in ("horizontal", "vertical")}
+    print(f"kernel resize_lanczos3 {at}, its two launches on the device: "
+          + ", ".join("not measured" if v is None else f"{k} {v:.4f} ms" for k, v in passes.items())
+          + f" [{card}]")
+
+    opts = JpegOptions(width=THUMB, height=THUMB, quality=THUMB_QUALITY, color_type=ColorType.RGB)
+    quant = QuantizationTables(THUMB_QUALITY)
+    _, _, pattern = scan_layout(THUMB, THUMB, "rgb", "444")
+    thumbs = resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB)
+
+    def coeffs_compact():
+        zz = jenc._device_coeffs_batch(thumbs, quant.luminance_table, quant.chrominance_table,
+                                       color="rgb", subsampling="444")
+        return zz, kernels.compact_padded(zz, 8)
+
+    zz, compacted = coeffs_compact()
+    state = _fetch_compacted(zz, compacted)
+
+    # the kernels this path shares with the encode and the decode, at the
+    # shapes it gives them: one chunk's thumbnails and JPEG coefficients
+    lum, chrom = quant.luminance_table, quant.chrominance_table
+    tier = next((t for t in PADDED_CAP_TIERS if int(compacted[5].max()) <= t), 8)
+    shared = {"coeffs": [], "compact": [], "idct_planes": []}
+    for cap in sorted({8, tier}):
+        _, launchers = main_path_launchers(kernels, thumbs, lum, chrom, mode="444", cap=cap)
+        if cap == 8:
+            shared["coeffs"].append(time_kernel(
+                "coeffs", f"(t1) chunk {'x'.join(map(str, thumbs.shape))} q{THUMB_QUALITY} 4:4:4",
+                launchers["coeffs"][0], lambda: kernels.coeffs_plain(thumbs, lum, chrom, "444"),
+                launchers["coeffs"][1], card, b=chunk, h=THUMB, w=THUMB, c=3, mode="444"))
+        shared["compact"].append(time_kernel(
+            "compact", f"(t1) chunk {'x'.join(map(str, zz.shape))} cap {cap}"
+            + ("" if cap == 8 else " (the cap every chunk escalates to)"), launchers["compact"][0],
+            lambda: sparsify_blocks_padded_batch(zz, cap), launchers["compact"][1], card,
+            b=chunk, n=zz.shape[1], cap=cap))
+    run = decode_launchers(dev, first)
+    shared["idct_planes"].append(time_kernel(
+        "idct_planes", f"(t1) chunk {chunk} JPEGs {T1_SIZE}x{T1_SIZE} 4:4:4, {run['zz'].shape[0]} "
+        "blocks", run["call"], run["plain"], run["alone"], card, n=run["zz"].shape[0],
+        out_bytes=run["out_bytes"]))
+    mp_chunk, mp_all = chunk * T1_SIZE * T1_SIZE / 1e6, len(files) * T1_SIZE * T1_SIZE / 1e6
+
+    def run_pipeline():
+        return thumbnail_pipeline(files, thumb_size=THUMB, quality=THUMB_QUALITY, host_workers=8,
+                                  chunk_size=chunk, device=dev)
+
+    same = sum(a == b for a, b in zip(two_call_thumbnails(dev, files, chunk), run_pipeline()))
+    _verdict(f"thumbnail (t1): {same}/{len(files)} files of the two-call path byte-equal to the "
+             f"pipeline's", same == len(files))
+    stages = {
+        "thumb_decode_host_stage": (lambda: jd._host_stage(first, 8, pinned=True), chunk, mp_chunk),
+        "thumb_decode_device_tail": (lambda: jd._device_tail(batch, False, dev), chunk, mp_chunk),
+        "thumb_resize": (lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB), chunk,
+                         mp_chunk),
+        "thumb_coeffs_compact": (coeffs_compact, chunk, mp_chunk),
+        "thumb_d2h": (lambda: _fetch_compacted(zz, compacted), chunk, mp_chunk),
+        "thumb_host_pack": (lambda: [_assemble_jpeg(s, opts, quant)
+                                     for s in _pack_hosted(state, opts, pattern, 8)], chunk, mp_chunk),
+        "thumb_end_to_end": (run_pipeline, len(files), mp_all),
+        "thumb_two_call_path": (lambda: two_call_thumbnails(dev, files, chunk), len(files), mp_all),
+    }
+    result = {}
+    for name, (fn, count, mp) in stages.items():
+        med, least, most = result[name] = wall_stats(fn)
+        print(f"stage {name} (t1) {count} images: median {med:.4f} ms (least {least:.4f}, most "
+              f"{most:.4f}), {count / (med / 1e3):.1f} images/s, {mp / (med / 1e3):.1f} input MP/s "
+              f"over {THUMB_RUNS} warm runs [{card}]")
+    stats = {}
+    thumbnail_pipeline(files, thumb_size=THUMB, quality=THUMB_QUALITY, host_workers=8,
+                       chunk_size=chunk, device=dev, stats=stats)
+    print(f"thumbnail (t1) stats of one call: " + ", ".join(f"{k} {v * 1e3:.4f} ms"
+                                                             for k, v in stats.items())
+          + f"; no pixel crosses to the host between the decode and the compaction [{card}]")
+    one, two = result["thumb_end_to_end"][0], result["thumb_two_call_path"][0]
+    print(f"thumbnail (t1): the pipeline {one:.4f} ms, the two-call path {two:.4f} ms: "
+          f"{'the pipeline' if one < two else 'the two-call path'} is faster by "
+          f"{max(one, two) / min(one, two):.2f}x [{card}]")
+    return k_ms, shared
+
+
+def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: int = 8):
+    """For ``coeffs`` (in ``mode``) and ``compact`` (at ``cap``) on the batch
+    ``imgs_dev``: (the wrapper call, the launch alone). The launch alone
+    calls the C function with its outputs and tables made beforehand, so it
+    times what the card and the CUDA runtime do, without the wrapper's checks
+    and allocations. Returns the batch's coefficients and the two pairs."""
+    import torch
+
+    b, h, w, c = imgs_dev.shape
     lib = kernels.load()
     stream = torch.cuda.current_stream().cuda_stream
     lum32, chrom32 = kernels._table(lum), kernels._table(chrom)
-    zz = kernels.coeffs(grad_dev, lum, chrom, "420")
+    zz = kernels.coeffs(imgs_dev, lum, chrom, mode)
     n = zz.shape[1]
-    dev = grad_dev.device
+    dev = imgs_dev.device
     # laid out as the wrapper lays them out (total and maxcount side by
     # side); written here so that an earlier checkout is timed alike
     outs = [torch.empty(shape, dtype=dt, device=dev) for shape, dt in (
-        ((b, n), torch.int16), ((b, n), torch.uint8), ((b, n, 8), torch.uint8),
-        ((b, n, 8), torch.int16))]
+        ((b, n), torch.int16), ((b, n), torch.uint8), ((b, n, cap), torch.uint8),
+        ((b, n, cap), torch.int16))]
     outs += torch.empty((2, b), dtype=torch.int32, device=dev).unbind(0)
     zz_out = torch.empty_like(zz)
     ptrs = [t.data_ptr() for t in outs]
-    mode420 = 2
+    code = {"gray": 0, "444": 1, "420": 2, "422": 3}[mode]  # csrc/coeffs.cu's modes
 
     def coeffs_alone():
-        return lib.pixo_coeffs(grad_dev.data_ptr(), b, h, w, c, mode420, lum32.ctypes.data,
+        return lib.pixo_coeffs(imgs_dev.data_ptr(), b, h, w, c, code, lum32.ctypes.data,
                                chrom32.ctypes.data, zz_out.data_ptr(), stream)
 
     def compact_alone():
-        return lib.pixo_compact(zz.data_ptr(), b, n, 8, *ptrs, stream)
+        return lib.pixo_compact(zz.data_ptr(), b, n, cap, *ptrs, stream)
 
     if coeffs_alone() or compact_alone():
         raise Failed("a launch-alone call returned an error")
     torch.cuda.synchronize()
     return zz, {
-        "coeffs": (lambda: kernels.coeffs(grad_dev, lum, chrom, "420"), coeffs_alone),
-        "compact": (lambda: kernels.compact_padded(zz, 8), compact_alone),
+        "coeffs": (lambda: kernels.coeffs(imgs_dev, lum, chrom, mode), coeffs_alone),
+        "compact": (lambda: kernels.compact_padded(zz, cap), compact_alone),
     }
 
 
@@ -1325,6 +1811,20 @@ def measure_tree(root: str) -> dict:
         stages[f"decode_device ({key})"] = wall_ms(
             lambda: jd._upsample_colour(run["call"](), run["batch"], False))
         stages[f"decode_end_to_end ({key})"] = wall_ms(lambda: decode_jpeg_batch(files, device=dev))
+    if hasattr(kernels, "resize_lanczos3"):  # a checkout from before the thumbnail path has none
+        from pixo_tpu_torch import thumbnail_pipeline
+        from pixo_tpu_torch.ops.resize_kernels import _taps_on, resize_lanczos3_batch
+
+        _, files, chunk = thumbnail_cases(dev, cases)["t1"]
+        batch = jd._host_stage(files[:chunk], 8, pinned=True)
+        pixels, ((members, shape, offset),) = jd._device_tail(batch, False, dev), jd._pixel_groups(batch)
+        imgs = pixels[offset:].view(len(members), *shape)
+        taps = (*_taps_on(shape[1], THUMB, dev), *_taps_on(shape[0], THUMB, dev))
+        three_ways("resize_lanczos3 (t1 chunk)", "resize_lanczos3_",
+                   lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
+                   resize_alone(imgs, THUMB)[0], lambda: kernels.resize_lanczos3_plain(imgs, *taps))
+        stages["thumb_end_to_end (t1)"] = wall_stats(lambda: thumbnail_pipeline(
+            files, thumb_size=THUMB, quality=THUMB_QUALITY, chunk_size=chunk, device=dev))[0]
     return res
 
 
@@ -1344,12 +1844,17 @@ def same_call_comparison(roots) -> int:
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     fmt = lambda v: "not measured" if v is None else f"{v:.4f}"  # noqa: E731
     print("compare, in run order: " + ", ".join(r["tree"] for r in runs))
-    for name in runs[0]["kernels"]:
-        for metric in runs[0]["kernels"][name]:
-            print(f"compare kernel {name} {metric}: "
-                  + ", ".join(fmt(r["kernels"][name][metric]) for r in runs) + " ms")
-    for stage in runs[0]["stages"]:
-        print(f"compare stage {stage}: " + ", ".join(fmt(r["stages"][stage]) for r in runs) + " ms")
+    def every(part):  # the names of any run, in first-seen order: a tree may lack a kernel
+        return list(dict.fromkeys(name for r in runs for name in r[part]))
+
+    for name in every("kernels"):
+        for metric in ("device_ms", "launch_ms", "call_ms"):
+            print(f"compare kernel {name} {metric}: " + ", ".join(
+                fmt(r["kernels"][name][metric]) if name in r["kernels"] else "absent"
+                for r in runs) + " ms")
+    for stage in every("stages"):
+        print(f"compare stage {stage}: " + ", ".join(
+            fmt(r["stages"][stage]) if stage in r["stages"] else "absent" for r in runs) + " ms")
     return 0
 
 
@@ -1461,6 +1966,77 @@ def filter_parts(card: str) -> int:
     return 0
 
 
+def pack_workers(card: str) -> int:
+    """What the host pack stage (``_pack_hosted``, then the marker frame)
+    takes on 1, 2, 4 and 8 threads, for the JPEG encode's 16x512x512 q85
+    4:2:0 batch and for one thumbnail chunk of 64 128x128 q85 4:4:4 images:
+    one library call an image, whose Python set-up holds the interpreter
+    lock, so more threads help only where the call itself is long. Then the
+    whole thumbnail call on 256 such JPEGs under ``host_workers`` 1 to 8."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import (
+        ColorType,
+        JpegOptions,
+        Subsampling,
+        encode_jpeg_batch_sharded,
+        thumbnail_pipeline,
+    )
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.blockify import scan_layout
+    from pixo_tpu_torch.ops.resize_kernels import resize_lanczos3_batch
+    from pixo_tpu_torch.parallel.pipeline import (
+        _assemble_jpeg,
+        _fetch_compacted,
+        _pack_hosted,
+        jpeg_coeffs_sharded,
+    )
+    from pixo_tpu_torch.utils.synthetic import synth_gradient
+
+    dev = torch.device("cuda")
+    base = synth_gradient(T1_SIZE, T1_SIZE, 3)
+    rolled = np.stack([np.roll(base, int(s), axis=1)
+                       for s in np.random.default_rng(0).integers(0, 64, T1_CHUNK)])
+    thumbs = resize_lanczos3_batch(torch.from_numpy(rolled).to(dev), dst_w=THUMB, dst_h=THUMB)
+    batches = {
+        f"JPEG encode {BATCH}x{SIZE}x{SIZE} q{QUALITY} 4:2:0": (
+            gradient_batch(BATCH, SIZE),
+            JpegOptions(width=SIZE, height=SIZE, quality=QUALITY, subsampling=Subsampling.S420)),
+        f"thumbnail chunk {T1_CHUNK}x{THUMB}x{THUMB} q{THUMB_QUALITY} 4:4:4": (
+            thumbs, JpegOptions(width=THUMB, height=THUMB, quality=THUMB_QUALITY,
+                                color_type=ColorType.RGB)),
+    }
+    for label, (imgs, opts) in batches.items():
+        quant = QuantizationTables(opts.quality)
+        _, _, pattern = scan_layout(opts.width, opts.height, "rgb", opts.subsampling.value)
+        zz = jpeg_coeffs_sharded(imgs, opts, device=dev)
+        state = _fetch_compacted(zz, kernels.compact_padded(zz, 8))
+        times = []
+        for workers in (1, 2, 4, 8):
+            med, least, most = wall_stats(
+                lambda: [_assemble_jpeg(s, opts, quant) for s in _pack_hosted(state, opts, pattern, workers)],
+                runs=WARM_RUNS)
+            times.append(f"{workers} threads {med:.4f} ms ({least:.4f} to {most:.4f})")
+        print(f"pack workers {label}: " + "; ".join(times) + f" (median, least to most of "
+              f"{WARM_RUNS} warm runs) [{card}]")
+    # the whole thumbnail call under host_workers, which sets the threads of
+    # the decode's library calls and of the pack alike
+    files = encode_jpeg_batch_sharded(np.concatenate([rolled] * 4),
+                                      JpegOptions.fast(T1_SIZE, T1_SIZE, 90), device=dev)
+    times = []
+    for workers in (1, 2, 4, 8):
+        med, least, most = wall_stats(lambda: thumbnail_pipeline(
+            files, thumb_size=THUMB, quality=THUMB_QUALITY, host_workers=workers,
+            chunk_size=T1_CHUNK, device=dev))
+        times.append(f"{workers} {med:.4f} ms ({least:.4f} to {most:.4f})")
+    print(f"pack workers thumbnail_pipeline {len(files)} JPEGs {T1_SIZE}x{T1_SIZE} in chunks of "
+          f"{T1_CHUNK}, by host_workers: " + "; ".join(times) + f" (median, least to most of "
+          f"{THUMB_RUNS} warm runs) [{card}]")
+    return 0
+
+
 def sass_loops(kernel: str) -> int:
     """The machine code of the kernels whose name holds ``kernel``, from
     ``cuobjdump -sass`` on the library built from the checkout: each kernel's
@@ -1517,14 +2093,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
-    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"]):
+    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
         if sys.argv[1] == "--compare":
             return same_call_comparison(sys.argv[2:])
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        return coeffs_parts(card) if sys.argv[1] == "--coeffs-parts" else filter_parts(card)
+        return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
+                "--pack-workers": pack_workers}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 
@@ -1560,34 +2137,55 @@ def main() -> int:
         errs.update(check_png_kernels(dev, corpus))
         cases = decode_cases(dev, grad, corpus)
         errs.update(check_decode_kernels(dev, cases, 100_000))
+        errs.update(check_resize_kernel(dev))
+        tcases = thumbnail_cases(dev, cases)
+        thumb_errs = check_thumbnail_kernels(dev, tcases)
         launches = check_main_path(dev, grad)
         launches.update(check_png_main_path(dev, corpus, grad))
         launches.update(check_decode_main_path(dev, cases))
+        thumb_launches = check_thumbnail_path(dev, tcases)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    missing = [k for k, n in launches.items() if n < 1]
+    missing = ([k for k, n in launches.items() if n < 1]
+               + [f"{k} (thumbnail path)" for k, n in thumb_launches.items() if n < 1])
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
+    launches["resize_lanczos3"] = thumb_launches["resize_lanczos3"]
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
     k_ms.update(time_decode(dev, cases, card, 100_000))
+    try:
+        resize_ms, thumb_ms = time_thumbnail(dev, tcases, card)
+        k_ms.update(resize_ms)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
 
     # dct8x8_aan, filter_bank and idct8x8_int (the TPU kernels' own
     # contracts) are on no main path: their checks and times have lines of
     # their own above. Each path's run in phase 3 is one call of its entry
-    # point, so its launches are the launches per call.
+    # point, so its launches are the launches per call; the resize kernel's
+    # are those of the thumbnail call (t1), 16 chunks of one shape group. A
+    # kernel that the thumbnail path shares with another path also has that
+    # path's record under "thumbnail_path": its launches in the call (t1),
+    # its error against the plain version on that path's tensors, and its
+    # times and bound at one chunk's shapes.
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
                                "pixo_tpu/ops/pallas_kernels.py:57"),
-               "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187")}
+               "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187"),
+               "resize_lanczos3": ("pixo_tpu_torch/csrc/resize.cu",
+                                   "pixo_tpu/ops/resize_kernels.py:154")}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "launches_per_call": launches[name],
          "max_abs_err": errs[name], **{k: k_ms[name][k] for k in (
-             "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")}}
+             "at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")},
+         **({"thumbnail_path": {"launches": thumb_launches[name], "max_abs_err": thumb_errs[name],
+                                "shapes": thumb_ms[name]}} if name in thumb_ms else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,10 @@ from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
 Ported so far are the batched baseline JPEG encode with the standard tables,
-the batched 8-bit lossless PNG encode and the batched baseline and
-progressive JPEG decode:
+the batched 8-bit lossless PNG encode, the batched baseline and progressive
+JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
+thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying
+on the device from the decode to the compacted streams):
 
     from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
 
@@ -24,16 +26,36 @@ progressive JPEG decode:
     from pixo_tpu_torch import decode_jpeg_batch
 
     images = decode_jpeg_batch(jpeg_files, device="cuda")  # [H, W, 3] uint8 .pixels
+
+    from pixo_tpu_torch import decode_png_batch, thumbnail_pipeline
+
+    images = decode_png_batch(png_files)                   # on the host
+    thumbs = thumbnail_pipeline(files, thumb_size=128, quality=85, device="cuda")  # JPEG bytes
+
+    from pixo_tpu_torch import ResizeFilter, ResizeOptions, resize
+
+    opts = ResizeOptions(src_width=w, src_height=h, dst_width=128, dst_height=128,
+                         color_type=ColorType.RGB, filter=ResizeFilter.LANCZOS3)
+    small = resize.resize(pixels_u8, opts, device="cuda")  # [128, 128, 3] uint8
 """
 
-from . import errors
+from . import decode, errors, resize
 from .color import ColorType, rgb_to_ycbcr
-from .options import FilterStrategy, JpegOptions, PngOptions, Subsampling
+from .options import (
+    FilterStrategy,
+    JpegOptions,
+    PngOptions,
+    ResizeFilter,
+    ResizeOptions,
+    Subsampling,
+)
 from .parallel import (
     decode_jpeg_batch,
+    decode_png_batch,
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
     jpeg_coeffs_sharded,
+    thumbnail_pipeline,
 )
 
 __all__ = [
@@ -41,11 +63,17 @@ __all__ = [
     "FilterStrategy",
     "JpegOptions",
     "PngOptions",
+    "ResizeFilter",
+    "ResizeOptions",
     "Subsampling",
+    "decode",
     "decode_jpeg_batch",
+    "decode_png_batch",
     "encode_jpeg_batch_sharded",
     "encode_png_batch_sharded",
     "errors",
     "jpeg_coeffs_sharded",
+    "resize",
     "rgb_to_ycbcr",
+    "thumbnail_pipeline",
 ]

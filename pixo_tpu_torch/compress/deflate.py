@@ -1,16 +1,21 @@
-"""zlib-wrapped DEFLATE through the native C++ stack.
+"""zlib-wrapped DEFLATE and INFLATE through the native C++ stack.
 
-Counterpart of the JAX package's ``compress/deflate.py::deflate_zlib``. The
-JAX package falls back to Python's ``zlib`` when its native library is
-missing; the port has no such tier: the native library builds or the call
-raises.
+Counterpart of the JAX package's ``compress/deflate.py``: ``deflate_zlib``,
+``inflate_zlib`` and ``inflate_raw``. The JAX package falls back to Python's
+``zlib`` when its native library is missing; the port has no such tier: the
+native library builds or the call raises. Where the native INFLATE rejects a
+stream, Python's ``zlib`` decodes it again under the same size cap, as in the
+JAX package, so that a malformed stream raises that package's error.
 """
 
 from __future__ import annotations
 
 import os
+import zlib
+from typing import Optional
 
-from ..native import native_deflate
+from ..errors import InvalidDecode
+from ..native import NativeInflateError, native_deflate, native_inflate
 
 
 def _parity_default() -> bool:
@@ -29,3 +34,41 @@ def deflate_zlib(data, level: int = 6, parity: bool = None, packed: bool = False
     if parity is None:
         parity = _parity_default()
     return native_deflate(data, level, True, parity=parity, packed=packed)
+
+
+def _zlib_inflate_capped(data: bytes, wbits: int, expected_size: Optional[int]) -> bytes:
+    """Python's zlib under the native path's decompression-bomb guard: never
+    more than ``expected_size`` + 1 bytes (the one makes oversize
+    detectable), and no compressed input left after the expected output."""
+    if expected_size is None:
+        return zlib.decompress(data, wbits)
+    d = zlib.decompressobj(wbits)
+    try:
+        out = d.decompress(data, expected_size + 1)
+    except zlib.error as e:
+        raise InvalidDecode(f"inflate failed: {e}") from e
+    if len(out) > expected_size:
+        raise InvalidDecode(f"inflated output exceeds expected size {expected_size}")
+    if d.unconsumed_tail:
+        raise InvalidDecode("inflate: compressed input after expected output")
+    return out
+
+
+def _inflate(data: bytes, expected_size: Optional[int], zlib_wrap: bool) -> bytes:
+    if expected_size is not None:
+        try:
+            return native_inflate(data, expected_size, zlib_wrap)
+        except NativeInflateError:
+            pass  # zlib decodes it again below and names the error, or accepts it
+    return _zlib_inflate_capped(data, zlib.MAX_WBITS if zlib_wrap else -15, expected_size)
+
+
+def inflate_zlib(data: bytes, expected_size: Optional[int] = None) -> bytes:
+    """Inverse of ``deflate_zlib``: at most ``expected_size`` bytes where it
+    is given (the native INFLATE), the whole stream where it is not."""
+    return _inflate(data, expected_size, True)
+
+
+def inflate_raw(data: bytes, expected_size: Optional[int] = None) -> bytes:
+    """``inflate_zlib`` for a raw DEFLATE stream."""
+    return _inflate(data, expected_size, False)

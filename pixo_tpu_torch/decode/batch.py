@@ -1,19 +1,38 @@
-"""Batched JPEG decode: the decode-side counterpart of the encode batches.
+"""Batched decode: the decode-side counterpart of the encode batches.
 
-Counterpart of the JAX package's ``decode/batch.py::decode_jpeg_batch``,
-which maps the per-file decode over host threads and runs each file's pixel
-tail on its own. Here every file's entropy stage writes into one
-coefficient buffer (the baseline scans' native calls, which release the
-GIL, on host threads), and the pixel tail runs once for the whole batch
-on ``device`` (``jpeg_decoder.decode_files``). The PNG decode is not
-ported (ROADMAP queue 1 item 10).
+Counterpart of the JAX package's ``decode/batch.py``. Its
+``decode_jpeg_batch`` maps the per-file decode over host threads and runs
+each file's pixel tail on its own; here every file's entropy stage writes
+into one coefficient buffer (the baseline scans' native calls, which release
+the GIL, on host threads), and the pixel tail runs once for the whole batch
+on ``device`` (``jpeg_decoder.decode_files``). ``decode_png_batch`` maps the
+per-file PNG decode over host threads, as the JAX package does: INFLATE and
+the row reconstruction are library calls that release the GIL.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import functools
 from typing import List, Sequence
 
 from .jpeg_decoder import JpegImage, decode_files
+from .png_decoder import PngImage, decode_png
+
+
+def decode_png_batch(
+    files: Sequence[bytes],
+    *,
+    keep_bit_depth: bool = False,
+    workers: int = 8,
+) -> List[PngImage]:
+    """Decode many PNGs concurrently on host threads (order preserved); the
+    first file, in order, that fails raises its error."""
+    fn = functools.partial(decode_png, keep_bit_depth=keep_bit_depth)
+    if len(files) <= 1:
+        return [fn(f) for f in files]
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, files))
 
 
 def decode_jpeg_batch(

@@ -20,7 +20,10 @@ two host stages and one device stage:
    pixels to the host.
 
 ``decode_files`` runs the stages for a batch; ``decode_jpeg`` is a batch of
-one, and ``_decode_entropy`` the entropy stage of one file. The reference's
+one, and ``_decode_entropy`` the entropy stage of one file.
+A caller whose next stage runs on the same device (the thumbnail pipeline)
+takes the stages apart: ``_host_stage``, then ``_device_tail``, which leaves
+the pixels on the device, laid out as ``_pixel_groups`` says. The reference's
 choice of pixel tier (``_pixel_tier``, ``PIXO_TPU_DECODE_PIXELS``) has no
 counterpart: ``device=`` decides, and the tail runs as plain PyTorch for
 "cpu" and through the kernel on a CUDA device. Its CPU latency tier, the
@@ -785,7 +788,8 @@ def _host_stage(files: Sequence[bytes], workers: int, pinned: bool = False) -> _
     calling thread decodes the progressive files; with 1 they run inline.
     (Python work on the threads, or beside them while they start, made
     eight threads lose to one: PERF.md section 5.) Raises the error of the
-    first file, in order, that fails."""
+    first file, in order, that fails, with that file's index as the
+    exception's ``file_index``."""
     parsed = [_attempt(_parse, data) for data in files]
     scans = [p for p in parsed if isinstance(p, _Scan)]
     layout = _Layout(scans)
@@ -812,9 +816,11 @@ def _host_stage(files: Sequence[bytes], workers: int, pinned: bool = False) -> _
             running[k].result() if pool else running[k])
     decoded = iter(outcome)
     results = [p if isinstance(p, Exception) else next(decoded) for p in parsed]
-    failed = next((r for r in results if isinstance(r, Exception)), None)
+    failed = next((k for k, r in enumerate(results) if isinstance(r, Exception)), None)
     if failed is not None:
-        raise failed
+        # which file it was, for a caller that orders it among other inputs
+        results[failed].file_index = failed
+        raise results[failed]
     table.set_qtables(np.stack([_qtables(scans[i])[ci] for i, ci in layout.qtable_of]))
     if staging is not None:
         staging.numpy()[coeffs.nbytes:] = table.packed.reshape(-1).view(np.uint8)
@@ -845,37 +851,57 @@ def _upsample_colour(planes: torch.Tensor, batch: _HostBatch, fancy_upsampling: 
     return pixels
 
 
-def _images(pixels: np.ndarray, batch: _HostBatch) -> List[JpegImage]:
-    """The batch's images, in file order, as views of the host copy of
-    ``_upsample_colour``'s buffer."""
-    images: List[Optional[JpegImage]] = [None] * len(batch.scans)
+def _pixel_groups(batch: _HostBatch) -> List[Tuple[List[int], tuple, int]]:
+    """Where each image's pixels lie in ``_upsample_colour``'s buffer: for
+    every geometry group its members (file indices, in file order), the shape
+    of one image ([H, W, 3], or [H, W] gray) and the byte offset of the
+    group's first image; the members follow each other without gaps, so a
+    group is one [members, H, W(, 3)] block."""
+    groups = []
     for members, _, pixel in batch.layout.groups:
         s = batch.scans[members[0]]
-        color = len(s.components) == 3
-        shape = (s.height, s.width, 3) if color else (s.height, s.width)
+        shape = (s.height, s.width, 3) if len(s.components) == 3 else (s.height, s.width)
+        groups.append((members, shape, pixel))
+    return groups
+
+
+def _images(pixels: np.ndarray, groups) -> List[JpegImage]:
+    """The batch's images, in file order, as views of ``pixels``, the host
+    copy of ``_upsample_colour``'s buffer laid out as ``groups`` says
+    (``_pixel_groups``)."""
+    images: List[Optional[JpegImage]] = [None] * sum(len(members) for members, _, _ in groups)
+    for members, shape, pixel in groups:
         n = int(np.prod(shape))
+        color = ColorType.RGB if len(shape) == 3 else ColorType.GRAY
         for k, i in enumerate(members):
-            images[i] = JpegImage(s.width, s.height, ColorType.RGB if color else ColorType.GRAY,
+            images[i] = JpegImage(shape[1], shape[0], color,
                                   pixels[pixel + k * n: pixel + (k + 1) * n].reshape(shape))
     return images
+
+
+def _device_tail(batch: _HostBatch, fancy_upsampling: bool, dev: torch.device) -> torch.Tensor:
+    """The pixel tail of a batch after its host stages, on ``dev``: one copy
+    of the coefficients and the plane table to it, one ``idct_planes`` launch
+    for every plane, upsampling and colour per geometry group. Returns every
+    image's pixels in one uint8 buffer on ``dev`` (``_pixel_groups`` says
+    where)."""
+    coeffs, desc = batch.to_device(dev)
+    planes = idct_planes_table(coeffs, batch.layout.table, desc)
+    return _upsample_colour(planes, batch, fancy_upsampling)
 
 
 def decode_files(files: Sequence[bytes], fancy_upsampling: bool, workers: int,
                  device) -> List[JpegImage]:
     """Decode a batch of JPEG files: the host stages (the baseline scans'
-    library calls on ``workers`` threads), then the pixel tail for the whole
-    batch on ``device``: one copy of the coefficients and the plane table to
-    it, one ``idct_planes`` launch for every plane, upsampling and colour per
-    geometry
-    group, one copy of every pixel back. Raises the error of the first file,
-    in order, that fails."""
+    library calls on ``workers`` threads), the pixel tail for the whole batch
+    on ``device`` (``_device_tail``), then one copy of every pixel back to the
+    host. Raises the error of the first file, in order, that fails."""
     if not files:
         return []
     dev = torch.device(device)
     batch = _host_stage(files, workers, pinned=dev.type == "cuda")
-    coeffs, desc = batch.to_device(dev)
-    planes = idct_planes_table(coeffs, batch.layout.table, desc)
-    return _images(_upsample_colour(planes, batch, fancy_upsampling).cpu().numpy(), batch)
+    pixels = _device_tail(batch, fancy_upsampling, dev)
+    return _images(pixels.cpu().numpy(), _pixel_groups(batch))
 
 
 def decode_jpeg(data: bytes, fancy_upsampling: bool = False, *, device) -> JpegImage:

@@ -25,7 +25,14 @@ package. Only the entry points of the ported slices are bound:
 - ``jpeg_decode_pixels`` and ``jpeg_decode_baseline``: the host pixel tail
   and the fused host decode, oracles only (tests and ``chip_smoke.py``
   hold the decode's device tail against them; no path of the port runs
-  them).
+  them);
+- ``inflate_decompress``: INFLATE into a buffer of exactly the expected
+  size (``compress/deflate.py``), the PNG decode's first stage;
+- ``png_unfilter`` and ``png_palette_expand``: the PNG decode's row
+  reconstruction and its palette gather (``decode/png_decoder.py``);
+- ``resize_lanczos3_host``: the separable Lanczos3 resize in the serial f32
+  tap order: the oracle that the resize kernel and its plain version are
+  held to (no path of the port calls it).
 
 Unlike the JAX package, a failed build or load raises: there is no Python
 fallback tier here, and a silent ``None`` would hide the failure.
@@ -213,6 +220,23 @@ def _configure(lib) -> None:
         i32, i32, i32, i32,              # max h, max v, width, height
         *huff, *huff,                    # dc tables, ac tables
         _u16p, i32, _u8p,                # zigzag tables, fancy, out
+    ]
+    lib.inflate_decompress.restype = i64
+    lib.inflate_decompress.argtypes = [
+        _u8p, i64,                       # input
+        i32,                             # zlib wrap (0/1)
+        _u8p, i64,                       # out, capacity (the exact expected size)
+    ]
+    lib.png_unfilter.restype = i32
+    lib.png_unfilter.argtypes = [_u8p, i64, i64, i32, _u8p]  # rows, height, row bytes, bpp, out
+    lib.png_palette_expand.restype = None
+    lib.png_palette_expand.argtypes = [_u8p, i64, _u8p, i32, _u8p]  # samples, n, lut, channels, out
+    lib.resize_lanczos3_host.restype = i32
+    lib.resize_lanczos3_host.argtypes = [
+        _u8p, i64, i64, i32,             # img, h, w, c
+        _i32p, _f32p, i32, i32,          # x starts, x weights, taps, dst width
+        _i32p, _f32p, i32, i32,          # y starts, y weights, taps, dst height
+        _u8p,                            # out [dst height, dst width, c]
     ]
 
 
@@ -591,3 +615,76 @@ def native_jpeg_decode_baseline(segments, restart_interval: int, total_mcus: int
         _ptr(out, _u8p),
     )
     return out if rc == 0 else None
+
+
+class NativeInflateError(Exception):
+    """The native INFLATE rejected its input: a malformed stream, output
+    beyond the expected size, or a stream form it does not take."""
+
+
+def native_inflate(data: bytes, expected_size: int, zlib_wrap: bool) -> bytes:
+    """INFLATE ``data`` (zlib-wrapped or raw) into at most ``expected_size``
+    bytes. Raises ``NativeInflateError`` where the library rejects the
+    stream; ``compress/deflate.py`` then lets Python's zlib name the error,
+    as the JAX package does."""
+    lib = load()
+    src = _byte_view(data)
+    out = np.empty(max(expected_size, 1), dtype=np.uint8)
+    n = lib.inflate_decompress(_ptr(src, _u8p), len(data), int(zlib_wrap), _ptr(out, _u8p),
+                               expected_size)
+    if n < 0:
+        raise NativeInflateError(f"native inflate rejected the stream ({n})")
+    return out[:n].tobytes()
+
+
+def native_png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """[H, RB+1] uint8 filtered rows, each led by its filter id (0-4) ->
+    [H, RB] reconstructed rows."""
+    lib = load()
+    rows = np.ascontiguousarray(rows, dtype=np.uint8)
+    height, rb1 = rows.shape
+    out = np.empty((height, rb1 - 1), dtype=np.uint8)
+    rc = lib.png_unfilter(_ptr(rows, _u8p), height, rb1 - 1, bpp, _ptr(out, _u8p))
+    if rc != 0:
+        raise RuntimeError(f"native png_unfilter failed ({rc})")
+    return out
+
+
+def native_palette_expand(samples: np.ndarray, lut_rgba: np.ndarray, channels: int) -> np.ndarray:
+    """Gather a padded [256, 4] uint8 RGBA table over uint8 ``samples`` ->
+    ``samples.shape + (channels,)``; with 3 channels, each entry's RGB."""
+    lib = load()
+    samples = np.ascontiguousarray(samples, dtype=np.uint8)
+    lut = np.ascontiguousarray(lut_rgba, dtype=np.uint8)
+    if lut.shape != (256, 4) or channels not in (3, 4):
+        raise ValueError("the palette table must be [256, 4] and channels 3 or 4")
+    out = np.empty(samples.size * channels, dtype=np.uint8)
+    lib.png_palette_expand(_ptr(samples, _u8p), samples.size, _ptr(lut, _u8p), channels,
+                           _ptr(out, _u8p))
+    return out.reshape(samples.shape + (channels,))
+
+
+def native_resize_lanczos3(arr: np.ndarray, sx: np.ndarray, wx: np.ndarray, sy: np.ndarray,
+                           wy: np.ndarray) -> np.ndarray:
+    """Separable Lanczos3 of one [h, w, c] uint8 image (c 1 to 4) with the
+    taps of ``ops/resize_kernels.py::lanczos_taps`` for each axis: the
+    horizontal pass, then the vertical one, each output a serial f32
+    accumulation over its taps, the intermediate rounded and clamped to
+    uint8. Bit-identical to ``resize_lanczos3_np``."""
+    lib = load()
+    h, w, c = arr.shape
+    dst_w, kx = wx.shape
+    dst_h, ky = wy.shape
+    arr = np.ascontiguousarray(arr, dtype=np.uint8)
+    sxc = np.ascontiguousarray(sx, dtype=np.int32)
+    syc = np.ascontiguousarray(sy, dtype=np.int32)
+    wxc = np.ascontiguousarray(wx, dtype=np.float32)
+    wyc = np.ascontiguousarray(wy, dtype=np.float32)
+    out = np.empty((dst_h, dst_w, c), np.uint8)
+    rc = lib.resize_lanczos3_host(
+        _ptr(arr, _u8p), h, w, c, _ptr(sxc, _i32p), _ptr(wxc, _f32p), kx, dst_w,
+        _ptr(syc, _i32p), _ptr(wyc, _f32p), ky, dst_h, _ptr(out, _u8p),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native resize_lanczos3_host failed ({rc}; needs AVX2 and 1 to 4 channels)")
+    return out

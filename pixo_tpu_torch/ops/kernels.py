@@ -30,6 +30,10 @@ stream.
 - ``idct8x8_int``: the standalone [N, 8, 8] integer IDCT, sharing the decode
   kernel's butterfly (``csrc/idct.cuh``): the direct counterpart of
   ``idct8x8_int_pallas``.
+- ``resize_lanczos3``: the separable Lanczos3 resize of a same-shape group,
+  both passes in the serial f32 tap order (``csrc/resize.cu``); it replaces
+  the jit-compiled ``_lanczos_pass`` pair of ``ops/resize_kernels.py``, for
+  which the JAX package has no Pallas kernel.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -63,11 +67,12 @@ from .png_filters import (
     resolve_strategy,
 )
 from .quantize import quantize_blocks, zigzag_blocks
+from .resize_kernels import _lanczos_pass
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
-                                           "aan.cuh", "idct.cuh")]
+                                           "resize.cu", "aan.cuh", "idct.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -75,6 +80,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", f"-I{CSRC}"]
 
 MAX_CHANNELS = 16  # csrc/coeffs.cu's kMaxChannels: two tiles of raw rows in shared memory
+RESIZE_MAX_CHANNELS = 4  # csrc/resize.cu's horizontal pass: a thread a pixel, its channels in registers
 
 _PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
 
@@ -118,6 +124,9 @@ def load():
             lib.pixo_idct_planes.argtypes = [vp, i64, vp, i32, vp, vp]
             lib.pixo_idct8x8_int.restype = ctypes.c_int
             lib.pixo_idct8x8_int.argtypes = [vp, vp, i64, vp]
+            lib.pixo_resize_lanczos3.restype = ctypes.c_int
+            lib.pixo_resize_lanczos3.argtypes = [vp, i64, i64, i64, i32, vp, vp, i32, i64,
+                                                 vp, vp, i32, i64, vp, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -553,3 +562,69 @@ def idct8x8_int(blocks: torch.Tensor) -> torch.Tensor:
 
 
 idct8x8_int.launches = 0
+
+
+def _taps(starts, weights, device, axis: str):
+    """One axis' tap table as contiguous tensors on ``device``: starts [dst]
+    int32 and weights [dst, K] float32 (numpy arrays or tensors)."""
+    starts, weights = torch.as_tensor(starts), torch.as_tensor(weights)
+    if starts.dtype != torch.int32 or weights.dtype != torch.float32:
+        raise TypeError(f"{axis} taps must be int32 starts and float32 weights, "
+                        f"got {starts.dtype} and {weights.dtype}")
+    if (starts.dim() != 1 or weights.dim() != 2 or weights.shape[0] != starts.shape[0]
+            or weights.numel() == 0):
+        raise ValueError(f"{axis} taps must be starts [dst] and weights [dst, K >= 1], got "
+                         f"{tuple(starts.shape)} and {tuple(weights.shape)}")
+    return starts.to(device).contiguous(), weights.to(device).contiguous()
+
+
+def resize_lanczos3_plain(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
+    """The plain version of ``resize_lanczos3`` on ``imgs``' device: the
+    horizontal then the vertical ``ops/resize_kernels.py::_lanczos_pass``."""
+    sx, wx = _taps(sx, wx, imgs.device, "x")
+    sy, wy = _taps(sy, wy, imgs.device, "y")
+    return _lanczos_pass(_lanczos_pass(imgs, sx, wx, 2), sy, wy, 1)
+
+
+def resize_lanczos3(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
+    """[B, H, W, C] uint8 -> [B, dst_h, dst_w, C] uint8 on ``imgs``' device:
+    the separable Lanczos3 resize of a same-shape group.
+
+    ``sx`` [dst_w] int32 and ``wx`` [dst_w, Kx] float32 are the horizontal
+    windows (first source column and weights of each output column), ``sy``
+    and ``wy`` the vertical ones, as ``ops/resize_kernels.py::lanczos_taps``
+    makes them (numpy arrays, or tensors already on the device). Each output
+    is a serial f32 accumulation of its window's taps in index order, source
+    indices clamped to the image, rounded half away from zero and clamped to
+    uint8, with a uint8 intermediate between the passes: byte-identical to
+    ``resize_lanczos3_np`` and the host library. On the card C is at most 4."""
+    # the kernel takes images at any byte offset (a group of a decoded batch)
+    if imgs.dtype != torch.uint8:
+        raise TypeError(f"imgs must be torch.uint8, got {imgs.dtype}")
+    if not imgs.is_contiguous():
+        raise ValueError("imgs must be contiguous")
+    if imgs.dim() != 4 or imgs.numel() == 0:
+        raise ValueError(f"imgs must be a non-empty [B, H, W, C] tensor, got {tuple(imgs.shape)}")
+    if _device_kind(imgs) == "cpu":
+        return resize_lanczos3_plain(imgs, sx, wx, sy, wy)
+    b, h, w, c = imgs.shape
+    if c > RESIZE_MAX_CHANNELS:
+        raise ValueError(f"the resize kernel takes at most {RESIZE_MAX_CHANNELS} channels, got {c}")
+    sx, wx = _taps(sx, wx, imgs.device, "x")
+    sy, wy = _taps(sy, wy, imgs.device, "y")
+    dw, dh = wx.shape[0], wy.shape[0]
+    lib = load()
+    tmp = torch.empty((b, h, dw, c), dtype=torch.uint8, device=imgs.device)
+    out = torch.empty((b, dh, dw, c), dtype=torch.uint8, device=imgs.device)
+    with _device_guard(imgs):
+        rc = lib.pixo_resize_lanczos3(
+            imgs.data_ptr(), b, h, w, c, sx.data_ptr(), wx.data_ptr(), wx.shape[1], dw,
+            sy.data_ptr(), wy.data_ptr(), wy.shape[1], dh, tmp.data_ptr(), out.data_ptr(),
+            _stream(imgs),
+        )
+    _check(lib, rc, "resize_lanczos3")
+    resize_lanczos3.launches += 1
+    return out
+
+
+resize_lanczos3.launches = 0

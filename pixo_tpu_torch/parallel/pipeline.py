@@ -1,4 +1,5 @@
-"""Batched baseline JPEG and lossless PNG encode on one device.
+"""Batched JPEG and PNG encode, batched decode and the thumbnail pipeline on
+one device.
 
 Counterpart of the JAX package's ``parallel/pipeline.py``, for one device
 named by ``device=`` instead of a mesh:
@@ -16,26 +17,40 @@ named by ``device=`` instead of a mesh:
   a thread pool. Images whose layout depends on their content (palette,
   sub-8-bit gray) take the per-image ``png.encode`` on the same pool.
 
-- ``decode_jpeg_batch``: the alias of ``decode.decode_jpeg_batch`` under the
+- ``decode_jpeg_batch`` and ``decode_png_batch``: the aliases of
+  ``decode.decode_jpeg_batch`` and ``decode.decode_png_batch`` under the
   reference's ``host_workers`` keyword.
+- ``thumbnail_pipeline``: decode -> Lanczos3 resize -> baseline JPEG
+  re-encode, chunk by chunk. A chunk's JPEG inputs are decoded as one batch
+  whose pixels stay on the device (``decode.jpeg_decoder._device_tail``); PNG
+  and PNM inputs decode on host threads and go up in one copy a shape group;
+  each shape group is resized there (``ops/kernels.py::resize_lanczos3``)
+  into its rows of the chunk's thumbnails, which feed ``coeffs`` and
+  ``compact_padded`` directly: between the decode and the compaction no pixel
+  crosses to the host, only the compacted streams of the thumbnails do. It
+  is the one-device form of the reference's fused thumbnail dispatch
+  (``_fused_thumb_jit``).
 
-Only the baseline JPEG path with the standard Huffman tables and the 8-bit
-non-interlaced lossless PNG path are ported. The stream pipelines, the
-row-sharded PNG encode, the PNG decode batch and the thumbnail pipeline are
-not (ROADMAP queue 1 items 7, 8, 10 and 12).
+Only the baseline JPEG encode with the standard Huffman tables and the 8-bit
+non-interlaced lossless PNG encode are ported. The stream pipelines and the
+row-sharded PNG encode are not (ROADMAP queue 1 items 7 and 8).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
-from typing import List, Sequence
+import time
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..cli import load_image
 from ..color import ColorType
 from ..decode import decode_jpeg_batch as _decode_jpeg_batch
-from ..decode import JpegImage
+from ..decode import decode_png_batch as _decode_png_batch
+from ..decode import JpegImage, PngImage
+from ..decode import jpeg_decoder as jdec
 from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
@@ -43,6 +58,7 @@ from ..native import native_pack_scan_batch, native_pack_scan_padded
 from ..options import JpegOptions, PngOptions
 from ..ops.blockify import scan_layout
 from ..ops.kernels import compact_padded, filter_rows
+from ..ops.resize_kernels import resize_lanczos3_batch
 from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
 from ..png import chunks as pchunks
@@ -286,3 +302,158 @@ def decode_jpeg_batch(encoded: Sequence[bytes], host_workers: int = 8, *,
     ``fancy_upsampling``), kept for the reference's ``host_workers``
     keyword."""
     return _decode_jpeg_batch(encoded, workers=host_workers, device=device)
+
+
+def decode_png_batch(encoded: Sequence[bytes], host_workers: int = 8) -> List[PngImage]:
+    """Threaded batched PNG decode on the host: the alias of
+    ``pixo_tpu_torch.decode.decode_png_batch`` (which also takes
+    ``keep_bit_depth``), kept for the reference's ``host_workers`` keyword."""
+    return _decode_png_batch(encoded, workers=host_workers)
+
+
+def _to_rgb(px: torch.Tensor) -> torch.Tensor:
+    """[..., C] pixels -> [..., 3] on the same device: alpha dropped, gray
+    (with or without alpha) repeated."""
+    c = px.shape[-1]
+    if c == 4:
+        return px[..., :3].contiguous()
+    if c in (1, 2):
+        return px[..., :1].expand(*px.shape[:-1], 3).contiguous()
+    return px
+
+
+def _thumb_decode(files: Sequence[bytes], loaded: Sequence, host_workers: int, dev: torch.device):
+    """Host decode stage of one chunk. ``loaded[k]`` is the future of
+    ``load_image(files[k])`` for an input that is no JPEG, else None. The
+    chunk's JPEG files go through the batch decoder's host stages together.
+    Returns (the JPEGs' host batch or None, their positions in the chunk,
+    [(position, pixels)] of the other inputs); raises the error of the first
+    input, in order, that fails, as decoding one by one would."""
+    jpegs = [k for k, fut in enumerate(loaded) if fut is None]
+    batch, failures = None, {}
+    if jpegs:
+        try:
+            batch = jdec._host_stage([files[k] for k in jpegs], host_workers,
+                                     pinned=dev.type == "cuda")
+        except Exception as e:  # noqa: BLE001 - raised again below, in input order
+            failures[jpegs[getattr(e, "file_index", 0)]] = e
+    others = []
+    for k, fut in enumerate(loaded):
+        if fut is None:
+            continue
+        if fut.exception() is not None:
+            failures[k] = fut.exception()
+        else:
+            others.append((k, fut.result()[0]))
+    if failures:
+        raise failures[min(failures)]
+    return batch, jpegs, others
+
+
+def _thumb_resize(batch, jpegs, others, thumb_size: int, dev: torch.device) -> torch.Tensor:
+    """Device stage of one chunk up to the thumbnails: the JPEGs' pixel tail
+    (their pixels stay on ``dev``), one copy up for each shape group of the
+    other inputs, then per shape group ``_to_rgb`` and the Lanczos3 resize
+    into the group's rows of one [n, T, T, 3] uint8 tensor on ``dev``. A
+    group that is ``thumb_size`` square already goes through the resize too,
+    as in the reference: its pass at scale 1 is what the bytes are held to."""
+    groups = []  # (positions in the chunk, [m, H, W, C] pixels on dev)
+    if batch is not None:
+        pixels = jdec._device_tail(batch, False, dev)
+        for members, shape, first in jdec._pixel_groups(batch):
+            h, w = shape[:2]
+            block = pixels[first: first + len(members) * int(np.prod(shape))]
+            groups.append(([jpegs[i] for i in members], block.view(len(members), h, w, -1)))
+    by_shape: dict = {}
+    for k, px in others:
+        by_shape.setdefault(px.shape, []).append((k, px))
+    for items in by_shape.values():
+        stacked = torch.from_numpy(np.stack([px for _, px in items]))
+        groups.append(([k for k, _ in items], stacked.to(dev)))
+
+    n = len(jpegs) + len(others)
+    resized = [(rows, resize_lanczos3_batch(_to_rgb(px), dst_w=thumb_size, dst_h=thumb_size))
+               for rows, px in groups]
+    if len(resized) == 1 and resized[0][0] == list(range(n)):
+        return resized[0][1]  # one group in input order: its output is the chunk's
+    thumbs = torch.empty((n, thumb_size, thumb_size, 3), dtype=torch.uint8, device=dev)
+    for rows, out in resized:
+        thumbs[torch.as_tensor(rows, device=dev)] = out
+    return thumbs
+
+
+def thumbnail_pipeline(
+    encoded: Sequence[bytes],
+    thumb_size: int = 128,
+    quality: int = 85,
+    host_workers: int = 8,
+    chunk_size: int = 64,
+    *,
+    device,
+    stats: Optional[dict] = None,
+) -> List[bytes]:
+    """Overlapped decode -> resize -> re-encode (BASELINE.json config #5):
+    each input (JPEG, PNG, PPM or PGM bytes) becomes a ``thumb_size`` square
+    baseline JPEG at ``quality`` (4:4:4, standard tables), computing on
+    ``device`` ("cpu" or a CUDA device). Byte-identical, input by input, to
+    the JAX package's ``thumbnail_pipeline``.
+
+    Stage 1 (host): PNG and PNM inputs of the whole call are queued on
+    ``host_workers`` threads up front; each chunk's JPEG inputs go through
+    the batch decoder's host stages when the chunk's turn comes. Stage 2
+    (device): the chunk's pixel tail, resize, coefficients and compaction
+    (``_thumb_resize``, then exactly the calls of
+    ``encode_jpeg_batch_sharded``). Stage 3 (host threads): the copy of the
+    compacted streams and the entropy packing of chunk i run on a thread of
+    their own while chunk i + 1 decodes.
+
+    ``stats``, when given, accumulates per-stage wall seconds
+    (decode_wait_s, device_s, pack_s). The first input, in order, that fails
+    to decode raises its error."""
+    dev = torch.device(device)
+    jopts = JpegOptions(width=thumb_size, height=thumb_size, quality=quality,
+                        color_type=ColorType.RGB)
+    quant = QuantizationTables(quality)
+    color, sub = _color_sub(jopts)
+    _, _, pattern = scan_layout(thumb_size, thumb_size, color, sub)
+    n = len(encoded)
+    results: List[bytes] = [b""] * n
+    timings = {"decode_wait_s": 0.0, "device_s": 0.0, "pack_s": 0.0}
+
+    def device_stage(lo: int, hi: int, loaded):
+        t0 = time.perf_counter()
+        decoded = _thumb_decode(encoded[lo:hi], loaded[lo:hi], host_workers, dev)
+        t1 = time.perf_counter()
+        timings["decode_wait_s"] += t1 - t0
+        thumbs = _thumb_resize(*decoded, thumb_size, dev)
+        zz = jenc._device_coeffs_batch(thumbs, quant.luminance_table, quant.chrominance_table,
+                                       color=color, subsampling=sub)
+        compacted = compact_padded(zz, PADDED_CAP_PER_BLOCK)
+        timings["device_s"] += time.perf_counter() - t1
+        return lo, hi, zz, compacted
+
+    def pack_stage(state) -> None:
+        lo, hi, zz, compacted = state
+        t0 = time.perf_counter()
+        scans = _pack_hosted(_fetch_compacted(zz, compacted), jopts, pattern, host_workers)
+        results[lo:hi] = [_assemble_jpeg(s, jopts, quant) for s in scans]
+        timings["pack_s"] += time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as dec_ex, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1) as pack_ex:
+        # PNG, PPM and PGM inputs (and inputs of no known format, whose error
+        # waits for its turn) decode on the host, as load_image decodes them
+        loaded = [None if data[:2] == b"\xff\xd8" else dec_ex.submit(load_image, data, device="cpu")
+                  for data in encoded]
+        packing = None
+        for lo in range(0, n, chunk_size):
+            cur = device_stage(lo, min(lo + chunk_size, n), loaded)
+            if packing is not None:
+                packing.result()
+            packing = pack_ex.submit(pack_stage, cur)
+        if packing is not None:
+            packing.result()
+
+    if stats is not None:
+        stats.update(timings)
+    return results

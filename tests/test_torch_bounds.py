@@ -51,6 +51,12 @@ HAND_COUNTS = [
      12_582_912 + 6_291_456, 5.63),
     ("dct8x8_aan", dict(n=100_000), 51_200_000, 15.28),
     ("idct8x8_int", dict(n=100_000), 32_000_000, 9.55),
+    # the thumbnail chunk: 64 images of 256x256x3 read, 64 of 128x128x3 written; the uint8
+    # intermediate (64x256x128x3 = 6,291,456 B, written and read again) is not in the bound
+    ("resize_lanczos3", dict(b=64, h=256, w=256, c=3, dh=128, dw=128, ky=14, kx=14),
+     12_582_912 + 3_145_728, 4.70),
+    ("resize_lanczos3", dict(b=1, h=1812, w=3220, c=3, dh=128, dw=128, ky=87, kx=153),
+     1812 * 3220 * 3 + 128 * 128 * 3, None),
 ]
 
 
@@ -68,6 +74,18 @@ def test_kernel_bytes_match_hand_counts(name, shape, nbytes, us):
 def test_coeffs_operations_under_the_byte_bound():
     nbytes, ops = kernel_work("coeffs", b=16, h=512, w=512, c=3, mode="420")
     assert ops == BLOCKS_420 * (16 * 42 + 3 * 64)
+    assert 0 < ops / 67e12 < nbytes / H100_BYTES_PER_S
+
+
+def test_resize_operations_under_the_byte_bound():
+    """A multiply and an add a tap: the horizontal pass over the
+    intermediate's samples, the vertical pass over the output's."""
+    from pixo_tpu_torch.ops.resize_kernels import lanczos_taps
+
+    kx, ky = lanczos_taps(256, 128)[1].shape[1], lanczos_taps(256, 128)[1].shape[1]
+    assert (kx, ky) == (14, 14)
+    nbytes, ops = kernel_work("resize_lanczos3", b=64, h=256, w=256, c=3, dh=128, dw=128, ky=ky, kx=kx)
+    assert ops == 2 * 14 * (64 * 256 * 128 * 3 + 64 * 128 * 128 * 3)
     assert 0 < ops / 67e12 < nbytes / H100_BYTES_PER_S
 
 

@@ -19,6 +19,7 @@ from chip_smoke import (
     filter_edge_cases,
     host_decode,
     plane_edge_case,
+    resize_cases,
 )
 from pixo_tpu_torch import (
     ColorType,
@@ -29,11 +30,18 @@ from pixo_tpu_torch import (
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
     png,
+    thumbnail_pipeline,
 )
 from pixo_tpu_torch.decode import decode_jpeg_batch, jpeg_decoder
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
-from pixo_tpu_torch.native import native_jpeg_coefficients, native_png_filter
-from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, sparse_pack
+from pixo_tpu_torch.native import (
+    native_jpeg_coefficients,
+    native_png_filter,
+    native_resize_lanczos3,
+)
+from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, resize_kernels, sparse_pack
+from pixo_tpu_torch.options import ResizeFilter, ResizeOptions
+from pixo_tpu_torch.resize import resize
 
 pytestmark = pytest.mark.cuda
 
@@ -412,3 +420,101 @@ def test_decode_batch_on_the_card_equals_host_decode(dev, fancy):
     for img, cpu, data in zip(got, on_cpu, files):
         np.testing.assert_array_equal(img.pixels, host_decode(data, fancy))
         np.testing.assert_array_equal(img.pixels, cpu.pixels)
+
+
+RESIZE_LABELS = [label for label, *_ in resize_cases(np.random.default_rng(10))]
+
+
+@pytest.mark.parametrize("case", range(len(RESIZE_LABELS)), ids=RESIZE_LABELS)
+def test_resize_kernel_equals_plain_and_host_library(dev, case):
+    """The thumbnail chunk, up- and downscales at odd sizes with 1 to 4
+    channels, a target of one pixel, sources one pixel wide and high, one
+    3220x1812 image, batches of 1 and 64: bit-equal to the plain version, to
+    the plain version on the CPU and, image by image, to the host library;
+    also from an odd byte offset."""
+    _, host, dh, dw = resize_cases(np.random.default_rng(10))[case]
+    taps = (*resize_kernels.lanczos_taps(host.shape[2], dw),
+            *resize_kernels.lanczos_taps(host.shape[1], dh))
+    imgs = torch.from_numpy(host).to(dev)
+    before = kernels.resize_lanczos3.launches
+    got = kernels.resize_lanczos3(imgs, *taps)
+    assert kernels.resize_lanczos3.launches == before + 1
+    assert got.device.type == "cuda" and tuple(got.shape) == (host.shape[0], dh, dw, host.shape[3])
+    assert torch.equal(got, kernels.resize_lanczos3_plain(imgs, *taps))
+    if host.size < 4_000_000:
+        assert torch.equal(got.cpu(), kernels.resize_lanczos3(imgs.cpu(), *taps))
+    flat = torch.empty(host.size + 3, dtype=torch.uint8, device=dev)
+    shifted = flat[3:].view(host.shape).copy_(imgs)
+    assert torch.equal(kernels.resize_lanczos3(shifted, *taps), got)
+    got_h = got.cpu().numpy()
+    for i in range(len(host)):
+        np.testing.assert_array_equal(got_h[i], native_resize_lanczos3(host[i], *taps))
+
+
+def test_resize_kernel_refuses_what_it_does_not_take(dev):
+    sx, wx = resize_kernels.lanczos_taps(8, 4)
+    five = torch.zeros((1, 8, 8, 5), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="at most 4 channels"):
+        kernels.resize_lanczos3(five, sx, wx, sx, wx)
+    with pytest.raises(ValueError, match="non-empty"):
+        kernels.resize_lanczos3(five[:0], sx, wx, sx, wx)
+    assert tuple(kernels.resize_lanczos3(five.cpu(), sx, wx, sx, wx).shape) == (1, 4, 4, 5)
+
+
+@pytest.mark.parametrize("f", list(ResizeFilter), ids=[f.name for f in ResizeFilter])
+def test_public_resize_on_the_card_equals_the_cpu(dev, seeded, f):
+    for (sh, sw, dh, dw), ct in (((37, 51, 100, 77), ColorType.RGB), ((64, 48, 20, 9), ColorType.RGBA),
+                                 ((40, 40, 13, 13), ColorType.GRAY)):
+        img = seeded.integers(0, 256, (sh, sw, ct.bytes_per_pixel), dtype=np.uint8)
+        opts = ResizeOptions(src_width=sw, src_height=sh, dst_width=dw, dst_height=dh,
+                             color_type=ct, filter=f)
+        np.testing.assert_array_equal(resize(img, opts, device=dev), resize(img, opts, device="cpu"))
+
+
+def _thumbnail_inputs():
+    rng = np.random.default_rng(31)
+    files = _decode_batch_files()
+    rgba = rng.integers(0, 256, (33, 50, 4), dtype=np.uint8)
+    files.insert(2, png.encode(rgba, PngOptions.fast(50, 33).replace(color_type=ColorType.RGBA)))
+    gray = rng.integers(0, 256, (50, 33, 1), dtype=np.uint8)
+    files.insert(5, png.encode(gray, PngOptions.fast(33, 50).replace(color_type=ColorType.GRAY)))
+    files.append(b"P6 40 30 255\n" + rng.integers(0, 256, (30, 40, 3), dtype=np.uint8).tobytes())
+    files.append(b"P5 40 30 255\n" + rng.integers(0, 256, (30, 40), dtype=np.uint8).tobytes())
+    return files
+
+
+@pytest.mark.parametrize("chunk", [1, 3, 64])
+def test_thumbnail_pipeline_on_the_card_equals_the_cpu(dev, chunk):
+    """Mixed inputs (JPEGs of every sampling, progressive, PNG, PNM): the
+    same bytes as on the CPU, with one coefficient and one compaction launch
+    a chunk, one decode tail a chunk that holds a JPEG and a resize launch
+    for every shape group."""
+    files = _thumbnail_inputs()
+    wrappers = (kernels.resize_lanczos3, kernels.coeffs, kernels.compact_padded, kernels.idct_planes)
+    for fn in wrappers:
+        fn.launches = 0
+    got = thumbnail_pipeline(files, thumb_size=32, quality=80, chunk_size=chunk, device=dev)
+    resized, coeffs, compact, idct = (fn.launches for fn in wrappers)
+    assert got == thumbnail_pipeline(files, thumb_size=32, quality=80, chunk_size=chunk, device="cpu")
+    chunks = [files[lo:lo + chunk] for lo in range(0, len(files), chunk)]
+    assert coeffs == len(chunks) and compact >= len(chunks)
+    assert idct == sum(any(d[:2] == b"\xff\xd8" for d in c) for c in chunks)
+    assert len(chunks) <= resized <= len(files)
+
+
+def test_decoded_pixels_stay_on_the_card(dev):
+    """``_device_tail`` leaves every image's pixels on the card, laid out as
+    ``_pixel_groups`` says, equal to the decode's host images."""
+    files = _decode_batch_files()
+    batch = jpeg_decoder._host_stage(files, 4, pinned=True)
+    pixels, groups = jpeg_decoder._device_tail(batch, False, dev), jpeg_decoder._pixel_groups(batch)
+    assert pixels.device.type == "cuda" and pixels.dtype == torch.uint8
+    images = decode_jpeg_batch(files, device=dev)
+    seen = []
+    for members, shape, offset in groups:
+        n = int(np.prod(shape))
+        block = pixels[offset: offset + len(members) * n].view(len(members), *shape).cpu().numpy()
+        for k, i in enumerate(members):
+            np.testing.assert_array_equal(block[k], images[i].pixels)
+        seen += members
+    assert sorted(seen) == list(range(len(files)))
