@@ -38,9 +38,10 @@ printing its own lines:
    IDCT on the same blocks; the Lanczos3 resize kernel on ``resize_cases``
    (the thumbnail chunk 64x256x256x3 to 128x128, up- and downscales at odd
    sizes with 1, 3 and 4 channels, a target of one pixel, sources one pixel
-   wide and high, one 3220x1812 image, batches of 1 and 64, each also from an
-   odd byte offset), also held against the host library's resize image by
-   image; and the kernels that the thumbnail path shares with the other
+   wide and high, output rows of two tiles, windows past shared memory (the
+   direct route), one 3220x1812 image, batches of 1 and 64, each also from
+   byte offsets 1, 3 and 15, each with the route ``resize_plan`` gives it),
+   also held against the host library's resize image by image; and the kernels that the thumbnail path shares with the other
    paths (``idct_planes``, ``coeffs`` in mode 444, ``compact`` at cap 8 and at
    the escalated cap) on the tensors of every chunk of (t1) and (t2)
    (``check_thumbnail_kernels``);
@@ -113,7 +114,10 @@ three ways, the device stages and the end-to-end stages; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
 ``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
-each strategy (``filter_parts``); ``python3 chip_smoke.py --pack-workers`` times
+each strategy (``filter_parts``); ``python3 chip_smoke.py --resize-parts``
+checks the resize kernel alone on every case and offset and times each of
+its passes as it is, with each of its parts taken out and under each tile
+(``resize_parts``); ``python3 chip_smoke.py --pack-workers`` times
 the host pack stage on 1, 2, 4 and 8 threads (``pack_workers``);
 ``python3 chip_smoke.py --sass NAME`` counts
 the instructions of the built kernels whose name holds NAME, loop by loop
@@ -392,10 +396,13 @@ def kernel_work(name: str, **shape):
     once. Shapes: coeffs (b, h, w, c, mode); compact (b, n, cap);
     filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
     dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
-    kx: the taps of a vertical and a horizontal window). The integer kernels
-    count no f32 operations. The resize's uint8 intermediate (b * h * dw * c
-    bytes, written and read again) is its design's own traffic, not work
-    the function must do, and is not counted."""
+    kx: the taps of a vertical and a horizontal window, and optionally
+    ``passes``, "horizontal" or "vertical" for one launch alone, whose
+    bytes then include the intermediate as its output or its input). The
+    integer kernels count no f32 operations. The resize's uint8 intermediate
+    (b * h * dw * c bytes, written and read again) is its design's own
+    traffic, not work the function must do, and is not counted for both
+    passes together."""
     s = shape
     if name == "coeffs":
         from pixo_tpu_torch.ops.blockify import num_blocks
@@ -415,8 +422,14 @@ def kernel_work(name: str, **shape):
     if name == "idct8x8_int":
         return 320 * s["n"], 0
     if name == "resize_lanczos3":  # a multiply and an add a tap, each pass
+        src = s["b"] * s["h"] * s["w"] * s["c"]
         mid, out = s["b"] * s["h"] * s["dw"] * s["c"], s["b"] * s["dh"] * s["dw"] * s["c"]
-        return s["b"] * s["h"] * s["w"] * s["c"] + out, 2 * (mid * s["kx"] + out * s["ky"])
+        passes = s.get("passes", "both")
+        if passes == "horizontal":
+            return src + mid, 2 * mid * s["kx"]
+        if passes == "vertical":
+            return mid + out, 2 * out * s["ky"]
+        return src + out, 2 * (mid * s["kx"] + out * s["ky"])
     raise ValueError(f"no work model for kernel {name!r}")
 
 
@@ -1261,8 +1274,10 @@ def resize_cases(rng):
     dst_w): the thumbnail cell's chunk (64x256x256x3 to 128x128); up- and
     downscales at odd sizes and a 16x16 to 3x5 with 1, 3 and 4 channels; a
     target of one pixel; sources one pixel wide and one pixel high; the same
-    size (a pass at scale 1); one 3220x1812 image to 128x128 (windows of 153
-    and 87 taps); batches of 1 and of 64."""
+    size (a pass at scale 1); output rows of two horizontal tiles, the
+    second cut short; windows too long for shared memory (16000 -> 64, 1502
+    taps: the direct route of ``resize_plan``); one 3220x1812 image to
+    128x128 (windows of 153 and 87 taps); batches of 1 and of 64."""
     import numpy as np
 
     shapes = [("thumbnail chunk", (T1_CHUNK, T1_SIZE, T1_SIZE, 3), THUMB, THUMB)]
@@ -1274,17 +1289,36 @@ def resize_cases(rng):
                ("source one pixel high", (2, 1, 30, 1), 5, 8),
                ("same size", (1, THUMB, THUMB, 3), THUMB, THUMB),
                ("two channels, batch 64", (64, 20, 31, 2), 9, 13),
+               ("columns past one tile", (2, 45, 301, 3), 33, 203),
+               ("a window past shared memory", (2, 3, 16000, 3), 2, 64),
                ("one large image", (1, 1812, 3220, 3), THUMB, THUMB)]
     return [(f"{label} {'x'.join(map(str, shape))} -> {dh}x{dw}",
              rng.integers(0, 256, shape, dtype=np.uint8), dh, dw) for label, shape, dh, dw in shapes]
 
 
+RESIZE_OFFSETS = (1, 3, 15)  # byte offsets of a group in a decoded batch's buffer
+
+
+def resize_route(host, dh: int, dw: int) -> str:
+    """``resize_plan``'s route for a ``resize_cases`` case, in words."""
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.resize_kernels import _taps_on
+
+    b, h, w, c = host.shape
+    plan = kernels.resize_plan(b, h, w, c, dh, dw, _taps_on(w, dw, "cpu")[1].shape[1],
+                               _taps_on(h, dh, "cpu")[1].shape[1])
+    tile = (f"{plan.cols} columns x {4 * plan.quads} rows, span {plan.span}, {plan.smem} B"
+            if plan.cols else "no tile")
+    return f"horizontal {plan.horizontal} ({tile}), vertical {plan.vertical}"
+
+
 def check_resize_kernel(dev) -> dict:
     """Phase 2, resize: ``resize_lanczos3`` against its plain version on
     ``dev`` bit for bit, and against the host library's Lanczos3 image by
-    image, on ``resize_cases``; each case also from an odd byte offset of
-    its buffer, as a geometry group of a decoded batch lies. Returns the
-    kernel's largest absolute error."""
+    image, on ``resize_cases``; each case also from byte offsets 1, 3 and 15
+    of its buffer, as a geometry group of a decoded batch lies. Prints each
+    case's route (``resize_route``). Returns the kernel's largest absolute
+    error."""
     import numpy as np
     import torch
 
@@ -1295,18 +1329,21 @@ def check_resize_kernel(dev) -> dict:
     worst = 0
     for label, host, dh, dw in resize_cases(np.random.default_rng(10)):
         taps = (*lanczos_taps(host.shape[2], dw), *lanczos_taps(host.shape[1], dh))
-        flat = torch.empty(host.size + 1, dtype=torch.uint8, device=dev)
-        shifted = flat[1:].view(host.shape).copy_(torch.from_numpy(host))
-        got = kernels.resize_lanczos3(torch.from_numpy(host).to(dev), *taps)
-        ref = kernels.resize_lanczos3_plain(shifted, *taps)
-        err = max(int((got.int() - ref.int()).abs().max()),
-                  int((kernels.resize_lanczos3(shifted, *taps).int() - ref.int()).abs().max()))
+        imgs = torch.from_numpy(host).to(dev)
+        got = kernels.resize_lanczos3(imgs, *taps)
+        ref = kernels.resize_lanczos3_plain(imgs, *taps)
+        err = int((got.int() - ref.int()).abs().max())
+        for off in RESIZE_OFFSETS:
+            flat = torch.empty(host.size + off, dtype=torch.uint8, device=dev)
+            shifted = flat[off:].view(host.shape).copy_(imgs)
+            err = max(err, int((kernels.resize_lanczos3(shifted, *taps).int() - ref.int()).abs().max()))
         worst = max(worst, err)
         got_h = got.cpu().numpy()
         host_bad = sum(not np.array_equal(got_h[i], native_resize_lanczos3(host[i], *taps))
                        for i in range(len(host)))
-        _verdict(f"check resize_lanczos3 {label}, taps {taps[1].shape[1]} and {taps[3].shape[1]}: "
-                 f"max_abs_err vs plain {err}, images differing from the host library "
+        _verdict(f"check resize_lanczos3 {label}, taps {taps[1].shape[1]} and {taps[3].shape[1]}, "
+                 f"{resize_route(host, dh, dw)}: max_abs_err vs plain {err} (offsets 0, "
+                 f"{', '.join(map(str, RESIZE_OFFSETS))}), images differing from the host library "
                  f"{host_bad}/{len(host)}", err == 0 and host_bad == 0)
     return {"resize_lanczos3": worst}
 
@@ -1520,24 +1557,49 @@ def check_thumbnail_kernels(dev, tcases) -> dict:
     return worst
 
 
-def resize_alone(imgs, dst: int):
+def resize_alone(imgs, dst: int, lib=None, plan=None):
     """The launch alone of ``resize_lanczos3`` on ``imgs`` to ``dst`` square:
-    the C function with its taps, scratch and output on the card already."""
+    the C function (of ``lib``, by default the checkout's) with its taps,
+    plan (``plan``, by default ``resize_plan``'s), scratch and output made
+    beforehand. A tree from before ``resize_plan`` launches as its own
+    wrapper did."""
     import torch
 
     from pixo_tpu_torch.ops import kernels
-    from pixo_tpu_torch.ops.resize_kernels import _taps_on
+    from pixo_tpu_torch.ops.resize_kernels import _taps_on, lanczos_taps
 
     b, h, w, c = imgs.shape
     sx, wx = _taps_on(w, dst, imgs.device)
     sy, wy = _taps_on(h, dst, imgs.device)
     tmp = torch.empty((b, h, dst, c), dtype=torch.uint8, device=imgs.device)
     out = torch.empty((b, dst, dst, c), dtype=torch.uint8, device=imgs.device)
-    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    lib, stream = lib or kernels.load(), torch.cuda.current_stream().cuda_stream
     args = (imgs.data_ptr(), b, h, w, c, sx.data_ptr(), wx.data_ptr(), wx.shape[1], dst,
-            sy.data_ptr(), wy.data_ptr(), wy.shape[1], dst, tmp.data_ptr(), out.data_ptr(), stream)
-    return (lambda: lib.pixo_resize_lanczos3(*args)), dict(
-        b=b, h=h, w=w, c=c, dh=dst, dw=dst, ky=wy.shape[1], kx=wx.shape[1])
+            sy.data_ptr(), wy.data_ptr(), wy.shape[1], dst, tmp.data_ptr(), out.data_ptr())
+    if hasattr(kernels, "resize_plan"):
+        plan = plan or kernels.resize_plan(b, h, w, c, dst, dst, wx.shape[1], wy.shape[1])
+        args += (plan.cols, plan.quads, plan.span)
+    args += (stream,)
+    return (lambda: lib.pixo_resize_lanczos3(*args)), dict(  # the windows' own taps, unpadded
+        b=b, h=h, w=w, c=c, dh=dst, dw=dst, ky=lanczos_taps(h, dst)[1].shape[1],
+        kx=lanczos_taps(w, dst)[1].shape[1]), out
+
+
+def resize_passes(call, at: str, card: str, work: dict) -> dict:
+    """The profiler's device time of each of the resize's two launches in
+    ``call`` (the direct route's horizontal kernel included), each beside
+    its own bound (``kernel_bound`` with ``passes``); prints one line."""
+    times = {}
+    for name in ("horizontal", "vertical"):
+        ms = profiler_ms(call, f"resize_lanczos3_{name[0]}_")
+        bound, _ = kernel_bound("resize_lanczos3", passes=name, **work)
+        times[name] = (ms, bound)
+    both = None if None in [ms for ms, _ in times.values()] else sum(ms for ms, _ in times.values())
+    print(f"kernel resize_lanczos3 {at}, its two launches on the device: " + ", ".join(
+        f"{k} {'not measured' if ms is None else f'{ms:.4f} ms'} (bound {b:.4f} ms)"
+        for k, (ms, b) in times.items())
+        + ("" if both is None else f", both {both:.4f} ms") + f" [{card}]")
+    return times
 
 
 def two_call_thumbnails(dev, files, chunk: int):
@@ -1597,7 +1659,7 @@ def time_thumbnail(dev, tcases, card: str) -> dict:
     pixels = jd._device_tail(batch, False, dev)
     ((members, shape, offset),) = jd._pixel_groups(batch)  # one geometry group
     imgs = pixels[offset:].view(len(members), *shape)
-    alone, work = resize_alone(imgs, THUMB)
+    alone, work, _ = resize_alone(imgs, THUMB)
     taps = (*_taps_on(shape[1], THUMB, dev), *_taps_on(shape[0], THUMB, dev))
     at = f"(t1) chunk {'x'.join(map(str, imgs.shape))} -> {THUMB}x{THUMB}"
     k_ms = {"resize_lanczos3": time_kernel(
@@ -1606,11 +1668,7 @@ def time_thumbnail(dev, tcases, card: str) -> dict:
         "is not in the bound)", lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
         lambda: kernels.resize_lanczos3_plain(imgs, *taps), alone, card, **work)}
 
-    passes = {name: profiler_ms(lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
-                                f"resize_lanczos3_{name[0]}_kernel") for name in ("horizontal", "vertical")}
-    print(f"kernel resize_lanczos3 {at}, its two launches on the device: "
-          + ", ".join("not measured" if v is None else f"{k} {v:.4f} ms" for k, v in passes.items())
-          + f" [{card}]")
+    resize_passes(lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB), at, card, work)
 
     opts = JpegOptions(width=THUMB, height=THUMB, quality=THUMB_QUALITY, color_type=ColorType.RGB)
     quant = QuantizationTables(THUMB_QUALITY)
@@ -1820,9 +1878,13 @@ def measure_tree(root: str) -> dict:
         pixels, ((members, shape, offset),) = jd._device_tail(batch, False, dev), jd._pixel_groups(batch)
         imgs = pixels[offset:].view(len(members), *shape)
         taps = (*_taps_on(shape[1], THUMB, dev), *_taps_on(shape[0], THUMB, dev))
-        three_ways("resize_lanczos3 (t1 chunk)", "resize_lanczos3_",
-                   lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB),
-                   resize_alone(imgs, THUMB)[0], lambda: kernels.resize_lanczos3_plain(imgs, *taps))
+        call = lambda: resize_lanczos3_batch(imgs, dst_w=THUMB, dst_h=THUMB)  # noqa: E731
+        three_ways("resize_lanczos3 (t1 chunk)", "resize_lanczos3_", call, resize_alone(imgs, THUMB)[0],
+                   lambda: kernels.resize_lanczos3_plain(imgs, *taps))
+        for name in ("horizontal", "vertical"):  # each launch's own device time
+            res["kernels"][f"resize_lanczos3 {name} (t1 chunk)"] = {
+                "device_ms": profiler_ms(call, f"resize_lanczos3_{name[0]}_"), "launch_ms": None,
+                "call_ms": None}
         stages["thumb_end_to_end (t1)"] = wall_stats(lambda: thumbnail_pipeline(
             files, thumb_size=THUMB, quality=THUMB_QUALITY, chunk_size=chunk, device=dev))[0]
     return res
@@ -1966,6 +2028,145 @@ def filter_parts(card: str) -> int:
     return 0
 
 
+# Parts of csrc/resize.cu that ``resize_parts`` takes out, one at a time:
+# (name, [(source text, replacement)]). A part's time is what the pass saves
+# without it; the results are wrong, only timed.
+RESIZE_PARTS = {
+    "the staging copies": [("        cp_async16(d, a);", "        ;")],
+    "the slot layout": [("          for (int c = 0; c < C; ++c) word |= static_cast<uint32_t>(px[c]) << (8 * c);",
+                         "          word = static_cast<uint32_t>(px - raw);")],
+    "the taps' arithmetic": [
+        ("          for (int u = 0; u < 4; ++u) tap_slot<C>(acc, a[u], b[u], wv[u]);",
+         "          for (int u = 0; u < 4; ++u) acc[0][0] += wv[u] + __uint_as_float("
+         "a[u].x ^ a[u].y ^ a[u].z ^ a[u].w ^ b[u].x ^ b[u].y ^ b[u].z ^ b[u].w);")],
+    "the half conversion": [
+        ("  return __low2float(*reinterpret_cast<const __half2*>(&pair));", "  return __uint_as_float(pair);"),
+        ("  return __high2float(*reinterpret_cast<const __half2*>(&pair));",
+         "  return __uint_as_float(pair >> 16);")],
+    "the slot reads": [("            a[u] = pa[at];\n            b[u] = pb[at];",
+                        "            a[u] = make_uint4(at, i, u, j);\n            b[u] = a[u];")],
+    "vertical: the weight loads": [("    const float4 w4 = __ldg(wr + i / 4);",
+                                    "    const float4 w4 = make_float4(i, i + 1, i + 2, i + 3);")],
+    "vertical: the source loads": [
+        ("      const uint4 g = __ldg(reinterpret_cast<const uint4*>(p));",
+         "      const uint4 g = make_uint4(static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p)), 1, 2, 3);"),
+        ("      w[0] = __ldg(reinterpret_cast<const uint32_t*>(p));",
+         "      w[0] = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p));")],
+    "vertical: the taps' arithmetic": [
+        ("        acc[4 * m] = tap(acc[4 * m], byte_f32<0>(word), wv[u]);\n        if (V >= 4) {",
+         "        acc[4 * m] += wv[u] + __uint_as_float(word);\n        if (false) {")],
+    "vertical: the byte conversion": [
+        ("  return __fsub_rn(__uint_as_float(__byte_perm(word, 0x4B000000u, 0x7540u | B)), 8388608.0f);",
+         "  return __uint_as_float(word << (8 * B));")],
+}
+
+
+def _resize_lib(path: str):
+    import ctypes
+
+    lib = ctypes.CDLL(path)
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    lib.pixo_resize_lanczos3.argtypes = [vp, i64, i64, i64, i32, vp, vp, i32, i64, vp, vp, i32,
+                                         i64, vp, vp, i32, i32, i32, vp]
+    return lib
+
+
+def resize_parts(card: str) -> int:
+    """The resize kernel alone: ``check_resize_kernel`` (every case of
+    ``resize_cases`` at offsets 0, 1, 3 and 15 against the plain version and
+    the host library, each with its route), then the profiler's device time
+    of each pass at (t1)'s chunk (64x256x256x3 -> 128x128) and at the large
+    image (1x1812x3220x3 -> 128x128) beside its bound, for csrc/resize.cu as
+    it is and with each of ``RESIZE_PARTS`` taken out (all built at once;
+    the C function alone). Exit code 1 on any byte difference."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.resize_kernels import _taps_on
+    from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
+
+    src = open(os.path.join(kernels.CSRC, "resize.cu")).read()
+    variants = {"as it is": src}
+    for name, edits in RESIZE_PARTS.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise Failed(f"resize parts: {name!r} no longer matches csrc/resize.cu")
+            text = text.replace(old, new)
+        variants[name] = text
+    os.makedirs(BUILD_DIR, exist_ok=True)
+
+    def build(i):
+        key, text = list(variants.items())[i]
+        path = os.path.join(BUILD_DIR, f"resize_part_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        nvcc = kernels._nvcc()
+        return key, build_shared_library(f"resize_part_{i}", [nvcc, *kernels.NVCC_FLAGS], [path],
+                                         timeout=900, link=[nvcc, *kernels._ARCH, "-shared"]).path
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants) + 2) as ex:
+        loads = [ex.submit(kernels.load), ex.submit(native.load)]
+        libs = dict(ex.map(build, range(len(variants))))
+        for done in loads:
+            done.result()
+    kernel = ""
+    for line in kernels.build_log.splitlines():
+        if "entry function" in line:
+            kernel = line.split("'")[1]
+        elif "resize" in kernel and any(k in line for k in ("registers", "spill")):
+            print(f"ptxas {kernel}: {line.strip()}")
+    dev = torch.device("cuda")
+    try:
+        check_resize_kernel(dev)
+    except Failed as e:
+        print(f"resize parts: FAILED: {e}", file=sys.stderr)
+        return 1
+    rng = np.random.default_rng(11)
+    for label, shape in (("(t1) chunk", (T1_CHUNK, T1_SIZE, T1_SIZE, 3)),
+                         ("large image", (1, 1812, 3220, 3))):
+        imgs = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+        taps = (*_taps_on(shape[2], THUMB, dev), *_taps_on(shape[1], THUMB, dev))
+        plan = kernels.resize_plan(*shape, THUMB, THUMB, taps[1].shape[1], taps[3].shape[1])
+        parts = {}
+        for key, path in libs.items():
+            alone, work, out = resize_alone(imgs, THUMB, _resize_lib(path))
+            rc = alone()
+            if rc:
+                err = kernels.load().pixo_cuda_error_string(rc).decode()
+                print(f"resize parts: {label}, the launch without {key!r} failed: {err}", file=sys.stderr)
+                return 1
+            if key == "as it is":
+                torch.cuda.synchronize()
+                if not torch.equal(out, kernels.resize_lanczos3_plain(imgs, *taps)):
+                    print(f"resize parts: {label} differs from its plain version", file=sys.stderr)
+                    return 1
+            parts[key] = [profiler_ms(alone, f"resize_lanczos3_{p}_") for p in "hv"]
+        at = f"{label} {'x'.join(map(str, shape))} -> {THUMB}x{THUMB}, {work['kx']} and {work['ky']} taps"
+        (h, v) = parts.pop("as it is")
+        bh, _ = kernel_bound("resize_lanczos3", passes="horizontal", **work)
+        bv, _ = kernel_bound("resize_lanczos3", passes="vertical", **work)
+        if label == "(t1) chunk":  # the horizontal pass under each tile it could take
+            tiles = []
+            for cols, quads in ((128, 2), (128, 1), (64, 4), (64, 2), (32, 8)):
+                tile = kernels.resize_tile(shape[2], shape[3], THUMB, taps[1].shape[1], cols, quads,
+                                           plan.vertical)
+                alone, _, out = resize_alone(imgs, THUMB, _resize_lib(libs["as it is"]), tile)
+                if alone() or not torch.equal(out, kernels.resize_lanczos3_plain(imgs, *taps)):
+                    print(f"resize parts: the tile {cols}x{quads} failed or differs", file=sys.stderr)
+                    return 1
+                ms = profiler_ms(alone, "resize_lanczos3_h_")
+                tiles.append(f"{cols} columns x {4 * quads} rows {ms * 1e3:.2f} us")
+            print(f"resize tiles {label}, horizontal: {'; '.join(tiles)} [{card}]")
+        print(f"resize parts {at} ({plan}): horizontal {h * 1e3:.2f} us (bound {bh * 1e3:.2f}), "
+              f"vertical {v * 1e3:.2f} us (bound {bv * 1e3:.2f}), both {(h + v) * 1e3:.2f} us; without "
+              + "; ".join(f"{k} {ph * 1e3:.2f} + {pv * 1e3:.2f} us" for k, (ph, pv) in parts.items())
+              + f" [{card}]")
+    return 0
+
+
 def pack_workers(card: str) -> int:
     """What the host pack stage (``_pack_hosted``, then the marker frame)
     takes on 1, 2, 4 and 8 threads, for the JPEG encode's 16x512x512 q85
@@ -2074,7 +2275,8 @@ def sass_loops(kernel: str) -> int:
                     f"{label} {sum(x.startswith(prefix) for x in body)}" for label, prefix in (
                         ("LDS", "LDS"), ("STS", "STS"), ("LDG", "LDG"), ("STG", "STG"),
                         ("VABSDIFF4", "VABSDIFF4.U8 "), ("VABSDIFF4.ACC", "VABSDIFF4.U8.ACC"),
-                        ("SHFL", "SHFL")))
+                        ("SHFL", "SHFL"), ("FMUL", "FMUL"), ("FADD", "FADD"), ("PRMT", "PRMT"),
+                        ("ISETP", "ISETP"), ("BRA", "BRA")))
                 print(f"sass   loop at {target:#x}: {len(body)} instructions, {counts}")
     return 0
 
@@ -2093,7 +2295,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--sass"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
-    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--pack-workers"]):
+    if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
+                         ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -2101,7 +2304,7 @@ def main() -> int:
             return same_call_comparison(sys.argv[2:])
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
-                "--pack-workers": pack_workers}[sys.argv[1]](card)
+                "--resize-parts": resize_parts, "--pack-workers": pack_workers}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 

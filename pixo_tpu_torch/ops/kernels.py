@@ -44,9 +44,11 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import os
 import shutil
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -67,7 +69,7 @@ from .png_filters import (
     resolve_strategy,
 )
 from .quantize import quantize_blocks, zigzag_blocks
-from .resize_kernels import _lanczos_pass
+from .resize_kernels import _lanczos_pass, pad_taps
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -80,7 +82,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", f"-I{CSRC}"]
 
 MAX_CHANNELS = 16  # csrc/coeffs.cu's kMaxChannels: two tiles of raw rows in shared memory
-RESIZE_MAX_CHANNELS = 4  # csrc/resize.cu's horizontal pass: a thread a pixel, its channels in registers
+RESIZE_MAX_CHANNELS = 4  # csrc/resize.cu's horizontal pass: a slot holds 4 channels of 4 rows as halves
 
 _PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
 
@@ -126,7 +128,7 @@ def load():
             lib.pixo_idct8x8_int.argtypes = [vp, vp, i64, vp]
             lib.pixo_resize_lanczos3.restype = ctypes.c_int
             lib.pixo_resize_lanczos3.argtypes = [vp, i64, i64, i64, i32, vp, vp, i32, i64,
-                                                 vp, vp, i32, i64, vp, vp, vp]
+                                                 vp, vp, i32, i64, vp, vp, i32, i32, i32, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -566,8 +568,10 @@ idct8x8_int.launches = 0
 
 def _taps(starts, weights, device, axis: str):
     """One axis' tap table as contiguous tensors on ``device``: starts [dst]
-    int32 and weights [dst, K] float32 (numpy arrays or tensors)."""
-    starts, weights = torch.as_tensor(starts), torch.as_tensor(weights)
+    int32 and weights [dst, K] float32 (numpy arrays or tensors). A tensor
+    pair already so placed comes back as it is."""
+    if not (isinstance(starts, torch.Tensor) and isinstance(weights, torch.Tensor)):
+        starts, weights = torch.as_tensor(starts), torch.as_tensor(weights)
     if starts.dtype != torch.int32 or weights.dtype != torch.float32:
         raise TypeError(f"{axis} taps must be int32 starts and float32 weights, "
                         f"got {starts.dtype} and {weights.dtype}")
@@ -575,7 +579,95 @@ def _taps(starts, weights, device, axis: str):
             or weights.numel() == 0):
         raise ValueError(f"{axis} taps must be starts [dst] and weights [dst, K >= 1], got "
                          f"{tuple(starts.shape)} and {tuple(weights.shape)}")
-    return starts.to(device).contiguous(), weights.to(device).contiguous()
+    if starts.device != device or not starts.is_contiguous():
+        starts = starts.to(device).contiguous()
+    if weights.device != device or not weights.is_contiguous():
+        weights = weights.to(device).contiguous()
+    return starts, weights
+
+
+def _device_taps(starts, weights, device, axis: str):
+    """``_taps`` as the kernel takes them: K a multiple of 4 (zero weights
+    appended, which change no sum) and the weights 16-byte aligned.
+    ``ops/resize_kernels.py::_taps_on`` makes its device copies so."""
+    starts, weights = _taps(starts, weights, device, axis)
+    if weights.shape[1] % 4 or weights.data_ptr() % 16:
+        weights = pad_taps(weights)
+    return starts, weights
+
+
+RESIZE_THREADS = 256  # csrc/resize.cu's kResizeThreads: the most threads of a tile
+RESIZE_SMEM_BUDGET = 232448 - 1024  # its kResizeMaxSmem: 227 KB, less 1 KB for static variables
+RESIZE_TILE_COLS = (32, 64, 128)  # output columns a horizontal tile may take
+
+
+class ResizePlan(NamedTuple):
+    """The resize kernel's launches for one shape (``resize_plan``)."""
+
+    cols: int  # output columns of a horizontal tile; 0: the direct route
+    quads: int  # groups of 4 source rows a tile takes at once (cols * quads threads)
+    span: int  # source pixels of a row a tile can stage (its slots, a multiple of 8)
+    smem: int  # shared-memory bytes of a horizontal thread block
+    vertical: str  # a thread's bytes of an output row: "granules" (16), "words" (4) or "bytes" (1)
+
+    @property
+    def horizontal(self) -> str:
+        return "tiled" if self.cols else "direct"
+
+
+def _align16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def resize_smem(cols: int, quads: int, span: int, k: int, c: int) -> int:
+    """csrc/resize.cu's tile_smem: the weights [k][cols] f32, the slots
+    [quads][span + 2] of 32 bytes (four rows' channels as halves) and 4 *
+    quads rows of the source span as copied (16-byte chunks at any
+    alignment)."""
+    return 4 * k * cols + 32 * quads * (span + 2) + 4 * quads * _align16(span * c + 32)
+
+
+def resize_tile(w: int, c: int, dw: int, k: int, cols: int, quads: int,
+                vertical: str) -> ResizePlan:
+    """The horizontal tile of ``cols`` columns and ``quads`` row groups for
+    rows of ``w`` pixels of ``c`` channels to ``dw`` with windows of ``k``
+    taps (a multiple of 4): its span (``resize_plan`` says why) and its
+    shared memory."""
+    span = -(-min(-(-(min(cols, dw) - 1) * w // dw) + 2 + k, w + k) // 8) * 8
+    return ResizePlan(cols, quads, span, resize_smem(cols, quads, span, k, c), vertical)
+
+
+@functools.lru_cache(maxsize=256)
+def resize_plan(b: int, h: int, w: int, c: int, dh: int, dw: int, kx: int, ky: int) -> ResizePlan:
+    """How ``resize_lanczos3`` launches for [b, h, w, c] -> [b, dh, dw, c]
+    with windows of ``kx`` and ``ky`` taps, by shape alone.
+
+    The horizontal tile takes the fewest columns of ``RESIZE_TILE_COLS``
+    that cover the output row (128 beyond it) and 256 threads. Its span is
+    what ``lanczos_taps``' starts can need: the windows of ``cols``
+    neighbouring outputs lie at most (cols - 1) * w / dw pixels apart (2 more
+    for the floor and the f32 rounding of the centres), plus a window,
+    rounded up to a multiple of 8 slots (the kernel's swizzle). Where
+    that does not fit ``RESIZE_SMEM_BUDGET``, the tile takes fewer row
+    groups, then fewer columns; where not even 32 columns of one group fit,
+    the pass takes the direct route (pixels from global memory). The
+    vertical pass takes 16-byte granules where an output row is a whole
+    number of them, else words where it is a whole number of those."""
+    k = -(-kx // 4) * 4
+    n = dw * c
+    vertical = "granules" if n % 16 == 0 else "words" if n % 4 == 0 else "bytes"
+    cols = next((t for t in RESIZE_TILE_COLS if t >= dw), RESIZE_TILE_COLS[-1])
+    quads = RESIZE_THREADS // cols
+    while True:
+        plan = resize_tile(w, c, dw, k, cols, quads, vertical)
+        if plan.smem <= RESIZE_SMEM_BUDGET:
+            return plan
+        if quads > 1:
+            quads //= 2
+        elif cols > RESIZE_TILE_COLS[0]:
+            cols //= 2
+        else:
+            return ResizePlan(0, 0, 0, 0, vertical)
 
 
 def resize_lanczos3_plain(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
@@ -597,7 +689,8 @@ def resize_lanczos3(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
     is a serial f32 accumulation of its window's taps in index order, source
     indices clamped to the image, rounded half away from zero and clamped to
     uint8, with a uint8 intermediate between the passes: byte-identical to
-    ``resize_lanczos3_np`` and the host library. On the card C is at most 4."""
+    ``resize_lanczos3_np`` and the host library. On the card C is at most 4;
+    the launches follow ``resize_plan``."""
     # the kernel takes images at any byte offset (a group of a decoded batch)
     if imgs.dtype != torch.uint8:
         raise TypeError(f"imgs must be torch.uint8, got {imgs.dtype}")
@@ -610,17 +703,20 @@ def resize_lanczos3(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
     b, h, w, c = imgs.shape
     if c > RESIZE_MAX_CHANNELS:
         raise ValueError(f"the resize kernel takes at most {RESIZE_MAX_CHANNELS} channels, got {c}")
-    sx, wx = _taps(sx, wx, imgs.device, "x")
-    sy, wy = _taps(sy, wy, imgs.device, "y")
-    dw, dh = wx.shape[0], wy.shape[0]
+    sx, wx = _device_taps(sx, wx, imgs.device, "x")
+    sy, wy = _device_taps(sy, wy, imgs.device, "y")
+    dw, dh, kx, ky = wx.shape[0], wy.shape[0], wx.shape[1], wy.shape[1]
+    plan = resize_plan(b, h, w, c, dh, dw, kx, ky)
     lib = load()
-    tmp = torch.empty((b, h, dw, c), dtype=torch.uint8, device=imgs.device)
-    out = torch.empty((b, dh, dw, c), dtype=torch.uint8, device=imgs.device)
+    # the intermediate and the result in one allocation, the result 16-byte aligned
+    mid = _align16(b * h * dw * c)
+    buf = torch.empty(mid + b * dh * dw * c, dtype=torch.uint8, device=imgs.device)
+    out = buf[mid:].view(b, dh, dw, c)
     with _device_guard(imgs):
         rc = lib.pixo_resize_lanczos3(
-            imgs.data_ptr(), b, h, w, c, sx.data_ptr(), wx.data_ptr(), wx.shape[1], dw,
-            sy.data_ptr(), wy.data_ptr(), wy.shape[1], dh, tmp.data_ptr(), out.data_ptr(),
-            _stream(imgs),
+            imgs.data_ptr(), b, h, w, c, sx.data_ptr(), wx.data_ptr(), kx, dw,
+            sy.data_ptr(), wy.data_ptr(), ky, dh, buf.data_ptr(), out.data_ptr(),
+            plan.cols, plan.quads, plan.span, _stream(imgs),
         )
     _check(lib, rc, "resize_lanczos3")
     resize_lanczos3.launches += 1

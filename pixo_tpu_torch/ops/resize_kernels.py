@@ -131,11 +131,23 @@ def lanczos_taps(src: int, dst: int, a: float = 3.0):
     return np.asarray(starts, np.int32), weights
 
 
+def pad_taps(weights: torch.Tensor) -> torch.Tensor:
+    """[dst, K] weights -> [dst, K rounded up to a multiple of 4], zero
+    weights appended (as ``lanczos_taps`` pads its windows: each adds +0.0,
+    which changes no sum), in a new tensor: the tap loop of
+    ``csrc/resize.cu`` goes in fours."""
+    dst, k = weights.shape
+    padded = torch.zeros((dst, -(-k // 4) * 4), dtype=weights.dtype, device=weights.device)
+    padded[:, :k] = weights
+    return padded
+
+
 @functools.lru_cache(maxsize=256)
 def _taps_on(src: int, dst: int, device: torch.device):
-    """``lanczos_taps(src, dst)`` as tensors on ``device``, copied there once."""
+    """``lanczos_taps(src, dst)`` as tensors on ``device``, copied there once,
+    the weights padded by ``pad_taps``."""
     starts, weights = lanczos_taps(src, dst)
-    return torch.from_numpy(starts).to(device), torch.from_numpy(weights).to(device)
+    return torch.from_numpy(starts).to(device), pad_taps(torch.from_numpy(weights)).to(device)
 
 
 def _lanczos_pass(imgs: torch.Tensor, starts: torch.Tensor, weights: torch.Tensor,

@@ -89,6 +89,22 @@ def test_resize_operations_under_the_byte_bound():
     assert 0 < ops / 67e12 < nbytes / H100_BYTES_PER_S
 
 
+@pytest.mark.parametrize("shape", [dict(b=64, h=256, w=256, c=3, dh=128, dw=128, ky=14, kx=14),
+                                   dict(b=1, h=1812, w=3220, c=3, dh=128, dw=128, ky=87, kx=153)],
+                         ids=["t1 chunk", "large image"])
+def test_resize_passes_split_the_work(shape):
+    """Each launch alone: the horizontal pass reads the source and writes
+    the intermediate, the vertical pass reads it and writes the result; the
+    two together move the intermediate twice more than the function must."""
+    both = kernel_work("resize_lanczos3", **shape)
+    h = kernel_work("resize_lanczos3", passes="horizontal", **shape)
+    v = kernel_work("resize_lanczos3", passes="vertical", **shape)
+    mid = shape["b"] * shape["h"] * shape["dw"] * shape["c"]
+    assert h[0] + v[0] == both[0] + 2 * mid and h[1] + v[1] == both[1]
+    assert h[0] == shape["b"] * shape["h"] * shape["w"] * shape["c"] + mid
+    assert kernel_bound("resize_lanczos3", passes="vertical", **shape)[1] == "bytes"
+
+
 def test_unknown_kernel_has_no_work_model():
     with pytest.raises(ValueError):
         kernel_work("resize", n=1)

@@ -451,6 +451,62 @@ def test_resize_kernel_equals_plain_and_host_library(dev, case):
         np.testing.assert_array_equal(got_h[i], native_resize_lanczos3(host[i], *taps))
 
 
+RESIZE_ROUTES = [  # (label, [B, H, W, C], dst_h, dst_w, the plan's cols, quads, vertical)
+    ("two tiles of 128, the second cut short", (2, 40, 300, 3), 30, 200, 128, 2, "words"),
+    ("tiles of 32 columns", (8, 20, 64, 4), 10, 20, 32, 8, "granules"),
+    ("tiles of 64 columns, one channel", (3, 30, 100, 1), 15, 50, 64, 4, "bytes"),
+    ("one row group a tile", (1, 40, 3220, 3), 20, 128, 128, 1, "granules"),
+    ("direct", (2, 3, 16000, 3), 2, 64, 0, 0, "granules"),
+    ("upscale, vertical bytes", (2, 37, 51, 3), 100, 77, 128, 2, "bytes"),
+]
+
+
+@pytest.mark.parametrize("case", RESIZE_ROUTES, ids=[r[0] for r in RESIZE_ROUTES])
+def test_resize_kernel_takes_each_route_of_its_plan(dev, case):
+    """Each route of ``resize_plan`` on a shape that takes it, bit-equal to
+    the plain version and to the host library."""
+    _, shape, dh, dw, cols, quads, vertical = case
+    host = np.random.default_rng(sum(shape)).integers(0, 256, shape, dtype=np.uint8)
+    px, py = resize_kernels._taps_on(shape[2], dw, dev), resize_kernels._taps_on(shape[1], dh, dev)
+    plan = kernels.resize_plan(*shape, dh, dw, px[1].shape[1], py[1].shape[1])
+    assert (plan.cols, plan.quads, plan.vertical) == (cols, quads, vertical)
+    imgs = torch.from_numpy(host).to(dev)
+    got = kernels.resize_lanczos3(imgs, *px, *py)
+    assert torch.equal(got, kernels.resize_lanczos3_plain(imgs, *px, *py))
+    taps = (*resize_kernels.lanczos_taps(shape[2], dw), *resize_kernels.lanczos_taps(shape[1], dh))
+    assert torch.equal(kernels.resize_lanczos3(imgs, *taps), got)  # unpadded host tables
+    for i in range(len(host)):
+        np.testing.assert_array_equal(got[i].cpu().numpy(), native_resize_lanczos3(host[i], *taps))
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_resize_kernel_at_any_byte_offset(dev, offset):
+    """A group of a decoded batch lies at any byte offset of its buffer:
+    every offset of a 16-byte granule, on output rows of two tiles."""
+    host = np.random.default_rng(offset).integers(0, 256, (2, 45, 301, 3), dtype=np.uint8)
+    taps = (*resize_kernels.lanczos_taps(301, 203), *resize_kernels.lanczos_taps(45, 33))
+    flat = torch.empty(host.size + offset, dtype=torch.uint8, device=dev)
+    shifted = flat[offset:].view(host.shape).copy_(torch.from_numpy(host))
+    got = kernels.resize_lanczos3(shifted, *taps)
+    assert torch.equal(got, kernels.resize_lanczos3_plain(torch.from_numpy(host).to(dev), *taps))
+
+
+def test_resize_kernel_with_starts_out_of_order(dev, seeded):
+    """Tables that are not ``lanczos_taps``': starts out of order, below 0
+    and past the row, so a tile's span outruns the plan's room and its
+    pixels come from global memory; the bytes still equal the plain
+    version's, whose indices are clamped alike."""
+    host = seeded.integers(0, 256, (3, 24, 90, 3), dtype=np.uint8)
+    sx = seeded.integers(-20, 110, 40).astype(np.int32)
+    wx = seeded.uniform(-0.3, 0.6, (40, 8)).astype(np.float32)
+    sy, wy = resize_kernels.lanczos_taps(24, 11)
+    assert sx.max() + 8 - sx.min() > kernels.resize_plan(3, 24, 90, 3, 11, 40, 8, 12).span
+    imgs = torch.from_numpy(host).to(dev)
+    got = kernels.resize_lanczos3(imgs, sx, wx, sy, wy)
+    assert torch.equal(got, kernels.resize_lanczos3_plain(imgs, sx, wx, sy, wy))
+    assert torch.equal(got.cpu(), kernels.resize_lanczos3(imgs.cpu(), sx, wx, sy, wy))
+
+
 def test_resize_kernel_refuses_what_it_does_not_take(dev):
     sx, wx = resize_kernels.lanczos_taps(8, 4)
     five = torch.zeros((1, 8, 8, 5), dtype=torch.uint8, device=dev)
