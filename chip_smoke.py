@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes, its
-batched JPEG decode and its thumbnail pipeline.
+"""On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes
+(lossless and lossy), its batched JPEG decode and its thumbnail pipeline.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -44,7 +44,14 @@ printing its own lines:
    also held against the host library's resize image by image; and the kernels that the thumbnail path shares with the other
    paths (``idct_planes``, ``coeffs`` in mode 444, ``compact`` at cap 8 and at
    the escalated cap) on the tensors of every chunk of (t1) and (t2)
-   (``check_thumbnail_kernels``);
+   (``check_thumbnail_kernels``); and the lossy PNG's three kernels
+   (``kmeans_refine``, ``palette_lut``, ``dither_fs``) on
+   ``quantize_edge_cases`` (K = 1, K = 256 with duplicate entries, k_valid
+   below K, all-zero weights, ties, H = 1, W = 1, 7000x3 on the global
+   route, alpha other than 255) at byte offsets 0, 1 and 3, and on the
+   tensors of the lossy cells (q1) and (q2), each also held against the host
+   library image by image (``refine_palette_kmeans``, ``native_palette_lut``,
+   ``native_dither_fs``);
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -78,7 +85,15 @@ printing its own lines:
    library's resize and fused encode), with
    the launch counts a call (``resize_lanczos3`` at least one a shape group,
    ``coeffs`` and ``compact`` one a chunk, ``idct_planes`` one a chunk that
-   holds a JPEG), and a corrupt file in a call must raise InvalidDecode;
+   holds a JPEG), and a corrupt file in a call must raise InvalidDecode.
+   Then the lossy PNG path, ``encode_png_batch_sharded`` with quantization
+   (BASELINE.json config 3), on (q1) the corpus batch (FORCE, 256 colours,
+   dithered, balanced) and (q2) the gradient batch (FORCE, 64 colours,
+   dithered, fast), each with the three kernels' launch counts of its call,
+   and (q3) for correctness: both without dithering, RGBA batches with
+   graded alpha (the dither's direct redmean, tRNS), and an AUTO batch with
+   a declined, an exact-mapped and two quantized images; every file is held
+   against the per-image ``png.encode`` (host quantization);
 4. median timings over warm runs: each kernel four ways (``time_kernel``:
    the profiler's device time, the launch alone, the wrapper call and the
    plain version) beside its bound (``kernel_bound``), the copy of the
@@ -98,7 +113,13 @@ printing its own lines:
    compaction, copy of the compacted streams, host pack) and the whole call,
    in ms, images/s and input MP/s with least and most of five warm runs,
    beside the same files through the two-call path (``decode_jpeg_batch`` to
-   host pixels, the host library's resize, ``encode_jpeg_batch_sharded``).
+   host pixels, the host library's resize, ``encode_jpeg_batch_sharded``);
+   and for (q1) and (q2) the three quantization kernels at the cell's
+   shapes (the dither's critical path of W + 2(H - 1) steps beside it) and
+   the lossy stages (host histograms and median cut, the device stage, the
+   copies back, the indexed encode and DEFLATE, the whole call; median,
+   least and most of 3 warm runs) beside the per-image host ``png.encode``
+   on 8 threads.
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -110,7 +131,8 @@ Two checkouts compare on one card with
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
 its own (the coefficient, compaction, filter, decode-tail and resize kernels
-three ways, the device stages and the end-to-end stages; what a tree lacks
+three ways, the quantization kernels at (q1), the device stages and the
+end-to-end stages; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
 ``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
@@ -301,17 +323,27 @@ def reset_counts() -> None:
 
     for fn in (kernels.coeffs, kernels.compact_padded, kernels.dct8x8_aan,
                kernels.filter_bank, kernels.filter_rows, kernels.idct_planes,
-               kernels.idct8x8_int, kernels.resize_lanczos3):
+               kernels.idct8x8_int, kernels.resize_lanczos3, kernels.kmeans_refine,
+               kernels.palette_lut, kernels.dither_fs):
         fn.launches = 0
 
 
-def event_ms(fn, calls=10, reps=5):
+def print_clocks(when: str) -> None:
+    """The SM clock now and at most (MHz), as ``nvidia-smi`` reads them: the
+    integer bound assumes 1.98 GHz."""
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                             "--format=csv,noheader"], capture_output=True, text=True,
+                            timeout=60).stdout.strip()
+    print(f"clocks {when}: SM now, SM at most: {clocks}")
+
+
+def event_ms(fn, calls=10, reps=5, warm=3):
     """Median over ``reps`` of the CUDA-event time of ``calls`` back-to-back
-    calls, per call: the device time whenever the device, and not the host's
-    launching, is the bound."""
+    calls after ``warm`` calls, per call: the device time whenever the
+    device, and not the host's launching, is the bound."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -358,36 +390,79 @@ def wall_stats(fn, runs: int = THUMB_RUNS):
     return _median(times), min(times), max(times)
 
 
+PROFILED = {}  # profiler_ms's last count of traced launches, by kernel name
+
+
 def profiler_ms(fn, kernel: str, calls: int = 20):
     """Device time a call of ``fn`` spends in the kernels whose name holds
-    ``kernel`` (one kernel for most wrappers; the two passes of the resize),
-    from ``torch.profiler``'s ``key_averages()`` over ``calls`` warm calls of
-    ``fn``: the kernels' own time, whatever the wrapper costs on the host.
-    None where the profiler shows no device time for them."""
+    ``kernel`` (one kernel for most wrappers; the two passes of the resize,
+    the k-means' two kernels twice), from ``torch.profiler``'s
+    ``key_averages()`` over ``calls`` warm calls of ``fn``: the kernels' own
+    time, whatever the wrapper costs on the host. The trace may hold fewer
+    launches than ran (17-19 of 20 on the card's machine), so each kernel's
+    time is its mean over the launches traced, times its launches a call
+    (the traced count over ``calls``, rounded). Where the trace holds every
+    launch that is the kernel's total over ``calls``, as before; where it
+    dropped some, the total over ``calls`` would count each dropped launch
+    as 0. None where the profiler shows no device time for them (in two
+    traces)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    found = [max(e.device_time_total, e.self_device_time_total) for e in prof.key_averages()
-             if kernel in e.key and e.count]
-    return sum(found) / calls / 1e3 if sum(found) > 0 else None
+    for _ in range(2):  # a second trace where the first holds none of the kernels
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        found = [(max(e.device_time_total, e.self_device_time_total), e.count)
+                 for e in prof.key_averages() if kernel in e.key and e.count]
+        if found:
+            break
+    PROFILED[kernel] = sum(n for _, n in found)  # the kernels' launches the trace holds
+    per_call = sum(t / n * max(round(n / calls), 1) for t, n in found if t > 0)
+    return per_call / 1e3 if per_call > 0 else None
 
 
 # The card's peaks (NVIDIA's data sheet, H100 SXM at 700 W): HBM bytes and
 # float32 operations outside the tensor cores, per second.
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+# int32 operations per second: 132 SMs x 128 lanes an SM x the 1.98 GHz
+# boost clock. The Hopper SM has 64 INT32 lanes, but its integer multiply-adds
+# issue to the 128 FP32 lanes' pipe beside them, and its four schedulers
+# issue one warp instruction a clock each: 128 lanes a clock is the most an
+# SM can issue. (64 lanes gave palette_lut a bound of 1.2036 ms at (q1),
+# which the kernel beat in 0.6207 ms: no bound.)
+H100_INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# The quantization kernels' integer work: a redmean distance as
+# csrc/redmean.cuh writes it (4 differences, the red mean's add and shift,
+# the two weights, 4 squares, 2 weight products, the green shift, 2 adds,
+# the >> 8, the alpha add) and the argmin's compare: 20 operations; a
+# k-means colour's accumulation: 4 products, 5 sums and the weight's test;
+# a dithered pixel outside its distances: per channel 4 products, 4 adds,
+# the shift and the clamp's 2, then the LUT index's 7 and the errors' 3 and
+# the alpha test.
+REDMEAN_OPS = 20
+KMEANS_ACC_OPS = 10
+DITHER_PIXEL_OPS = 3 * 11 + 7 + 3 + 1
+OPS_TYPE = {"palette_lut": "int32", "kmeans_refine": "int32", "dither_fs": "int32"}
 # f32 operations of one block through the coefficient chain: 16 AAN passes
 # of 5 multiplies, 29 adds and 8 scales, then per coefficient the level
 # shift, the division and the rounding.
 AAN_OPS = 16 * (5 + 29 + 8)
 COEFF_OPS = AAN_OPS + 3 * 64
+LUT_ENTRIES = 64 * 64 * 64
+
+
+def per_image(shape: dict, key: str):
+    """``shape[key]``, one count or one an image, as an int64 array of one
+    an image."""
+    import numpy as np
+
+    return np.broadcast_to(np.asarray(shape[key], np.int64), (shape["b"],))
 
 
 def kernel_work(name: str, **shape):
@@ -399,7 +474,15 @@ def kernel_work(name: str, **shape):
     kx: the taps of a vertical and a horizontal window, and optionally
     ``passes``, "horizontal" or "vertical" for one launch alone, whose
     bytes then include the intermediate as its output or its input). The
-    integer kernels count no f32 operations. The resize's uint8 intermediate
+    other integer kernels count no operations. The quantization kernels
+    count int32 operations (``OPS_TYPE``): palette_lut (b, k: the entries
+    each image's scan takes, one count or one an image): a distance a grid
+    colour and entry; kmeans_refine (b, k, m and, from the data,
+    ``distances``, the colour-entry distances over both iterations of the
+    colours of non-zero weight, and ``assigned``, those colours' count over
+    both iterations); dither_fs (b, h, w, k as palette_lut's and
+    ``alpha_pixels``, the pixels that take the direct redmean over the k
+    entries, one count or one an image), whose LUT is an input read once. The resize's uint8 intermediate
     (b * h * dw * c bytes, written and read again) is its design's own
     traffic, not work the function must do, and is not counted for both
     passes together."""
@@ -430,15 +513,27 @@ def kernel_work(name: str, **shape):
         if passes == "vertical":
             return mid + out, 2 * out * s["ky"]
         return src + out, 2 * (mid * s["kx"] + out * s["ky"])
+    if name == "palette_lut":  # the entries scanned in, LUTs out
+        entries = int(per_image(s, "k").sum())
+        return 4 * entries + s["b"] * LUT_ENTRIES, LUT_ENTRIES * entries * REDMEAN_OPS
+    if name == "kmeans_refine":  # palettes, colours, weights and sizes in; palettes out
+        return (s["b"] * (8 * s["k"] + 8 * s["m"] + 4),
+                REDMEAN_OPS * s["distances"] + KMEANS_ACC_OPS * s["assigned"])
+    if name == "dither_fs":  # pixels, palettes and LUTs in; indices out
+        px, k = s["b"] * s["h"] * s["w"], per_image(s, "k")
+        return (5 * px + 4 * int(k.sum()) + s["b"] * LUT_ENTRIES,
+                DITHER_PIXEL_OPS * px + REDMEAN_OPS * int((k * per_image(s, "alpha_pixels")).sum()))
     raise ValueError(f"no work model for kernel {name!r}")
 
 
 def kernel_bound(name: str, **shape):
     """(bound_ms, bound_by): the least time the card could take for kernel
     ``name`` at ``shape``, the larger of its bytes over the memory rate and
-    its f32 operations over the f32 rate, and which of the two it is."""
+    its operations over the rate of their type (``OPS_TYPE``: f32 unless
+    named), and which of the two it is."""
     nbytes, ops = kernel_work(name, **shape)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_OPS_PER_S
+    rate = H100_INT32_OPS_PER_S if OPS_TYPE.get(name) == "int32" else H100_F32_OPS_PER_S
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -613,24 +708,28 @@ def check_main_path(dev, grad) -> dict:
     return launches
 
 
-def time_kernel(name: str, at: str, call, plain, alone, card: str, **shape) -> dict:
+def time_kernel(name: str, at: str, call, plain, alone, card: str, plain_calls=(10, 5),
+                **shape) -> dict:
     """Times kernel ``name`` four ways and prints one line: the profiler's
     device time (the kernel's own), the launch alone (the C function with
     everything made beforehand), the wrapper call and the
-    plain version (CUDA events, per call), beside its bound at ``shape``
-    (``kernel_bound``) and the share of the bound that the device time
-    reaches. No single PyTorch call computes any kernel's function, so
+    plain version (CUDA events, per call; ``plain_calls`` gives the calls a
+    repetition, the repetitions and the warm calls of a slow one), beside its bound at
+    ``shape`` (``kernel_bound``) and the share of the bound that the device
+    time reaches. No single PyTorch call computes any kernel's function, so
     ``library_ms`` is None."""
     bound, by = kernel_bound(name, **shape)
-    t = {"at": at, "ms": event_ms(call), "plain_ms": event_ms(plain),
+    t = {"at": at, "ms": event_ms(call), "plain_ms": event_ms(plain, *plain_calls),
          "device_ms": profiler_ms(call, f"{name}_"),  # filter_rows_strip_kernel, coeffs_kernel, ...
          "launch_ms": event_ms(alone),
          "bound_ms": bound, "bound_by": by, "library_ms": None}
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     share = "not measured" if t["device_ms"] is None else f"{bound / t['device_ms']:.1%}"
-    print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler), launch alone "
+    print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler, {PROFILED[f'{name}_']} "
+          f"launches traced in 20 calls), launch alone "
           f"{t['launch_ms']:.4f} ms, per call {t['ms']:.4f} ms, plain PyTorch {t['plain_ms']:.4f} ms; "
-          f"bound {bound:.4f} ms ({by}, {kernel_work(name, **shape)[0]} B), device time at "
+          f"bound {bound:.4f} ms ({by}, {kernel_work(name, **shape)[0]} B, "
+          f"{kernel_work(name, **shape)[1]} {OPS_TYPE.get(name, 'f32')} operations), device time at "
           f"{share} of it [{card}]")
     return t
 
@@ -1745,6 +1844,440 @@ def time_thumbnail(dev, tcases, card: str) -> dict:
     return k_ms, shared
 
 
+# The lossy PNG cells (BASELINE.json config 3, palette quantization and
+# dithering at 64 and 256 colours): (q1) the corpus batch, FORCE, 256
+# colours, the balanced preset; (q2) the gradient batch, FORCE, 64 colours,
+# the fast preset; both dithered.
+LOSSY_RUNS = 3
+
+
+def lossy_options(max_colors: int, dithering: bool, preset: str = "balanced", mode: str = "FORCE",
+                  color_type: str = "RGB"):
+    """A lossy cell's PngOptions for SIZE x SIZE images."""
+    from pixo_tpu_torch import ColorType, PngOptions, QuantizationMode, QuantizationOptions
+
+    opts = getattr(PngOptions, preset)(SIZE, SIZE)
+    return opts.replace(color_type=ColorType[color_type], quantization=QuantizationOptions(
+        mode=QuantizationMode[mode], max_colors=max_colors, dithering=dithering))
+
+
+def lossy_cases(corpus, grad) -> dict:
+    """The lossy cells (q1) and (q2): (label, options, images)."""
+    return {
+        "q1": ("corpus RGB balanced FORCE 256 colours dithered", lossy_options(256, True), corpus),
+        "q2": ("gradient RGB fast FORCE 64 colours dithered", lossy_options(64, True, "fast"), grad),
+    }
+
+
+def alpha_batch(corpus, size: int = SIZE):
+    """[4, size, size, 4]: corpus photos with graded alpha (a ramp over the
+    columns, 255 on the right half), so the dither takes the direct redmean
+    for about half the pixels and the palettes need tRNS."""
+    import numpy as np
+
+    ramp = np.minimum(np.arange(size) * 510 // size, 255).astype(np.uint8)
+    alpha = np.broadcast_to(ramp[None, :, None], (size, size, 1))
+    return np.stack([np.concatenate([img[:size, :size], alpha], -1) for img in corpus[::4]])
+
+
+def auto_mix_batch(corpus, size: int = SIZE):
+    """[4, size, size, 3] for AUTO at 256 colours, one image of each branch:
+    uniform noise (too many colours: declined), a 200-colour image whose
+    pixels at multiples of the heuristic's sampling stride but not of the
+    histogram's carry 250 more colours (accepted by the heuristic's sample,
+    exact-mapped by the histogram's, which sees 40 colours), a corpus photo
+    and a corpus photo rolled (quantized on the device)."""
+    import numpy as np
+
+    rng = np.random.default_rng(11)
+    n = size * size
+    auto_stride, hist_stride = max(n // 20_000, 1), max(n // 50_000, 1)
+    base = rng.integers(0, 256, (200, 3), dtype=np.uint8)
+    extra = rng.integers(0, 256, (250, 3), dtype=np.uint8)
+    exact = base[np.arange(n) % 200]
+    marked = np.nonzero((np.arange(n) % auto_stride == 0) & (np.arange(n) % hist_stride != 0))[0]
+    exact[marked] = extra[np.arange(len(marked)) % 250]
+    noise = rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+    photo = corpus[0][:size, :size]
+    return np.stack([noise, exact.reshape(size, size, 3), photo, np.roll(photo, 77, axis=1)])
+
+
+def lossy_correctness_cases(corpus, grad) -> list:
+    """(q3), for correctness only: (label, options, images)."""
+    return [
+        ("(q1) without dithering", lossy_options(256, False), corpus),
+        ("(q2) without dithering", lossy_options(64, False, "fast"), grad),
+        ("RGBA graded alpha FORCE 256 dithered", lossy_options(256, True, color_type="RGBA"),
+         alpha_batch(corpus)),
+        ("RGBA graded alpha FORCE 64 undithered", lossy_options(64, False, color_type="RGBA"),
+         alpha_batch(corpus)),
+        ("AUTO 256 dithered: declined, exact-mapped and device members",
+         lossy_options(256, True, mode="AUTO"), auto_mix_batch(corpus)),
+    ]
+
+
+def quantize_edge_cases(rng) -> dict:
+    """The quantization kernels' edge cases, numpy arrays by kernel:
+    kmeans_refine (label, palettes [B, K, 4], colours [B, M, 4], weights
+    [B, M] int32, k_valid [B] int32): K = 1, K = 256 with duplicate entries,
+    k_valid below K, all-zero weights, colours on palette entries (ties), a
+    colour count that ends inside a CTA's range, one colour; palette_lut
+    (label, palettes, k_valid): K = 1, K = 256 with duplicates (all scanned,
+    and only the first 16), entries with alpha, three palettes, k_valid
+    below K; dither_fs (label, rgba [B, H, W, 4], palettes, k_valid): H = 1
+    (1x7000), W = 1, 7000x3 (the global route), alpha other than 255, K =
+    1, K = 256 with duplicates, noise, alpha with k_valid below K."""
+    import numpy as np
+
+    def pal(b, k, unique=None, opaque=True):
+        p = rng.integers(0, 256, (b, unique or k, 4), dtype=np.uint8)
+        if opaque:
+            p[..., 3] = 255
+        return np.ascontiguousarray(np.tile(p, (1, k // (unique or k), 1))) if unique else p
+
+    def cols(b, m, alpha=False):
+        c = rng.integers(0, 256, (b, m, 4), dtype=np.uint8)
+        if not alpha:
+            c[..., 3] = 255
+        return c
+
+    def weights(b, m, zero_every=3):
+        w = rng.integers(1, 900, (b, m)).astype(np.int32)
+        w[:, ::zero_every] = 0
+        return w
+
+    ties = pal(1, 40)
+    kmeans = [
+        ("K=1", pal(2, 1), cols(2, 1500), weights(2, 1500), np.array([1, 1], np.int32)),
+        ("K=256 duplicates", pal(1, 256, unique=64), cols(1, 8192), weights(1, 8192),
+         np.array([256], np.int32)),
+        ("k_valid < K", pal(3, 256), cols(3, 8192, alpha=True), weights(3, 8192),
+         np.array([1, 37, 200], np.int32)),
+        ("all-zero weights", pal(2, 64), cols(2, 2048), np.zeros((2, 2048), np.int32),
+         np.array([64, 10], np.int32)),
+        ("colours on entries", ties, np.ascontiguousarray(np.repeat(ties, 3, axis=1)),
+         weights(1, 120, 7), np.array([40], np.int32)),
+        ("M=1500 ends mid-CTA", pal(2, 100), cols(2, 1500), weights(2, 1500),
+         np.array([100, 99], np.int32)),
+        ("one colour", pal(1, 16), cols(1, 1), np.array([[5]], np.int32), np.array([16], np.int32)),
+    ]
+    def sizes(*k):
+        return np.array(k, np.int32)
+
+    dup = pal(1, 256, unique=16)
+    luts = [("K=1", pal(1, 1), sizes(1)), ("K=256 duplicates", dup, sizes(256)),
+            ("K=256 duplicates, k_valid 16", dup, sizes(16)),
+            ("K=37 with alpha", pal(2, 37, opaque=False), sizes(37, 37)),
+            ("three K=256", pal(3, 256), sizes(256, 256, 256)),
+            ("k_valid < K", pal(3, 256), sizes(1, 64, 200))]
+    dithers = []
+    for label, shape, k, alpha, k_valid in (
+            ("H=1", (1, 1, 7000), 64, False, None), ("W=1", (2, 40, 1), 64, False, None),
+            ("7000x3 global route", (1, 7000, 3), 32, False, None),
+            ("alpha != 255", (2, 23, 37), 48, True, None), ("K=1", (1, 16, 16), 1, False, None),
+            ("K=256 duplicates", (2, 31, 45), 256, False, None),
+            ("noise", (3, 64, 96), 200, False, None),
+            ("alpha != 255, k_valid < K", (2, 23, 37), 64, True, (10, 64))):
+        rgba = rng.integers(0, 256, (*shape, 4), dtype=np.uint8)
+        if alpha:
+            rgba[..., 3] = rng.choice(np.array([0, 1, 128, 254, 255, 255], np.uint8), shape)
+        else:
+            rgba[..., 3] = 255
+        dithers.append((f"{label} {'x'.join(map(str, shape))}", rgba,
+                        pal(shape[0], k, unique=16 if k == 256 else None, opaque=not alpha),
+                        sizes(*(k_valid or [k] * shape[0]))))
+    return {"kmeans_refine": kmeans, "palette_lut": luts, "dither_fs": dithers}
+
+
+def at_offset(host, offset: int, dev):
+    """``host`` (numpy) on ``dev``, ``offset`` elements into a buffer of
+    its own: a uint8 tensor at that byte offset, an int32 one at 4 times it."""
+    import numpy as np
+    import torch
+
+    src = torch.from_numpy(np.ascontiguousarray(host))
+    buf = torch.empty(src.numel() + offset, dtype=src.dtype, device=dev)
+    return buf[offset:].view(src.shape).copy_(src)
+
+
+def real_entries(pal, k_valid) -> list:
+    """Each palette of ``pal`` [B, K, 4] cut to its first ``k_valid``
+    entries, clamped to 1..K as the kernels clamp them."""
+    return [pal[i][:max(1, min(int(k_valid[i]), pal.shape[1]))] for i in range(len(pal))]
+
+
+def dither_inputs(rgba, pal, k_valid) -> tuple:
+    """A dither case's kernel inputs: (rgba, palettes, the host library's LUT
+    of each palette's real entries, k_valid)."""
+    import numpy as np
+
+    from pixo_tpu_torch.native import native_palette_lut
+
+    return rgba, pal, np.stack([native_palette_lut(p) for p in real_entries(pal, k_valid)]), k_valid
+
+
+def quantize_host_oracles(name: str, args) -> list:
+    """The host library's result of kernel ``name`` on numpy ``args`` (its
+    inputs, k_valid last), image by image, on each palette's real entries:
+    ``refine_palette_kmeans``, ``native_palette_lut``, ``native_dither_fs``
+    with the LUT of ``args``."""
+    from pixo_tpu_torch.native import native_dither_fs, native_palette_lut
+    from pixo_tpu_torch.png.quantize import refine_palette_kmeans
+
+    if name == "kmeans_refine":
+        pal, colors, weights, k_valid = args
+        return [refine_palette_kmeans(p, colors[i], weights[i].astype("uint32"))
+                for i, p in enumerate(real_entries(pal, k_valid))]
+    if name == "palette_lut":
+        return [native_palette_lut(p) for p in real_entries(*args)]
+    rgba, pal, lut, k_valid = args
+    b, h, w = rgba.shape[:3]
+    return [native_dither_fs(rgba[i].reshape(-1, 4), w, h, p, lut[i]).reshape(h, w)
+            for i, p in enumerate(real_entries(pal, k_valid))]
+
+
+def check_quantize_case(dev, name: str, label: str, args, offsets=(0,)) -> int:
+    """Kernel ``name`` on numpy ``args`` (its inputs; a dither's LUTs are
+    made by the host library here, ``dither_inputs``) at each byte offset
+    against its plain version on the card and the host library image by
+    image. Returns the largest absolute error against the plain version."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels, quantize_device
+
+    if name == "dither_fs":
+        args = dither_inputs(*args)
+    host = quantize_host_oracles(name, args)
+    ref = getattr(quantize_device, name)(*[at_offset(a, 0, dev) for a in args])
+    err = 0
+    for off in offsets:
+        got = getattr(kernels, name)(*[at_offset(a, off, dev) for a in args])
+        e = int((got.int() - ref.int()).abs().max())
+        got_h = got.cpu().numpy()
+        if name == "kmeans_refine":
+            bad = sum(not np.array_equal(got_h[i][:len(host[i])], host[i]) for i in range(len(host)))
+        else:
+            bad = sum(not np.array_equal(got_h[i], host[i]) for i in range(len(host)))
+        route = f", route {kernels.dither_plan(*args[0].shape[1:3]).route}" if name == "dither_fs" else ""
+        _verdict(f"check {name} {label} at byte offset {off}{route}: max_abs_err vs plain {e}, "
+                 f"images differing from the host library {bad}/{len(host)}", e == 0 and bad == 0)
+        err = max(err, e)
+    return err
+
+
+def lossy_cell_tensors(imgs, opts, dev):
+    """One cell's tensors as the path hands them to the kernels: the host
+    stage's ``LossyBatch`` and each kernel's inputs, numpy, in call order
+    (the k-means's palettes, colours, weights and sizes; the refined and
+    re-padded palettes with the sizes; the rgba pixels with them; the LUTs
+    are the host library's, ``dither_inputs``)."""
+    from pixo_tpu_torch.png import quantize as q
+
+    batch = q.quantize_host_stage(imgs, min(opts.quantization.max_colors, 256),
+                                  opts.quantization.dithering)
+    pal, _, _ = q.quantize_device_stage(batch, False, dev)
+    pal = pal.cpu().numpy()
+    return batch, {"kmeans_refine": (batch.palettes, batch.colors, batch.weights, batch.k),
+                   "palette_lut": (pal, batch.k), "dither_fs": (batch.rgba, pal, batch.k)}
+
+
+def check_quantize_kernels(dev, corpus, grad) -> dict:
+    """Phase 2, lossy PNG: each quantization kernel against its plain
+    version on the card and the host library, on ``quantize_edge_cases`` at
+    byte offsets 0, 1 and 3, and on the tensors of (q1) and (q2). Returns
+    the largest absolute error of each kernel."""
+    import numpy as np
+
+    errs = {"kmeans_refine": 0, "palette_lut": 0, "dither_fs": 0}
+    for name, cases in quantize_edge_cases(np.random.default_rng(12)).items():
+        for label, *args in cases:
+            errs[name] = max(errs[name], check_quantize_case(dev, name, label, args, (0, 1, 3)))
+    for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
+        batch, tensors = lossy_cell_tensors(imgs, opts, dev)
+        for name, args in tensors.items():
+            errs[name] = max(errs[name], check_quantize_case(
+                dev, name, f"({key}) {label}, its {len(batch.members)} device members", args))
+    return errs
+
+
+LOSSY_KERNELS = ("kmeans_refine", "palette_lut", "dither_fs")
+
+
+def lossy_branches(imgs, opts):
+    """(declined, exact-mapped, device) image counts of a lossy batch: the
+    per-image decision, then ``quantize_host_stage``'s branches."""
+    from pixo_tpu_torch.png import encoder as penc
+    from pixo_tpu_torch.png import quantize as q
+
+    bpp = imgs.shape[3]
+    ids = [i for i in range(len(imgs)) if penc.quantize_decision(imgs[i].reshape(-1, bpp), opts)]
+    batch = q.quantize_host_stage(imgs[ids], penc.max_colors(opts), opts.quantization.dithering)
+    return len(imgs) - len(ids), sum(r is not None for r in batch.results), len(batch.members)
+
+
+def _check_lossy_bytes(dev, label, imgs, opts) -> tuple:
+    """Every file of the lossy batch encode against the per-image
+    ``png.encode`` (host quantization, host filter); returns the branch
+    counts (``lossy_branches``)."""
+    from pixo_tpu_torch import encode_png_batch_sharded, png
+
+    outs = encode_png_batch_sharded(imgs, opts, device=dev)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        same = sum(o == r for o, r in zip(outs, ex.map(lambda img: png.encode(img, opts), imgs)))
+    indexed = sum(o[25] == 3 for o in outs)  # IHDR's colour type: 3, a palette
+    trns = sum(b"tRNS" in o for o in outs)
+    declined, exact, device = lossy_branches(imgs, opts)
+    _verdict(f"main path png lossy {label} {'x'.join(map(str, imgs.shape))}: {same}/{len(imgs)} files "
+             f"byte-equal to the per-image png.encode; {indexed} indexed, {trns} with tRNS; "
+             f"{declined} declined, {exact} exact-mapped, {device} quantized on the card; mean "
+             f"{sum(map(len, outs)) / len(outs):.0f} B/file", same == len(imgs))
+    return declined, exact, device, trns
+
+
+def check_lossy_main_path(dev, corpus, grad) -> dict:
+    """Phase 3, lossy PNG: (q1) and (q2), each one call of
+    ``encode_png_batch_sharded`` with every kernel's launch count set to 0
+    before it and read after it; then (q3). Returns each cell's counts."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels
+
+    launches = {}
+    for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
+        reset_counts()
+        _check_lossy_bytes(dev, f"({key}) {label}", imgs, opts)
+        launches[key] = {name: getattr(kernels, name).launches for name in LOSSY_KERNELS}
+        _verdict(f"main path png lossy ({key}): launches {launches[key]}",
+                 all(n >= 1 for n in launches[key].values()))
+    for label, opts, imgs in lossy_correctness_cases(corpus, grad):
+        declined, exact, device, trns = _check_lossy_bytes(dev, f"(q3) {label}", imgs, opts)
+        if imgs.shape[3] == 4:
+            share = float((imgs[..., 3] != 255).mean())
+            _verdict(f"(q3) {label}: {share:.1%} of the pixels have alpha below 255, "
+                     f"{device} images on the card, {trns} files with tRNS",
+                     share > 0 and device >= 1 and trns >= 1)
+        if opts.quantization.mode.name == "AUTO":
+            _verdict(f"(q3) {label}: every branch taken", min(declined, exact, device) >= 1)
+    return launches
+
+
+def quantize_launchers(dev, batch, pal, lut):
+    """For each quantization kernel on one cell's tensors (``batch`` a
+    ``LossyBatch``, ``pal`` and ``lut`` its refined palettes and their LUTs
+    on ``dev``): (the wrapper call, its plain version, the launch alone,
+    its work shape for ``kernel_work``)."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops import kernels, quantize_device
+
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    km = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+          for a in (batch.palettes, batch.colors, batch.weights, batch.k)]
+    kv = km[3]
+    rgba = torch.from_numpy(batch.rgba).to(dev)
+    b, k, m = km[0].shape[0], km[0].shape[1], km[1].shape[1]
+    h, w = rgba.shape[1:3]
+    acc = torch.zeros((b, k, 5), dtype=torch.int64, device=dev)  # each call leaves it zero
+    km_out, lut_out = torch.empty_like(km[0]), torch.empty_like(lut)
+    idx_out = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    plan = kernels.dither_plan(h, w)
+    if plan.route != "shared":
+        raise Failed(f"the cell's {h}x{w} dither takes the {plan.route} route")
+    nz = (batch.weights > 0).sum(1)
+    km_work = dict(b=b, k=k, m=m, distances=int(2 * (nz * np.maximum(batch.k, 1)).sum()),
+                   assigned=int(2 * nz.sum()))
+    return {
+        "kmeans_refine": (
+            lambda: kernels.kmeans_refine(*km), lambda: quantize_device.kmeans_refine(*km),
+            lambda: lib.pixo_kmeans_refine(km[0].data_ptr(), b, k, km[3].data_ptr(), km[1].data_ptr(),
+                                           km[2].data_ptr(), m, acc.data_ptr(), km_out.data_ptr(),
+                                           stream), km_work),
+        "palette_lut": (
+            lambda: kernels.palette_lut(pal, kv), lambda: quantize_device.palette_lut(pal, kv),
+            lambda: lib.pixo_palette_lut(pal.data_ptr(), b, k, kv.data_ptr(), lut_out.data_ptr(), stream),
+            dict(b=b, k=batch.k)),
+        "dither_fs": (
+            lambda: kernels.dither_fs(rgba, pal, lut, kv),
+            lambda: quantize_device.dither_fs(rgba, pal, lut, kv),
+            lambda: lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, pal.data_ptr(), k, kv.data_ptr(),
+                                       lut.data_ptr(), plan.threads, plan.smem, None,
+                                       idx_out.data_ptr(), stream),
+            dict(b=b, h=h, w=w, k=batch.k, alpha_pixels=(batch.rgba[..., 3] != 255).sum((1, 2)))),
+    }
+
+
+def time_lossy(dev, corpus, grad, card: str) -> dict:
+    """Phase 4, lossy PNG: each quantization kernel four ways
+    (``time_kernel``) at the shapes of (q1) and (q2), the dither's critical
+    path beside it, then the stages of each cell (median, least and most of
+    ``LOSSY_RUNS`` warm runs): the host stage (histograms, median cut), the
+    device stage (the copies up and the three kernels), the copies back, the
+    indexed encode and DEFLATE on 8 threads, the whole call, and beside
+    them the per-image host ``png.encode`` on 8 threads. Returns the
+    kernels' times at (q1) and, under "q2", at (q2)."""
+    from pixo_tpu_torch import encode_png_batch_sharded, png
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.png import encoder as penc
+    from pixo_tpu_torch.png import quantize as q
+
+    k_ms = {}
+    for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
+        b = imgs.shape[0]
+        at = f"({key}) {label} {b}x{SIZE}x{SIZE}"
+        mp = b * SIZE * SIZE / 1e6
+        mc, dith = penc.max_colors(opts), opts.quantization.dithering
+        batch = q.quantize_host_stage(imgs, mc, dith)
+        pal, lut, idx = q.quantize_device_stage(batch, dith, dev)
+        times = {}
+        for name, (call, plain, alone, work) in quantize_launchers(dev, batch, pal, lut).items():
+            # the plain dither is a Python loop of W + 2(H - 1) steps (1.5-1.8 s a
+            # call), the plain LUT 80 ms a call: one call after one warm call
+            slow = name in ("dither_fs", "palette_lut")
+            times[name] = time_kernel(name, f"{at}, {len(batch.members)} on the card", call, plain,
+                                      alone, card, plain_calls=(1, 1, 1) if slow else (10, 5), **work)
+        # the same LUT kernel with no k_valid, scanning every padded entry as
+        # its first design did: what scanning only the real entries saves
+        full_ms = profiler_ms(lambda: kernels.palette_lut(pal), "palette_lut_")
+        print(f"kernel palette_lut {at}: device {'not measured' if full_ms is None else f'{full_ms:.4f} ms'}"
+              f" (profiler, {PROFILED['palette_lut_']} launches traced in 20 calls) scanning all "
+              f"{pal.shape[1]} padded entries, against {times['palette_lut']['device_ms']} ms scanning "
+              f"the {int(batch.k.sum())} real ones ({int(batch.k.min())}-{int(batch.k.max())} a palette) "
+              f"[{card}]")
+        steps = SIZE + 2 * (SIZE - 1)
+        dev_ms = times["dither_fs"]["device_ms"]
+        print(f"kernel dither_fs {at}: critical path {steps} dependent steps, "
+              f"{'not measured' if dev_ms is None else f'{dev_ms / steps * 1e6:.1f} ns'} a step "
+              f"on the card [{card}]")
+        if key == "q1":
+            k_ms.update(times)
+        else:
+            k_ms["q2"] = times
+        results = q.quantize_finish(batch, pal, lut, idx)
+
+        def deflate():
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                return list(ex.map(lambda r: penc.encode_quantized(*r, opts), results))
+
+        def host_encode():
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                return list(ex.map(lambda img: png.encode(img, opts), imgs))
+
+        stages = {
+            "png_lossy_host": lambda: q.quantize_host_stage(imgs, mc, dith),
+            "png_lossy_device": lambda: q.quantize_device_stage(batch, dith, dev),
+            "png_lossy_d2h": lambda: q.quantize_finish(batch, pal, lut, idx),
+            "png_lossy_deflate": deflate,
+            "png_lossy_end_to_end": lambda: encode_png_batch_sharded(imgs, opts, device=dev),
+            "png_lossy_host_encode_8_threads": host_encode,
+        }
+        for name, fn in stages.items():
+            med, lo, hi = wall_stats(fn, LOSSY_RUNS)
+            print(f"stage {name} {at}: median {med:.4f} ms ({lo:.4f} to {hi:.4f}), "
+                  f"{mp / (med / 1e3):.1f} MP/s over {LOSSY_RUNS} warm runs [{card}]")
+    return k_ms
+
+
 def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: int = 8):
     """For ``coeffs`` (in ``mode``) and ``compact`` (at ``cap``) on the batch
     ``imgs_dev``: (the wrapper call, the launch alone). The launch alone
@@ -1887,6 +2420,16 @@ def measure_tree(root: str) -> dict:
                 "call_ms": None}
         stages["thumb_end_to_end (t1)"] = wall_stats(lambda: thumbnail_pipeline(
             files, thumb_size=THUMB, quality=THUMB_QUALITY, chunk_size=chunk, device=dev))[0]
+    if hasattr(kernels, "dither_fs"):  # a checkout from before the lossy path has none
+        from pixo_tpu_torch.png import quantize as q
+
+        _, popts, imgs = lossy_cases(corpus, grad)["q1"]
+        batch = q.quantize_host_stage(imgs, 256, True)
+        pal, lut, _ = q.quantize_device_stage(batch, True, dev)
+        for name, (call, plain, alone, _) in quantize_launchers(dev, batch, pal, lut).items():
+            three_ways(f"{name} (q1)", f"{name}_", call, alone, plain)
+        stages["png_lossy_end_to_end (q1)"] = wall_stats(
+            lambda: encode_png_batch_sharded(imgs, popts, device=dev), LOSSY_RUNS)[0]
     return res
 
 
@@ -2321,6 +2864,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
+    print_clocks("at the start")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     with concurrent.futures.ThreadPoolExecutor(max_workers=2) as ex:  # both builds at once
@@ -2343,25 +2887,32 @@ def main() -> int:
         errs.update(check_resize_kernel(dev))
         tcases = thumbnail_cases(dev, cases)
         thumb_errs = check_thumbnail_kernels(dev, tcases)
+        errs.update(check_quantize_kernels(dev, corpus, grad))
         launches = check_main_path(dev, grad)
         launches.update(check_png_main_path(dev, corpus, grad))
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
+        lossy_launches = check_lossy_main_path(dev, corpus, grad)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     missing = ([k for k, n in launches.items() if n < 1]
-               + [f"{k} (thumbnail path)" for k, n in thumb_launches.items() if n < 1])
+               + [f"{k} (thumbnail path)" for k, n in thumb_launches.items() if n < 1]
+               + [f"{k} ({cell})" for cell, counts in lossy_launches.items()
+                  for k, n in counts.items() if n < 1])
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
     launches["resize_lanczos3"] = thumb_launches["resize_lanczos3"]
+    launches.update(lossy_launches["q1"])
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
     k_ms.update(time_decode(dev, cases, card, 100_000))
     try:
         resize_ms, thumb_ms = time_thumbnail(dev, tcases, card)
         k_ms.update(resize_ms)
+        k_ms.update(time_lossy(dev, corpus, grad, card))
+        print_clocks("after the lossy timings")
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2374,21 +2925,28 @@ def main() -> int:
     # kernel that the thumbnail path shares with another path also has that
     # path's record under "thumbnail_path": its launches in the call (t1),
     # its error against the plain version on that path's tensors, and its
-    # times and bound at one chunk's shapes.
+    # times and bound at one chunk's shapes. The quantization kernels'
+    # launches and times are those of the lossy cell (q1); (q2)'s are under
+    # "q2".
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
                                "pixo_tpu/ops/pallas_kernels.py:57"),
                "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187"),
                "resize_lanczos3": ("pixo_tpu_torch/csrc/resize.cu",
-                                   "pixo_tpu/ops/resize_kernels.py:154")}
+                                   "pixo_tpu/ops/resize_kernels.py:154"),
+               "kmeans_refine": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:67"),
+               "palette_lut": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:118"),
+               "dither_fs": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:138")}
+    timed = ("at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
          "launches": launches[name], "launches_per_call": launches[name],
-         "max_abs_err": errs[name], **{k: k_ms[name][k] for k in (
-             "at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")},
+         "max_abs_err": errs[name], **{k: k_ms[name][k] for k in timed},
          **({"thumbnail_path": {"launches": thumb_launches[name], "max_abs_err": thumb_errs[name],
-                                "shapes": thumb_ms[name]}} if name in thumb_ms else {})}
+                                "shapes": thumb_ms[name]}} if name in thumb_ms else {}),
+         **({"q2": {"launches": lossy_launches["q2"][name], **{k: k_ms["q2"][name][k] for k in timed}}}
+            if name in LOSSY_KERNELS else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
 Ported so far are the batched baseline JPEG encode with the standard tables,
-the batched 8-bit lossless PNG encode, the batched baseline and progressive
+the batched 8-bit PNG encode, lossless and lossy (palette quantization with
+Floyd-Steinberg dithering), the batched baseline and progressive
 JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
 thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying
 on the device from the decode to the compacted streams):
@@ -22,6 +23,12 @@ on the device from the decode to the compacted streams):
 
     opts = PngOptions.balanced(512, 512).replace(color_type=ColorType.RGB)
     files = encode_png_batch_sharded(batch_u8, opts, device="cuda")
+
+    from pixo_tpu_torch import QuantizationMode, QuantizationOptions
+
+    lossy = opts.replace(quantization=QuantizationOptions(
+        mode=QuantizationMode.FORCE, max_colors=256, dithering=True))
+    files = encode_png_batch_sharded(batch_u8, lossy, device="cuda")  # indexed PNGs
 
     from pixo_tpu_torch import decode_jpeg_batch
 
@@ -39,12 +46,14 @@ on the device from the decode to the compacted streams):
     small = resize.resize(pixels_u8, opts, device="cuda")  # [128, 128, 3] uint8
 """
 
-from . import decode, errors, resize
+from . import decode, errors, png, resize
 from .color import ColorType, rgb_to_ycbcr
 from .options import (
     FilterStrategy,
     JpegOptions,
     PngOptions,
+    QuantizationMode,
+    QuantizationOptions,
     ResizeFilter,
     ResizeOptions,
     Subsampling,
@@ -63,6 +72,8 @@ __all__ = [
     "FilterStrategy",
     "JpegOptions",
     "PngOptions",
+    "QuantizationMode",
+    "QuantizationOptions",
     "ResizeFilter",
     "ResizeOptions",
     "Subsampling",
@@ -73,6 +84,7 @@ __all__ = [
     "encode_png_batch_sharded",
     "errors",
     "jpeg_coeffs_sharded",
+    "png",
     "resize",
     "rgb_to_ycbcr",
     "thumbnail_pipeline",

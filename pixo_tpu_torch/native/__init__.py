@@ -32,7 +32,11 @@ package. Only the entry points of the ported slices are bound:
   reconstruction and its palette gather (``decode/png_decoder.py``);
 - ``resize_lanczos3_host``: the separable Lanczos3 resize in the serial f32
   tap order: the oracle that the resize kernel and its plain version are
-  held to (no path of the port calls it).
+  held to (no path of the port calls it);
+- ``nearest_palette_batch``, ``palette_lut_build`` and ``dither_fs``: the
+  lossy PNG's host tier (``png/quantize.py``: redmean argmin, the 6-6-6
+  opaque LUT, sequential Floyd-Steinberg), and the oracles that the
+  quantization kernels are held to.
 
 Unlike the JAX package, a failed build or load raises: there is no Python
 fallback tier here, and a silent ``None`` would hide the failure.
@@ -237,6 +241,16 @@ def _configure(lib) -> None:
         _i32p, _f32p, i32, i32,          # x starts, x weights, taps, dst width
         _i32p, _f32p, i32, i32,          # y starts, y weights, taps, dst height
         _u8p,                            # out [dst height, dst width, c]
+    ]
+    lib.nearest_palette_batch.restype = i32
+    lib.nearest_palette_batch.argtypes = [_u8p, i64, _u8p, i64, _u8p]  # colors, n, palette, k, out
+    lib.palette_lut_build.restype = i32
+    lib.palette_lut_build.argtypes = [_u8p, i64, _u8p]  # palette, k, lut [64^3]
+    lib.dither_fs.restype = i32
+    lib.dither_fs.argtypes = [
+        _u8p, i32, i32,                  # rgba [h * w, 4], width, height
+        _u8p, i32,                       # palette [k, 4], k
+        _u8p, _u8p,                      # opaque lut [64^3], out indices [h * w]
     ]
 
 
@@ -687,4 +701,55 @@ def native_resize_lanczos3(arr: np.ndarray, sx: np.ndarray, wx: np.ndarray, sy: 
     )
     if rc != 0:
         raise RuntimeError(f"native resize_lanczos3_host failed ({rc}; needs AVX2 and 1 to 4 channels)")
+    return out
+
+
+def _palette(palette) -> np.ndarray:
+    palette = np.ascontiguousarray(palette, dtype=np.uint8)
+    if palette.ndim != 2 or palette.shape[1] != 4 or not 1 <= len(palette) <= 256:
+        raise ValueError(f"the palette must be [k, 4] uint8 with k 1 to 256, got {palette.shape}")
+    return palette
+
+
+def native_nearest_palette(colors, palette) -> np.ndarray:
+    """[n, 4] x [k, 4] uint8 -> [n] uint8: each colour's nearest palette
+    entry by the redmean distance, the first on ties."""
+    lib = load()
+    colors = np.ascontiguousarray(colors, dtype=np.uint8).reshape(-1, 4)
+    palette = _palette(palette)
+    out = np.empty(max(len(colors), 1), np.uint8)
+    src = colors if len(colors) else np.zeros((1, 4), np.uint8)
+    rc = lib.nearest_palette_batch(_ptr(src, _u8p), len(colors), _ptr(palette, _u8p),
+                                   len(palette), _ptr(out, _u8p))
+    if rc != 0:
+        raise RuntimeError(f"native nearest_palette_batch failed ({rc})")
+    return out[:len(colors)]
+
+
+def native_palette_lut(palette) -> np.ndarray:
+    """[k, 4] uint8 -> [64^3] uint8: the 6-6-6 opaque LUT, each grid colour's
+    nearest palette entry."""
+    lib = load()
+    palette = _palette(palette)
+    out = np.empty(64 * 64 * 64, np.uint8)
+    rc = lib.palette_lut_build(_ptr(palette, _u8p), len(palette), _ptr(out, _u8p))
+    if rc != 0:
+        raise RuntimeError(f"native palette_lut_build failed ({rc})")
+    return out
+
+
+def native_dither_fs(rgba, width: int, height: int, palette, opaque_lut) -> np.ndarray:
+    """Floyd-Steinberg dithering of [height * width, 4] uint8 pixels to
+    [height * width] uint8 palette indices, the sequential host scan."""
+    lib = load()
+    rgba = np.ascontiguousarray(rgba, dtype=np.uint8)
+    palette = _palette(palette)
+    opaque_lut = np.ascontiguousarray(opaque_lut, dtype=np.uint8)
+    if rgba.size != 4 * width * height or opaque_lut.size != 64 * 64 * 64:
+        raise ValueError("dither_fs needs width * height RGBA pixels and a [64^3] LUT")
+    out = np.empty(width * height, dtype=np.uint8)
+    rc = lib.dither_fs(_ptr(rgba, _u8p), width, height, _ptr(palette, _u8p), len(palette),
+                       _ptr(opaque_lut, _u8p), _ptr(out, _u8p))
+    if rc != 0:
+        raise RuntimeError(f"native dither_fs failed ({rc})")
     return out

@@ -34,6 +34,12 @@ stream.
   both passes in the serial f32 tap order (``csrc/resize.cu``); it replaces
   the jit-compiled ``_lanczos_pass`` pair of ``ops/resize_kernels.py``, for
   which the JAX package has no Pallas kernel.
+- ``kmeans_refine``, ``palette_lut`` and ``dither_fs``: the lossy PNG's
+  weighted k-means refinement, 6-6-6 palette LUT and wavefront
+  Floyd-Steinberg dither over a batch of images (``csrc/quantize.cu``, the
+  redmean argmin in ``csrc/redmean.cuh``); they replace the jit functions
+  ``kmeans_refine_device``, ``palette_lut_device`` and ``dither_fs_device`` of
+  the JAX package's ``ops/quantize_device.py``, which have no Pallas kernel.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -48,7 +54,7 @@ import functools
 import os
 import shutil
 import threading
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -68,13 +74,15 @@ from .png_filters import (
     native_mode,
     resolve_strategy,
 )
+from . import quantize_device
 from .quantize import quantize_blocks, zigzag_blocks
 from .resize_kernels import _lanczos_pass, pad_taps
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
-                                           "resize.cu", "aan.cuh", "idct.cuh")]
+                                           "resize.cu", "quantize.cu", "aan.cuh", "idct.cuh",
+                                           "redmean.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -129,6 +137,12 @@ def load():
             lib.pixo_resize_lanczos3.restype = ctypes.c_int
             lib.pixo_resize_lanczos3.argtypes = [vp, i64, i64, i64, i32, vp, vp, i32, i64,
                                                  vp, vp, i32, i64, vp, vp, i32, i32, i32, vp]
+            lib.pixo_palette_lut.restype = ctypes.c_int
+            lib.pixo_palette_lut.argtypes = [vp, i64, i32, vp, vp, vp]
+            lib.pixo_kmeans_refine.restype = ctypes.c_int
+            lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, vp, vp]
+            lib.pixo_dither_fs.restype = ctypes.c_int
+            lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i64, vp, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -724,3 +738,167 @@ def resize_lanczos3(imgs: torch.Tensor, sx, wx, sy, wy) -> torch.Tensor:
 
 
 resize_lanczos3.launches = 0
+
+
+PALETTE_MAX = 256  # csrc/quantize.cu's kMaxPalette: indices are uint8
+LUT_SIZE = 64 * 64 * 64
+
+
+def _quantize_inputs(tensors, batch: int, k: int) -> None:
+    """The common checks of the three quantization wrappers: dtypes,
+    contiguity, one device, and a batch and palette size the kernels take.
+    The kernels read their bytes one by one, so a tensor may start at any
+    offset of its buffer."""
+    for t, dtype, name in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    devices = {t.device for t, _, _ in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"the tensors lie on several devices: {sorted(map(str, devices))}")
+    _device_kind(tensors[0][0])
+    if not (1 <= batch <= 65535 and 1 <= k <= PALETTE_MAX):
+        raise ValueError(f"a batch of 1 to 65535 palettes of 1 to {PALETTE_MAX} entries is taken, "
+                         f"got {batch} of {k}")
+
+
+def kmeans_refine(palette: torch.Tensor, colors: torch.Tensor, weights: torch.Tensor,
+                  k_valid: torch.Tensor) -> torch.Tensor:
+    """Weighted k-means refinement (two iterations) of a batch of palettes,
+    on their device: palette [B, K, 4] uint8, colors [B, M, 4] uint8,
+    weights [B, M] int32 (non-negative), k_valid [B] int32 (each palette's
+    real entries; the rows past it take no colour) -> [B, K, 4] uint8, equal to
+    ``ops/quantize_device.py::kmeans_refine`` and to the host tier's
+    ``refine_palette_kmeans`` of the unpadded palette."""
+    if palette.dim() != 3 or palette.shape[2] != 4 or colors.dim() != 3 or colors.shape[2] != 4:
+        raise ValueError(f"palette and colors must be [B, K, 4] and [B, M, 4], got "
+                         f"{tuple(palette.shape)} and {tuple(colors.shape)}")
+    b, k, m = palette.shape[0], palette.shape[1], colors.shape[1]
+    if colors.shape[0] != b or tuple(weights.shape) != (b, m) or tuple(k_valid.shape) != (b,):
+        raise ValueError(f"weights must be [{b}, {m}] and k_valid [{b}], got "
+                         f"{tuple(weights.shape)} and {tuple(k_valid.shape)}")
+    _quantize_inputs([(palette, torch.uint8, "palette"), (colors, torch.uint8, "colors"),
+                      (weights, torch.int32, "weights"), (k_valid, torch.int32, "k_valid")], b, k)
+    if m < 1:
+        raise ValueError("at least one colour is taken")
+    if _device_kind(palette) == "cpu":
+        return quantize_device.kmeans_refine(palette, colors, weights, k_valid)
+    lib = load()
+    acc = torch.zeros((b, k, 5), dtype=torch.int64, device=palette.device)
+    out = torch.empty_like(palette)
+    with _device_guard(palette):
+        rc = lib.pixo_kmeans_refine(palette.data_ptr(), b, k, k_valid.data_ptr(), colors.data_ptr(),
+                                    weights.data_ptr(), m, acc.data_ptr(), out.data_ptr(),
+                                    _stream(palette))
+    _check(lib, rc, "kmeans_refine")
+    kmeans_refine.launches += 1
+    return out
+
+
+kmeans_refine.launches = 0
+
+
+def _k_valid_inputs(k_valid: Optional[torch.Tensor], b: int) -> list:
+    """``_quantize_inputs``' entry for an optional k_valid [B] int32."""
+    if k_valid is None:
+        return []
+    if tuple(k_valid.shape) != (b,):
+        raise ValueError(f"k_valid must be [{b}], got {tuple(k_valid.shape)}")
+    return [(k_valid, torch.int32, "k_valid")]
+
+
+def palette_lut(palette: torch.Tensor, k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B, K, 4] uint8 palettes -> [B, 262144] uint8 6-6-6 opaque LUTs on
+    their device: entry (r6 << 12 | g6 << 6 | b6) is the nearest palette
+    entry of the grid colour with each 6-bit value v widened to (v << 2) |
+    (v >> 4), alpha 255, among each palette's first ``k_valid`` entries
+    ([B] int32, clamped to 1..K; all K without it). Equal to
+    ``ops/quantize_device.py::palette_lut`` and the host library's
+    ``palette_lut_build`` of those entries."""
+    if palette.dim() != 3 or palette.shape[2] != 4:
+        raise ValueError(f"palette must be [B, K, 4], got {tuple(palette.shape)}")
+    b, k = palette.shape[:2]
+    _quantize_inputs([(palette, torch.uint8, "palette")] + _k_valid_inputs(k_valid, b), b, k)
+    if _device_kind(palette) == "cpu":
+        return quantize_device.palette_lut(palette, k_valid)
+    lib = load()
+    out = torch.empty((b, LUT_SIZE), dtype=torch.uint8, device=palette.device)
+    with _device_guard(palette):
+        rc = lib.pixo_palette_lut(palette.data_ptr(), b, k, None if k_valid is None else k_valid.data_ptr(),
+                                  out.data_ptr(), _stream(palette))
+    _check(lib, rc, "palette_lut")
+    palette_lut.launches += 1
+    return out
+
+
+palette_lut.launches = 0
+
+DITHER_MAX_THREADS = 1024  # csrc/quantize.cu's kDitherMaxThreads
+DITHER_ROW_BYTES = 2 * 9 * 2  # two buffers of a row's 3 last errors x 3 channels, int16
+DITHER_SMEM_BUDGET = 232448 - 4096 - 1024  # 227 KB, less the palette and 1 KB for static variables
+
+
+class DitherPlan(NamedTuple):
+    """The dither kernel's launch for one image shape (``dither_plan``)."""
+
+    route: str  # where the rows' errors live: "shared" or "global" memory
+    threads: int  # threads of the CTA that takes one image
+    smem: int  # dynamic shared-memory bytes; 0 on the global route
+
+
+@functools.lru_cache(maxsize=256)
+def dither_plan(h: int, w: int) -> DitherPlan:
+    """How ``dither_fs`` launches for images of ``h`` x ``w``, by shape alone.
+
+    One CTA an image. At step t the rows with 0 <= t - 2y <= w work, at most
+    w // 2 + 1 of them, so the CTA takes that many threads (a multiple of
+    32, at most 1024, at most the rows) and strides the rows over them. The
+    errors of every row, two buffers of 18 bytes a row and the zero row
+    above the image, live in shared memory where they fit
+    ``DITHER_SMEM_BUDGET`` (up to 6,313 rows) and in global memory beyond."""
+    if h < 1 or w < 1:
+        raise ValueError(f"an image of at least one pixel is taken, got {h}x{w}")
+    threads = min(DITHER_MAX_THREADS, -(-min(h, w // 2 + 1) // 32) * 32)
+    smem = DITHER_ROW_BYTES * (h + 1)
+    if smem <= DITHER_SMEM_BUDGET:
+        return DitherPlan("shared", threads, smem)
+    return DitherPlan("global", threads, 0)
+
+
+def dither_fs(rgba: torch.Tensor, palette: torch.Tensor, lut: torch.Tensor,
+              k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Floyd-Steinberg dithering of a batch on its device: [B, H, W, 4]
+    uint8 pixels, [B, K, 4] uint8 palettes, [B, 262144] uint8 LUTs (each
+    palette's ``palette_lut``) -> [B, H, W] uint8 palette indices, equal to
+    ``ops/quantize_device.py::dither_fs`` and the host library's sequential
+    ``dither_fs``. A pixel whose alpha is not 255 takes the nearest of its
+    palette's first ``k_valid`` entries ([B] int32, clamped to 1..K; all K
+    without it). The launch follows ``dither_plan``."""
+    if rgba.dim() != 4 or rgba.shape[3] != 4 or rgba.numel() == 0:
+        raise ValueError(f"rgba must be a non-empty [B, H, W, 4] tensor, got {tuple(rgba.shape)}")
+    b, h, w = rgba.shape[:3]
+    if palette.dim() != 3 or palette.shape[0] != b or palette.shape[2] != 4:
+        raise ValueError(f"palette must be [{b}, K, 4], got {tuple(palette.shape)}")
+    if tuple(lut.shape) != (b, LUT_SIZE):
+        raise ValueError(f"lut must be [{b}, {LUT_SIZE}], got {tuple(lut.shape)}")
+    _quantize_inputs([(rgba, torch.uint8, "rgba"), (palette, torch.uint8, "palette"),
+                      (lut, torch.uint8, "lut")] + _k_valid_inputs(k_valid, b), b, palette.shape[1])
+    if _device_kind(rgba) == "cpu":
+        return quantize_device.dither_fs(rgba, palette, lut, k_valid)
+    plan = dither_plan(h, w)
+    lib = load()
+    out = torch.empty((b, h, w), dtype=torch.uint8, device=rgba.device)
+    lags = (torch.zeros((b, 2, h + 1, 9), dtype=torch.int16, device=rgba.device)
+            if plan.route == "global" else None)
+    with _device_guard(rgba):
+        rc = lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, palette.data_ptr(), palette.shape[1],
+                                None if k_valid is None else k_valid.data_ptr(),
+                                lut.data_ptr(), plan.threads, plan.smem,
+                                None if lags is None else lags.data_ptr(), out.data_ptr(), _stream(rgba))
+    _check(lib, rc, "dither_fs")
+    dither_fs.launches += 1
+    return out
+
+
+dither_fs.launches = 0

@@ -15,7 +15,11 @@ named by ``device=`` instead of a mesh:
   kernel (``ops/kernels.py::filter_rows``) run there; one copy per group
   brings the filtered rows back, and native DEFLATE and chunk framing run on
   a thread pool. Images whose layout depends on their content (palette,
-  sub-8-bit gray) take the per-image ``png.encode`` on the same pool.
+  sub-8-bit gray) take the per-image ``png.encode`` on the same pool. With
+  quantization (FORCE or AUTO), the images to quantize go through
+  ``png/quantize.py::quantize_batch`` (histograms and median cut on the host;
+  k-means, LUT and dither for the whole batch on the device), then
+  ``encode_indexed`` on the pool; the others take ``png.encode`` there.
 
 - ``decode_jpeg_batch`` and ``decode_png_batch``: the aliases of
   ``decode.decode_jpeg_batch`` and ``decode.decode_png_batch`` under the
@@ -32,8 +36,9 @@ named by ``device=`` instead of a mesh:
   (``_fused_thumb_jit``).
 
 Only the baseline JPEG encode with the standard Huffman tables and the 8-bit
-non-interlaced lossless PNG encode are ported. The stream pipelines and the
-row-sharded PNG encode are not (ROADMAP queue 1 items 7 and 8).
+non-interlaced PNG encode, lossless and lossy, are ported. The stream
+pipelines and the row-sharded PNG encode are not (ROADMAP queue 1 items 7
+and 8).
 """
 
 from __future__ import annotations
@@ -55,7 +60,7 @@ from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
 from ..native import native_pack_scan_batch, native_pack_scan_padded
-from ..options import JpegOptions, PngOptions
+from ..options import JpegOptions, PngOptions, QuantizationMode
 from ..ops.blockify import scan_layout
 from ..ops.kernels import compact_padded, filter_rows
 from ..ops.resize_kernels import resize_lanczos3_batch
@@ -63,6 +68,7 @@ from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
 from ..png import chunks as pchunks
 from ..png import encoder as penc
+from ..png.quantize import quantize_batch
 
 
 def _color_sub(options: JpegOptions):
@@ -264,9 +270,13 @@ def encode_png_batch_sharded(
     host with ``host_workers`` threads.
 
     Byte-identical, image by image, to the JAX package's
-    ``encode_png_batch_sharded`` and ``png.encode``. Interlace, 16-bit,
-    quantization, Bigrams and optimal compression raise
-    ``NotImplementedError``."""
+    ``encode_png_batch_sharded`` and ``png.encode``. With
+    ``options.quantization.mode`` FORCE or AUTO, each image's decision is
+    made on the host (FORCE: every RGB or RGBA image; AUTO: those that
+    ``should_quantize_auto`` accepts), the images to quantize go through one
+    ``quantize_batch`` on ``device`` and ``encode_indexed`` on the pool, and
+    the others through the per-image ``png.encode`` there. Interlace,
+    16-bit, Bigrams and optimal compression raise ``NotImplementedError``."""
     penc.check_ported(options)
     b = len(imgs)
     if b == 0:
@@ -275,6 +285,8 @@ def encode_png_batch_sharded(
         raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
     bpp = options.color_type.bytes_per_pixel
     penc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
+    if options.quantization.mode != QuantizationMode.OFF:
+        return _encode_png_lossy(imgs, options, device, host_workers)
     px = _to_device(imgs, device).reshape(b, -1, bpp)
     groups, fallback_idx = _png_route_batch(px, options)
 
@@ -293,6 +305,25 @@ def encode_png_batch_sharded(
         for i, fut in futures.items():
             results[i] = fut.result()
     return results
+
+
+def _encode_png_lossy(imgs, options: PngOptions, device, host_workers: int) -> List[bytes]:
+    """The quantization branch of ``encode_png_batch_sharded`` (the
+    reference's ``pipeline.py:405-460``)."""
+    host = imgs.cpu().numpy() if torch.is_tensor(imgs) else np.ascontiguousarray(imgs)
+    b, w, h = len(host), options.width, options.height
+    bpp = options.color_type.bytes_per_pixel
+    px = host.reshape(b, h, w, bpp)
+    quant_ids = [i for i in range(b) if penc.quantize_decision(px[i].reshape(-1, bpp), options)]
+    quantized = (quantize_batch(px[quant_ids], penc.max_colors(options),
+                                options.quantization.dithering, device=device)
+                 if quant_ids else [])
+    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
+        futures = {i: ex.submit(penc.encode, px[i], options)
+                   for i in sorted(set(range(b)) - set(quant_ids))}
+        for i, (palette, indices) in zip(quant_ids, quantized):
+            futures[i] = ex.submit(penc.encode_quantized, palette, indices, options)
+        return [futures[i].result() for i in range(b)]
 
 
 def decode_jpeg_batch(encoded: Sequence[bytes], host_workers: int = 8, *,

@@ -105,6 +105,41 @@ def test_resize_passes_split_the_work(shape):
     assert kernel_bound("resize_lanczos3", passes="vertical", **shape)[1] == "bytes"
 
 
+# The lossy cells: 16 palettes padded to 256 entries, 16 LUTs, 16 images of
+# 512x512; the k-means of 14 members with 8192 weighted colours each.
+LOSSY_COUNTS = [
+    ("palette_lut", dict(b=16, k=256), 16 * (1024 + 262_144), 16 * 262_144 * 256 * 20, "operations"),
+    ("kmeans_refine", dict(b=14, k=256, m=8192, distances=2 * 14 * 8192 * 256, assigned=2 * 14 * 8192),
+     14 * (2048 + 65_536 + 4), 2 * 14 * 8192 * (256 * 20 + 10), "operations"),
+    ("dither_fs", dict(b=16, h=512, w=512, k=256, alpha_pixels=0),
+     16 * 512 * 512 * 5 + 16 * (1024 + 262_144), 16 * 512 * 512 * 44, "bytes"),
+    # a small image: reading its LUT takes longer than its operations
+    ("dither_fs", dict(b=1, h=23, w=37, k=48, alpha_pixels=100),
+     23 * 37 * 5 + 192 + 262_144, 23 * 37 * 44 + 100 * 48 * 20, "bytes"),
+    # each image's own real entries: the LUT scans 64 and 256 of its padded 256
+    ("palette_lut", dict(b=2, k=[64, 256]), 2 * 262_144 + 4 * 320, 262_144 * 320 * 20, "operations"),
+    # the direct redmean: 10 alpha pixels over 16 entries, 30 over 200
+    ("dither_fs", dict(b=2, h=23, w=37, k=[16, 200], alpha_pixels=[10, 30]),
+     2 * 23 * 37 * 5 + 4 * 216 + 2 * 262_144, 2 * 23 * 37 * 44 + (10 * 16 + 30 * 200) * 20, "bytes"),
+]
+
+
+@pytest.mark.parametrize("name,shape,nbytes,ops,by", LOSSY_COUNTS,
+                         ids=[f"{n}-{s['b']}" for n, s, _, _, _ in LOSSY_COUNTS])
+def test_quantization_kernels_count_int32_operations(name, shape, nbytes, ops, by):
+    """Each input byte read once (a dither's LUT whole), each output byte
+    written once, and the integer operations of the redmean distances (20
+    each), the k-means accumulation (10 a weighted colour) and the dither's
+    pixels (44 each, and the direct redmean of each pixel with alpha), over
+    132 SMs x 128 lanes (the SM's issue rate) x 1.98 GHz."""
+    from chip_smoke import H100_INT32_OPS_PER_S
+
+    assert kernel_work(name, **shape) == (nbytes, ops)
+    assert H100_INT32_OPS_PER_S == 132 * 128 * 1.98e9
+    bound = max(nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S) * 1e3
+    assert kernel_bound(name, **shape) == (pytest.approx(bound), by)
+
+
 def test_unknown_kernel_has_no_work_model():
     with pytest.raises(ValueError):
         kernel_work("resize", n=1)

@@ -14,11 +14,16 @@ import pytest
 import torch
 
 from chip_smoke import (
+    at_offset,
     coeff_edge_cases,
     compact_edge_batch,
+    dither_inputs,
     filter_edge_cases,
     host_decode,
+    lossy_options,
     plane_edge_case,
+    quantize_edge_cases,
+    quantize_host_oracles,
     resize_cases,
 )
 from pixo_tpu_torch import (
@@ -39,7 +44,15 @@ from pixo_tpu_torch.native import (
     native_png_filter,
     native_resize_lanczos3,
 )
-from pixo_tpu_torch.ops import dct, jpeg_decode, kernels, png_filters, resize_kernels, sparse_pack
+from pixo_tpu_torch.ops import (
+    dct,
+    jpeg_decode,
+    kernels,
+    png_filters,
+    quantize_device,
+    resize_kernels,
+    sparse_pack,
+)
 from pixo_tpu_torch.options import ResizeFilter, ResizeOptions
 from pixo_tpu_torch.resize import resize
 
@@ -574,3 +587,82 @@ def test_decoded_pixels_stay_on_the_card(dev):
             np.testing.assert_array_equal(block[k], images[i].pixels)
         seen += members
     assert sorted(seen) == list(range(len(files)))
+
+
+QUANTIZE_CASES = [(name, label, args) for name, cases in
+                  quantize_edge_cases(np.random.default_rng(12)).items() for label, *args in cases]
+
+
+@pytest.mark.parametrize("case", range(len(QUANTIZE_CASES)),
+                         ids=[f"{n}-{label}" for n, label, _ in QUANTIZE_CASES])
+def test_quantize_kernels_equal_plain_and_host_library(dev, case):
+    """Each quantization kernel on its edge cases (K = 1, duplicates,
+    k_valid below K, zero weights, ties, H = 1, W = 1, the global route,
+    alpha other than 255), at byte offsets 0, 1 and 3 of its buffers:
+    equal to its plain version and, image by image, to the host library."""
+    name, _, args = QUANTIZE_CASES[case]
+    if name == "dither_fs":
+        args = dither_inputs(*args)
+    ref = getattr(quantize_device, name)(*[at_offset(a, 0, dev) for a in args])
+    host = quantize_host_oracles(name, args)
+    for offset in (0, 1, 3):
+        got = getattr(kernels, name)(*[at_offset(a, offset, dev) for a in args])
+        assert torch.equal(got, ref)
+        for i, h in enumerate(host):
+            np.testing.assert_array_equal(got[i].cpu().numpy()[:len(h)], h)
+
+
+@pytest.mark.parametrize("h,w", [(6313, 2), (6314, 2)], ids=["last shared", "first global"])
+def test_dither_kernel_at_the_route_boundary(dev, h, w):
+    rng = np.random.default_rng(13)
+    rgba = rng.integers(0, 256, (1, h, w, 4), dtype=np.uint8)
+    rgba[..., 3] = 255
+    pal = rng.integers(0, 256, (1, 64, 4), dtype=np.uint8)
+    args = dither_inputs(rgba, pal, np.array([64], np.int32))
+    plan = kernels.dither_plan(h, w)
+    assert plan.route == ("shared" if h == 6313 else "global")
+    t = [torch.from_numpy(a).to(dev) for a in args]
+    np.testing.assert_array_equal(kernels.dither_fs(*t).cpu().numpy(),
+                                  quantize_host_oracles("dither_fs", args)[0][None])
+
+
+def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    pal = torch.zeros((1, 257, 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="palettes of 1 to 256"):
+        kernels.palette_lut(pal)
+    with pytest.raises(TypeError, match="uint8"):
+        kernels.palette_lut(pal[:, :4].float())
+    rgba = torch.zeros((1, 4, 4, 4), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="lut must be"):
+        kernels.dither_fs(rgba, pal[:, :4], torch.zeros((1, 10), dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="several devices"):
+        kernels.dither_fs(rgba, pal[:, :4].cpu(),
+                          torch.zeros((1, kernels.LUT_SIZE), dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="weights must be"):
+        kernels.kmeans_refine(pal[:, :4], rgba.view(1, 16, 4),
+                              torch.zeros((1, 15), dtype=torch.int32, device=dev),
+                              torch.ones(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dithering", [True, False], ids=["dithered", "undithered"])
+@pytest.mark.parametrize("color_type", ["RGB", "RGBA"])
+def test_lossy_png_batch_on_the_card_equals_per_image_encode(dev, color_type, dithering):
+    """Three images of 48x64, one of them with 40 colours (exact mapping),
+    FORCE at 64 colours: each file equals the per-image ``png.encode``, and
+    each kernel of the path launches once in the call (the dither only when
+    dithering)."""
+    rng = np.random.default_rng(14)
+    c = 4 if color_type == "RGBA" else 3
+    imgs = rng.integers(0, 256, (3, 48, 64, c), dtype=np.uint8)
+    imgs[1] = rng.integers(0, 256, (40, c), dtype=np.uint8)[rng.integers(0, 40, (48, 64))]
+    if c == 4:
+        imgs[..., 3] = np.maximum(imgs[..., 3], 200)
+        imgs[2, :, 32:, 3] = 255
+    opts = lossy_options(64, dithering, color_type=color_type).replace(width=64, height=48)
+    for name in ("kmeans_refine", "palette_lut", "dither_fs"):
+        getattr(kernels, name).launches = 0
+    got = encode_png_batch_sharded(imgs, opts, device=dev)
+    launches = [kernels.kmeans_refine.launches, kernels.palette_lut.launches,
+                kernels.dither_fs.launches]
+    assert launches == [1, 1, int(dithering)]
+    assert got == [png.encode(img, opts) for img in imgs]

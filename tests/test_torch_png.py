@@ -361,8 +361,12 @@ def test_empty_batch():
 UNPORTED = {
     "interlace": dict(interlace=True),
     "bit_depth_16": dict(bit_depth=16),
-    "quantization_auto": dict(quantization=QuantizationOptions(mode=QuantizationMode.AUTO)),
-    "quantization_force": dict(quantization=QuantizationOptions(mode=QuantizationMode.FORCE)),
+    # quantization is ported (tests/test_torch_png_lossy.py); with an option
+    # that is not, it raises all the same
+    "quantization_auto": dict(quantization=QuantizationOptions(mode=QuantizationMode.AUTO),
+                              bit_depth=16),
+    "quantization_force": dict(quantization=QuantizationOptions(mode=QuantizationMode.FORCE),
+                               interlace=True),
     "bigrams": dict(filter_strategy=FilterStrategy.BIGRAMS),
     "optimal_compression": dict(optimal_compression=True),
 }

@@ -1,0 +1,409 @@
+"""The lossy PNG's host tier, plain versions and dither plan, on the CPU.
+
+``pixo_tpu_torch/png/quantize.py`` is the host tier (numpy and the native
+library) and is held to the JAX package's ``png/quantize.py`` function by
+function. ``pixo_tpu_torch/ops/quantize_device.py`` holds the plain PyTorch
+versions of the JAX package's jit functions (``ops/quantize_device.py``),
+batched over images; they are held to those functions under jit on the CPU
+with exact equality (every one is integer arithmetic or f32 on dyadic
+values), as ``tests/test_kernel_equality.py`` holds the JAX functions to
+the host tier. The card tests hold the CUDA kernels to these plain
+versions. ``ops/kernels.py::dither_plan`` decides, by shape alone, where the
+dither kernel keeps its rows' errors and how many threads it takes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from pixo_tpu.ops import quantize_device as jqd
+from pixo_tpu.png import quantize as jq
+
+from chip_smoke import dither_inputs, quantize_edge_cases, quantize_host_oracles
+from pixo_tpu_torch.ops import kernels
+from pixo_tpu_torch.ops import quantize_device as qd
+from pixo_tpu_torch.png import quantize as q
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """The plain LUT (262,144 x 256 distances an image) is the heaviest CPU
+    work of the suite: on two threads it leaves the other test workers their
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rng():
+    return np.random.default_rng(1234)
+
+
+def _gradient(h, w, shift=0, noise=6, channels=3, seed=0):
+    rng = np.random.default_rng(seed)
+    xx, yy = np.meshgrid(np.arange(w), np.arange(h))
+    img = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1), (xx + yy + shift) % 256], -1)
+    img = np.clip(img + rng.integers(-noise, noise + 1, (h, w, 3)), 0, 255).astype(np.uint8)
+    if channels == 4:
+        img = np.concatenate([img, rng.integers(60, 256, (h, w, 1)).astype(np.uint8)], -1)
+    return img
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# ---- the host tier against the JAX package's
+
+
+@pytest.mark.parametrize("c", [3, 4])
+def test_keys_rgba_matches(c):
+    px = _rng().integers(0, 256, (1000, c), dtype=np.uint8)
+    np.testing.assert_array_equal(q._keys_rgba(px), jq._keys_rgba(px))
+
+
+@pytest.mark.parametrize("colors", [1, 40, 300, 5000], ids=lambda n: f"{n} colours")
+@pytest.mark.parametrize("c", [3, 4])
+def test_should_quantize_auto_matches(c, colors):
+    rng = _rng()
+    table = rng.integers(0, 256, (colors, c), dtype=np.uint8)
+    px = table[rng.integers(0, colors, 60_000)]
+    for max_colors in (64, 256):
+        assert q.should_quantize_auto(px, max_colors) == jq.should_quantize_auto(px, max_colors)
+    assert q.should_quantize_auto(px[:0], 64) is False
+
+
+def test_nearest_palette_indices_matches():
+    rng = _rng()
+    colors = rng.integers(0, 256, (4096, 4), dtype=np.uint8)
+    for k in (1, 7, 8, 100, 256):
+        palette = rng.integers(0, 256, (k, 4), dtype=np.uint8)
+        np.testing.assert_array_equal(q.nearest_palette_indices(colors, palette),
+                                      jq.nearest_palette_indices(colors, palette))
+
+
+@pytest.mark.parametrize("kind", ["few", "capped", "uniform ties", "strided"])
+def test_sampled_histogram_matches(kind):
+    """Below the 8192-colour cap, above it with uneven counts, above it with
+    every count equal (the multiplicative-hash tie-break decides which
+    colours stay), and an image large enough to be sampled with a stride."""
+    rng = _rng()
+    if kind == "few":
+        px = rng.integers(0, 256, (30, 4), dtype=np.uint8)[rng.integers(0, 30, 5000)]
+    elif kind == "capped":
+        px = rng.integers(0, 256, (20_000, 3), dtype=np.uint8)[rng.zipf(1.5, 40_000) % 20_000]
+    elif kind == "uniform ties":
+        px = rng.integers(0, 256, (45_000, 3), dtype=np.uint8)
+    else:
+        px = _gradient(300, 400).reshape(-1, 3)
+    colors, counts = q._sampled_histogram(px)
+    ref_colors, ref_counts = jq._sampled_histogram(px)
+    np.testing.assert_array_equal(colors, ref_colors)
+    np.testing.assert_array_equal(counts, ref_counts)
+    assert len(colors) <= 8192
+
+
+@pytest.mark.parametrize("max_colors", [1, 2, 64, 256])
+def test_median_cut_matches(max_colors):
+    colors, counts = jq._sampled_histogram(_gradient(90, 120, noise=20).reshape(-1, 3))
+    for refine in (False, True):
+        np.testing.assert_array_equal(q.median_cut_palette(colors, counts, max_colors, refine),
+                                      jq.median_cut_palette(colors, counts, max_colors, refine))
+
+
+def test_median_cut_ties_keep_the_last_box():
+    """Boxes of equal score: Rust's max_by_key takes the last, and so the
+    palette's order follows; a box of one colour stops the cut."""
+    colors = np.array([[0, 0, 0, 255], [10, 0, 0, 255], [100, 0, 0, 255], [110, 0, 0, 255],
+                       [200, 0, 0, 255]], np.uint8)
+    counts = np.array([5, 5, 5, 5, 1], np.uint32)
+    for n in (2, 3, 4, 5, 8):
+        np.testing.assert_array_equal(q.median_cut_palette(colors, counts, n, refine=False),
+                                      jq.median_cut_palette(colors, counts, n, refine=False))
+    empty = np.zeros((0, 4), np.uint8)
+    np.testing.assert_array_equal(q.median_cut_palette(empty, np.zeros(0, np.uint32), 8),
+                                  jq.median_cut_palette(empty, np.zeros(0, np.uint32), 8))
+
+
+def test_refine_palette_kmeans_matches():
+    rng = _rng()
+    colors = rng.integers(0, 256, (1500, 4), dtype=np.uint8)
+    counts = rng.integers(1, 900, 1500).astype(np.uint32)
+    palette = rng.integers(0, 256, (100, 4), dtype=np.uint8)
+    got = q.refine_palette_kmeans(palette, colors, counts)
+    np.testing.assert_array_equal(got, jq.refine_palette_kmeans(palette, colors, counts))
+    assert not np.array_equal(got, palette)
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 64, 256])
+def test_palette_lut_and_lookup_many_match(k):
+    rng = _rng()
+    palette = rng.integers(0, 256, (k, 4), dtype=np.uint8)
+    lut, ref = q.PaletteLut(palette), jq.PaletteLut(palette)
+    np.testing.assert_array_equal(lut.opaque_lut, np.asarray(ref.opaque_lut))
+    rgba = rng.integers(0, 256, (3000, 4), dtype=np.uint8)
+    rgba[::3, 3] = 255
+    np.testing.assert_array_equal(lut.lookup_many(rgba), ref.lookup_many(rgba))
+
+
+@pytest.mark.parametrize("has_alpha", [False, True])
+def test_dither_native_matches_python_scan(has_alpha):
+    """The host library's scan equals the JAX package's pixel-by-pixel one."""
+    rng = _rng()
+    h, w = 23, 37
+    rgba = rng.integers(0, 256, (h, w, 4), dtype=np.uint8)
+    if not has_alpha:
+        rgba[..., 3] = 255
+    pal = rng.integers(0, 256, (48, 4), dtype=np.uint8)
+    ref = jq._dither_fs_py(rgba.reshape(-1, 4), w, h, pal, jq.PaletteLut(pal))
+    got = q._dither_floyd_steinberg(rgba.reshape(-1, 4), w, h, pal, q.PaletteLut(pal))
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("dithering", [False, True], ids=["undithered", "dithered"])
+@pytest.mark.parametrize("image", ["gradient RGB", "gradient RGBA", "exact mapping"])
+def test_quantize_image_matches(image, dithering):
+    if image == "exact mapping":
+        px = _rng().integers(0, 256, (50, 3), dtype=np.uint8)[_rng().integers(0, 50, 40 * 56)]
+    else:
+        px = _gradient(40, 56, channels=4 if "RGBA" in image else 3).reshape(40 * 56, -1)
+    for max_colors in (64, 256):
+        pal, idx = q.quantize_image(px, 56, 40, max_colors, dithering)
+        ref_pal, ref_idx = jq.quantize_image(px, 56, 40, max_colors, dithering, mode="host")
+        np.testing.assert_array_equal(pal, ref_pal)
+        np.testing.assert_array_equal(idx, ref_idx)
+        assert idx.dtype == np.uint8
+
+
+def test_padding_and_weight_helpers_match():
+    rng = _rng()
+    colors = rng.integers(0, 256, (700, 4), dtype=np.uint8)
+    counts = rng.integers(1, 50, 700).astype(np.uint32) * 7
+    for a, b in zip(q._pad_hist(colors, counts), jq._pad_hist(colors, counts)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(q._device_kmeans_weights(counts), jq._device_kmeans_weights(counts))
+    bad = np.array([2**31 // 255, 2**31 // 255 + 1], np.uint32)
+    assert q._device_kmeans_weights(bad) is None and jq._device_kmeans_weights(bad) is None
+    zero = np.zeros(5, np.uint32)
+    np.testing.assert_array_equal(q._device_kmeans_weights(zero), zero)
+    for k in (1, 37, 256):
+        pal = rng.integers(0, 256, (k, 4), dtype=np.uint8)
+        np.testing.assert_array_equal(q._pad_palette(pal), jq._pad_palette(pal))
+
+
+# ---- the plain versions against the JAX functions under jit
+
+
+def test_nearest_palette_matches_jax():
+    rng = _rng()
+    colors = rng.integers(0, 256, (4096, 4), dtype=np.uint8)
+    palette = rng.integers(0, 256, (256, 4), dtype=np.uint8)
+    got = qd.nearest_palette(_t(colors), _t(palette))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jqd.nearest_palette_device(colors, palette)))
+    np.testing.assert_array_equal(qd.redmean_dist(_t(colors[:9]), _t(palette)).numpy(),
+                                  np.asarray(jqd._redmean_dist(colors[:9], palette)))
+
+
+def test_nearest_palette_ties_prefer_first():
+    palette = np.array([[10, 10, 10, 255], [10, 10, 10, 255], [200, 0, 0, 255]], np.uint8)
+    colors = np.array([[10, 10, 10, 255], [200, 0, 0, 255]], np.uint8)
+    assert qd.nearest_palette(_t(colors), _t(palette)).tolist() == [0, 2]
+    assert np.asarray(jqd.nearest_palette_device(colors, palette)).tolist() == [0, 2]
+
+
+def test_kmeans_refine_padded_matches_jax_and_host():
+    rng = _rng()
+    colors = rng.integers(0, 256, (1500, 4), dtype=np.uint8)
+    counts = rng.integers(1, 900, 1500).astype(np.uint32)
+    palette = rng.integers(0, 256, (100, 4), dtype=np.uint8)
+    pc, pw = q._pad_hist(colors, counts)
+    padded = q._pad_palette(palette)
+    got = qd.kmeans_refine(_t(padded)[None], _t(pc)[None], _t(pw.astype(np.int32))[None],
+                           torch.tensor([100], dtype=torch.int32))[0].numpy()
+    np.testing.assert_array_equal(got, np.asarray(jqd.kmeans_refine_device(padded, pc, pw, np.int32(100))))
+    np.testing.assert_array_equal(got[:100], q.refine_palette_kmeans(palette, colors, counts))
+
+
+def test_kmeans_refine_large_image_weights():
+    """Stride-scaled counts of a ~12 MP image: reduced by their GCD, the
+    weights fit int32 and give the host tier's uint64 centroids."""
+    rng = _rng()
+    colors = rng.integers(0, 256, (800, 4), dtype=np.uint8)
+    counts = (rng.integers(1, 120, 800).astype(np.uint64) * 241).astype(np.uint32)
+    assert int(counts.sum(dtype=np.uint64)) * 255 >= 2**31
+    palette = rng.integers(0, 256, (64, 4), dtype=np.uint8)
+    dw = q._device_kmeans_weights(counts)
+    assert dw is not None and int(dw.sum(dtype=np.uint64)) * 255 < 2**31
+    pc, pw = q._pad_hist(colors, dw)
+    got = qd.kmeans_refine(_t(palette)[None], _t(pc)[None], _t(pw.astype(np.int32))[None],
+                           torch.tensor([64], dtype=torch.int32))[0].numpy()
+    np.testing.assert_array_equal(got, q.refine_palette_kmeans(palette, colors, counts))
+    np.testing.assert_array_equal(got, np.asarray(jqd.kmeans_refine_device(palette, pc, pw, np.int32(64))))
+
+
+def test_kmeans_refine_batch_matches_vmap():
+    """Three images with their own palettes and sizes (k_valid 1, 37 and
+    256) in one call: each equals the JAX function on its own."""
+    rng = _rng()
+    pals = rng.integers(0, 256, (3, 256, 4), dtype=np.uint8)
+    colors = rng.integers(0, 256, (3, 2048, 4), dtype=np.uint8)
+    weights = rng.integers(0, 400, (3, 2048)).astype(np.int32)
+    k_valid = np.array([1, 37, 256], np.int32)
+    got = qd.kmeans_refine(_t(pals), _t(colors), _t(weights), _t(k_valid)).numpy()
+    for i in range(3):
+        np.testing.assert_array_equal(got[i], np.asarray(jqd.kmeans_refine_device(
+            pals[i], colors[i], weights[i], np.int32(k_valid[i]))))
+
+
+def test_palette_lut_matches_jax():
+    palette = _rng().integers(0, 256, (64, 4), dtype=np.uint8)
+    got = qd.palette_lut(_t(palette)[None])[0].numpy()
+    np.testing.assert_array_equal(got, np.asarray(jqd.palette_lut_device(palette)))
+    np.testing.assert_array_equal(qd.lut_grid(), jq._lut_grid())
+
+
+def test_palette_lut_k_valid_matches_jax_on_the_real_entries():
+    """Two palettes of 64 entries scanned to their first 9 and 64 (and to 1
+    for a k_valid of 0, as the kernel clamps it): each equals the JAX
+    function on those entries alone, and a palette padded with entry 0
+    gives the same LUT scanned to its real entries or in full."""
+    rng = _rng()
+    pals = rng.integers(0, 256, (3, 64, 4), dtype=np.uint8)
+    k_valid = np.array([9, 64, 0], np.int32)
+    got = qd.palette_lut(_t(pals), _t(k_valid)).numpy()
+    for i, kv in enumerate((9, 64, 1)):
+        np.testing.assert_array_equal(got[i], np.asarray(jqd.palette_lut_device(pals[i, :kv])))
+    padded = q._pad_palette(pals[0, :9], 64)[None]
+    np.testing.assert_array_equal(qd.palette_lut(_t(padded), _t(k_valid[:1])).numpy(),
+                                  qd.palette_lut(_t(padded)).numpy())
+
+
+@pytest.mark.parametrize("has_alpha", [False, True])
+def test_dither_matches_jax(has_alpha):
+    """Two 23x37 images with their own palettes in one call."""
+    rng = _rng()
+    rgba = rng.integers(0, 256, (2, 23, 37, 4), dtype=np.uint8)
+    if not has_alpha:
+        rgba[..., 3] = 255
+    pals = rng.integers(0, 256, (2, 48, 4), dtype=np.uint8)
+    luts = np.stack([np.asarray(jq.PaletteLut(p).opaque_lut) for p in pals])
+    got = qd.dither_fs(_t(rgba), _t(pals), _t(luts))
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, 23, 37)
+    ref = np.asarray(jqd.dither_fs_device(rgba, pals, luts, has_alpha=has_alpha))
+    np.testing.assert_array_equal(got.numpy().astype(np.int32), ref)
+    for i in range(2):
+        np.testing.assert_array_equal(
+            got[i].numpy().reshape(-1),
+            jq._dither_fs_py(rgba[i].reshape(-1, 4), 37, 23, pals[i], jq.PaletteLut(pals[i])))
+
+
+def test_dither_k_valid_matches_jax_on_the_real_entries():
+    """Pixels with alpha take the direct redmean over the first k_valid
+    entries only: each image equals the JAX function given those entries."""
+    rng = _rng()
+    rgba = rng.integers(0, 256, (2, 23, 37, 4), dtype=np.uint8)
+    rgba[..., 3] = rng.choice(np.array([0, 128, 255, 255], np.uint8), (2, 23, 37))
+    pals = rng.integers(0, 256, (2, 48, 4), dtype=np.uint8)
+    k_valid = np.array([11, 48], np.int32)
+    luts = np.stack([np.asarray(jq.PaletteLut(pals[i, :kv]).opaque_lut) for i, kv in enumerate(k_valid)])
+    got = qd.dither_fs(_t(rgba), _t(pals), _t(luts), _t(k_valid)).numpy()
+    for i, kv in enumerate(k_valid):
+        ref = jqd.dither_fs_device(rgba[i:i + 1], pals[i:i + 1, :kv], luts[i:i + 1], has_alpha=True)
+        np.testing.assert_array_equal(got[i].astype(np.int32), np.asarray(ref)[0])
+
+
+# the edge cases the card tests hold the kernels to, here through the wrappers
+# on the CPU (their plain versions) against the host library; dithers of more
+# than 1,000 wavefront steps are left to the card
+EDGE = [(name, label, args) for name, cases in quantize_edge_cases(np.random.default_rng(12)).items()
+        for label, *args in cases
+        if name != "dither_fs" or args[0].shape[2] + 2 * args[0].shape[1] <= 1000]
+
+
+@pytest.mark.parametrize("case", range(len(EDGE)), ids=[f"{n}-{label}" for n, label, _ in EDGE])
+def test_wrappers_on_the_cpu_at_edge_cases_equal_host_library(case):
+    name, _, args = EDGE[case]
+    if name == "dither_fs":
+        args = dither_inputs(*args)
+    got = getattr(kernels, name)(*[_t(a) for a in args])
+    assert torch.equal(got, getattr(qd, name)(*[_t(a) for a in args]))
+    for i, h in enumerate(quantize_host_oracles(name, args)):
+        np.testing.assert_array_equal(got[i].numpy()[:len(h)], h)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    pal = torch.zeros((1, 4, 4), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="palettes of 1 to 256"):
+        kernels.palette_lut(torch.zeros((1, 257, 4), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="palette must be"):
+        kernels.palette_lut(torch.zeros((4, 4), dtype=torch.uint8))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.kmeans_refine(pal, pal, torch.zeros((1, 4), dtype=torch.int64),
+                              torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.dither_fs(torch.zeros((1, 4, 8, 4), dtype=torch.uint8)[:, :, ::2], pal,
+                          torch.zeros((1, kernels.LUT_SIZE), dtype=torch.uint8))
+    with pytest.raises(ValueError, match="non-empty"):
+        kernels.dither_fs(torch.zeros((1, 0, 4, 4), dtype=torch.uint8), pal,
+                          torch.zeros((1, kernels.LUT_SIZE), dtype=torch.uint8))
+
+
+# ---- the dither kernel's plan
+
+
+PLAN_SHAPES = [(1, 1), (1, 7000), (40, 1), (23, 37), (512, 512), (513, 2000), (2000, 513),
+               (7000, 3), (6313, 2), (6314, 2), (65535, 65535)]
+
+
+@pytest.mark.parametrize("h,w", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
+def test_dither_plan_fits_the_card(h, w):
+    """A warp multiple of threads, at most 1024, enough for every row the
+    wavefront works on at one step (at most w // 2 + 1 of them, and at most
+    h) or 1024; the rows' errors in shared memory exactly where two buffers
+    of 18 bytes a row (and the zero row) fit the budget."""
+    plan = kernels.dither_plan(h, w)
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= kernels.DITHER_MAX_THREADS
+    assert plan.threads >= min(h, w // 2 + 1, kernels.DITHER_MAX_THREADS)
+    assert plan.threads - 32 < min(h, w // 2 + 1)
+    rows_fit = 36 * (h + 1) <= kernels.DITHER_SMEM_BUDGET
+    assert plan.route == ("shared" if rows_fit else "global")
+    assert plan.smem == (36 * (h + 1) if rows_fit else 0)
+    assert kernels.DITHER_SMEM_BUDGET + 4096 <= 232448  # the palette's 4 KB beside it
+
+
+def test_dither_plan_refuses_an_empty_image():
+    for h, w in ((0, 5), (5, 0)):
+        with pytest.raises(ValueError, match="at least one pixel"):
+            kernels.dither_plan(h, w)
+
+
+def test_dither_wavefront_busy_rows_never_exceed_the_plan():
+    """At every step of a small image the rows with 0 <= t - 2y <= w are at
+    most the plan's threads, so no thread takes two rows in one step."""
+    for h, w in ((23, 37), (40, 1), (9, 64), (64, 9)):
+        plan = kernels.dither_plan(h, w)
+        busy = max(sum(0 <= t - 2 * y <= w for y in range(h)) for t in range(w + 2 * (h - 1)))
+        assert busy <= max(plan.threads, 1) and busy <= w // 2 + 1
+
+
+# ---- the batch quantizer against the JAX package's
+
+
+def test_quantize_batch_on_the_cpu_matches_jax_and_per_image():
+    """Three gradients (the device stage) and a 40-colour image (the exact
+    mapping), dithered and not: each result equals the JAX package's
+    ``quantize_batch`` and the port's per-image ``quantize_image``."""
+    imgs = np.stack([_gradient(32, 44, shift=37 * s, seed=s) for s in range(3)]
+                    + [_rng().integers(0, 256, (40, 3), dtype=np.uint8)[_rng().integers(0, 40, (32, 44))]])
+    for dithering in (True, False):
+        batch = q.quantize_host_stage(imgs, 48, dithering)
+        assert batch.members == [0, 1, 2] and batch.results[3] is not None
+        got = q.quantize_batch(imgs, 48, dithering, device="cpu")
+        ref = jq.quantize_batch(imgs, 48, dithering)
+        for i in range(4):
+            for a, b, c in zip(got[i], ref[i], q.quantize_image(imgs[i].reshape(-1, 3), 44, 32, 48,
+                                                                 dithering)):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, c)
