@@ -47,11 +47,13 @@ printing its own lines:
    (``check_thumbnail_kernels``); and the lossy PNG's three kernels
    (``kmeans_refine``, ``palette_lut``, ``dither_fs``) on
    ``quantize_edge_cases`` (K = 1, K = 256 with duplicate entries, k_valid
-   below K, all-zero weights, ties, H = 1, W = 1, 7000x3 on the global
-   route, alpha other than 255) at byte offsets 0, 1 and 3, and on the
+   below K, all-zero weights, ties, H = 1, W = 1, heights at the dither's
+   band edges, bands that wrap round its warps, a warp count capped by the
+   bands, alpha other than 255) at byte offsets 0, 1 and 3, and on the
    tensors of the lossy cells (q1) and (q2), each also held against the host
    library image by image (``refine_palette_kmeans``, ``native_palette_lut``,
-   ``native_dither_fs``);
+   ``native_dither_fs``); the dither also with its rings in global memory,
+   and 20 times on one input whose rings fill (``check_dither_repeats``);
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -115,7 +117,8 @@ printing its own lines:
    beside the same files through the two-call path (``decode_jpeg_batch`` to
    host pixels, the host library's resize, ``encode_jpeg_batch_sharded``);
    and for (q1) and (q2) the three quantization kernels at the cell's
-   shapes (the dither's critical path of W + 2(H - 1) steps beside it) and
+   shapes (the dither's time a step of its critical path, W + 2(H - 1)
+   steps, in ns and in SM clocks at the clock read under load) and
    the lossy stages (host histograms and median cut, the device stage, the
    copies back, the indexed encode and DEFLATE, the whole call; median,
    least and most of 3 warm runs) beside the per-image host ``png.encode``
@@ -139,7 +142,9 @@ kernel as it is and with each of its parts taken out (``coeffs_parts``);
 each strategy (``filter_parts``); ``python3 chip_smoke.py --resize-parts``
 checks the resize kernel alone on every case and offset and times each of
 its passes as it is, with each of its parts taken out and under each tile
-(``resize_parts``); ``python3 chip_smoke.py --pack-workers`` times
+(``resize_parts``); ``python3 chip_smoke.py --dither-parts`` times the
+dither kernel at (q1) and (q2) as it is and with each of its parts taken out
+(``dither_parts``); ``python3 chip_smoke.py --pack-workers`` times
 the host pack stage on 1, 2, 4 and 8 threads (``pack_workers``);
 ``python3 chip_smoke.py --sass NAME`` counts
 the instructions of the built kernels whose name holds NAME, loop by loop
@@ -335,6 +340,27 @@ def print_clocks(when: str) -> None:
                              "--format=csv,noheader"], capture_output=True, text=True,
                             timeout=60).stdout.strip()
     print(f"clocks {when}: SM now, SM at most: {clocks}")
+
+
+def busy_sm_mhz(launch, calls: int = 1000):
+    """The SM clock (MHz) that ``nvidia-smi`` reads while ``calls``
+    launches of ``launch`` queued beforehand keep the card busy."""
+    import torch
+
+    for _ in range(calls):
+        launch()
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60).stdout.split()
+    torch.cuda.synchronize()
+    return int(mhz[0]) if mhz and mhz[0].isdigit() else None
+
+
+def step_line(ms, steps: int, mhz) -> str:
+    """A dither time as ns and SM clocks a step of its critical path."""
+    if ms is None:
+        return "not measured"
+    ns = ms / steps * 1e6
+    return f"{ns:.1f} ns" + ("" if mhz is None else f", {ns * mhz / 1e3:.0f} clocks at {mhz} MHz") + " a step"
 
 
 def event_ms(fn, calls=10, reps=5, warm=3):
@@ -1925,8 +1951,10 @@ def quantize_edge_cases(rng) -> dict:
     (label, palettes, k_valid): K = 1, K = 256 with duplicates (all scanned,
     and only the first 16), entries with alpha, three palettes, k_valid
     below K; dither_fs (label, rgba [B, H, W, 4], palettes, k_valid): H = 1
-    (1x7000), W = 1, 7000x3 (the global route), alpha other than 255, K =
-    1, K = 256 with duplicates, noise, alpha with k_valid below K."""
+    (1x7000), W = 1, heights at the kernel's band edges (31, 32, 33, 64, 65
+    rows), 1100x40 (35 bands on 2 warps: the last warp's ring feeds warp 0),
+    70x4000 (3 warps, capped at the bands), alpha other than 255, K = 1, K =
+    256 with duplicates, noise, alpha with k_valid below K."""
     import numpy as np
 
     def pal(b, k, unique=None, opaque=True):
@@ -1973,7 +2001,9 @@ def quantize_edge_cases(rng) -> dict:
     dithers = []
     for label, shape, k, alpha, k_valid in (
             ("H=1", (1, 1, 7000), 64, False, None), ("W=1", (2, 40, 1), 64, False, None),
-            ("7000x3 global route", (1, 7000, 3), 32, False, None),
+            *((f"H={h} band edge", (1, h, 70), 64, False, None) for h in (31, 32, 33, 64, 65)),
+            ("bands wrap round the warps", (1, 1100, 40), 32, False, None),
+            ("the warp cap binds", (1, 70, 4000), 64, False, None),
             ("alpha != 255", (2, 23, 37), 48, True, None), ("K=1", (1, 16, 16), 1, False, None),
             ("K=256 duplicates", (2, 31, 45), 256, False, None),
             ("noise", (3, 64, 96), 200, False, None),
@@ -2058,11 +2088,83 @@ def check_quantize_case(dev, name: str, label: str, args, offsets=(0,)) -> int:
             bad = sum(not np.array_equal(got_h[i][:len(host[i])], host[i]) for i in range(len(host)))
         else:
             bad = sum(not np.array_equal(got_h[i], host[i]) for i in range(len(host)))
-        route = f", route {kernels.dither_plan(*args[0].shape[1:3]).route}" if name == "dither_fs" else ""
-        _verdict(f"check {name} {label} at byte offset {off}{route}: max_abs_err vs plain {e}, "
+        plan = ""
+        if name == "dither_fs":
+            p = kernels.dither_plan(*args[0].shape[1:3])
+            plan = f", {p.warps} warps, rings of {p.ring_slots} slots in {p.ring} memory, path +{p.grown} steps"
+        _verdict(f"check {name} {label} at byte offset {off}{plan}: max_abs_err vs plain {e}, "
                  f"images differing from the host library {bad}/{len(host)}", e == 0 and bad == 0)
         err = max(err, e)
     return err
+
+
+DITHER_REPEATS = 20
+
+
+def dither_repeat_case(rng) -> tuple:
+    """Two noise images of 1100x2500 with palettes of 64 (the dither's
+    inputs, ``dither_inputs``): 35 bands on 32 warps, so bands wrap round
+    the warps, the cap binds (the path grows by 516 steps) and the ring that
+    feeds warp 0 fills while warp 0 finishes its first band."""
+    import numpy as np
+
+    rgba = rng.integers(0, 256, (2, 1100, 2500, 4), dtype=np.uint8)
+    rgba[..., 3] = 255
+    pal = rng.integers(0, 256, (2, 64, 4), dtype=np.uint8)
+    pal[..., 3] = 255
+    return dither_inputs(rgba, pal, np.array([64, 64], np.int32))
+
+
+def check_dither_repeats(dev, args) -> None:
+    """The dither kernel on one input (``dither_repeat_case``)
+    ``DITHER_REPEATS`` times: every output equal to the first and to the host
+    library. No sanitizer runs on the card's machine, so a race in the rings
+    shows only as outputs that differ."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels
+
+    t = [at_offset(a, 0, dev) for a in args]
+    outs = [kernels.dither_fs(*t) for _ in range(DITHER_REPEATS)]
+    differ = sum(not np.array_equal(o.cpu().numpy(), outs[0].cpu().numpy()) for o in outs)
+    host = quantize_host_oracles("dither_fs", args)
+    bad = sum(not np.array_equal(outs[0][i].cpu().numpy(), h) for i, h in enumerate(host))
+    plan = kernels.dither_plan(*args[0].shape[1:3])
+    _verdict(f"check dither_fs {DITHER_REPEATS} repeats of {'x'.join(map(str, args[0].shape[:3]))} "
+             f"({plan.warps} warps, {plan.ring_slots} slots, path +{plan.grown} steps): {differ} outputs "
+             f"differ from the first, images differing from the host library {bad}/{len(host)}",
+             differ == 0 and bad == 0)
+
+
+def dither_global_ring(args, dev):
+    """The dither kernel through its C entry on numpy ``args`` with the
+    rings in a global scratch (where the plan puts them for rows past
+    shared memory), at the plan's warps and slots: the result [B, H, W]."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    rgba, pal, lut, kv = [at_offset(a, 0, dev) for a in args]
+    b, h, w = rgba.shape[:3]
+    plan = kernels.dither_plan(h, w)
+    ring = torch.empty((b, plan.warps, plan.ring_slots), dtype=torch.int32, device=dev)
+    out = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+    lib = kernels.load()
+    rc = lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, pal.data_ptr(), pal.shape[1], kv.data_ptr(),
+                            lut.data_ptr(), plan.warps, plan.ring_slots, ring.data_ptr(), out.data_ptr(),
+                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise Failed(f"dither_fs with global rings: {lib.pixo_cuda_error_string(rc).decode()}")
+    return out
+
+
+def check_dither_global_ring(dev, args, label: str) -> None:
+    """``dither_global_ring`` on ``args`` against the host library."""
+    host = quantize_host_oracles("dither_fs", args)
+    got = dither_global_ring(args, dev).cpu().numpy()
+    bad = sum(not (got[i] == h).all() for i, h in enumerate(host))
+    _verdict(f"check dither_fs {label} with the rings in global memory: images differing from the host "
+             f"library {bad}/{len(host)}", bad == 0)
 
 
 def lossy_cell_tensors(imgs, opts, dev):
@@ -2092,6 +2194,9 @@ def check_quantize_kernels(dev, corpus, grad) -> dict:
     for name, cases in quantize_edge_cases(np.random.default_rng(12)).items():
         for label, *args in cases:
             errs[name] = max(errs[name], check_quantize_case(dev, name, label, args, (0, 1, 3)))
+            if name == "dither_fs" and "wrap" in label:
+                check_dither_global_ring(dev, dither_inputs(*args), label)
+    check_dither_repeats(dev, dither_repeat_case(np.random.default_rng(15)))
     for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
         batch, tensors = lossy_cell_tensors(imgs, opts, dev)
         for name, args in tensors.items():
@@ -2182,7 +2287,10 @@ def quantize_launchers(dev, batch, pal, lut):
     km_out, lut_out = torch.empty_like(km[0]), torch.empty_like(lut)
     idx_out = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
     plan = kernels.dither_plan(h, w)
-    if plan.route != "shared":
+    # a checkout from before the band design launches threads over shared or global lags
+    dither_launch = ((plan.warps, plan.ring_slots) if hasattr(plan, "warps") else
+                     (plan.threads, plan.smem) if plan.route == "shared" else None)
+    if dither_launch is None:
         raise Failed(f"the cell's {h}x{w} dither takes the {plan.route} route")
     nz = (batch.weights > 0).sum(1)
     km_work = dict(b=b, k=k, m=m, distances=int(2 * (nz * np.maximum(batch.k, 1)).sum()),
@@ -2201,8 +2309,8 @@ def quantize_launchers(dev, batch, pal, lut):
             lambda: kernels.dither_fs(rgba, pal, lut, kv),
             lambda: quantize_device.dither_fs(rgba, pal, lut, kv),
             lambda: lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, pal.data_ptr(), k, kv.data_ptr(),
-                                       lut.data_ptr(), plan.threads, plan.smem, None,
-                                       idx_out.data_ptr(), stream),
+                                       lut.data_ptr(), *dither_launch, None, idx_out.data_ptr(),
+                                       stream),
             dict(b=b, h=h, w=w, k=batch.k, alpha_pixels=(batch.rgba[..., 3] != 255).sum((1, 2)))),
     }
 
@@ -2244,11 +2352,11 @@ def time_lossy(dev, corpus, grad, card: str) -> dict:
               f"{pal.shape[1]} padded entries, against {times['palette_lut']['device_ms']} ms scanning "
               f"the {int(batch.k.sum())} real ones ({int(batch.k.min())}-{int(batch.k.max())} a palette) "
               f"[{card}]")
-        steps = SIZE + 2 * (SIZE - 1)
-        dev_ms = times["dither_fs"]["device_ms"]
+        steps = kernels.dither_plan(SIZE, SIZE).steps
+        mhz = busy_sm_mhz(quantize_launchers(dev, batch, pal, lut)["dither_fs"][2])
         print(f"kernel dither_fs {at}: critical path {steps} dependent steps, "
-              f"{'not measured' if dev_ms is None else f'{dev_ms / steps * 1e6:.1f} ns'} a step "
-              f"on the card [{card}]")
+              f"{step_line(times['dither_fs']['device_ms'], steps, mhz)} on the card "
+              f"(SM clock read under load) [{card}]")
         if key == "q1":
             k_ms.update(times)
         else:
@@ -2604,6 +2712,123 @@ RESIZE_PARTS = {
 }
 
 
+# Parts of the dither kernel (csrc/quantize.cu) that ``dither_parts`` takes
+# out, one at a time and all together: (name, [(source text, replacement)]).
+# A part's time is what the kernel saves without it; the results are wrong,
+# only timed.
+DITHER_PARTS = {
+    "the LUT load": [("int idx = __ldg(tab + (((a[0] >> 2) << 12) | ((a[1] >> 2) << 6) | (a[2] >> 2)));",
+                      "int idx = (a[0] ^ a[1] ^ a[2]) & 1;")],
+    "the ring waits": [
+        ("      while ((v = ring_in.get(rs)) == kRingFree) {\n      }", "      v = ring_in.get(rs);"),
+        ("        while ((above = ring_in.get(rs)) == kRingFree) {\n        }", "        above = ring_in.get(rs);"),
+        ("          while (next == kRingFree) next = ring_in.get(rs);\n", ""),
+        ("            while (ring_out.get(far) != kRingFree) {\n            }", "            (void)far;")],
+    "the pixel loads": [
+        ("  if (kWords) return __ldg(reinterpret_cast<const uint32_t*>(q));",
+         "  if (kWords) return 0xFF000000u | (x & 255) * 0x010101u;"),
+        ("  return __ldg(q) | (__ldg(q + 1) << 8) | (__ldg(q + 2) << 16) | "
+         "(static_cast<uint32_t>(__ldg(q + 3)) << 24);",
+         "  return 0xFF000000u | (x & 255) * 0x010101u;")],
+}
+DITHER_PARTS["all three"] = [r for edits in list(DITHER_PARTS.values()) for r in edits]
+
+
+def variant_libs(source: str, parts: dict, prefix: str) -> dict:
+    """Builds csrc/``source`` as it is and with each of ``parts`` taken
+    out, one library each, all at once, beside the kernel library and the
+    host library: {part name or "as it is": library path}."""
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
+
+    src = open(os.path.join(kernels.CSRC, source)).read()
+    variants = {"as it is": src}
+    for name, edits in parts.items():
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise Failed(f"{prefix}: {name!r} no longer matches csrc/{source}")
+            text = text.replace(old, new)
+        variants[name] = text
+    os.makedirs(BUILD_DIR, exist_ok=True)
+
+    def build(i):
+        key, text = list(variants.items())[i]
+        path = os.path.join(BUILD_DIR, f"{prefix}_{i}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        nvcc = kernels._nvcc()
+        return key, build_shared_library(f"{prefix}_{i}", [nvcc, *kernels.NVCC_FLAGS], [path],
+                                         timeout=900, link=[nvcc, *kernels._ARCH, "-shared"]).path
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants) + 2) as ex:
+        loads = [ex.submit(kernels.load), ex.submit(native.load)]
+        libs = dict(ex.map(build, range(len(variants))))
+        for done in loads:
+            done.result()
+    return libs
+
+
+def dither_parts(card: str) -> int:
+    """The dither kernel alone at (q1) and (q2): the profiler's device time
+    of its launch (the C function) as it is and with each of
+    ``DITHER_PARTS`` taken out (all built at once), each as ns and SM clocks
+    a step of the plan's critical path, the clock read under load. The
+    kernel as it is must equal the wrapper's result, which phase 2 holds to
+    the plain version. Exit code 1 on a difference or a failed launch."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.png import quantize as q
+
+    libs = variant_libs("quantize.cu", DITHER_PARTS, "dither_part")
+    dev = torch.device("cuda")
+    grad, corpus = gradient_batch(BATCH, SIZE), corpus_batch()
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
+        batch = q.quantize_host_stage(imgs, min(opts.quantization.max_colors, 256), True)
+        pal, lut, idx = q.quantize_device_stage(batch, True, dev)
+        rgba = torch.from_numpy(batch.rgba).to(dev)
+        kv = torch.from_numpy(np.ascontiguousarray(batch.k)).to(dev)
+        b, h, w = rgba.shape[:3]
+        plan = kernels.dither_plan(h, w)
+        out = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
+        times, mhz = {}, None
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            lib.pixo_dither_fs.restype = ctypes.c_int
+            lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i32, vp, vp, vp]
+
+            def alone(lib=lib):
+                return lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, pal.data_ptr(), pal.shape[1],
+                                          kv.data_ptr(), lut.data_ptr(), plan.warps, plan.ring_slots,
+                                          None, out.data_ptr(), stream)
+
+            rc = alone()
+            if rc:
+                err = kernels.load().pixo_cuda_error_string(rc).decode()
+                print(f"dither parts: ({key}), the launch without {name!r} failed: {err}", file=sys.stderr)
+                return 1
+            if name == "as it is":
+                torch.cuda.synchronize()
+                if not torch.equal(out, idx):
+                    print(f"dither parts: ({key}) differs from the wrapper's result", file=sys.stderr)
+                    return 1
+                mhz = busy_sm_mhz(alone)
+            times[name] = profiler_ms(alone, "dither_fs_")
+        base = times.pop("as it is")
+        print(f"dither parts ({key}) {label} {b}x{h}x{w}, {plan.warps} warps, {plan.steps} steps: "
+              f"as it is {base:.4f} ms ({step_line(base, plan.steps, mhz)}); without "
+              + "; ".join(f"{k} {t:.4f} ms ({step_line(t, plan.steps, mhz)})" for k, t in times.items())
+              + f" [{card}]")
+    return 0
+
+
 def _resize_lib(path: str):
     import ctypes
 
@@ -2625,36 +2850,10 @@ def resize_parts(card: str) -> int:
     import numpy as np
     import torch
 
-    from pixo_tpu_torch import native
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.ops.resize_kernels import _taps_on
-    from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
 
-    src = open(os.path.join(kernels.CSRC, "resize.cu")).read()
-    variants = {"as it is": src}
-    for name, edits in RESIZE_PARTS.items():
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise Failed(f"resize parts: {name!r} no longer matches csrc/resize.cu")
-            text = text.replace(old, new)
-        variants[name] = text
-    os.makedirs(BUILD_DIR, exist_ok=True)
-
-    def build(i):
-        key, text = list(variants.items())[i]
-        path = os.path.join(BUILD_DIR, f"resize_part_{i}.cu")
-        with open(path, "w") as f:
-            f.write(text)
-        nvcc = kernels._nvcc()
-        return key, build_shared_library(f"resize_part_{i}", [nvcc, *kernels.NVCC_FLAGS], [path],
-                                         timeout=900, link=[nvcc, *kernels._ARCH, "-shared"]).path
-
-    with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants) + 2) as ex:
-        loads = [ex.submit(kernels.load), ex.submit(native.load)]
-        libs = dict(ex.map(build, range(len(variants))))
-        for done in loads:
-            done.result()
+    libs = variant_libs("resize.cu", RESIZE_PARTS, "resize_part")
     kernel = ""
     for line in kernels.build_log.splitlines():
         if "entry function" in line:
@@ -2784,8 +2983,8 @@ def pack_workers(card: str) -> int:
 def sass_loops(kernel: str) -> int:
     """The machine code of the kernels whose name holds ``kernel``, from
     ``cuobjdump -sass`` on the library built from the checkout: each kernel's
-    instruction count and, for every inner loop (a backward branch over 12 to
-    400 instructions), its length and its counts of shared-memory loads and
+    instruction count and, for every loop (a backward branch over 12 to
+    2,000 instructions), its length and its counts of shared-memory loads and
     stores and of the byte-SIMD VABSDIFF4 (with ``.ACC``: a score's sum). An
     instruction-rate floor is these counts times the trips the shapes give."""
     import re
@@ -2810,7 +3009,7 @@ def sass_loops(kernel: str) -> int:
         for k, (a, t) in enumerate(ins):
             m = re.search(r"\bBRA\b.*?0x([0-9a-f]+)", t)
             target = int(m.group(1), 16) if m else a
-            if target < a and target in index and 12 <= k - index[target] + 1 <= 400:
+            if target < a and target in index and 12 <= k - index[target] + 1 <= 2000:
                 # a predicated instruction starts with its predicate, "@P0 LDS ..."
                 body = [x.split(" ", 1)[-1] if x.startswith("@") else x
                         for _, x in ins[index[target]: k + 1]]
@@ -2839,7 +3038,7 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
-                         ["--pack-workers"]):
+                         ["--dither-parts"], ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -2847,7 +3046,8 @@ def main() -> int:
             return same_call_comparison(sys.argv[2:])
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
-                "--resize-parts": resize_parts, "--pack-workers": pack_workers}[sys.argv[1]](card)
+                "--resize-parts": resize_parts, "--dither-parts": dither_parts,
+                "--pack-workers": pack_workers}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 

@@ -30,21 +30,41 @@
 // (the padding of png/quantize.py::_pad_hist) are skipped: they add nothing.
 // Bound by integer issue: M x k_valid distances an image an iteration.
 //
-// pixo_dither_fs: the error diffusion is a recurrence along each row and
-// from row to row, so it runs as the reference's wavefront: step t handles
-// pixel (y, t - 2y) of every row, and row y needs only the last three errors
-// of row y - 1 as the previous step left them. One CTA an image (rows never
-// cross CTAs: blocks cannot wait on each other), rows strided over its
-// threads; each row's three last errors (3 channels, int16: an error is an
-// integer in [-255, 255]) in one of two buffers, read from one and written
-// to the other, one __syncthreads a step. The buffers live in shared memory
-// up to ~6,300 rows (36 bytes a row) and in global memory beyond
-// (ops/kernels.py::dither_plan). The incoming error is 16 times an integer
-// sum (7/16, 1/16, 5/16, 3/16 of integers), so the reference's f32
-// floor(clip(px + e, 0, 255)) is the integer clamp((16 px + 16 e) >> 4);
-// the LUT (256 KB an image, L2-resident) takes alpha-255 pixels, the direct
-// redmean over the palette's first k_valid entries the others. Bound by its critical path: W + 2(H -
-// 1) dependent steps, each a LUT load from L2 and a barrier.
+// pixo_dither_fs: the error diffusion is a recurrence along each row and from
+// row to row, so it runs as the reference's wavefront: step t handles pixel
+// (y, t - 2y) of every row, and row y needs its own last error and the last
+// three errors of row y - 1 as the previous step left them. Its bytes
+// (pixels, LUTs, indices) take 7 us at (q1); what bounds it is the critical
+// path of W + 2(H - 1) dependent steps, each a chain of integer operations, a
+// LUT load and a palette read, so the design keeps that chain short and free
+// of barriers. One CTA an image (blocks cannot wait on each other). A warp
+// takes a band of 32 rows, a lane a row, fixed for the band, so a row's own
+// error and the three errors of the row above stay in the lane's registers;
+// each step one __shfl_up_sync hands every lane's new error (three channels
+// packed in a word) to the lane below. Lane 0 takes the row above its band
+// from a ring in shared memory that lane 31 of the band above fills, a slot a
+// column, one step ahead of its use (so bands start 65 steps apart, and the
+// path is one step a band longer). A slot holds the packed error or a free
+// mark, so data and flag are one word and no fence is needed: the reader
+// waits for a slot to fill and frees it, the writer waits (once every 32
+// columns) for free slots. Warp j takes bands j, j + warps, ...; the last
+// warp's ring feeds warp 0. A warp waits only where it catches up with the
+// band above or fills the ring of the one below; the step loop has no
+// __syncthreads and every branch in it but the direct redmean is uniform over
+// the warp. Every per-step index is 32-bit (the plan refuses images past 2^29
+// pixels). Each lane loads its pixel four steps ahead, as a word where the
+// image is 4-byte aligned; the LUT (256 KB an image) is read through the
+// read-only path, with the L1 carveout at its largest. On an H100 80GB HBM3
+// at 700 W a step takes ~690 SM clocks at (q1), ~490 without the LUT load,
+// ~520 without the ring waits, ~550 without the pixel loads and ~405 without
+// all three (chip_smoke.py --dither-parts): a latency chain, not a throughput
+// limit, a step as long with 2 warps an SM as with 9. The warps, ring slots
+// and where the rings live (shared memory, or a global scratch for rows past
+// ~54,000 pixels) are ops/kernels.py::dither_plan's. The incoming error is 16
+// times an integer sum (7/16, 1/16, 5/16, 3/16 of integers), so the
+// reference's f32 floor(clip(px + e, 0, 255)) is the integer clamp((16 px +
+// 16 e) >> 4); the LUT takes alpha-255 pixels, the direct redmean over the
+// palette's first k_valid entries the others.
 
 #include <cstdint>
 
@@ -60,8 +80,10 @@ constexpr int kKmeansThreads = 256;
 constexpr int kKmeansColors = 1024;  // colours a CTA of the assignment takes
 constexpr int kKmeansIterations = 2;  // the reference's refinement (mod.rs:1346-1390)
 constexpr int kMaxPalette = 256;
-constexpr int kDitherMaxThreads = 1024;
-constexpr int kLagShorts = 9;  // a row's state: 3 last errors x 3 channels
+constexpr int kDitherBand = 32;  // rows a warp takes at once, a lane a row
+constexpr int kDitherMaxWarps = 32;
+constexpr int kDitherLag = 65;  // steps between two bands' starts
+constexpr uint32_t kRingFree = 0x80000000u;  // no packed error has bit 31 set
 
 // The entries of image b that a scan takes: its k_valid clamped to 1..k, or
 // all k without k_valid.
@@ -132,61 +154,163 @@ __global__ void __launch_bounds__(kMaxPalette) kmeans_refine_update_kernel(
 
 __device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
 
-// lags: two buffers of (h + 1) rows of kLagShorts int16 each, zero on entry
-// (buffer row 0 is the zero row above the image; row y is buffer row y + 1):
-// dynamic shared memory with kSharedLags, else this image's part of glags.
-template <bool kSharedLags>
-__global__ void __launch_bounds__(kDitherMaxThreads) dither_fs_kernel(
-    const uint8_t* __restrict__ rgba, int64_t h, int64_t w, const uint8_t* __restrict__ palette,
-    int k, const int32_t* __restrict__ k_valid, const uint8_t* __restrict__ lut, int16_t* glags,
-    uint8_t* __restrict__ out) {
-  extern __shared__ int16_t s_lags[];
+// Three errors in [-255, 255] as 10-bit fields of one word, bits 30-31 clear.
+__device__ __forceinline__ uint32_t pack_errors(int e0, int e1, int e2) {
+  return (e0 & 0x3FF) | ((e1 & 0x3FF) << 10) | ((e2 & 0x3FF) << 20);
+}
+
+// Channel c of a packed word, sign-extended.
+template <int C>
+__device__ __forceinline__ int packed_error(uint32_t v) {
+  return static_cast<int>(v << (22 - 10 * C)) >> 22;
+}
+
+// A warp's ring: one 32-bit slot a column, each holding a packed error or
+// kRingFree, so data and flag are one word and no fence orders it against
+// another location. In shared memory through its 32-bit shared address;
+// with kGlobal, a scratch in global memory (volatile, so through L2).
+template <bool kGlobal>
+struct Ring;
+
+template <>
+struct Ring<false> {
+  uint32_t base;
+  __device__ __forceinline__ explicit Ring(uint32_t* p)
+      : base(static_cast<uint32_t>(__cvta_generic_to_shared(p))) {}
+  __device__ __forceinline__ uint32_t get(int i) const {
+    uint32_t v;
+    asm volatile("ld.volatile.shared.u32 %0, [%1];" : "=r"(v) : "r"(base + 4 * i));
+    return v;
+  }
+  __device__ __forceinline__ void put(int i, uint32_t v) const {
+    asm volatile("st.volatile.shared.u32 [%0], %1;" ::"r"(base + 4 * i), "r"(v));
+  }
+};
+
+template <>
+struct Ring<true> {
+  volatile uint32_t* base;
+  __device__ __forceinline__ explicit Ring(uint32_t* p) : base(p) {}
+  __device__ __forceinline__ uint32_t get(int i) const { return base[i]; }
+  __device__ __forceinline__ void put(int i, uint32_t v) const { base[i] = v; }
+};
+
+// The pixel of column x of a row as a word r | g << 8 | b << 16 | a << 24;
+// outside [0, w) or past the image 0xFF000000 (black, opaque: the LUT route,
+// whose result is not kept). A word load where the image is 4-byte aligned.
+template <bool kWords>
+__device__ __forceinline__ uint32_t load_pixel(const uint8_t* row, int x, int w, bool row_ok) {
+  if (!row_ok || static_cast<unsigned>(x) >= static_cast<unsigned>(w)) return 0xFF000000u;
+  const uint8_t* q = row + 4 * x;
+  if (kWords) return __ldg(reinterpret_cast<const uint32_t*>(q));
+  return __ldg(q) | (__ldg(q + 1) << 8) | (__ldg(q + 2) << 16) | (static_cast<uint32_t>(__ldg(q + 3)) << 24);
+}
+
+// rings: warps rings of ring_slots words (ring j feeds warp j), in dynamic
+// shared memory, or with kGlobalRings this image's part of gring. Every
+// branch of the step but the direct redmean is uniform over the warp: the
+// ring slots are read by all lanes (one broadcast) and written by one lane.
+// kThreads: the launch's bound, 512 up to 16 warps (128 registers a thread
+// to spare; a step 12% shorter than under the bound of 1024 on an H100 at
+// 700 W), else 1024.
+template <bool kWords, bool kGlobalRings, int kThreads>
+__global__ void __launch_bounds__(kThreads) dither_fs_kernel(
+    const uint8_t* __restrict__ rgba, int h, int w, const uint8_t* __restrict__ palette, int k,
+    const int32_t* __restrict__ k_valid, const uint8_t* __restrict__ lut, int ring_slots,
+    uint32_t* gring, uint8_t* __restrict__ out) {
+  extern __shared__ uint32_t s_ring[];
   __shared__ int4 s_pal[kMaxPalette];
   const int64_t b = blockIdx.x;
-  const int64_t buf = (h + 1) * kLagShorts;
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int kv = valid_entries(k_valid, b, k);
-  int16_t* lags = kSharedLags ? s_lags : glags + b * 2 * buf;
+  uint32_t* rings = kGlobalRings ? gring + b * warps * ring_slots : s_ring;
   load_palette(s_pal, palette + b * k * 4, k);  // all k: a LUT entry may name any of them
-  if (kSharedLags)
-    for (int64_t i = threadIdx.x; i < 2 * buf; i += blockDim.x) lags[i] = 0;
-  __syncthreads();
-  const uint8_t* img = rgba + 4 * b * h * w;
+  for (int i = threadIdx.x; i < warps * ring_slots; i += blockDim.x) rings[i] = kRingFree;
+  __syncthreads();  // the only barrier: the palette and the free rings
+  const int64_t pixels = static_cast<int64_t>(h) * w;
+  const uint8_t* img = rgba + 4 * b * pixels;
   const uint8_t* tab = lut + b * kLutSize;
-  uint8_t* dst = out + b * h * w;
-  const int64_t nt = blockDim.x, steps = w + 2 * (h - 1);
-  for (int64_t t = 0; t < steps; ++t) {
-    const int16_t* cur = lags + (t & 1) * buf;
-    int16_t* nxt = lags + ((t + 1) & 1) * buf;
-    // the rows with 0 <= x = t - 2y <= w: a pixel for x < w; at x = w the
-    // shift that the row below still reads (a zero error past the row's end)
-    const int64_t lo = t <= w ? 0 : (t - w + 1) >> 1;
-    const int64_t hi = (t >> 1) < h - 1 ? (t >> 1) : h - 1;
-    for (int64_t y = lo + ((threadIdx.x - lo) % nt + nt) % nt; y <= hi; y += nt) {
-      const int64_t x = t - 2 * y;
-      const int16_t* up = cur + y * kLagShorts;  // er(y-1, x+1), er(y-1, x), er(y-1, x-1)
-      const int16_t* me = cur + (y + 1) * kLagShorts;  // er(y, x-1), er(y, x-2), er(y, x-3)
-      int16_t* nx = nxt + (y + 1) * kLagShorts;
-      int e0 = 0, e1 = 0, e2 = 0;
-      if (x < w) {
-        const uint8_t* px = img + 4 * (y * w + x);
-        const int a0 = clamp255((16 * px[0] + 7 * me[0] + up[6] + 5 * up[3] + 3 * up[0]) >> 4);
-        const int a1 = clamp255((16 * px[1] + 7 * me[1] + up[7] + 5 * up[4] + 3 * up[1]) >> 4);
-        const int a2 = clamp255((16 * px[2] + 7 * me[2] + up[8] + 5 * up[5] + 3 * up[2]) >> 4);
-        const int alpha = px[3];
-        const int idx = alpha == 255 ? tab[((a0 >> 2) << 12) | ((a1 >> 2) << 6) | (a2 >> 2)]
-                                     : nearest(a0, a1, a2, alpha, s_pal, kv);
-        dst[y * w + x] = static_cast<uint8_t>(idx);
-        const int4 p = s_pal[idx];
-        e0 = a0 - p.x;
-        e1 = a1 - p.y;
-        e2 = a2 - p.z;
+  uint8_t* dst = out + b * pixels;
+  const Ring<kGlobalRings> ring_in(rings + warp * ring_slots);
+  const Ring<kGlobalRings> ring_out(rings + (warp + 1 == warps ? 0 : warp + 1) * ring_slots);
+  const int bands = (h + kDitherBand - 1) / kDitherBand;
+  int rs = 0, ws = 0;  // the next slot this warp reads and writes, across its bands
+  for (int c = warp; c < bands; c += warps) {
+    const int y = c * kDitherBand + lane;
+    const bool row_ok = y < h, reads = c > 0, writes = c + 1 < bands;
+    const int steps = w + 2 * (min(kDitherBand, h - c * kDitherBand) - 1);
+    const uint8_t* row = img + 4 * (row_ok ? y * w : 0);
+    uint8_t* row_dst = dst + (row_ok ? y * w : 0);
+    // er(y-1, x+1), er(y-1, x), er(y-1, x-1) and er(y, x-1), by channel
+    int up0[3] = {0, 0, 0}, up1[3] = {0, 0, 0}, up2[3] = {0, 0, 0}, me[3] = {0, 0, 0};
+    uint32_t recv = 0;  // the lane above's newest error, packed, from the shuffle
+    // Lane 0's er(y-1, x+1) for the next step, read a step ahead so that the
+    // slot's latency stays off the chain: bands start 65 steps apart.
+    uint32_t above = 0;
+    if (reads) {  // er(y-1, 0), which the first step shifts to up1, and er(y-1, 1)
+      uint32_t v;
+      while ((v = ring_in.get(rs)) == kRingFree) {
       }
-      nx[0] = static_cast<int16_t>(e0);
-      nx[1] = static_cast<int16_t>(e1);
-      nx[2] = static_cast<int16_t>(e2);
-      for (int c = 0; c < 6; ++c) nx[3 + c] = me[c];
+      if (lane == 0) {
+        ring_in.put(rs, kRingFree);
+        up0[0] = packed_error<0>(v), up0[1] = packed_error<1>(v), up0[2] = packed_error<2>(v);
+      }
+      rs = rs + 1 == ring_slots ? 0 : rs + 1;
+      if (w > 1) {
+        while ((above = ring_in.get(rs)) == kRingFree) {
+        }
+        if (lane == 0) ring_in.put(rs, kRingFree);
+        rs = rs + 1 == ring_slots ? 0 : rs + 1;
+      }
     }
-    __syncthreads();
+    int x = -2 * lane;  // this lane's column at step s: s - 2 lane
+    uint32_t px[4];  // the pixels of the next four steps, each loaded four steps ahead
+#pragma unroll
+    for (int j = 0; j < 4; ++j) px[j] = load_pixel<kWords>(row, x + j, w, row_ok);
+    for (int s0 = 0; s0 < steps; s0 += 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i, ++x) {
+        const int s = s0 + i;
+        const bool ahead = reads && s + 2 < w;  // er(y-1, s + 2), for the next step
+        uint32_t next = ahead ? ring_in.get(rs) : 0;
+        const uint32_t v = lane == 0 ? above : recv;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) up2[ch] = up1[ch], up1[ch] = up0[ch];
+        up0[0] = packed_error<0>(v), up0[1] = packed_error<1>(v), up0[2] = packed_error<2>(v);
+        const bool on = row_ok && static_cast<unsigned>(x) < static_cast<unsigned>(w);
+        const uint32_t p = px[i];
+        px[i] = load_pixel<kWords>(row, x + 4, w, row_ok);
+        int a[3];
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          a[ch] = clamp255((16 * static_cast<int>((p >> (8 * ch)) & 255) + 7 * me[ch] + up2[ch] +
+                            5 * up1[ch] + 3 * up0[ch]) >> 4);
+        int idx = __ldg(tab + (((a[0] >> 2) << 12) | ((a[1] >> 2) << 6) | (a[2] >> 2)));
+        const int alpha = p >> 24;
+        if (alpha != 255) idx = nearest(a[0], a[1], a[2], alpha, s_pal, kv);
+        if (on) row_dst[x] = static_cast<uint8_t>(idx);
+        const int4 q = s_pal[idx];
+        me[0] = on ? a[0] - q.x : 0, me[1] = on ? a[1] - q.y : 0, me[2] = on ? a[2] - q.z : 0;
+        const uint32_t mine = pack_errors(me[0], me[1], me[2]);
+        recv = __shfl_up_sync(0xFFFFFFFFu, mine, 1);  // for the next step, before the rings' work
+        const int x31 = s - 2 * (kDitherBand - 1);  // lane 31's column: it hands er(y, x31) on
+        if (writes && static_cast<unsigned>(x31) < static_cast<unsigned>(w)) {
+          if ((x31 & 31) == 0) {  // slot ws + 31 free: the reader is past ws .. ws + 31
+            const int far = ws + 31 < ring_slots ? ws + 31 : ws + 31 - ring_slots;
+            while (ring_out.get(far) != kRingFree) {
+            }
+          }
+          if (lane == kDitherBand - 1) ring_out.put(ws, mine);
+          ws = ws + 1 == ring_slots ? 0 : ws + 1;
+        }
+        if (ahead) {  // the band above has written it by now, but for a slower band
+          while (next == kRingFree) next = ring_in.get(rs);
+          if (lane == 0) ring_in.put(rs, kRingFree);
+          rs = rs + 1 == ring_slots ? 0 : rs + 1;
+        }
+        above = next;
+      }
+    }
   }
 }
 
@@ -245,37 +369,39 @@ int pixo_kmeans_refine(const void* palette, int64_t batch, int32_t k, const void
 // rgba: [batch, h, w, 4] uint8; palette: [batch, k, 4] uint8, k 1 to 256;
 // k_valid: [batch] int32 (the entries the direct redmean takes, clamped to
 // 1..k) or null for all k; lut: [batch, 262144] uint8 (each image's LUT of
-// its palette); out: [batch, h, w] uint8: all on the device. threads and
-// smem: the plan's (ops/kernels.py::dither_plan); smem 0 takes the global
-// route, with lags [batch, 2, h + 1, 9] int16 scratch on the device, zero.
+// its palette); out: [batch, h, w] uint8: all on the device. warps and
+// ring_slots: the plan's (ops/kernels.py::dither_plan); ring: null for the
+// rings in shared memory, else [batch, warps, ring_slots] int32 scratch on
+// the device. Where bands wrap round the warps the rings must hold a row,
+// warps x (ring_slots - 64) >= w, or the CTA could deadlock: refused.
 int pixo_dither_fs(const void* rgba, int64_t batch, int64_t h, int64_t w, const void* palette,
-                   int32_t k, const void* k_valid, const void* lut, int32_t threads, int64_t smem,
-                   void* lags, void* out, void* stream) {
+                   int32_t k, const void* k_valid, const void* lut, int32_t warps, int32_t ring_slots,
+                   void* ring, void* out, void* stream) {
   using namespace pixo;
-  if (batch < 1 || batch > 0x7FFFFFFF || h < 1 || w < 1 || k < 1 || k > kMaxPalette ||
-      threads < 32 || threads > kDitherMaxThreads || threads % 32 || smem < 0 ||
-      (smem == 0 && lags == nullptr))
+  if (batch < 1 || batch > 0x7FFFFFFF || h < 1 || w < 1 || h * w > 0x7FFFFFFF / 4 || k < 1 ||
+      k > kMaxPalette || warps < 1 || warps > kDitherMaxWarps || ring_slots < 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem && smem != 2 * (h + 1) * kLagShorts * 2) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* px = static_cast<const uint8_t*>(rgba);
-  const auto* pal = static_cast<const uint8_t*>(palette);
-  const auto* valid = static_cast<const int32_t*>(k_valid);
-  const auto* tab = static_cast<const uint8_t*>(lut);
-  auto* res = static_cast<uint8_t*>(out);
-  const unsigned blocks = static_cast<unsigned>(batch);
-  if (smem) {
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          dither_fs_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    dither_fs_kernel<true><<<blocks, threads, static_cast<size_t>(smem), s>>>(px, h, w, pal, k, valid,
-                                                                             tab, nullptr, res);
-  } else {
-    dither_fs_kernel<false><<<blocks, threads, 0, s>>>(px, h, w, pal, k, valid, tab,
-                                                       static_cast<int16_t*>(lags), res);
-  }
+  const int64_t bands = (h + kDitherBand - 1) / kDitherBand;
+  if (warps > bands || (bands > warps && static_cast<int64_t>(warps) * (ring_slots - kDitherLag) < w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t smem = ring ? 0 : static_cast<int64_t>(warps) * ring_slots * 4;
+  if (smem > 232448 - static_cast<int64_t>(sizeof(int4)) * kMaxPalette)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool words = reinterpret_cast<uintptr_t>(rgba) % 4 == 0, wide = warps > 16;
+  auto* kernel = words ? (ring ? (wide ? &dither_fs_kernel<true, true, 1024> : &dither_fs_kernel<true, true, 512>)
+                               : (wide ? &dither_fs_kernel<true, false, 1024> : &dither_fs_kernel<true, false, 512>))
+                       : (ring ? (wide ? &dither_fs_kernel<false, true, 1024> : &dither_fs_kernel<false, true, 512>)
+                               : (wide ? &dither_fs_kernel<false, false, 1024> : &dither_fs_kernel<false, false, 512>));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                         cudaSharedmemCarveoutMaxL1);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(batch), warps * 32, static_cast<size_t>(smem),
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(rgba), static_cast<int>(h), static_cast<int>(w),
+      static_cast<const uint8_t*>(palette), k, static_cast<const int32_t*>(k_valid),
+      static_cast<const uint8_t*>(lut), ring_slots, static_cast<uint32_t*>(ring), static_cast<uint8_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

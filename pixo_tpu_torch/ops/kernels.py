@@ -142,7 +142,7 @@ def load():
             lib.pixo_kmeans_refine.restype = ctypes.c_int
             lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, vp, vp]
             lib.pixo_dither_fs.restype = ctypes.c_int
-            lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i64, vp, vp, vp]
+            lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i32, vp, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -834,36 +834,77 @@ def palette_lut(palette: torch.Tensor, k_valid: Optional[torch.Tensor] = None) -
 
 palette_lut.launches = 0
 
-DITHER_MAX_THREADS = 1024  # csrc/quantize.cu's kDitherMaxThreads
-DITHER_ROW_BYTES = 2 * 9 * 2  # two buffers of a row's 3 last errors x 3 channels, int16
-DITHER_SMEM_BUDGET = 232448 - 4096 - 1024  # 227 KB, less the palette and 1 KB for static variables
+DITHER_BAND = 32  # csrc/quantize.cu's band: a warp takes 32 rows, a lane a row
+DITHER_MAX_WARPS = 32  # csrc/quantize.cu's kDitherMaxWarps
+DITHER_LAG = 65  # steps between two bands' starts: 2 a row of the band above, 1 to read ahead
+DITHER_RING_MIN = 128  # slots of a ring whose reader never waits on its own earlier band
+DITHER_RING_SMEM = 232448 - 4096 - 1024  # 227 KB, less the palette and 1 KB for static variables
+DITHER_MAX_PIXELS = 0x7FFFFFFF // 4  # the kernel's per-image offsets are 32-bit
 
 
 class DitherPlan(NamedTuple):
     """The dither kernel's launch for one image shape (``dither_plan``)."""
 
-    route: str  # where the rows' errors live: "shared" or "global" memory
-    threads: int  # threads of the CTA that takes one image
-    smem: int  # dynamic shared-memory bytes; 0 on the global route
+    warps: int  # warps of the CTA that takes one image; warp j takes bands j, j + warps, ...
+    ring_slots: int  # 32-bit slots of each warp's input ring (the row above its band)
+    ring: str  # where the rings live: "shared" memory, or a "global" scratch past the budget
+    smem: int  # dynamic shared-memory bytes: the rings, or 0 on the global scratch
+    steps: int  # steps on the critical path
+    grown: int  # of them, the steps beyond the wavefront's W + 2(H - 1): a band edge's and the cap's
+
+
+def dither_ring_slots(w: int, warps: int, bands: int) -> int:
+    """Slots of each ring for rows of ``w`` pixels in ``bands`` bands on
+    ``warps`` warps: 128 where no band waits for its warp to finish an
+    earlier one; where bands wrap round the warps, a multiple of 32 with
+    warps x (slots - 65) >= W, which keeps the CTA from deadlocking
+    (``dither_plan``) and the writers from waiting."""
+    if bands <= warps:
+        return DITHER_RING_MIN
+    return max(DITHER_RING_MIN, -(-(-(-w // warps) + DITHER_LAG) // 32) * 32)
 
 
 @functools.lru_cache(maxsize=256)
 def dither_plan(h: int, w: int) -> DitherPlan:
     """How ``dither_fs`` launches for images of ``h`` x ``w``, by shape alone.
 
-    One CTA an image. At step t the rows with 0 <= t - 2y <= w work, at most
-    w // 2 + 1 of them, so the CTA takes that many threads (a multiple of
-    32, at most 1024, at most the rows) and strides the rows over them. The
-    errors of every row, two buffers of 18 bytes a row and the zero row
-    above the image, live in shared memory where they fit
-    ``DITHER_SMEM_BUDGET`` (up to 6,313 rows) and in global memory beyond."""
+    One CTA an image. A warp takes a band of 32 rows, a lane a row; band c
+    starts 65 steps after band c - 1 (at step s its lane 0 takes the error
+    of the row above at column s + 1 and reads column s + 2 ahead, which that
+    band's lane 31 makes 64 steps into it) and takes W + 2(rows - 1) steps.
+    So the path is the wavefront's W + 2(H - 1) steps and one a band edge.
+    Warp j takes bands j, j + warps, ...; the warps are the least count that
+    finishes a band (W + 62 steps) before its next one is due, 65 x warps
+    steps later, capped at 32 and at the bands. Where the cap binds, a
+    warp's next band waits for it, and the path grows by that too.
+
+    Each warp reads the row above its band from a ring that the warp before
+    it writes, one 32-bit slot a column. A writer waits for free slots, so
+    the rings must hold what the warps cannot: where bands wrap round the
+    warps, every warp in a band and each waiting on the next, the rings
+    together must hold about a row, or the CTA deadlocks: the slots keep
+    warps x (slots - 65) >= W (``dither_ring_slots``). Where bands do not
+    wrap the reader never waits on its own earlier band, and 128 slots
+    suffice. The rings live in shared memory up to ``DITHER_RING_SMEM``
+    (rows of ~54,000 pixels at 32 warps), in a global scratch beyond."""
     if h < 1 or w < 1:
         raise ValueError(f"an image of at least one pixel is taken, got {h}x{w}")
-    threads = min(DITHER_MAX_THREADS, -(-min(h, w // 2 + 1) // 32) * 32)
-    smem = DITHER_ROW_BYTES * (h + 1)
-    if smem <= DITHER_SMEM_BUDGET:
-        return DitherPlan("shared", threads, smem)
-    return DitherPlan("global", threads, 0)
+    if h * w > DITHER_MAX_PIXELS:
+        raise ValueError(f"the dither takes images of at most {DITHER_MAX_PIXELS} pixels, got {h}x{w}")
+    bands = -(-h // DITHER_BAND)
+    warps = min(DITHER_MAX_WARPS, bands, -(-(w + 2 * (DITHER_BAND - 1)) // DITHER_LAG))
+    slots = dither_ring_slots(w, warps, bands)
+    band_steps = w + 2 * (DITHER_BAND - 1)
+    last = bands - 1
+    if band_steps <= DITHER_LAG * warps or bands <= warps:
+        start = DITHER_LAG * last
+    else:  # round q of the bands starts when each warp has finished its band of round q - 1
+        start = (last // warps) * band_steps + (last % warps) * DITHER_LAG
+    steps = start + w + 2 * (h - DITHER_BAND * last - 1)
+    ring_bytes = 4 * warps * slots
+    ring = "shared" if ring_bytes <= DITHER_RING_SMEM else "global"
+    return DitherPlan(warps, slots, ring, ring_bytes if ring == "shared" else 0, steps,
+                      steps - (w + 2 * (h - 1)))
 
 
 def dither_fs(rgba: torch.Tensor, palette: torch.Tensor, lut: torch.Tensor,
@@ -889,13 +930,13 @@ def dither_fs(rgba: torch.Tensor, palette: torch.Tensor, lut: torch.Tensor,
     plan = dither_plan(h, w)
     lib = load()
     out = torch.empty((b, h, w), dtype=torch.uint8, device=rgba.device)
-    lags = (torch.zeros((b, 2, h + 1, 9), dtype=torch.int16, device=rgba.device)
-            if plan.route == "global" else None)
+    ring = (torch.empty((b, plan.warps, plan.ring_slots), dtype=torch.int32, device=rgba.device)
+            if plan.ring == "global" else None)
     with _device_guard(rgba):
         rc = lib.pixo_dither_fs(rgba.data_ptr(), b, h, w, palette.data_ptr(), palette.shape[1],
                                 None if k_valid is None else k_valid.data_ptr(),
-                                lut.data_ptr(), plan.threads, plan.smem,
-                                None if lags is None else lags.data_ptr(), out.data_ptr(), _stream(rgba))
+                                lut.data_ptr(), plan.warps, plan.ring_slots,
+                                None if ring is None else ring.data_ptr(), out.data_ptr(), _stream(rgba))
     _check(lib, rc, "dither_fs")
     dither_fs.launches += 1
     return out

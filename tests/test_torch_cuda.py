@@ -15,9 +15,12 @@ import torch
 
 from chip_smoke import (
     at_offset,
+    check_dither_repeats,
     coeff_edge_cases,
     compact_edge_batch,
+    dither_global_ring,
     dither_inputs,
+    dither_repeat_case,
     filter_edge_cases,
     host_decode,
     lossy_options,
@@ -597,7 +600,8 @@ QUANTIZE_CASES = [(name, label, args) for name, cases in
                          ids=[f"{n}-{label}" for n, label, _ in QUANTIZE_CASES])
 def test_quantize_kernels_equal_plain_and_host_library(dev, case):
     """Each quantization kernel on its edge cases (K = 1, duplicates,
-    k_valid below K, zero weights, ties, H = 1, W = 1, the global route,
+    k_valid below K, zero weights, ties, H = 1, W = 1, the dither's band
+    edges, bands that wrap round its warps, its warp cap,
     alpha other than 255), at byte offsets 0, 1 and 3 of its buffers:
     equal to its plain version and, image by image, to the host library."""
     name, _, args = QUANTIZE_CASES[case]
@@ -612,18 +616,38 @@ def test_quantize_kernels_equal_plain_and_host_library(dev, case):
             np.testing.assert_array_equal(got[i].cpu().numpy()[:len(h)], h)
 
 
-@pytest.mark.parametrize("h,w", [(6313, 2), (6314, 2)], ids=["last shared", "first global"])
-def test_dither_kernel_at_the_route_boundary(dev, h, w):
-    rng = np.random.default_rng(13)
-    rgba = rng.integers(0, 256, (1, h, w, 4), dtype=np.uint8)
+def test_dither_kernel_repeats_equal(dev):
+    """One input whose rings fill, 20 times: every output equal to the
+    first and to the host library (a race in the rings shows only so)."""
+    check_dither_repeats(dev, dither_repeat_case(np.random.default_rng(15)))
+
+
+def _global_ring_case(rng):
+    """33 bands of 55,000 columns: rings of 32 warps past shared memory."""
+    rgba = rng.integers(0, 256, (1, 1056, 55_000, 4), dtype=np.uint8)
     rgba[..., 3] = 255
     pal = rng.integers(0, 256, (1, 64, 4), dtype=np.uint8)
-    args = dither_inputs(rgba, pal, np.array([64], np.int32))
-    plan = kernels.dither_plan(h, w)
-    assert plan.route == ("shared" if h == 6313 else "global")
-    t = [torch.from_numpy(a).to(dev) for a in args]
-    np.testing.assert_array_equal(kernels.dither_fs(*t).cpu().numpy(),
-                                  quantize_host_oracles("dither_fs", args)[0][None])
+    return dither_inputs(rgba, pal, np.array([64], np.int32))
+
+
+@pytest.mark.parametrize("through", ["C entry", "wrapper"])
+def test_dither_kernel_with_global_rings(dev, through):
+    """The rings in a global scratch: through the C entry at 1100x40 (the
+    bands wrap round 2 warps), and through the wrapper at the width where
+    the plan leaves shared memory; equal to the host library."""
+    rng = np.random.default_rng(16)
+    if through == "C entry":
+        rgba = rng.integers(0, 256, (2, 1100, 40, 4), dtype=np.uint8)
+        rgba[..., 3] = 255
+        args = dither_inputs(rgba, rng.integers(0, 256, (2, 32, 4), dtype=np.uint8),
+                             np.array([32, 20], np.int32))
+        got = dither_global_ring(args, dev)
+    else:
+        args = _global_ring_case(rng)
+        assert kernels.dither_plan(*args[0].shape[1:3]).ring == "global"
+        got = kernels.dither_fs(*[torch.from_numpy(a).to(dev) for a in args])
+    for i, h in enumerate(quantize_host_oracles("dither_fs", args)):
+        np.testing.assert_array_equal(got[i].cpu().numpy(), h)
 
 
 def test_quantize_wrappers_refuse_what_the_kernels_do_not_take(dev):

@@ -8,8 +8,9 @@ batched over images; they are held to those functions under jit on the CPU
 with exact equality (every one is integer arithmetic or f32 on dyadic
 values), as ``tests/test_kernel_equality.py`` holds the JAX functions to
 the host tier. The card tests hold the CUDA kernels to these plain
-versions. ``ops/kernels.py::dither_plan`` decides, by shape alone, where the
-dither kernel keeps its rows' errors and how many threads it takes.
+versions. ``ops/kernels.py::dither_plan`` decides, by shape alone, the dither
+kernel's warps, rings and path; ``band_model`` runs the kernel's schedule in
+Python and is held to the plain version and the JAX function.
 """
 
 import numpy as np
@@ -350,27 +351,40 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                           torch.zeros((1, kernels.LUT_SIZE), dtype=torch.uint8))
 
 
-# ---- the dither kernel's plan
+# ---- the dither kernel's plan and a model of its schedule
 
 
-PLAN_SHAPES = [(1, 1), (1, 7000), (40, 1), (23, 37), (512, 512), (513, 2000), (2000, 513),
-               (7000, 3), (6313, 2), (6314, 2), (65535, 65535)]
+PLAN_SHAPES = [(1, 1), (1, 7000), (40, 1), (23, 37), (31, 70), (65, 70), (512, 512), (513, 2000),
+               (2000, 513), (7000, 3), (1100, 40), (70, 4000), (1100, 2500), (1056, 55_000),
+               (16384, 32767)]
 
 
 @pytest.mark.parametrize("h,w", PLAN_SHAPES, ids=[f"{h}x{w}" for h, w in PLAN_SHAPES])
 def test_dither_plan_fits_the_card(h, w):
-    """A warp multiple of threads, at most 1024, enough for every row the
-    wavefront works on at one step (at most w // 2 + 1 of them, and at most
-    h) or 1024; the rows' errors in shared memory exactly where two buffers
-    of 18 bytes a row (and the zero row) fit the budget."""
+    """At most 32 warps and one a band; the least that finishes a band (W +
+    62 steps) before its next is due (65 steps a warp later) where the cap
+    does not bind; rings of a multiple of 32 slots, 128 where no band waits
+    for its warp, holding a row where bands wrap (warps x (slots - 65) >=
+    W); in shared memory beside the palette where they fit 227 KB; a path
+    of W + 2(H - 1) steps and one a band edge, longer where the cap binds."""
     plan = kernels.dither_plan(h, w)
-    assert plan.threads % 32 == 0 and 32 <= plan.threads <= kernels.DITHER_MAX_THREADS
-    assert plan.threads >= min(h, w // 2 + 1, kernels.DITHER_MAX_THREADS)
-    assert plan.threads - 32 < min(h, w // 2 + 1)
-    rows_fit = 36 * (h + 1) <= kernels.DITHER_SMEM_BUDGET
-    assert plan.route == ("shared" if rows_fit else "global")
-    assert plan.smem == (36 * (h + 1) if rows_fit else 0)
-    assert kernels.DITHER_SMEM_BUDGET + 4096 <= 232448  # the palette's 4 KB beside it
+    lag, bands = kernels.DITHER_LAG, -(-h // 32)
+    assert lag == 65
+    assert 1 <= plan.warps <= min(kernels.DITHER_MAX_WARPS, bands)
+    if plan.warps < min(kernels.DITHER_MAX_WARPS, bands):
+        assert lag * plan.warps >= w + 62 > lag * (plan.warps - 1)
+    assert plan.ring_slots % 32 == 0 and plan.ring_slots >= 128
+    if bands > plan.warps:
+        assert plan.warps * (plan.ring_slots - lag) >= w
+    else:
+        assert plan.ring_slots == 128
+    ring_bytes = 4 * plan.warps * plan.ring_slots
+    assert plan.ring == ("shared" if ring_bytes <= kernels.DITHER_RING_SMEM else "global")
+    assert plan.smem == (ring_bytes if plan.ring == "shared" else 0)
+    assert plan.smem + 4096 <= 232448  # the palette's 4 KB beside the rings
+    capped = bands > plan.warps and w + 62 > lag * plan.warps
+    assert plan.steps == w + 2 * (h - 1) + plan.grown
+    assert (plan.grown > bands - 1) == capped and plan.grown >= bands - 1
 
 
 def test_dither_plan_refuses_an_empty_image():
@@ -379,13 +393,185 @@ def test_dither_plan_refuses_an_empty_image():
             kernels.dither_plan(h, w)
 
 
-def test_dither_wavefront_busy_rows_never_exceed_the_plan():
-    """At every step of a small image the rows with 0 <= t - 2y <= w are at
-    most the plan's threads, so no thread takes two rows in one step."""
-    for h, w in ((23, 37), (40, 1), (9, 64), (64, 9)):
-        plan = kernels.dither_plan(h, w)
-        busy = max(sum(0 <= t - 2 * y <= w for y in range(h)) for t in range(w + 2 * (h - 1)))
-        assert busy <= max(plan.threads, 1) and busy <= w // 2 + 1
+def test_dither_plan_refuses_images_past_32_bit_offsets():
+    """The kernel's per-image offsets, 4 bytes a pixel, are 32-bit."""
+    assert kernels.dither_plan(1, kernels.DITHER_MAX_PIXELS).warps == 1
+    for h, w in ((1, kernels.DITHER_MAX_PIXELS + 1), (65535, 65535)):
+        with pytest.raises(ValueError, match="at most"):
+            kernels.dither_plan(h, w)
+
+
+@pytest.mark.parametrize("h,w,grown", [(1100, 2500, 516), (1100, 10_000, 8016)])
+def test_dither_plan_steps_where_the_cap_binds(h, w, grown):
+    """35 bands on 32 warps of 2,562 and 10,062 steps a band: warp 0's
+    second band (band 32) starts when its first ends, not at step 32 x 65,
+    and the path grows by that beside its step a band edge."""
+    plan = kernels.dither_plan(h, w)
+    assert plan.warps == 32 and plan.grown == grown
+    assert plan.steps == (w + 62) + 2 * 65 + w + 2 * (h - 34 * 32 - 1)
+
+
+FREE = None  # a ring slot's free mark (csrc/quantize.cu's kRingFree)
+
+
+def _redmean_argmin(a, alpha, pal):
+    """``csrc/redmean.cuh::nearest`` of colours a [n, 3] with alphas [n]
+    over pal [k, 4]."""
+    c = np.concatenate([a, alpha[:, None]], 1)[:, None, :]
+    p = pal[None].astype(np.int64)
+    d = c - p
+    rm = (c[..., 0] + p[..., 0]) >> 1
+    dist = (((512 + rm) * d[..., 0] ** 2 + 1024 * d[..., 1] ** 2 + (767 - rm) * d[..., 2] ** 2) >> 8
+            ) + d[..., 3] ** 2
+    return dist.argmin(1)
+
+
+def band_model(rgba, pal, lut, kv, warps, slots, pixels=True):
+    """``csrc/quantize.cu::dither_fs_kernel``'s schedule in Python, for one
+    image rgba [H, W, 4] with its palette [K, 4], LUT and k_valid: warp j
+    takes bands j, j + warps, ..., a lane a row; each tick every warp that
+    can runs one step. At step s, lane 0 takes the row above's column s + 1,
+    read at the step before, and reads column s + 2 from its ring (slots a
+    column, each holding an error or FREE: it waits for the slot to fill and
+    frees it), every lane takes the lane above's error of the last step (the
+    shuffle), and lane 31 writes its error into the next warp's
+    ring, the last warp's feeding warp 0; at every 32nd column the writer
+    waits until the slot 31 ahead is free. What a warp writes or frees in a
+    tick, the others see in the next. Returns (indices [H, W], ticks);
+    raises where no warp can move (a deadlock). With ``pixels`` False it
+    moves the schedule alone."""
+    h, w = rgba.shape[:2]
+    bands, lanes = -(-h // 32), np.arange(32)
+    rings = [[FREE] * slots for _ in range(warps)]
+    out = np.zeros((h, w), np.uint8)
+    pal = pal.astype(np.int64)
+    zero = np.zeros(3, np.int64)
+
+    def band_start(warp):
+        warp.update(s=0, pending=None, up=np.zeros((3, 32, 3), np.int64), me=np.zeros((32, 3), np.int64),
+                    above=np.zeros(3, np.int64))
+
+    state = [dict(c=j, rs=0, ws=0) for j in range(warps)]
+    for warp in state:
+        band_start(warp)
+    ticks = 0
+    while any(warp["c"] < bands for warp in state):
+        frees, writes, moved = [], [], False
+        for j, warp in enumerate(state):
+            c, s = warp["c"], warp["s"]
+            if c >= bands:
+                continue
+            ring_in, out_ring = rings[j], (j + 1) % warps
+            if warp["pending"] is None:  # the step's reads and arithmetic
+                cols = [x for x in ((0, 1, 2) if s == 0 else (s + 2,)) if x < w] if c > 0 else []
+                got = [ring_in[(warp["rs"] + i) % slots] for i in range(len(cols))]
+                if any(v is FREE for v in got):
+                    continue  # lane 0 waits for the band above
+                frees += [(j, (warp["rs"] + i) % slots) for i in range(len(cols))]
+                warp["rs"] = (warp["rs"] + len(cols)) % slots
+                up = warp["up"]
+                if s == 0 and got:  # er(y-1, 0) and er(y-1, 1), read before the first step
+                    up[0, 0] = got.pop(0)
+                    warp["above"] = got.pop(0) if got else zero
+                up[2], up[1] = up[1].copy(), up[0].copy()
+                up[0] = np.concatenate([warp["above"][None], warp["me"][:-1]])
+                warp["above"] = got[0] if got else zero  # er(y-1, s + 2), read a step ahead
+                e = np.zeros((32, 3), np.int64)
+                if pixels:
+                    y, x = 32 * c + lanes, s - 2 * lanes
+                    act = (y < h) & (x >= 0) & (x < w)
+                    px = rgba[np.minimum(y, h - 1), np.clip(x, 0, w - 1)].astype(np.int64)
+                    a = np.clip((16 * px[:, :3] + 7 * warp["me"] + up[2] + 5 * up[1] + 3 * up[0]) >> 4,
+                                0, 255)
+                    idx = lut[(a[:, 0] >> 2) << 12 | (a[:, 1] >> 2) << 6 | (a[:, 2] >> 2)].astype(np.int64)
+                    if (px[:, 3] != 255).any():
+                        idx = np.where(px[:, 3] == 255, idx, _redmean_argmin(a, px[:, 3], pal[:kv]))
+                    e = np.where(act[:, None], a - pal[idx, :3], 0)
+                    out[y[act], x[act]] = idx[act]
+                warp["me"], warp["pending"] = e, e[31]
+                moved = True
+            x31 = s - 62
+            if c + 1 < bands and 0 <= x31 < w:  # lane 31 writes er(y, x31)
+                if x31 % 32 == 0 and rings[out_ring][(warp["ws"] + 31) % slots] is not FREE:
+                    continue  # the writer waits for free slots
+                assert rings[out_ring][warp["ws"]] is FREE
+                writes.append((out_ring, warp["ws"], warp["pending"]))
+                warp["ws"] = (warp["ws"] + 1) % slots
+            moved = True
+            warp["pending"], warp["s"] = None, s + 1
+            if warp["s"] == w + 2 * (min(32, h - 32 * c) - 1):
+                warp["c"] = c + warps
+                band_start(warp)
+        for r, i in frees:
+            rings[r][i] = FREE
+        for r, i, v in writes:
+            rings[r][i] = v
+        ticks += 1
+        if not moved:
+            raise RuntimeError(f"deadlock after {ticks} ticks")
+    return out, ticks
+
+
+MODEL_CASES = [("3x5", 3, 5, False, None), ("33x9", 33, 9, False, None),
+               ("70x40 on 2 warps", 70, 40, False, None), ("alpha, k_valid 10 of 64", 37, 23, True, 10)]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES, ids=[c[0] for c in MODEL_CASES])
+def test_band_model_matches_plain_and_jax(case):
+    """The kernel's schedule, laid out as the plan lays it out, gives the
+    reference's indices in the plan's steps: held to the plain version and
+    to the JAX function."""
+    _, h, w, alpha, kv = case
+    rng = _rng()
+    rgba = rng.integers(0, 256, (1, h, w, 4), dtype=np.uint8)
+    if alpha:
+        rgba[..., 3] = rng.choice(np.array([0, 128, 255, 255], np.uint8), (1, h, w))
+    else:
+        rgba[..., 3] = 255
+    pal = rng.integers(0, 256, (1, 64, 4), dtype=np.uint8)
+    kv = kv or 64
+    lut = np.asarray(jq.PaletteLut(pal[0, :kv]).opaque_lut)[None]
+    plan = kernels.dither_plan(h, w)
+    got, ticks = band_model(rgba[0], pal[0], lut[0], kv, plan.warps, plan.ring_slots)
+    assert ticks == plan.steps
+    if h == 70:
+        assert plan.warps == 2 and -(-h // 32) > plan.warps  # band 2 on warp 0: the ring wraps
+    plain = qd.dither_fs(_t(rgba), _t(pal), _t(lut), torch.tensor([kv], dtype=torch.int32))[0].numpy()
+    np.testing.assert_array_equal(got, plain)
+    ref = jqd.dither_fs_device(rgba, pal[:, :kv], lut, has_alpha=alpha)
+    np.testing.assert_array_equal(got.astype(np.int32), np.asarray(ref)[0])
+
+
+@pytest.mark.parametrize("slots,deadlocks", [(96, True), (None, False)], ids=["96 slots", "the plan's"])
+def test_band_model_back_pressure_needs_a_row_of_slots(slots, deadlocks):
+    """130x300 forced onto 2 warps: 5 bands of 362 steps wrap round them,
+    so each warp's next band waits. With rings of 96 slots (2 x (96 - 64)
+    < 300) every warp ends up waiting on a full ring; with
+    ``dither_ring_slots``' 224 the model runs through to the reference."""
+    rng = _rng()
+    rgba = rng.integers(0, 256, (1, 130, 300, 4), dtype=np.uint8)
+    rgba[..., 3] = 255
+    pal = rng.integers(0, 256, (1, 32, 4), dtype=np.uint8)
+    lut = np.asarray(jq.PaletteLut(pal[0]).opaque_lut)
+    slots = slots or kernels.dither_ring_slots(300, 2, 5)
+    if deadlocks:
+        with pytest.raises(RuntimeError, match="deadlock"):
+            band_model(rgba[0], pal[0], lut, 32, 2, slots, pixels=False)
+        return
+    got, _ = band_model(rgba[0], pal[0], lut, 32, 2, slots)
+    plain = qd.dither_fs(_t(rgba), _t(pal), _t(lut[None]))[0].numpy()
+    np.testing.assert_array_equal(got, plain)
+
+
+def test_band_model_keeps_the_plans_steps_where_the_cap_binds():
+    """1100x2500: 35 bands on 32 warps; the ring that feeds warp 0 fills
+    while warp 0 finishes its first band, and the writers' waits add no
+    step to the plan's path."""
+    plan = kernels.dither_plan(1100, 2500)
+    zeros = np.zeros((1100, 2500, 4), np.uint8)
+    _, ticks = band_model(zeros, np.zeros((1, 4), np.uint8), np.zeros(kernels.LUT_SIZE, np.uint8), 1,
+                          plan.warps, plan.ring_slots, pixels=False)
+    assert plan.grown > 0 and ticks == plan.steps
 
 
 # ---- the batch quantizer against the JAX package's
