@@ -144,11 +144,13 @@ checks the resize kernel alone on every case and offset and times each of
 its passes as it is, with each of its parts taken out and under each tile
 (``resize_parts``); ``python3 chip_smoke.py --dither-parts`` times the
 dither kernel at (q1) and (q2) as it is and with each of its parts taken out
-(``dither_parts``); ``python3 chip_smoke.py --pack-workers`` times
-the host pack stage on 1, 2, 4 and 8 threads (``pack_workers``);
-``python3 chip_smoke.py --sass NAME`` counts
-the instructions of the built kernels whose name holds NAME, loop by loop
-(``sass_loops``).
+(``dither_parts``); ``python3 chip_smoke.py --kmeans-parts`` times the
+k-means kernel at (q1) and (q2) as it is and without its argmin, its
+atomics, its last CTA's update or its second launch (``kmeans_parts``);
+``python3 chip_smoke.py --pack-workers`` times the host pack stage on 1, 2,
+4 and 8 threads (``pack_workers``); ``python3 chip_smoke.py --sass NAME``
+counts the instructions of the built kernels whose name holds NAME, loop by
+loop (``sass_loops``).
 """
 
 from __future__ import annotations
@@ -422,7 +424,7 @@ PROFILED = {}  # profiler_ms's last count of traced launches, by kernel name
 def profiler_ms(fn, kernel: str, calls: int = 20):
     """Device time a call of ``fn`` spends in the kernels whose name holds
     ``kernel`` (one kernel for most wrappers; the two passes of the resize,
-    the k-means' two kernels twice), from ``torch.profiler``'s
+    the k-means' kernel twice), from ``torch.profiler``'s
     ``key_averages()`` over ``calls`` warm calls of ``fn``: the kernels' own
     time, whatever the wrapper costs on the host. The trace may hold fewer
     launches than ran (17-19 of 20 on the card's machine), so each kernel's
@@ -1945,9 +1947,13 @@ def lossy_correctness_cases(corpus, grad) -> list:
 def quantize_edge_cases(rng) -> dict:
     """The quantization kernels' edge cases, numpy arrays by kernel:
     kmeans_refine (label, palettes [B, K, 4], colours [B, M, 4], weights
-    [B, M] int32, k_valid [B] int32): K = 1, K = 256 with duplicate entries,
-    k_valid below K, all-zero weights, colours on palette entries (ties), a
-    colour count that ends inside a CTA's range, one colour; palette_lut
+    [B, M] int32, k_valid [B] int32 and, in some, counts [B] int32, the
+    colours the kernel's schedule takes, ``kmeans_plan``): K = 1, K = 256
+    with duplicate entries, k_valid below K, all-zero weights, colours on
+    palette entries (ties), a colour count that ends inside a CTA's range,
+    one colour, counts below M (one of them 0), counts of 1 to 4000 in one
+    batch, weights whose chunks need 64-bit sums beside chunks that do not,
+    runs of equal colours (many of a warp's colours on one entry); palette_lut
     (label, palettes, k_valid): K = 1, K = 256 with duplicates (all scanned,
     and only the first 16), entries with alpha, three palettes, k_valid
     below K; dither_fs (label, rgba [B, H, W, 4], palettes, k_valid): H = 1
@@ -2016,6 +2022,23 @@ def quantize_edge_cases(rng) -> dict:
         dithers.append((f"{label} {'x'.join(map(str, shape))}", rgba,
                         pal(shape[0], k, unique=16 if k == 256 else None, opaque=not alpha),
                         sizes(*(k_valid or [k] * shape[0]))))
+    # drawn after the others, so that the cases above keep their data
+    few = weights(2, 3000)
+    few[0, 1000:] = few[1] = 0
+    spread = weights(5, 4000)
+    for i, n in enumerate((1, 63, 64, 65, 4000)):
+        spread[i, n:] = 0
+    heavy = rng.integers(1, 900, (1, 2000)).astype(np.int32)
+    heavy[0, 1000:] = rng.integers(1 << 24, (1 << 31) - 1, 1000)
+    runs = np.repeat(cols(1, 120), rng.integers(1, 40, 120), axis=1)[:, :2500]
+    kmeans += [
+        ("counts below M, one 0", pal(2, 64), cols(2, 3000), few, sizes(64, 20), sizes(1000, 0)),
+        ("counts of 1 to 4000", pal(5, 256), cols(5, 4000, alpha=True), spread,
+         sizes(256, 3, 64, 255, 200), sizes(1, 63, 64, 65, 4000)),
+        ("64-bit sums beside 32-bit", pal(1, 32), cols(1, 2000), heavy, sizes(32)),
+        ("runs of equal colours", pal(1, 12), np.ascontiguousarray(runs), weights(1, runs.shape[1], 5),
+         sizes(12)),
+    ]
     return {"kmeans_refine": kmeans, "palette_lut": luts, "dither_fs": dithers}
 
 
@@ -2048,14 +2071,15 @@ def dither_inputs(rgba, pal, k_valid) -> tuple:
 
 def quantize_host_oracles(name: str, args) -> list:
     """The host library's result of kernel ``name`` on numpy ``args`` (its
-    inputs, k_valid last), image by image, on each palette's real entries:
+    inputs: k_valid last, or before the k-means' counts), image by image, on
+    each palette's real entries:
     ``refine_palette_kmeans``, ``native_palette_lut``, ``native_dither_fs``
     with the LUT of ``args``."""
     from pixo_tpu_torch.native import native_dither_fs, native_palette_lut
     from pixo_tpu_torch.png.quantize import refine_palette_kmeans
 
     if name == "kmeans_refine":
-        pal, colors, weights, k_valid = args
+        pal, colors, weights, k_valid = args[:4]
         return [refine_palette_kmeans(p, colors[i], weights[i].astype("uint32"))
                 for i, p in enumerate(real_entries(pal, k_valid))]
     if name == "palette_lut":
@@ -2170,17 +2194,17 @@ def check_dither_global_ring(dev, args, label: str) -> None:
 def lossy_cell_tensors(imgs, opts, dev):
     """One cell's tensors as the path hands them to the kernels: the host
     stage's ``LossyBatch`` and each kernel's inputs, numpy, in call order
-    (the k-means's palettes, colours, weights and sizes; the refined and
-    re-padded palettes with the sizes; the rgba pixels with them; the LUTs
-    are the host library's, ``dither_inputs``)."""
+    (the k-means's palettes, colours, weights, sizes and colour counts; the
+    refined and re-padded palettes with the sizes; the rgba pixels with
+    them; the LUTs are the host library's, ``dither_inputs``)."""
     from pixo_tpu_torch.png import quantize as q
 
     batch = q.quantize_host_stage(imgs, min(opts.quantization.max_colors, 256),
                                   opts.quantization.dithering)
     pal, _, _ = q.quantize_device_stage(batch, False, dev)
     pal = pal.cpu().numpy()
-    return batch, {"kmeans_refine": (batch.palettes, batch.colors, batch.weights, batch.k),
-                   "palette_lut": (pal, batch.k), "dither_fs": (batch.rgba, pal, batch.k)}
+    km = (batch.palettes, batch.colors, batch.weights, batch.k, batch.counts)
+    return batch, {"kmeans_refine": km, "palette_lut": (pal, batch.k), "dither_fs": (batch.rgba, pal, batch.k)}
 
 
 def check_quantize_kernels(dev, corpus, grad) -> dict:
@@ -2266,6 +2290,17 @@ def check_lossy_main_path(dev, corpus, grad) -> dict:
     return launches
 
 
+def kmeans_work(batch) -> dict:
+    """The k-means' work shape for ``kernel_work`` on a ``LossyBatch``:
+    both iterations' distances and colours of non-zero weight."""
+    import numpy as np
+
+    nz = (batch.weights > 0).sum(1)
+    b, k, m = batch.palettes.shape[0], batch.palettes.shape[1], batch.colors.shape[1]
+    return dict(b=b, k=k, m=m, distances=int(2 * (nz * np.maximum(batch.k, 1)).sum()),
+                assigned=int(2 * nz.sum()))
+
+
 def quantize_launchers(dev, batch, pal, lut):
     """For each quantization kernel on one cell's tensors (``batch`` a
     ``LossyBatch``, ``pal`` and ``lut`` its refined palettes and their LUTs
@@ -2283,8 +2318,23 @@ def quantize_launchers(dev, batch, pal, lut):
     rgba = torch.from_numpy(batch.rgba).to(dev)
     b, k, m = km[0].shape[0], km[0].shape[1], km[1].shape[1]
     h, w = rgba.shape[1:3]
-    acc = torch.zeros((b, k, 5), dtype=torch.int64, device=dev)  # each call leaves it zero
     km_out, lut_out = torch.empty_like(km[0]), torch.empty_like(lut)
+    scratch = torch.zeros(b * k * 5 + b, dtype=torch.int64, device=dev)  # each call leaves it zero
+    if hasattr(kernels, "kmeans_plan"):  # the schedule over real colours, one launch an iteration
+        counts = tuple(int(n) for n in batch.counts)
+        chunks = torch.from_numpy(kernels.kmeans_plan(counts, kernels._sm_count(dev)).chunks).to(dev)
+
+        def km_call():
+            return kernels.kmeans_refine(*km, counts)
+
+        def km_args():  # the closure keeps chunks and scratch alive
+            return chunks.data_ptr(), chunks.shape[0], scratch.data_ptr(), scratch.data_ptr() + 8 * b * k * 5
+    else:  # a checkout from before it: CTAs over slots, an update launch an iteration
+        def km_call():
+            return kernels.kmeans_refine(*km)
+
+        def km_args():
+            return (scratch.data_ptr(),)
     idx_out = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
     plan = kernels.dither_plan(h, w)
     # a checkout from before the band design launches threads over shared or global lags
@@ -2292,15 +2342,13 @@ def quantize_launchers(dev, batch, pal, lut):
                      (plan.threads, plan.smem) if plan.route == "shared" else None)
     if dither_launch is None:
         raise Failed(f"the cell's {h}x{w} dither takes the {plan.route} route")
-    nz = (batch.weights > 0).sum(1)
-    km_work = dict(b=b, k=k, m=m, distances=int(2 * (nz * np.maximum(batch.k, 1)).sum()),
-                   assigned=int(2 * nz.sum()))
+    km_work = kmeans_work(batch)
     return {
         "kmeans_refine": (
-            lambda: kernels.kmeans_refine(*km), lambda: quantize_device.kmeans_refine(*km),
+            km_call, lambda: quantize_device.kmeans_refine(*km),
             lambda: lib.pixo_kmeans_refine(km[0].data_ptr(), b, k, km[3].data_ptr(), km[1].data_ptr(),
-                                           km[2].data_ptr(), m, acc.data_ptr(), km_out.data_ptr(),
-                                           stream), km_work),
+                                           km[2].data_ptr(), m, *km_args(), km_out.data_ptr(), stream),
+            km_work),
         "palette_lut": (
             lambda: kernels.palette_lut(pal, kv), lambda: quantize_device.palette_lut(pal, kv),
             lambda: lib.pixo_palette_lut(pal.data_ptr(), b, k, kv.data_ptr(), lut_out.data_ptr(), stream),
@@ -2829,6 +2877,84 @@ def dither_parts(card: str) -> int:
     return 0
 
 
+# Parts of the k-means kernel (csrc/quantize.cu) that ``kmeans_parts`` takes
+# out, one at a time: (name, [(source text, replacement)]). A part's time is
+# what the kernel saves without it; the results are wrong, only timed.
+KMEANS_PARTS = {
+    "the argmin": [("    const int idx = nearest(r, g, bl, al, s_pal, kv);",
+                    "    const int idx = min(r, kv - 1);")],
+    "the atomics": [("    add_sums<kNarrow>(sums, idx, r, g, bl, al, w);",
+                     "    if (w == 0xFFFFFFFFu) sums[idx] = r;")],
+    "the update": [("  if (!s_last) return;", "  return;")],
+    "the second launch": [("  for (int it = 0; it < kKmeansIterations; ++it) {",
+                           "  for (int it = 0; it < 1; ++it) {")],
+}
+
+
+def kmeans_parts(card: str) -> int:
+    """The k-means kernel alone at (q1) and (q2): the profiler's device time
+    of a call's launches (the C function; two launches, one an iteration)
+    as it is and with each of ``KMEANS_PARTS`` taken out (all built at
+    once), beside the bound and the plan's chunks. The kernel as it is must
+    equal the wrapper's result, which phase 2 holds to the plain version.
+    Exit code 1 on a difference or a failed launch."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.png import quantize as q
+
+    libs = variant_libs("quantize.cu", KMEANS_PARTS, "kmeans_part")
+    dev = torch.device("cuda")
+    grad, corpus = gradient_batch(BATCH, SIZE), corpus_batch()
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    for key, (label, opts, imgs) in lossy_cases(corpus, grad).items():
+        batch = q.quantize_host_stage(imgs, min(opts.quantization.max_colors, 256), True)
+        km = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+              for a in (batch.palettes, batch.colors, batch.weights, batch.k)]
+        counts = tuple(int(n) for n in batch.counts)
+        want = kernels.kmeans_refine(*km, counts)
+        plan = kernels.kmeans_plan(counts, kernels._sm_count(dev))
+        chunks = torch.from_numpy(plan.chunks).to(dev)
+        b, k, m = km[0].shape[0], km[0].shape[1], km[1].shape[1]
+        bound, by = kernel_bound("kmeans_refine", **kmeans_work(batch))
+        times = {}
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            lib.pixo_kmeans_refine.restype = ctypes.c_int
+            lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, i64, vp, vp, vp, vp]
+            scratch = torch.zeros(b * k * 5 + b, dtype=torch.int64, device=dev)
+            out = torch.empty_like(km[0])
+
+            def alone(lib=lib, scratch=scratch, out=out):
+                return lib.pixo_kmeans_refine(km[0].data_ptr(), b, k, km[3].data_ptr(), km[1].data_ptr(),
+                                              km[2].data_ptr(), m, chunks.data_ptr(), chunks.shape[0],
+                                              scratch.data_ptr(), scratch.data_ptr() + 8 * b * k * 5,
+                                              out.data_ptr(), stream)
+
+            rc = alone()
+            if rc:
+                err = kernels.load().pixo_cuda_error_string(rc).decode()
+                print(f"kmeans parts: ({key}), the launch without {name!r} failed: {err}", file=sys.stderr)
+                return 1
+            if name == "as it is":
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    print(f"kmeans parts: ({key}) differs from the wrapper's result", file=sys.stderr)
+                    return 1
+            times[name] = profiler_ms(alone, "kmeans_refine_")
+        base = times.pop("as it is")
+        fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+        print(f"kmeans parts ({key}) {label}: {b} palettes of {k}, {int(batch.counts.sum())} real colours "
+              f"in {len(plan.chunks)} chunks of at most {plan.per_chunk}; as it is {fmt(base)} "
+              f"(bound {bound:.4f} ms, {by}); without " + "; ".join(
+                  f"{n} {fmt(t)}" for n, t in times.items()) + f" [{card}]")
+    return 0
+
+
 def _resize_lib(path: str):
     import ctypes
 
@@ -3038,7 +3164,7 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
-                         ["--dither-parts"], ["--pack-workers"]):
+                         ["--dither-parts"], ["--kmeans-parts"], ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -3047,6 +3173,7 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
+                "--kmeans-parts": kmeans_parts,
                 "--pack-workers": pack_workers}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it

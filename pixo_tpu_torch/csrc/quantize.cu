@@ -22,13 +22,25 @@
 // pixo_kmeans_refine: two iterations, each (1) the argmin of every weighted
 // colour over the first k_valid entries, (2) the per-entry sums of colour x
 // weight and of weight, (3) new = sums / totals where totals > 0, the old
-// entry otherwise. The colours of an image are split over CTAs of 1024 (8
-// CTAs an image at M = 8192, so a batch of 16 fills 128 of the 132 SMs);
-// a CTA sums in shared memory and adds its sums to global ones with 64-bit
-// integer atomics, which are exact in any order; a second small launch
-// divides and clears the sums for the next iteration. Colours of weight 0
-// (the padding of png/quantize.py::_pad_hist) are skipped: they add nothing.
-// Bound by integer issue: M x k_valid distances an image an iteration.
+// entry otherwise. Bound by integer issue: a distance a real colour and
+// entry. An image's real colours vary from a few hundred to 8192, so the
+// work is split over them and not over slots: the host's plan
+// (ops/kernels.py::kmeans_plan) cuts each image's first counts[i] colours
+// into chunks of 64 to 1024, about 8 an SM over the batch, and a CTA of two
+// warps takes a chunk, so SMs hold several CTAs and none waits on one full
+// image. A thread takes a colour at a time (a word load where the colours
+// are 4-byte aligned) and scans the palette in shared memory (int4 entries,
+// each a broadcast) in order, strict-<, so ties go to the first index. A
+// colour adds its sums to the CTA's with shared atomics: 32-bit, native,
+// where the chunk's total weight w keeps 255 w under 2^32 (checked a CTA,
+// so exact for any weights; png/quantize.py's weights keep the image's
+// under 2^31), 64-bit otherwise. (Summing a warp's colours on one entry
+// first, by __match_any_sync, saved nothing at (q1) or (q2): the shared
+// atomics are not what the kernel waits on.) A CTA adds its
+// sums to global 64-bit ones with atomics, exact in any order, fences, and
+// takes a ticket of its image; the image's last CTA divides, writes the
+// entries and clears the sums and the ticket, so the scratch is zero again
+// after each launch and a call is one launch an iteration.
 //
 // pixo_dither_fs: the error diffusion is a recurrence along each row and from
 // row to row, so it runs as the reference's wavefront: step t handles pixel
@@ -76,8 +88,7 @@ namespace pixo {
 
 constexpr int kLutSize = 64 * 64 * 64;
 constexpr int kLutThreads = 256;
-constexpr int kKmeansThreads = 256;
-constexpr int kKmeansColors = 1024;  // colours a CTA of the assignment takes
+constexpr int kKmeansThreads = 64;  // two warps a chunk of colours
 constexpr int kKmeansIterations = 2;  // the reference's refinement (mod.rs:1346-1390)
 constexpr int kMaxPalette = 256;
 constexpr int kDitherBand = 32;  // rows a warp takes at once, a lane a row
@@ -105,51 +116,145 @@ __global__ void __launch_bounds__(kLutThreads) palette_lut_kernel(const uint8_t*
       nearest((r6 << 2) | (r6 >> 4), (g6 << 2) | (g6 >> 4), (b6 << 2) | (b6 >> 4), 255, s_pal, kv));
 }
 
-// acc: [B, K, 5] unsigned 64-bit sums (r, g, b, a, weight), zero on entry.
-__global__ void __launch_bounds__(kKmeansThreads) kmeans_refine_assign_kernel(
-    const uint8_t* __restrict__ palette, int k, const int32_t* __restrict__ k_valid,
-    const uint8_t* __restrict__ colors, const int32_t* __restrict__ weights, int64_t m,
-    unsigned long long* __restrict__ acc) {
-  __shared__ int4 s_pal[kMaxPalette];
-  __shared__ unsigned long long s_acc[kMaxPalette * 5];
-  const int64_t b = blockIdx.y;
-  const int kv = valid_entries(k_valid, b, k);
-  load_palette(s_pal, palette + b * k * 4, kv);
-  for (int i = threadIdx.x; i < kv * 5; i += kKmeansThreads) s_acc[i] = 0;
-  __syncthreads();
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kKmeansColors;
-  const int64_t last = first + kKmeansColors < m ? first + kKmeansColors : m;
-  for (int64_t i = first + threadIdx.x; i < last; i += kKmeansThreads) {
-    const unsigned long long w = static_cast<uint32_t>(weights[b * m + i]);
-    if (w == 0) continue;
-    const uint8_t* c = colors + 4 * (b * m + i);
-    const int r = c[0], g = c[1], bl = c[2], al = c[3];
-    unsigned long long* a = s_acc + 5 * nearest(r, g, bl, al, s_pal, kv);
-    atomicAdd(a, r * w);
-    atomicAdd(a + 1, g * w);
-    atomicAdd(a + 2, bl * w);
-    atomicAdd(a + 3, al * w);
-    atomicAdd(a + 4, w);
-  }
-  __syncthreads();
-  unsigned long long* g = acc + b * k * 5;
-  for (int i = threadIdx.x; i < kv * 5; i += kKmeansThreads)
-    if (s_acc[i]) atomicAdd(g + i, s_acc[i]);
+// A colour of the histogram, r | g << 8 | b << 16 | a << 24: one word load
+// where the colours are 4-byte aligned, else four bytes.
+template <bool kWords>
+__device__ __forceinline__ uint32_t load_colour(const uint8_t* c) {
+  if (kWords) return __ldg(reinterpret_cast<const uint32_t*>(c));
+  return __ldg(c) | (__ldg(c + 1) << 8) | (__ldg(c + 2) << 16) | (static_cast<uint32_t>(__ldg(c + 3)) << 24);
 }
 
-// One CTA an image, a thread an entry: the new entry from the sums, which it
-// then clears for the next iteration. out may be palette (in place).
-__global__ void __launch_bounds__(kMaxPalette) kmeans_refine_update_kernel(
-    const uint8_t* palette, int k, unsigned long long* __restrict__ acc, uint8_t* out) {
-  const int64_t b = blockIdx.x;
-  const int j = threadIdx.x;
-  if (j >= k) return;
-  unsigned long long* a = acc + (b * k + j) * 5;
-  const int64_t at = 4 * (b * k + j);
-  const unsigned long long total = a[4];
-  for (int c = 0; c < 4; ++c)
-    out[at + c] = total > 0 ? static_cast<uint8_t>(a[c] / total) : palette[at + c];
-  for (int c = 0; c < 5; ++c) a[c] = 0;
+// One colour's sums (r, g, b, a, weight) x w onto entry idx of the CTA's
+// sums, 32-bit with kNarrow, else 64-bit.
+template <bool kNarrow>
+__device__ __forceinline__ void add_sums(unsigned long long* sums, int idx, int r, int g, int bl, int al,
+                                         uint32_t w) {
+  if (!w) return;
+  if (kNarrow) {
+    uint32_t* s = reinterpret_cast<uint32_t*>(sums) + 5 * idx;
+    atomicAdd(s, r * w);
+    atomicAdd(s + 1, g * w);
+    atomicAdd(s + 2, bl * w);
+    atomicAdd(s + 3, al * w);
+    atomicAdd(s + 4, w);
+  } else {
+    unsigned long long* s = sums + 5 * idx;
+    const unsigned long long w64 = w;
+    atomicAdd(s, r * w64);
+    atomicAdd(s + 1, g * w64);
+    atomicAdd(s + 2, bl * w64);
+    atomicAdd(s + 3, al * w64);
+    atomicAdd(s + 4, w64);
+  }
+}
+
+// The chunk's colours: each warp takes 32 at a time, a lane one; the whole
+// warp skips 32 colours of no weight (the padding past an image's colours).
+template <bool kWords, bool kNarrow>
+__device__ __forceinline__ void assign_chunk(const int4* s_pal, int kv, const uint8_t* colors,
+                                             const int32_t* wt, int first, int last,
+                                             unsigned long long* sums) {
+  const int lane = threadIdx.x & 31;
+  for (int base = first + (threadIdx.x & ~31); base < last; base += kKmeansThreads) {
+    const int i = base + lane;
+    const uint32_t w = i < last ? static_cast<uint32_t>(wt[i]) : 0;
+    if (!__any_sync(0xFFFFFFFFu, w != 0)) continue;
+    const uint32_t c = i < last ? load_colour<kWords>(colors + 4 * static_cast<int64_t>(i)) : 0;
+    const int r = c & 255, g = (c >> 8) & 255, bl = (c >> 16) & 255, al = c >> 24;
+    const int idx = nearest(r, g, bl, al, s_pal, kv);
+    add_sums<kNarrow>(sums, idx, r, g, bl, al, w);
+  }
+}
+
+// One k-means iteration, a CTA a chunk: chunks[blockIdx.x] = (image, first
+// colour, end, chunks of that image), from ops/kernels.py::kmeans_plan.
+// cur: the palettes this iteration reads; out: where it writes them (cur
+// itself in the second iteration: an image's entries are written by its
+// last CTA, after every CTA of the image has read them). acc: [B, K, 5]
+// 64-bit sums (r, g, b, a, weight) and done: [B] tickets, zero on entry and
+// left zero.
+template <bool kWords>
+__global__ void __launch_bounds__(kKmeansThreads) kmeans_refine_kernel(
+    const uint8_t* cur, int k, const int32_t* __restrict__ k_valid, const uint8_t* __restrict__ colors,
+    const int32_t* __restrict__ weights, int64_t m, const int4* __restrict__ chunks,
+    unsigned long long* acc, unsigned* done, uint8_t* out) {
+  __shared__ int4 s_pal[kMaxPalette];
+  __shared__ unsigned long long s_sums[kMaxPalette * 5];  // the first half as 32-bit sums when narrow
+  __shared__ unsigned long long s_weight[kKmeansThreads / 32];
+  __shared__ bool s_last;
+  const int4 chunk = chunks[blockIdx.x];
+  const int64_t b = chunk.x;
+  const int kv = valid_entries(k_valid, b, k);
+  load_palette(s_pal, cur + b * k * 4, kv);
+  for (int i = threadIdx.x; i < kv * 5; i += kKmeansThreads) s_sums[i] = 0;
+  const int32_t* wt = weights + b * m;
+  unsigned long long w = 0;  // the chunk's total weight decides the sums' width
+  for (int i = chunk.y + threadIdx.x; i < chunk.z; i += kKmeansThreads) w += static_cast<uint32_t>(wt[i]);
+  for (int o = 16; o; o >>= 1) w += __shfl_xor_sync(0xFFFFFFFFu, w, o);
+  if ((threadIdx.x & 31) == 0) s_weight[threadIdx.x >> 5] = w;
+  __syncthreads();
+  w = 0;
+  for (int i = 0; i < kKmeansThreads / 32; ++i) w += s_weight[i];
+  const bool narrow = w <= 0xFFFFFFFFull / 255;
+  const uint8_t* col = colors + 4 * b * m;
+  if (narrow)
+    assign_chunk<kWords, true>(s_pal, kv, col, wt, chunk.y, chunk.z, s_sums);
+  else
+    assign_chunk<kWords, false>(s_pal, kv, col, wt, chunk.y, chunk.z, s_sums);
+  __syncthreads();
+  unsigned long long* a = acc + b * k * 5;
+  const uint32_t* s32 = reinterpret_cast<const uint32_t*>(s_sums);
+  for (int i = threadIdx.x; i < kv * 5; i += kKmeansThreads) {
+    const unsigned long long v = narrow ? s32[i] : s_sums[i];
+    if (v) atomicAdd(a + i, v);
+  }
+  __threadfence();  // this thread's sums before the ticket
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(done + b, 1u) == static_cast<unsigned>(chunk.w - 1);
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();  // every CTA of the image has added its sums: read them through L2, all at once
+  constexpr int kSumsPerThread = kMaxPalette * 5 / kKmeansThreads;
+  unsigned long long got[kSumsPerThread];
+#pragma unroll
+  for (int u = 0; u < kSumsPerThread; ++u) {
+    const int i = threadIdx.x + u * kKmeansThreads;
+    got[u] = i < kv * 5 ? __ldcg(a + i) : 0;
+  }
+#pragma unroll
+  for (int u = 0; u < kSumsPerThread; ++u) {
+    const int i = threadIdx.x + u * kKmeansThreads;
+    if (i < kv * 5) s_sums[i] = got[u], a[i] = 0;
+  }
+  if (threadIdx.x == 0) done[b] = 0;
+  __syncthreads();
+  uint8_t* dst = out + b * k * 4;
+  for (int j = threadIdx.x; j < kv; j += kKmeansThreads) {  // the old entry from shared memory
+    const unsigned long long* sj = s_sums + 5 * j;
+    const int4 p = s_pal[j];
+    const int old[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      dst[4 * j + c] = static_cast<uint8_t>(
+          !sj[4] ? old[c]
+                 : (sj[c] | sj[4]) >> 32 ? sj[c] / sj[4]
+                                         : static_cast<uint32_t>(sj[c]) / static_cast<uint32_t>(sj[4]));
+  }
+  if (cur != out) {  // the first iteration: the entries past kv as they were, loaded all at once
+    constexpr int kBytesPerThread = kMaxPalette * 4 / kKmeansThreads;
+    const uint8_t* src = cur + b * k * 4;
+    uint8_t pad[kBytesPerThread];
+#pragma unroll
+    for (int u = 0; u < kBytesPerThread; ++u) {
+      const int i = kv * 4 + threadIdx.x + u * kKmeansThreads;
+      pad[u] = i < k * 4 ? src[i] : 0;
+    }
+#pragma unroll
+    for (int u = 0; u < kBytesPerThread; ++u) {
+      const int i = kv * 4 + threadIdx.x + u * kKmeansThreads;
+      if (i < k * 4) dst[i] = pad[u];
+    }
+  }
 }
 
 __device__ __forceinline__ int clamp255(int v) { return min(max(v, 0), 255); }
@@ -339,27 +444,30 @@ int pixo_palette_lut(const void* palette, int64_t batch, int32_t k, const void* 
 
 // palette: [batch, k, 4] uint8, k 1 to 256; k_valid: [batch] int32 (the
 // entries that take colours, clamped to 1..k); colors: [batch, m, 4] uint8;
-// weights: [batch, m] int32, non-negative; acc: [batch, k, 5] uint64 scratch,
-// zero (and zero again after the call); out: [batch, k, 4] uint8 (it may not
-// be the palette): all on the device. Two launches an iteration.
+// weights: [batch, m] int32, non-negative; chunks: [n_chunks, 4] int32,
+// 16-byte aligned (image, first colour, end, chunks of that image: every
+// image's colours of non-zero weight in its chunks, each image in at least
+// one; ops/kernels.py::kmeans_plan); acc: [batch, k, 5] uint64 and done:
+// [batch] uint32 scratch, zero (and zero again after the call); out: [batch,
+// k, 4] uint8 (it may not be the palette): all on the device. One launch an
+// iteration.
 int pixo_kmeans_refine(const void* palette, int64_t batch, int32_t k, const void* k_valid,
-                       const void* colors, const void* weights, int64_t m, void* acc, void* out,
-                       void* stream) {
+                       const void* colors, const void* weights, int64_t m, const void* chunks,
+                       int64_t n_chunks, void* acc, void* done, void* out, void* stream) {
   using namespace pixo;
-  if (batch < 1 || batch > 65535 || k < 1 || k > kMaxPalette || m < 1 || palette == out)
+  if (batch < 1 || k < 1 || k > kMaxPalette || m < 1 || m > 0x7FFFFFFF || palette == out ||
+      n_chunks < batch || n_chunks > 0x7FFFFFFF || reinterpret_cast<uintptr_t>(chunks) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t chunks = (m + kKmeansColors - 1) / kKmeansColors;
-  if (chunks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  auto* sums = static_cast<unsigned long long*>(acc);
+  auto* kernel = reinterpret_cast<uintptr_t>(colors) % 4 == 0 ? &kmeans_refine_kernel<true>
+                                                              : &kmeans_refine_kernel<false>;
   auto* res = static_cast<uint8_t*>(out);
   for (int it = 0; it < kKmeansIterations; ++it) {
-    const uint8_t* cur = it == 0 ? static_cast<const uint8_t*>(palette) : res;
-    kmeans_refine_assign_kernel<<<dim3(static_cast<unsigned>(chunks), static_cast<unsigned>(batch)),
-                           kKmeansThreads, 0, s>>>(cur, k, static_cast<const int32_t*>(k_valid),
-                                                  static_cast<const uint8_t*>(colors),
-                                                  static_cast<const int32_t*>(weights), m, sums);
-    kmeans_refine_update_kernel<<<static_cast<unsigned>(batch), kMaxPalette, 0, s>>>(cur, k, sums, res);
+    kernel<<<static_cast<unsigned>(n_chunks), kKmeansThreads, 0, s>>>(
+        it == 0 ? static_cast<const uint8_t*>(palette) : res, k, static_cast<const int32_t*>(k_valid),
+        static_cast<const uint8_t*>(colors), static_cast<const int32_t*>(weights), m,
+        static_cast<const int4*>(chunks), static_cast<unsigned long long*>(acc),
+        static_cast<unsigned*>(done), res);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

@@ -140,7 +140,7 @@ def load():
             lib.pixo_palette_lut.restype = ctypes.c_int
             lib.pixo_palette_lut.argtypes = [vp, i64, i32, vp, vp, vp]
             lib.pixo_kmeans_refine.restype = ctypes.c_int
-            lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, vp, vp]
+            lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, i64, vp, vp, vp, vp]
             lib.pixo_dither_fs.restype = ctypes.c_int
             lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i32, vp, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
@@ -742,6 +742,7 @@ resize_lanczos3.launches = 0
 
 PALETTE_MAX = 256  # csrc/quantize.cu's kMaxPalette: indices are uint8
 LUT_SIZE = 64 * 64 * 64
+QUANTIZE_MAX_BATCH = 65535  # palettes a quantization wrapper takes: the LUT launch's gridDim.y
 
 
 def _quantize_inputs(tensors, batch: int, k: int) -> None:
@@ -758,19 +759,82 @@ def _quantize_inputs(tensors, batch: int, k: int) -> None:
     if len(devices) != 1:
         raise ValueError(f"the tensors lie on several devices: {sorted(map(str, devices))}")
     _device_kind(tensors[0][0])
-    if not (1 <= batch <= 65535 and 1 <= k <= PALETTE_MAX):
-        raise ValueError(f"a batch of 1 to 65535 palettes of 1 to {PALETTE_MAX} entries is taken, "
-                         f"got {batch} of {k}")
+    if not (1 <= batch <= QUANTIZE_MAX_BATCH and 1 <= k <= PALETTE_MAX):
+        raise ValueError(f"a batch of 1 to {QUANTIZE_MAX_BATCH} palettes of 1 to {PALETTE_MAX} "
+                         f"entries is taken, got {batch} of {k}")
+
+
+KMEANS_CHUNK_MIN = 64  # colours a chunk takes at least: a colour a thread of csrc/quantize.cu's two warps
+KMEANS_CHUNK_MAX = 1024
+KMEANS_CHUNKS_PER_SM = 8  # about 16 warps an SM
+H100_SMS = 132
+
+
+class KmeansPlan(NamedTuple):
+    """The k-means kernel's schedule for a batch (``kmeans_plan``)."""
+
+    chunks: np.ndarray  # [n, 4] int32: image, first colour, end, chunks of that image
+    per_chunk: int  # colours a chunk takes at most
+
+
+@functools.lru_cache(maxsize=64)
+def kmeans_plan(counts: tuple, sms: int = H100_SMS) -> KmeansPlan:
+    """How ``kmeans_refine`` splits a batch whose image i has its colours of
+    non-zero weight among its first ``counts[i]``: chunks of at most
+    ``per_chunk`` colours, the batch's total over ``KMEANS_CHUNKS_PER_SM``
+    chunks an SM, clamped to 64..1024; each image's colours cut into the
+    fewest such chunks, of sizes that differ by at most one, and an image
+    without colours in one empty chunk (its last CTA still writes its
+    palette). A CTA takes a chunk."""
+    if not counts or min(counts) < 0:
+        raise ValueError(f"a count of colours, at least 0, an image is taken, got {counts[:8]}")
+    total = sum(counts)
+    per = min(KMEANS_CHUNK_MAX, max(KMEANS_CHUNK_MIN, -(-total // (sms * KMEANS_CHUNKS_PER_SM))))
+    rows = []
+    for i, n in enumerate(counts):
+        parts = max(1, -(-n // per))
+        cuts = [n * j // parts for j in range(parts + 1)]
+        rows += [(i, cuts[j], cuts[j + 1], parts) for j in range(parts)]
+    return KmeansPlan(np.asarray(rows, np.int32).reshape(-1, 4), per)
+
+
+@functools.lru_cache(maxsize=16)
+def _kmeans_chunks_on(counts: tuple, sms: int, device: torch.device) -> torch.Tensor:
+    """``kmeans_plan(counts, sms).chunks`` on ``device``, cached."""
+    return torch.from_numpy(kmeans_plan(counts, sms).chunks).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+_kmeans_scratch = {}  # (device, stream) -> int64 zeros: [B, K, 5] sums, then [B] uint32 tickets
+
+
+def _kmeans_scratch_for(device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """The k-means kernel's scratch on ``device`` for launches on
+    ``stream``, ``words`` int64 at least: zero, and left zero by every call,
+    so it is allocated once and grown, never cleared."""
+    buf = _kmeans_scratch.get((device, stream))
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
+        _kmeans_scratch[(device, stream)] = buf
+    return buf
 
 
 def kmeans_refine(palette: torch.Tensor, colors: torch.Tensor, weights: torch.Tensor,
-                  k_valid: torch.Tensor) -> torch.Tensor:
+                  k_valid: torch.Tensor, counts=None) -> torch.Tensor:
     """Weighted k-means refinement (two iterations) of a batch of palettes,
     on their device: palette [B, K, 4] uint8, colors [B, M, 4] uint8,
     weights [B, M] int32 (non-negative), k_valid [B] int32 (each palette's
     real entries; the rows past it take no colour) -> [B, K, 4] uint8, equal to
     ``ops/quantize_device.py::kmeans_refine`` and to the host tier's
-    ``refine_palette_kmeans`` of the unpadded palette."""
+    ``refine_palette_kmeans`` of the unpadded palette. ``counts`` (B ints on
+    the host, or None for M each): the kernel scans image i's first
+    counts[i] colours only, so every colour past them must weigh 0 (the
+    padding of ``png/quantize.py::_pad_hist``); it sets the schedule
+    (``kmeans_plan``), not the result."""
     if palette.dim() != 3 or palette.shape[2] != 4 or colors.dim() != 3 or colors.shape[2] != 4:
         raise ValueError(f"palette and colors must be [B, K, 4] and [B, M, 4], got "
                          f"{tuple(palette.shape)} and {tuple(colors.shape)}")
@@ -780,17 +844,26 @@ def kmeans_refine(palette: torch.Tensor, colors: torch.Tensor, weights: torch.Te
                          f"{tuple(weights.shape)} and {tuple(k_valid.shape)}")
     _quantize_inputs([(palette, torch.uint8, "palette"), (colors, torch.uint8, "colors"),
                       (weights, torch.int32, "weights"), (k_valid, torch.int32, "k_valid")], b, k)
-    if m < 1:
-        raise ValueError("at least one colour is taken")
+    if m < 1 or m > 0x7FFFFFFF:
+        raise ValueError(f"1 to 2^31 - 1 colours an image are taken, got {m}")
+    counts = (m,) * b if counts is None else tuple(int(n) for n in counts)
+    if len(counts) != b or not all(0 <= n <= m for n in counts):
+        raise ValueError(f"counts must be {b} numbers of 0 to {m} colours, got {counts[:8]}")
     if _device_kind(palette) == "cpu":
         return quantize_device.kmeans_refine(palette, colors, weights, k_valid)
-    lib = load()
-    acc = torch.zeros((b, k, 5), dtype=torch.int64, device=palette.device)
+    dev = palette.device
+    chunks = _kmeans_chunks_on(counts, _sm_count(dev), dev)
+    stream = _stream(palette)
+    scratch = _kmeans_scratch_for(dev, stream, b * k * 5 + -(-b // 2))
     out = torch.empty_like(palette)
+    lib = load()
     with _device_guard(palette):
         rc = lib.pixo_kmeans_refine(palette.data_ptr(), b, k, k_valid.data_ptr(), colors.data_ptr(),
-                                    weights.data_ptr(), m, acc.data_ptr(), out.data_ptr(),
-                                    _stream(palette))
+                                    weights.data_ptr(), m, chunks.data_ptr(), chunks.shape[0],
+                                    scratch.data_ptr(), scratch.data_ptr() + 8 * b * k * 5,
+                                    out.data_ptr(), stream)
+    if rc:
+        _kmeans_scratch.pop((dev, stream), None)
     _check(lib, rc, "kmeans_refine")
     kmeans_refine.launches += 1
     return out

@@ -77,7 +77,7 @@ def valid_entries(k_valid, b: int, k: int) -> list:
 
 
 def kmeans_refine(palette: torch.Tensor, colors: torch.Tensor, weights: torch.Tensor,
-                  k_valid: torch.Tensor) -> torch.Tensor:
+                  k_valid: torch.Tensor, counts=None) -> torch.Tensor:
     """Weighted k-means refinement, two iterations, bit-equal to the host tier.
 
     palette [B, K, 4] uint8, colors [B, M, 4] uint8, weights [B, M] int32
@@ -86,7 +86,9 @@ def kmeans_refine(palette: torch.Tensor, colors: torch.Tensor, weights: torch.Te
     with zero weights freely: a zero-weight colour cannot move a centroid.
     A new entry is floor(sum(colour * weight) / sum(weight)) over the
     colours assigned to it, in int64; an entry with no weight keeps its
-    value."""
+    value. ``counts`` sets the kernel's schedule (``ops/kernels.py``); this
+    version reads every colour and takes it only to have the same
+    arguments."""
     b, k = palette.shape[0], palette.shape[1]
     dev = palette.device
     colors_i = colors.to(torch.int64)

@@ -285,22 +285,25 @@ class LossyBatch(NamedTuple):
     weights: np.ndarray  # [n, 8192] int32: their counts, reduced by their GCD, padded with 0
     k: np.ndarray  # [n] int32: each palette's real entries
     rgba: np.ndarray  # [n, H, W, 4] uint8: the members' pixels, alpha 255 where there was none
+    counts: np.ndarray  # [n] int32: each histogram's real colours (the k-means' schedule)
 
 
 def quantize_host_stage(imgs: np.ndarray, max_colors: int, dithering: bool) -> LossyBatch:
     """Per image on the host: the sampled histogram, then the host tier
     from it (``_quantize_histogram``) for an image whose histogram fits
-    ``max_colors`` (the exact mapping) or whose weights the device k-means'
-    int32 range cannot take, and for the others the median-cut boxes and
-    the padded device inputs."""
+    ``max_colors`` (the exact mapping), whose weights the device k-means'
+    int32 range cannot take, or, with ``dithering``, whose pixels the
+    device dither cannot take (past ``kernels.DITHER_MAX_PIXELS``), and for
+    the others the median-cut boxes and the padded device inputs."""
     b, h, w = imgs.shape[:3]
     flat = imgs.reshape(b, h * w, imgs.shape[3])
     results: list = [None] * b
-    members, pals, pcs, pws, ks = [], [], [], [], []
+    members, pals, pcs, pws, ks, ns = [], [], [], [], [], []
+    host_dither = dithering and h * w > kernels.DITHER_MAX_PIXELS
     for i in range(b):
         pixels = flat[i]
         colors, counts = _sampled_histogram(pixels)
-        dw = None if len(colors) <= max_colors else _device_kmeans_weights(counts)
+        dw = None if len(colors) <= max_colors or host_dither else _device_kmeans_weights(counts)
         if dw is None:
             results[i] = _quantize_histogram(pixels, colors, counts, w, h, max_colors, dithering)
             continue
@@ -311,6 +314,7 @@ def quantize_host_stage(imgs: np.ndarray, max_colors: int, dithering: bool) -> L
         pcs.append(pc)
         pws.append(pw.astype(np.int32))
         ks.append(len(pal0))
+        ns.append(len(colors))
     rgba = np.stack([_as_rgba(flat[i]).reshape(h, w, 4) for i in members]) if members else None
 
     def stack(arrays, shape, dtype):
@@ -318,7 +322,7 @@ def quantize_host_stage(imgs: np.ndarray, max_colors: int, dithering: bool) -> L
 
     return LossyBatch(results, members, stack(pals, (256, 4), np.uint8),
                       stack(pcs, (8192, 4), np.uint8), stack(pws, (8192,), np.int32),
-                      np.asarray(ks, np.int32), rgba)
+                      np.asarray(ks, np.int32), rgba, np.asarray(ns, np.int32))
 
 
 def quantize_device_stage(batch: LossyBatch, dithering: bool, device):
@@ -335,7 +339,8 @@ def quantize_device_stage(batch: LossyBatch, dithering: bool, device):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
 
     k = up(batch.k)
-    pal = kernels.kmeans_refine(up(batch.palettes), up(batch.colors), up(batch.weights), k)
+    pal = kernels.kmeans_refine(up(batch.palettes), up(batch.colors), up(batch.weights), k,
+                                batch.counts)
     pad = torch.arange(pal.shape[1], device=dev)[None, :] >= k[:, None].long()
     pal = torch.where(pad[..., None], pal[:, :1], pal).contiguous()
     lut = kernels.palette_lut(pal, k)
@@ -373,11 +378,15 @@ def quantize_batch(imgs: np.ndarray, max_colors: int, dithering: bool, *,
     (``ops/kernels.py::kmeans_refine``), the 6-6-6 LUT (``palette_lut``)
     and, with ``dithering``, the wavefront Floyd-Steinberg dither
     (``dither_fs``); without it the LUT comes to the host for
-    ``PaletteLut.lookup_many``, as in the reference."""
+    ``PaletteLut.lookup_many``, as in the reference. The device stage runs
+    in groups of at most ``kernels.QUANTIZE_MAX_BATCH`` members."""
     batch = quantize_host_stage(imgs, max_colors, dithering)
-    if not batch.members:
-        return batch.results
-    return quantize_finish(batch, *quantize_device_stage(batch, dithering, device))
+    results = batch.results
+    for lo in range(0, len(batch.members), kernels.QUANTIZE_MAX_BATCH):
+        hi = lo + kernels.QUANTIZE_MAX_BATCH  # quantize_finish fills results for members lo to hi - 1
+        part = LossyBatch(results, batch.members[lo:hi], *(a[lo:hi] for a in batch[2:]))
+        results = quantize_finish(part, *quantize_device_stage(part, dithering, device))
+    return results
 
 
 def quantize_image(

@@ -690,3 +690,37 @@ def test_lossy_png_batch_on_the_card_equals_per_image_encode(dev, color_type, di
                 kernels.dither_fs.launches]
     assert launches == [1, 1, int(dithering)]
     assert got == [png.encode(img, opts) for img in imgs]
+
+
+def test_kmeans_kernel_leaves_its_scratch_zero(dev):
+    """Two batches of other sizes one after the other, each twice: the same
+    palettes each time, equal to the plain version, and the wrapper's
+    scratch (sums and tickets) zero after every call."""
+    cases = {label: args for label, *args in quantize_edge_cases(np.random.default_rng(12))["kmeans_refine"]}
+    for label in ("counts of 1 to 4000", "k_valid < K", "counts of 1 to 4000"):
+        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in cases[label][:4]]
+        counts = cases[label][4] if len(cases[label]) > 4 else None
+        ref = quantize_device.kmeans_refine(*args)
+        for _ in range(2):
+            assert torch.equal(kernels.kmeans_refine(*args, counts), ref)
+            scratch = kernels._kmeans_scratch[(args[0].device, kernels._stream(args[0]))]
+            assert int(scratch.count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("limit", ["dither pixels", "batch"])
+def test_lossy_batch_on_the_card_past_the_kernels_limits(dev, monkeypatch, limit):
+    """With the dither's pixel limit patched below the images (they take the
+    host tier) or the batch limit patched to 2 (five members in three
+    groups): the files equal the CPU tier's and the per-image ``png.encode``."""
+    rng = np.random.default_rng(17)
+    imgs = rng.integers(0, 256, (5, 40, 56, 3), dtype=np.uint8)
+    opts = lossy_options(64, True).replace(width=56, height=40)
+    if limit == "dither pixels":
+        monkeypatch.setattr(kernels, "DITHER_MAX_PIXELS", 40 * 56 - 1)
+    else:
+        monkeypatch.setattr(kernels, "QUANTIZE_MAX_BATCH", 2)
+    kernels.kmeans_refine.launches = 0
+    got = encode_png_batch_sharded(imgs, opts, device=dev)
+    assert kernels.kmeans_refine.launches == (0 if limit == "dither pixels" else 3)
+    assert got == encode_png_batch_sharded(imgs, opts, device="cpu")
+    assert got == [png.encode(img, opts) for img in imgs]

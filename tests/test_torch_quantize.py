@@ -11,6 +11,11 @@ the host tier. The card tests hold the CUDA kernels to these plain
 versions. ``ops/kernels.py::dither_plan`` decides, by shape alone, the dither
 kernel's warps, rings and path; ``band_model`` runs the kernel's schedule in
 Python and is held to the plain version and the JAX function.
+``kmeans_plan`` splits each image's real colours into the k-means kernel's
+chunks, and ``kmeans_model`` runs that kernel's chunks and sum widths in
+Python against the plain version, the host library and the JAX function.
+The batch quantizer's routing past the kernels' limits (the dither's pixels,
+the batch) is held with those limits patched small.
 """
 
 import numpy as np
@@ -593,3 +598,165 @@ def test_quantize_batch_on_the_cpu_matches_jax_and_per_image():
                                                                  dithering)):
                 np.testing.assert_array_equal(a, b)
                 np.testing.assert_array_equal(a, c)
+
+
+def _lossy_images(n, h=24, w=32):
+    return np.stack([_gradient(h, w, shift=29 * s, seed=s) for s in range(n)])
+
+
+def test_quantize_batch_sends_images_past_the_dither_to_the_host_tier(monkeypatch):
+    """An image past ``kernels.DITHER_MAX_PIXELS`` (patched to 24 x 32 - 1
+    pixels) takes the host tier when dithered and the device stage when
+    not; either way each result equals ``quantize_image`` and the JAX
+    package's ``quantize_batch``."""
+    imgs = _lossy_images(3)
+    monkeypatch.setattr(kernels, "DITHER_MAX_PIXELS", 24 * 32 - 1)
+    for dithering in (True, False):
+        batch = q.quantize_host_stage(imgs, 16, dithering)
+        assert batch.members == ([] if dithering else [0, 1, 2])
+        assert all((r is not None) == dithering for r in batch.results)
+        got = q.quantize_batch(imgs, 16, dithering, device="cpu")
+        ref = jq.quantize_batch(imgs, 16, dithering)
+        for i in range(3):
+            for a, b, c in zip(got[i], ref[i], q.quantize_image(imgs[i].reshape(-1, 3), 32, 24, 16,
+                                                                 dithering)):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, c)
+
+
+def test_quantize_batch_runs_the_device_stage_in_groups(monkeypatch):
+    """With ``kernels.QUANTIZE_MAX_BATCH`` patched to 2, five quantized
+    images (and an exact-mapped one between them) go through the wrappers
+    in three groups and give the unsplit batch's results, in order."""
+    imgs = _lossy_images(6)
+    imgs[2] = _rng().integers(0, 256, (10, 3), dtype=np.uint8)[_rng().integers(0, 10, (24, 32))]
+    whole = q.quantize_batch(imgs, 16, True, device="cpu")
+    calls = []
+    plain = kernels.kmeans_refine
+
+    def counted(*args, **kw):
+        calls.append(args[0].shape[0])
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(kernels, "QUANTIZE_MAX_BATCH", 2)
+    monkeypatch.setattr(kernels, "kmeans_refine", counted)
+    got = q.quantize_batch(imgs, 16, True, device="cpu")
+    assert calls == [2, 2, 1]
+    ref = jq.quantize_batch(imgs, 16, True)
+    for g, w, r in zip(got, whole, ref):
+        for a, b, c in zip(g, w, r):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, c)
+
+
+def test_the_wrappers_refuse_a_batch_past_the_limit(monkeypatch):
+    monkeypatch.setattr(kernels, "QUANTIZE_MAX_BATCH", 2)
+    with pytest.raises(ValueError, match="a batch of 1 to 2 palettes"):
+        kernels.palette_lut(torch.zeros((3, 4, 4), dtype=torch.uint8))
+
+
+# ---- the k-means kernel's schedule and a model of its sums
+
+
+Q1_COUNTS = (1049, 1024, 1040, 1021, 258, 259, 258, 8192, 8192, 8192, 8192, 656, 659, 644, 655)
+PLAN_COUNTS = [Q1_COUNTS, (8192,) * 16, (0, 5), (1,), (63, 64, 65, 1025), (8192,) * 300]
+
+
+@pytest.mark.parametrize("counts", PLAN_COUNTS, ids=["(q1)", "(q2)", "0 and 5", "1", "63-1025", "300 full"])
+def test_kmeans_plan_takes_every_colour_once(counts):
+    """Every colour of image i below counts[i] lies in exactly one chunk of
+    image i; no chunk crosses an image; each image's chunks are its own
+    count and differ in size by at most one, each at most ``per_chunk``
+    (64 to 1024); an image without colours has one empty chunk."""
+    plan = kernels.kmeans_plan(counts)
+    assert kernels.KMEANS_CHUNK_MIN <= plan.per_chunk <= kernels.KMEANS_CHUNK_MAX
+    assert plan.chunks.dtype == np.int32 and plan.chunks.shape[1] == 4
+    for i, n in enumerate(counts):
+        mine = plan.chunks[plan.chunks[:, 0] == i]
+        assert len(mine) >= 1 and (mine[:, 3] == len(mine)).all()
+        seen = np.zeros(n, np.int64)
+        for _, first, last, _ in mine:
+            assert 0 <= first <= last <= n and last - first <= plan.per_chunk
+            seen[first:last] += 1
+        assert (seen == 1).all()
+        sizes = mine[:, 2] - mine[:, 1]
+        assert sizes.max() - sizes.min() <= 1 and (n == 0) == (sizes.max() == 0)
+    images = plan.chunks[:, 0]
+    assert (np.diff(images) >= 0).all() and set(images.tolist()) == set(range(len(counts)))
+
+
+def test_kmeans_plan_fills_the_card_at_q1():
+    """(q1)'s 40,291 real colours in 15 images: at least a chunk an SM, and
+    no SM held back by one image (the largest chunk is at most twice the
+    mean share of an SM's CTA)."""
+    plan = kernels.kmeans_plan(Q1_COUNTS)
+    assert len(plan.chunks) >= kernels.H100_SMS
+    sizes = plan.chunks[:, 2] - plan.chunks[:, 1]
+    assert sizes.max() <= 2 * sum(Q1_COUNTS) / len(plan.chunks)
+
+
+def test_kmeans_wrapper_refuses_bad_counts():
+    pal = torch.zeros((2, 4, 4), dtype=torch.uint8)
+    cols, w, kv = torch.zeros((2, 8, 4), dtype=torch.uint8), torch.zeros((2, 8), dtype=torch.int32), \
+        torch.ones(2, dtype=torch.int32)
+    for counts in ((8,), (9, 1), (-1, 3)):
+        with pytest.raises(ValueError, match="counts must be"):
+            kernels.kmeans_refine(pal, cols, w, kv, counts)
+    with pytest.raises(ValueError, match="at least 0"):
+        kernels.kmeans_plan((3, -1))
+
+
+def kmeans_model(pal, colors, weights, k_valid, counts=None):
+    """``csrc/quantize.cu::kmeans_refine_kernel``'s two launches in Python:
+    the plan's chunks, a warp's 32 colours at a time, each colour's sums
+    added to 32-bit sums where the chunk's weight keeps 255 w under 2^32
+    (uint32 arithmetic, so an overflow would show), 64-bit sums otherwise,
+    then the global sums and the update's 32-bit or 64-bit division."""
+    b, k = pal.shape[:2]
+    m = colors.shape[1]
+    plan = kernels.kmeans_plan(tuple(int(n) for n in (counts if counts is not None else [m] * b)))
+    cur = pal.copy()
+    for _ in range(2):
+        acc = np.zeros((b, k, 5), np.uint64)
+        for image, first, last, _ in plan.chunks:
+            kv = min(max(int(k_valid[image]), 1), k)
+            wt = weights[image].astype(np.uint32)
+            narrow = int(wt[first:last].sum(dtype=np.uint64)) <= 0xFFFFFFFF // 255
+            sums = np.zeros((k, 5), np.uint32 if narrow else np.uint64)
+            for base in range(first, last, 32):
+                i = base + np.arange(32)
+                on = i < last
+                w = np.where(on, wt[np.minimum(i, m - 1)], 0).astype(np.uint32)
+                if not w.any():
+                    continue
+                c = np.where(on[:, None], colors[image][np.minimum(i, m - 1)], 0).astype(np.int64)
+                idx = _redmean_argmin(c[:, :3], c[:, 3], cur[image, :kv])
+                kind = np.uint32 if narrow else np.uint64
+                for lane in np.nonzero(w)[0]:  # uint32 products and sums wrap, so an overflow would show
+                    sums[idx[lane]] += np.append(c[lane].astype(kind) * kind(w[lane]), kind(w[lane]))
+            acc[image] += sums.astype(np.uint64)
+        total = acc[..., 4:]
+        cur = np.where(total > 0, acc[..., :4] // np.maximum(total, 1), cur).astype(np.uint8)
+    return cur
+
+
+KMEANS_MODEL_CASES = [(label, args) for label, *args in
+                      quantize_edge_cases(np.random.default_rng(12))["kmeans_refine"]
+                      if args[1].shape[0] * args[1].shape[1] <= 20_000]
+
+
+@pytest.mark.parametrize("case", range(len(KMEANS_MODEL_CASES)), ids=[c[0] for c in KMEANS_MODEL_CASES])
+def test_kmeans_model_matches_plain_and_jax(case):
+    """The kernel's chunks, group sums and sum widths give the plain
+    version's palettes and, image by image, the host library's and, where
+    its int32 sums hold them (255 x the image's weight below 2^31, as
+    ``png/quantize.py`` keeps it), the JAX function's."""
+    _, args = KMEANS_MODEL_CASES[case]
+    got = kmeans_model(*args)
+    np.testing.assert_array_equal(got, qd.kmeans_refine(*[_t(a) for a in args[:4]]).numpy())
+    pal, colors, weights, k_valid = args[:4]
+    for i, host in enumerate(quantize_host_oracles("kmeans_refine", args)):
+        np.testing.assert_array_equal(got[i][:len(host)], host)
+        if 255 * int(weights[i].sum(dtype=np.int64)) < 2**31:
+            np.testing.assert_array_equal(got[i], np.asarray(jqd.kmeans_refine_device(
+                pal[i], colors[i], weights[i], np.int32(k_valid[i]))))
