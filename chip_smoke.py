@@ -54,12 +54,27 @@ printing its own lines:
    library image by image (``refine_palette_kmeans``, ``native_palette_lut``,
    ``native_dither_fs``); the dither also with its rings in global memory,
    and 20 times on one input whose rings fill (``check_dither_repeats``);
+   and the symbol-count kernel (``count_symbols``, ``check_count_kernel``) on
+   the coefficients of the gradient and corpus batches at q85 4:2:0 and on
+   ``count_cases`` (``count_edge_blocks`` under every MCU pattern, at batch
+   1 with restart intervals none, 1, 2 and 7, and at batch 64), each at byte
+   offsets 0 and 2, also held against the host library's count image by
+   image;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
    the launch count of each kernel; then noise batches that escalate the
    compaction cap to 16 and to 32, one that falls back to the dense stream,
-   and a 4:4:4 batch with restart markers. Then the PNG main path,
+   and a 4:4:4 batch with restart markers. Then the optimized-Huffman and
+   progressive routes of the same entry point (``check_jpeg_routes``, the
+   batches of ``jpeg_route_cases``): the balanced preset at q85 4:2:0 on
+   the gradient and corpus batches, the optimal tables, noise that
+   escalates the cap to 16 and 32 and that falls back to the dense stream,
+   a gray batch with restarts, progressive with and without successive
+   approximation on the corpus batch and on 64x64 crops that take the SA
+   fallback; every file is held against the host tier (``jpeg.encode(img,
+   opts, device="cpu")``, ``host_tier``), with the launch counts of each
+   call (``count_symbols`` once on the optimized routes). Then the PNG main path,
    ``encode_png_batch_sharded(..., device="cuda")``, on (a) 16 512x512 RGB
    photos (the four corpus fixtures and three shifts of each) under the
    balanced preset, with the fused filter kernel's launch count, (b) the
@@ -102,7 +117,12 @@ printing its own lines:
    pixels to the card, the device stage with kernels and
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
-   (b); and for decode batches (d1) and (d3) the host stage with 8 workers
+   (b); for the balanced route on the gradient batch the count kernel four
+   ways and the stages (copy up, device stage, copies back, the tables of
+   every image, the pack with them, the whole call, the host tier on 8
+   threads), and for the progressive route with SA on the corpus batch the
+   device stage with its copy back, the host stage, the whole call and the
+   host tier on 8 threads (``time_jpeg_routes``); and for decode batches (d1) and (d3) the host stage with 8 workers
    and with 1, and its parts (parse, buffer, the Python work of each call,
    the library calls on 1 and 8 threads, the progressive files), the copy
    of the coefficients, the kernel, the upsampling and colour, the device
@@ -133,8 +153,8 @@ Two checkouts compare on one card with
     python3 chip_smoke.py --compare PARENT . . PARENT
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
-its own (the coefficient, compaction, filter, decode-tail and resize kernels
-three ways, the quantization kernels at (q1), the device stages and the
+its own (the coefficient, compaction, count, filter, decode-tail and resize
+kernels three ways, the quantization kernels at (q1), the device stages and the
 end-to-end stages; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
@@ -328,7 +348,7 @@ def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from pixo_tpu_torch.ops import kernels
 
-    for fn in (kernels.coeffs, kernels.compact_padded, kernels.dct8x8_aan,
+    for fn in (kernels.coeffs, kernels.compact_padded, kernels.count_symbols, kernels.dct8x8_aan,
                kernels.filter_bank, kernels.filter_rows, kernels.idct_planes,
                kernels.idct8x8_int, kernels.resize_lanczos3, kernels.kmeans_refine,
                kernels.palette_lut, kernels.dither_fs):
@@ -497,6 +517,7 @@ def kernel_work(name: str, **shape):
     """(bytes, f32 operations) that kernel ``name`` must at least move and
     do at ``shape``: each input byte read once, each output byte written
     once. Shapes: coeffs (b, h, w, c, mode); compact (b, n, cap);
+    count_symbols (b, n);
     filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
     dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
     kx: the taps of a vertical and a horizontal window, and optionally
@@ -522,6 +543,8 @@ def kernel_work(name: str, **shape):
         return s["b"] * s["h"] * s["w"] * s["c"] + 128 * blocks, COEFF_OPS * blocks
     if name == "compact":  # zz in; dc, counts, poss, vals out
         return s["b"] * s["n"] * (128 + 3 + 3 * s["cap"]), 0
+    if name == "count_symbols":  # zz in; 536 int64 counters an image out
+        return s["b"] * (128 * s["n"] + 8 * 536), 0
     if name == "filter_rows":
         return s["b"] * s["h"] * (2 * s["rb"] + 1), 0
     if name == "filter_bank":  # rows in; five candidates and [5] int32 scores a row out
@@ -598,6 +621,48 @@ def compact_edge_batch(rng, b: int, n: int):
         zz[i, pos] = rng.choice(vals, k)
         zz[i, 0] = 0 if i % 5 == 0 else rng.integers(-2048, 2048)
     return zz.reshape(b, n, 64)
+
+
+COUNT_PATTERNS = {"gray": (0,), "444": (0, 1, 2), "420": (0, 0, 0, 0, 1, 2), "422": (0, 0, 1, 2)}
+
+
+def count_edge_blocks(rng):
+    """[240, 64] int16 zigzag blocks at the symbol count's edges (240 is a
+    multiple of every MCU's 1, 3, 4 and 6 blocks): runs of 15, 16, 31, 32
+    and 48 zeros before a nonzero (ZRL splits, alone and with a run nibble),
+    a nonzero last AC (no end-of-block), all-zero blocks (DC 0 and not),
+    |v| at 2^k - 1 and 2^k up to 2047 in both signs, 48 blocks whose DCs of
+    -1024 and 1023 make differences of category 11, and random sparse
+    blocks."""
+    import numpy as np
+
+    zz = np.zeros((240, 64), np.int16)
+    i = 0
+    for run in (15, 16, 31, 32, 48):
+        for lead in (0, 3):  # the run from the DC, or after a nonzero at zigzag lead
+            if lead:
+                zz[i, lead] = 5
+            zz[i, lead + run + 1] = -3
+            i += 1
+    for _ in range(6):  # last AC nonzero
+        zz[i, rng.choice(np.arange(1, 63), 4, replace=False)] = rng.integers(-40, 41, 4)
+        zz[i, 63] = rng.choice([-1, 1, 2047])
+        i += 1
+    for dc in (0, 0, 7, -300):  # all-zero ACs
+        zz[i, 0] = dc
+        i += 1
+    mags = sorted({m for k in range(12) for m in (2**k - 1, 2**k) if 0 < m <= 2047})
+    for m in mags:
+        zz[i, 1 + rng.integers(0, 63)] = m
+        zz[i + 1, 1 + rng.integers(0, 63)] = -m
+        i += 2
+    zz[i:i + 48, 0] = rng.choice(np.array([-1024, 1023], np.int16), 48)
+    i += 48
+    rest = 240 - i
+    vals = rng.integers(-60, 61, (rest, 64)) * (rng.random((rest, 64)) < 0.15)
+    vals[:, 0] = rng.integers(-1024, 1024, rest)
+    zz[i:] = vals
+    return zz
 
 
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
@@ -736,6 +801,146 @@ def check_main_path(dev, grad) -> dict:
     return launches
 
 
+def count_cases(rng):
+    """The count kernel's cases of phase 2: (label, [B, N, 64] int16,
+    pattern, restart interval): ``count_edge_blocks`` under every MCU
+    pattern at batch 1 with restart intervals none, 1, 2 and 7, and at
+    batch 64 (64 draws of them)."""
+    import numpy as np
+
+    edge = np.stack([count_edge_blocks(rng) for _ in range(64)])
+    cases = []
+    for mode, pattern in COUNT_PATTERNS.items():
+        cases += [(f"edge blocks 1x240 {mode} restart {ri}", edge[:1], pattern, ri)
+                  for ri in (None, 1, 2, 7)]
+        cases.append((f"edge blocks 64x240 {mode} restart 7", edge, pattern, 7))
+    return cases
+
+
+def main_count_cases(dev, grad, corpus) -> list:
+    """The coefficients the balanced route gives the count kernel: the
+    gradient and corpus batches at q85 4:2:0, on the card."""
+    import torch
+
+    from pixo_tpu_torch.parallel.pipeline import jpeg_coeffs_sharded
+
+    opts = balanced_options()
+    pattern = COUNT_PATTERNS["420"]
+    return [(f"{name} {len(imgs)}x{SIZE}x{SIZE} q{QUALITY} 4:2:0 coefficients",
+             jpeg_coeffs_sharded(torch.from_numpy(imgs).to(dev), opts, device=dev), pattern, None)
+            for name, imgs in (("gradient", grad), ("corpus", corpus))]
+
+
+def check_count_kernel(dev, main_cases) -> int:
+    """Phase 2 for ``count_symbols``: on ``count_cases`` and on
+    ``main_cases`` ((label, coefficients on the card, pattern, restart)),
+    at byte offsets 0 and 2 of the input, equal to its plain version on the
+    card and, image by image, to the host library's count. Returns the
+    largest absolute error."""
+    import numpy as np
+
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.huffman_device import count_symbols_plain
+
+    worst = 0
+    cases = [(label, zz.cpu().numpy(), pat, ri) for label, zz, pat, ri in main_cases]
+    for label, host, pattern, ri in cases + count_cases(np.random.default_rng(21)):
+        for offset in (0, 1):  # int16 elements: byte offsets 0 and 2
+            zz = at_offset(host, offset, dev)
+            got = kernels.count_symbols(zz, pattern, ri)
+            ref = count_symbols_plain(zz, pattern, ri)
+            err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
+            dc, ac = (t.cpu().numpy() for t in got)
+            host_bad = sum(
+                not all(np.array_equal(a, b) for a, b in zip(
+                    (dc[i, 0], dc[i, 1], ac[i, 0], ac[i, 1]), native.native_count_symbols(host[i], pattern, ri)))
+                for i in range(host.shape[0]))
+            worst = max(worst, err)
+            _verdict(f"check count_symbols {label} at byte offset {2 * offset}: max_abs_err vs plain "
+                     f"{err}, images differing from the host library {host_bad}/{host.shape[0]}",
+                     err == 0 and host_bad == 0)
+    return worst
+
+
+def host_tier(imgs, opts, workers: int = 8):
+    """Each image's JPEG from the port's host tier, ``jpeg.encode(img, opts,
+    device="cpu")`` (the host library's coefficients, count and pack), on
+    ``workers`` threads."""
+    from pixo_tpu_torch import jpeg
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(lambda im: jpeg.encode(im, opts, device="cpu"), imgs))
+
+
+def balanced_options(**kw):
+    """The balanced preset (optimized Huffman tables) at q85 4:2:0, SIZE x
+    SIZE, with the options ``kw`` replaced."""
+    from pixo_tpu_torch import JpegOptions, Subsampling
+
+    return JpegOptions.from_preset(SIZE, SIZE, QUALITY, 1).replace(subsampling=Subsampling.S420, **kw)
+
+
+def jpeg_route_cases(grad, corpus) -> list:
+    """Phase 3's batches of the optimized and progressive routes: (label,
+    images, options)."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType
+    from pixo_tpu_torch.utils.synthetic import synth_gradient
+
+    rng = np.random.default_rng(31)
+    base = synth_gradient(SIZE, SIZE).astype(np.float64)
+    light = (base + rng.normal(0, 4, (4, SIZE, SIZE, 3))).clip(0, 255).astype(np.uint8)
+    mid = (base + rng.normal(0, 5, (4, SIZE, SIZE, 3))).clip(0, 255).astype(np.uint8)
+    dense = rng.integers(0, 256, (4, SIZE, SIZE, 3), dtype=np.uint8)
+    gray = np.ascontiguousarray(corpus[:8, :, :, 1])
+    small = np.ascontiguousarray(corpus[:, :64, :64])  # 96 blocks an image: the SA fallback runs
+    sa = balanced_options(progressive=True)
+    return [
+        ("balanced, gradient", grad, balanced_options()),
+        ("balanced, corpus", corpus, balanced_options()),
+        ("optimal, corpus", corpus, balanced_options(optimal_huffman=True)),
+        ("balanced, noise sigma 4 (cap 16)", light, balanced_options()),
+        ("balanced, noise sigma 5 q90 (cap 32)", mid, balanced_options(quality=90)),
+        ("balanced, uniform noise q98 (dense)", dense, balanced_options(quality=98)),
+        ("balanced, gray corpus, restart 5", gray,
+         balanced_options(color_type=ColorType.GRAY, restart_interval=5)),
+        ("progressive SA, corpus", corpus, sa),
+        ("progressive no SA, corpus", corpus, sa.replace(progressive_sa=False)),
+        ("progressive SA, corpus crops (SA fallback)", small, sa.replace(width=64, height=64)),
+        ("progressive no SA, corpus crops", small,
+         sa.replace(width=64, height=64, progressive_sa=False)),
+    ]
+
+
+def check_jpeg_routes(dev, grad, corpus) -> dict:
+    """Phase 3 for the optimized-Huffman and progressive routes: each batch
+    of ``jpeg_route_cases`` through ``encode_jpeg_batch_sharded(...,
+    device="cuda")``, every file byte-equal to the host tier, with the
+    launch counts of each call. Returns the launches of the balanced call
+    on the gradient batch (the count kernel's main path)."""
+    from pixo_tpu_torch import encode_jpeg_batch_sharded
+    from pixo_tpu_torch.ops import kernels
+
+    first = None
+    for label, imgs, opts in jpeg_route_cases(grad, corpus):
+        reset_counts()
+        outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+        launches = {"coeffs": kernels.coeffs.launches, "count_symbols": kernels.count_symbols.launches,
+                    "compact": kernels.compact_padded.launches}
+        same = sum(a == b for a, b in zip(outs, host_tier(imgs, opts)))
+        want_counts = 0 if opts.progressive else 1
+        _verdict(f"route {label} {'x'.join(map(str, imgs.shape[:3]))} q{opts.quality}: "
+                 f"{same}/{len(imgs)} files byte-equal to the host "
+                 f"tier, mean {sum(map(len, outs)) / len(outs):.0f} B/file; launches {launches}",
+                 same == len(imgs) and launches["coeffs"] == 1
+                 and launches["count_symbols"] == want_counts)
+        if first is None:
+            first = launches
+    return first
+
+
 def time_kernel(name: str, at: str, call, plain, alone, card: str, plain_calls=(10, 5),
                 **shape) -> dict:
     """Times kernel ``name`` four ways and prints one line: the profiler's
@@ -823,6 +1028,116 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     for name, ms in stages.items():
         print(f"stage {name} {shape} q{QUALITY} 4:2:0: median {ms:.4f} ms, "
               f"{mp / (ms / 1e3):.1f} MP/s over {WARM_RUNS} warm runs [{card}]")
+    return k_ms
+
+
+def count_alone(kernels, zz, pattern):
+    """The count kernel's launch alone on ``zz`` [B, N, 64]: the C function
+    with its output and slot table made beforehand (no restart interval)."""
+    import torch
+
+    b, n = zz.shape[0], zz.shape[1]
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    hist = torch.empty((b, kernels.HIST_BINS), dtype=torch.int64, device=zz.device)
+    slots = kernels.count_layout(tuple(pattern))
+
+    def alone():
+        return lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern), 0,
+                                      hist.data_ptr(), stream)
+
+    if alone():
+        raise Failed("the count kernel's launch alone returned an error")
+    return alone
+
+
+def time_jpeg_routes(dev, grad, corpus, card: str) -> dict:
+    """Phase 4 for the optimized-Huffman and progressive routes. The
+    balanced route (``balanced_options``) on the gradient batch: the count
+    kernel four ways beside its bound (``time_kernel``), then each stage,
+    median host-clock ms of WARM_RUNS synchronized calls (``wall_ms``): the
+    copy up, the device stage (``coeffs``, ``count_symbols``, ``compact``),
+    the copies back (compacted streams and histograms), the tables of every
+    image on 8 threads, the pack with them on 8 threads, the whole call, and
+    the host tier (``jpeg.encode(..., device="cpu")``) on 8 threads. The
+    progressive route with SA on the corpus batch at q85 4:2:0: the device
+    stage with its dense copy back, the host stage (each image's scans on 8
+    threads), the whole call and the host tier on 8 threads (median, least,
+    most of THUMB_RUNS, ``wall_stats``). Returns the count kernel's times."""
+    import torch
+
+    from pixo_tpu_torch import encode_jpeg_batch_sharded
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.huffman_device import count_symbols_plain
+    from pixo_tpu_torch.parallel.pipeline import _fetch_compacted, _pack_hosted, jpeg_coeffs_sharded
+
+    b, size = grad.shape[0], grad.shape[1]
+    shape = f"{b}x{size}x{size}"
+    mp = b * size * size / 1e6
+    opts = balanced_options()
+    _, pattern = jenc._pattern(opts)
+    grad_dev = torch.from_numpy(grad).to(dev)
+    zz = jpeg_coeffs_sharded(grad_dev, opts, device=dev)
+    at = f"{shape} q{QUALITY} 4:2:0 balanced"
+    k_ms = {"count_symbols": time_kernel(
+        "count_symbols", at, lambda: kernels.count_symbols(zz, pattern),
+        lambda: count_symbols_plain(zz, pattern), count_alone(kernels, zz, pattern), card,
+        b=b, n=zz.shape[1])}
+
+    counts = kernels.count_symbols(zz, pattern)
+    compacted = kernels.compact_padded(zz, 8)
+    state = _fetch_compacted(zz, compacted)
+    dc, ac = (h.cpu().numpy() for h in counts)
+    built = [jenc.tables_from_counts(dc[i], ac[i], opts) for i in range(b)]
+
+    def tables_on_pool():
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+            return list(ex.map(lambda i: jenc.tables_from_counts(dc[i], ac[i], opts), range(b)))
+
+    def device_stage():
+        z = jpeg_coeffs_sharded(grad_dev, opts, device=dev)
+        return kernels.count_symbols(z, pattern), kernels.compact_padded(z, 8)
+
+    stages = {
+        "balanced_h2d": wall_ms(lambda: torch.from_numpy(grad).to(dev)),
+        "balanced_device": wall_ms(device_stage),
+        "balanced_d2h": wall_ms(lambda: (_fetch_compacted(zz, compacted), [h.cpu() for h in counts])),
+        "balanced_host_tables": wall_ms(tables_on_pool),
+        "balanced_host_pack": wall_ms(lambda: _pack_hosted(state, opts, pattern, 8, built.__getitem__)),
+        "balanced_end_to_end": wall_ms(lambda: encode_jpeg_batch_sharded(grad, opts, device=dev)),
+        "balanced_host_library_8_threads": wall_ms(lambda: host_tier(grad, opts)),
+    }
+    for name, ms in stages.items():
+        print(f"stage {name} {shape} q{QUALITY} 4:2:0: median {ms:.4f} ms, "
+              f"{mp / (ms / 1e3):.1f} MP/s over {WARM_RUNS} warm runs [{card}]")
+    device = k_ms["count_symbols"]["device_ms"]
+    if device:
+        print(f"balanced route: the host tables take {stages['balanced_host_tables'] / device:.0f}x "
+              f"the count kernel's device time [{card}]")
+
+    popts = balanced_options(progressive=True)
+    quant = QuantizationTables(QUALITY)
+    corpus_dev = torch.from_numpy(corpus).to(dev)
+    zz_host = jpeg_coeffs_sharded(corpus_dev, popts, device=dev).cpu().numpy()
+
+    def progressive_host():
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+            return list(ex.map(lambda i: jenc._emit_with_sa_fallback(
+                zz_host[i], None, popts, quant, pattern, zz_host.shape[1]), range(len(zz_host))))
+
+    pstages = {
+        "progressive_device_d2h": wall_stats(
+            lambda: jpeg_coeffs_sharded(corpus_dev, popts, device=dev).cpu()),
+        "progressive_host": wall_stats(progressive_host),
+        "progressive_end_to_end": wall_stats(lambda: encode_jpeg_batch_sharded(corpus, popts, device=dev)),
+        "progressive_host_library_8_threads": wall_stats(lambda: host_tier(corpus, popts)),
+    }
+    cmp = corpus.shape[0] * corpus.shape[1] * corpus.shape[2] / 1e6
+    for name, (med, lo, hi) in pstages.items():
+        print(f"stage {name} corpus {corpus.shape[0]}x{corpus.shape[1]}x{corpus.shape[2]} q{QUALITY} "
+              f"4:2:0 SA: median {med:.4f} ms ({lo:.4f} to {hi:.4f}), {cmp / (med / 1e3):.1f} MP/s "
+              f"over {THUMB_RUNS} warm runs [{card}]")
     return k_ms
 
 
@@ -2477,12 +2792,12 @@ def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: i
 
 def measure_tree(root: str) -> dict:
     """The same-call comparison's numbers for the checkout at ``root`` (this
-    slice or an earlier one): for ``coeffs`` and ``compact`` at 16x512x512
-    q85 4:2:0, ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
+    slice or an earlier one): for ``coeffs``, ``compact`` and
+    ``count_symbols`` at 16x512x512 q85 4:2:0, ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
     decode (d1) and (d3), the profiler's device time, the launch alone and
     the call as the path makes it; the device stages, the decode's host
     stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
-    encode, PNG (a) and (b), decode (d1) and (d3)). Every kernel result is
+    encode, standard and balanced, PNG (a) and (b), decode (d1) and (d3)). Every kernel result is
     first held against its plain version."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
@@ -2558,6 +2873,16 @@ def measure_tree(root: str) -> dict:
         stages[f"decode_device ({key})"] = wall_ms(
             lambda: jd._upsample_colour(run["call"](), run["batch"], False))
         stages[f"decode_end_to_end ({key})"] = wall_ms(lambda: decode_jpeg_batch(files, device=dev))
+    if hasattr(kernels, "count_symbols"):  # a checkout from before the balanced route has none
+        from pixo_tpu_torch.ops.huffman_device import count_symbols_plain
+
+        pattern, bopts = COUNT_PATTERNS["420"], opts.replace(optimize_huffman=True)
+        if not all(torch.equal(g, r) for g, r in zip(kernels.count_symbols(zz, pattern),
+                                                      count_symbols_plain(zz, pattern))):
+            raise Failed(f"count_symbols of {root} differs from its plain version")
+        three_ways("count_symbols", "count_symbols_", lambda: kernels.count_symbols(zz, pattern)[1],
+                   count_alone(kernels, zz, pattern), lambda: count_symbols_plain(zz, pattern)[1])
+        stages["balanced_end_to_end"] = wall_ms(lambda: encode_jpeg_batch_sharded(grad, bopts, device=dev))
     if hasattr(kernels, "resize_lanczos3"):  # a checkout from before the thumbnail path has none
         from pixo_tpu_torch import thumbnail_pipeline
         from pixo_tpu_torch.ops.resize_kernels import _taps_on, resize_lanczos3_batch
@@ -3208,6 +3533,7 @@ def main() -> int:
     corpus = corpus_batch()
     try:
         errs = check_kernels(dev, grad, noise, 100_000)
+        errs["count_symbols"] = check_count_kernel(dev, main_count_cases(dev, grad, corpus))
         errs.update(check_png_kernels(dev, corpus))
         cases = decode_cases(dev, grad, corpus)
         errs.update(check_decode_kernels(dev, cases, 100_000))
@@ -3216,6 +3542,7 @@ def main() -> int:
         thumb_errs = check_thumbnail_kernels(dev, tcases)
         errs.update(check_quantize_kernels(dev, corpus, grad))
         launches = check_main_path(dev, grad)
+        launches["count_symbols"] = check_jpeg_routes(dev, grad, corpus)["count_symbols"]
         launches.update(check_png_main_path(dev, corpus, grad))
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
@@ -3236,6 +3563,7 @@ def main() -> int:
     k_ms.update(time_png(dev, corpus, grad, card))
     k_ms.update(time_decode(dev, cases, card, 100_000))
     try:
+        k_ms.update(time_jpeg_routes(dev, grad, corpus, card))
         resize_ms, thumb_ms = time_thumbnail(dev, tcases, card)
         k_ms.update(resize_ms)
         k_ms.update(time_lossy(dev, corpus, grad, card))
@@ -3257,6 +3585,7 @@ def main() -> int:
     # "q2".
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
+               "count_symbols": ("pixo_tpu_torch/csrc/huffman.cu", "pixo_tpu/ops/huffman_device.py:73"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
                                "pixo_tpu/ops/pallas_kernels.py:57"),
                "idct_planes": ("pixo_tpu_torch/csrc/idct.cu", "pixo_tpu/ops/pallas_kernels.py:187"),

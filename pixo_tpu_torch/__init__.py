@@ -7,8 +7,9 @@ entropy packing runs in the same C++ host tier as the JAX package, compiled
 from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
-Ported so far are the batched baseline JPEG encode with the standard tables,
-the batched 8-bit PNG encode, lossless and lossy (palette quantization with
+Ported so far are the JPEG encode, single-image and batched, baseline and
+progressive with the standard, optimized or optimal Huffman tables (all but
+the trellis), the batched 8-bit PNG encode, lossless and lossy (palette quantization with
 Floyd-Steinberg dithering), the batched baseline and progressive
 JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
 thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying
@@ -18,6 +19,13 @@ on the device from the decode to the compacted streams):
 
     opts = JpegOptions(width=512, height=512, quality=85, subsampling=Subsampling.S420)
     files = encode_jpeg_batch_sharded(batch_u8, opts, device="cuda")
+
+    from pixo_tpu_torch import jpeg
+
+    balanced = JpegOptions.from_preset(512, 512, 85, 1)   # optimized Huffman tables
+    one = jpeg.encode(image_u8, balanced)                  # on the card, a batch of one
+    files = jpeg.encode_batch(batch_u8, balanced.replace(progressive=True))
+    same = jpeg.encode(image_u8, balanced, device="cpu")   # the host library's tier
 
     from pixo_tpu_torch import ColorType, PngOptions, encode_png_batch_sharded
 
@@ -46,7 +54,7 @@ on the device from the decode to the compacted streams):
     small = resize.resize(pixels_u8, opts, device="cuda")  # [128, 128, 3] uint8
 """
 
-from . import decode, errors, png, resize
+from . import decode, errors, jpeg, png, resize
 from .color import ColorType, rgb_to_ycbcr
 from .options import (
     FilterStrategy,
@@ -83,6 +91,7 @@ __all__ = [
     "encode_jpeg_batch_sharded",
     "encode_png_batch_sharded",
     "errors",
+    "jpeg",
     "jpeg_coeffs_sharded",
     "png",
     "resize",

@@ -11,8 +11,16 @@ package. Only the entry points of the ported slices are bound:
 - ``jpeg_pack_scan_padded``: the packer that reads the device's padded
   per-block streams (``ops/sparse_pack.py``);
 - ``jpeg_coefficients`` and ``jpeg_encode_scan_fused``: the host
-  coefficient pipeline and the fused host encode, the references that the
-  device path is held against;
+  coefficient pipeline and the fused host encode: the JPEG encode's host
+  tier (``jpeg/encoder.py``, ``device="cpu"``), and the references that
+  the device path is held against;
+- ``jpeg_count_symbols``: the baseline scan's symbol histograms, the host
+  tier's count and the oracle of the count kernel;
+- ``jpeg_count_progressive_scan`` and ``jpeg_encode_progressive_scan``: one
+  progressive scan's symbol counts and entropy bytes
+  (``jpeg/progressive.py``);
+- ``huffman_build_lengths``: length-limited code lengths by package-merge
+  (``compress/huffman.py``, the optimal JPEG tables);
 - ``deflate_compress`` / ``deflate_compress_parity``: the zlib-wrapped
   DEFLATE of every PNG encode (``compress/deflate.py``);
 - ``png_filter_apply``: the host PNG filter tier of the per-image encode,
@@ -157,6 +165,31 @@ def _configure(lib) -> None:
         *_HUFF,
         ctypes.c_int32,                                        # restart interval (0 = off)
         _u8p, ctypes.c_int64,                                  # out buffer, capacity
+    ]
+    lib.jpeg_count_symbols.restype = ctypes.c_int32
+    lib.jpeg_count_symbols.argtypes = [
+        _i16p, ctypes.c_int64,           # zz coeffs, nblocks
+        _u8p, ctypes.c_int32,            # pattern, blocks per mcu
+        ctypes.c_int32,                  # restart interval (0 = off)
+        _i64p, _i64p, _i64p, _i64p,      # dc_lum[12], dc_chrom[12], ac_lum[256], ac_chrom[256]
+    ]
+    lib.jpeg_encode_progressive_scan.restype = ctypes.c_int64
+    lib.jpeg_encode_progressive_scan.argtypes = [
+        _i16p, ctypes.c_int64,           # one component's blocks, nblocks
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ss, se, ah, al
+        _u16p, _u8p, _u16p, _u8p,        # dc codes/lens, ac codes/lens
+        ctypes.c_int32,                  # eobn_ok: -1 sniff lens[0x10], 0/1 explicit
+        _u8p, ctypes.c_int64,            # out buffer, capacity
+    ]
+    lib.jpeg_count_progressive_scan.restype = ctypes.c_int32
+    lib.jpeg_count_progressive_scan.argtypes = [
+        _i16p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,  # ss, se, ah, al
+        _i64p, _i64p,                    # dc counts [12], ac counts [256], added to
+    ]
+    lib.huffman_build_lengths.restype = ctypes.c_int32
+    lib.huffman_build_lengths.argtypes = [
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int32, ctypes.c_int32, _u8p,  # freqs, n, max_len, out
     ]
     lib.deflate_compress.restype = ctypes.c_int64
     lib.deflate_compress.argtypes = [
@@ -410,6 +443,92 @@ def native_jpeg_encode_scan(
     if n < 0:
         raise RuntimeError("native jpeg_encode_scan_fused failed (needs AVX2)")
     return out[:n].tobytes()
+
+
+def native_has_fused_encode() -> bool:
+    """True: the host library has the fused coefficient + pack call (the
+    JAX package asks whether its library was built with it; the port's
+    always is, and a failed load raises)."""
+    return hasattr(load(), "jpeg_encode_scan_fused")
+
+
+def native_count_symbols(
+    zz: np.ndarray, pattern: Sequence[int], restart_interval: Optional[int]
+):
+    """Symbol histograms of one baseline scan: (dc_lum [12], dc_chrom [12],
+    ac_lum [256], ac_chrom [256]) int64, for ``optimized_from_counts``."""
+    lib = load()
+    zz = np.ascontiguousarray(zz, dtype=np.int16)
+    pat = np.asarray(pattern, dtype=np.uint8)
+    out = [np.zeros(n, dtype=np.int64) for n in (12, 12, 256, 256)]
+    rc = lib.jpeg_count_symbols(
+        _ptr(zz, _i16p), zz.shape[0], _ptr(pat, _u8p), len(pattern), restart_interval or 0,
+        *[_ptr(a, _i64p) for a in out],
+    )
+    if rc != 0:
+        raise RuntimeError(f"native jpeg_count_symbols failed ({rc})")
+    return tuple(out)
+
+
+def native_encode_progressive_scan(
+    blocks: np.ndarray, ss: int, se: int, ah: int, al: int,
+    dc_codes, dc_lens, ac_codes, ac_lens, eobn_ok: Optional[bool] = None,
+) -> Optional[bytes]:
+    """Entropy bytes of one single-component progressive scan of ``blocks``
+    ([n, 64] int16 zigzag), or None where the library declines it (the
+    caller then takes the Python scan coder).
+
+    ``eobn_ok``: True/False forces the EOBn-vs-single-EOB flush mode
+    (per-scan counted tables, ``jpeg/progressive.py``); None keeps the
+    single-table sniff (lens[0x10] != 0)."""
+    lib = load()
+    blocks = np.ascontiguousarray(blocks, dtype=np.int16)
+    tables = [np.ascontiguousarray(a, dtype=t)
+              for a, t in ((dc_codes, np.uint16), (dc_lens, np.uint8),
+                           (ac_codes, np.uint16), (ac_lens, np.uint8))]
+    cap = _scan_capacity(blocks.shape[0])
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_encode_progressive_scan(
+        _ptr(blocks, _i16p), blocks.shape[0], ss, se, ah, al,
+        *[_ptr(a, p) for a, p in zip(tables, (_u16p, _u8p, _u16p, _u8p))],
+        -1 if eobn_ok is None else int(bool(eobn_ok)), _ptr(out, _u8p), cap,
+    )
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def native_count_progressive_scan(
+    blocks: np.ndarray, ss: int, se: int, ah: int, al: int,
+    dc_counts: np.ndarray, ac_counts: np.ndarray,
+) -> bool:
+    """Adds one single-component progressive scan's symbol counts to
+    ``dc_counts`` [12] and ``ac_counts`` [256] (int64, in place). False
+    where the library declines the scan."""
+    lib = load()
+    blocks = np.ascontiguousarray(blocks, dtype=np.int16)
+    for a, n in ((dc_counts, 12), (ac_counts, 256)):
+        if a.dtype != np.int64 or a.shape != (n,) or not a.flags.c_contiguous:
+            raise ValueError(f"counts must be contiguous int64 arrays of {n}")
+    rc = lib.jpeg_count_progressive_scan(
+        _ptr(blocks, _i16p), blocks.shape[0], ss, se, ah, al,
+        _ptr(dc_counts, _i64p), _ptr(ac_counts, _i64p),
+    )
+    return rc == 0
+
+
+def native_build_code_lengths(freqs, max_len: int) -> Optional[np.ndarray]:
+    """Length-limited optimal Huffman code lengths (counting-form
+    package-merge): uint8 per symbol, tie-for-tie those of
+    ``compress/huffman.py::build_code_lengths``; None where the library
+    declines the arguments."""
+    lib = load()
+    f = np.ascontiguousarray(np.asarray(freqs, dtype=np.uint64).reshape(-1))
+    out = np.zeros(len(f), np.uint8)
+    rc = lib.huffman_build_lengths(
+        f.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)), len(f), int(max_len), _ptr(out, _u8p)
+    )
+    return out if rc == 0 else None
 
 
 def _byte_view(data) -> np.ndarray:

@@ -15,6 +15,10 @@ stream.
 - ``compact_padded``: per-block compaction of the coefficient stream
   (``csrc/compact.cu``), replacing the ``lax.top_k`` of
   ``ops/sparse_pack.py::sparsify_blocks_padded``.
+- ``count_symbols``: the optimized-Huffman encode's DC and AC symbol
+  histograms of a batch's coefficient streams (``csrc/huffman.cu``),
+  replacing the jit ``_count_device`` of ``ops/huffman_device.py``, which
+  has no Pallas kernel.
 - ``filter_bank``: the five PNG filter candidates and their scores
   (``csrc/filter_bank.cu``), the direct counterpart of ``filter_bank_pallas``.
 - ``filter_rows``: the PNG encode's filter stage in one kernel (scores,
@@ -63,6 +67,7 @@ from ..native import MODES
 from ..utils.build import build_shared_library
 from .blockify import blocks_420, blocks_422, blocks_444, blocks_gray, num_blocks
 from .dct import dct8x8_aan as dct8x8_aan_plain
+from .huffman_device import count_symbols_plain
 from .jpeg_decode import dequant_idct_blocks
 from .jpeg_decode import idct8x8_int as idct8x8_int_plain
 from .png_filters import (
@@ -81,8 +86,8 @@ from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
-                                           "resize.cu", "quantize.cu", "aan.cuh", "idct.cuh",
-                                           "redmean.cuh")]
+                                           "resize.cu", "quantize.cu", "huffman.cu", "aan.cuh",
+                                           "idct.cuh", "redmean.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -126,6 +131,8 @@ def load():
             lib.pixo_dct8x8_aan.argtypes = [vp, vp, i64, vp]
             lib.pixo_compact.restype = ctypes.c_int
             lib.pixo_compact.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, vp]
+            lib.pixo_count_symbols.restype = ctypes.c_int
+            lib.pixo_count_symbols.argtypes = [vp, i64, i64, vp, i32, i32, vp, vp]
             lib.pixo_filter_bank.restype = ctypes.c_int
             lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp, vp]
             lib.pixo_filter_rows.restype = ctypes.c_int
@@ -307,6 +314,64 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
 
 
 compact_padded.launches = 0
+
+
+HIST_BINS = 2 * 12 + 2 * 256  # csrc/huffman.cu's counters an image: dc [2][12], then ac [2][256]
+
+
+@functools.lru_cache(maxsize=16)
+def count_layout(pattern: tuple) -> np.ndarray:
+    """The count kernel's table of an MCU pattern: [bpm, 3] int8, for each
+    slot its table class (0 for component 0, 1 for the others), the
+    previous slot of its component in the MCU (-1 for none) and the last
+    slot of its component in the MCU. Block j = m * bpm + k's DC predictor
+    is block j - k + prev[k] where prev[k] >= 0, else block (m - 1) * bpm +
+    last[k] where m > 0 starts no restart segment, else none
+    (``huffman_device.py::_prev_block_index``)."""
+    out = np.zeros((len(pattern), 3), np.int8)
+    for k, c in enumerate(pattern):
+        same = [q for q, d in enumerate(pattern) if d == c]
+        out[k] = (c != 0, max((q for q in same if q < k), default=-1), same[-1])
+    out.setflags(write=False)
+    return out
+
+
+def count_symbols(zz: torch.Tensor, pattern, restart_interval: Optional[int] = None):
+    """[B, N, 64] int16 zigzag blocks in scan order -> each image's symbol
+    counts (dc [B, 2, 12], ac [B, 2, 256]) int64, table class 0 for
+    component 0 and 1 for the others, equal to
+    ``ops/huffman_device.py::count_symbols_plain``. ``pattern`` is the MCU's
+    component ids (1 to 6 of 0, 1, 2); ``restart_interval`` the MCUs a
+    restart segment, or None. The kernel takes ``zz`` at any address."""
+    pattern = tuple(int(c) for c in pattern)
+    if not 1 <= len(pattern) <= 6 or any(c not in (0, 1, 2) for c in pattern):
+        raise ValueError(f"pattern must be 1 to 6 component ids of 0, 1, 2, got {pattern}")
+    if restart_interval is not None and restart_interval < 1:
+        raise ValueError(f"restart_interval must be None or at least 1, got {restart_interval}")
+    if zz.dtype != torch.int16:
+        raise TypeError(f"zz must be torch.int16, got {zz.dtype}")
+    if not zz.is_contiguous():
+        raise ValueError("zz must be contiguous")
+    if zz.dim() != 3 or zz.shape[2] != 64 or zz.shape[1] % len(pattern):
+        raise ValueError(f"zz must be [B, N, 64] with N a multiple of {len(pattern)}, "
+                         f"got {tuple(zz.shape)}")
+    if _device_kind(zz) == "cpu":
+        return count_symbols_plain(zz, pattern, restart_interval)
+    b, n = zz.shape[0], zz.shape[1]
+    if not (1 <= b <= 65535 and 1 <= n < 2**31):
+        raise ValueError(f"unsupported batch shape {tuple(zz.shape)}")
+    lib = load()
+    slots = count_layout(pattern)
+    hist = torch.empty((b, HIST_BINS), dtype=torch.int64, device=zz.device)
+    with _device_guard(zz):
+        rc = lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern),
+                                    restart_interval or 0, hist.data_ptr(), _stream(zz))
+    _check(lib, rc, "count_symbols")
+    count_symbols.launches += 1
+    return hist[:, :24].view(b, 2, 12), hist[:, 24:].view(b, 2, 256)
+
+
+count_symbols.launches = 0
 
 
 def _filter_input(rows: torch.Tensor, bpp: int):

@@ -6,10 +6,22 @@ named by ``device=`` instead of a mesh:
 
 - ``jpeg_coeffs_sharded``: the whole batch's zigzag coefficients in one
   device call (``jpeg/encoder.py::_device_coeffs_batch``).
-- ``encode_jpeg_batch_sharded``: device coefficients, device compaction
-  (``ops/kernels.py::compact_padded``), one copy of the compacted streams to
-  the host, and native entropy packing on a thread pool (ctypes releases the
-  GIL, so the threads pack in parallel), then the marker frame.
+- ``encode_jpeg_batch_sharded``: device coefficients, then by route:
+  - the baseline encode with the standard tables: device compaction
+    (``ops/kernels.py::compact_padded``), one copy of the compacted streams
+    to the host, and native entropy packing on a thread pool (ctypes
+    releases the GIL, so the threads pack in parallel), then the marker
+    frame;
+  - optimized or optimal Huffman (the balanced preset): the symbol
+    histograms of every image on the still-resident coefficients
+    (``ops/kernels.py::count_symbols``, one launch a batch), then the same
+    compaction and copy, the histograms with the streams; on the pool each
+    image's tables (``jpeg/encoder.py::tables_from_counts``), its pack with
+    them and its frame;
+  - progressive (with or without successive approximation): one dense copy
+    of the coefficients to the host, then each image's
+    ``jpeg/encoder.py::_emit_with_sa_fallback`` on the pool, as the
+    reference's general path does.
 - ``encode_png_batch_sharded``: the batch goes to the device once; the
   reduction analysis, each group's layout transform and the fused filter
   kernel (``ops/kernels.py::filter_rows``) run there; one copy per group
@@ -35,15 +47,16 @@ named by ``device=`` instead of a mesh:
   is the one-device form of the reference's fused thumbnail dispatch
   (``_fused_thumb_jit``).
 
-Only the baseline JPEG encode with the standard Huffman tables and the 8-bit
-non-interlaced PNG encode, lossless and lossy, are ported. The stream
-pipelines and the row-sharded PNG encode are not (ROADMAP queue 1 items 7
-and 8).
+Every JPEG encode option but the trellis (ROADMAP queue 1 item 6) is
+ported, and the 8-bit non-interlaced PNG encode, lossless and lossy. The
+stream pipelines and the row-sharded PNG encode are not (ROADMAP queue 1
+items 7 and 8).
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import time
 from typing import List, Optional, Sequence
 
@@ -59,10 +72,10 @@ from ..decode import jpeg_decoder as jdec
 from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
-from ..native import native_pack_scan_batch, native_pack_scan_padded
+from ..native import native_pack_scan, native_pack_scan_batch, native_pack_scan_padded
 from ..options import JpegOptions, PngOptions, QuantizationMode
 from ..ops.blockify import scan_layout
-from ..ops.kernels import compact_padded, filter_rows
+from ..ops.kernels import compact_padded, count_symbols, filter_rows
 from ..ops.resize_kernels import resize_lanczos3_batch
 from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
@@ -82,7 +95,7 @@ def _to_device(imgs, device) -> torch.Tensor:
     return imgs.to(device).contiguous()
 
 
-def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, device) -> torch.Tensor:
+def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda") -> torch.Tensor:
     """[B, H, W, C] (or [B, H, W] gray) uint8 numpy array or tensor ->
     [B, nblocks, 64] int16 zigzag coefficients on ``device``."""
     color, sub = _color_sub(options)
@@ -94,7 +107,7 @@ def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, device) -> torch.Tensor:
 
 
 def _use_sparse_fast_path(options: JpegOptions) -> bool:
-    """True for the baseline standard-table encode, the only one ported."""
+    """True for the baseline standard-table encode."""
     return not (
         options.optimize_huffman or options.optimal_huffman
         or options.progressive or options.trellis_quant
@@ -119,27 +132,42 @@ def _fetch_compacted(zz_dev: torch.Tensor, compacted):
             poss.cpu().numpy(), vals.cpu().numpy())
 
 
-def _pack_hosted(state, options: JpegOptions, pattern, host_workers: int) -> List[bytes]:
+def _pack_hosted(state, options: JpegOptions, pattern, host_workers: int,
+                 tables=None) -> List[bytes]:
     """Pack stage: entropy-pack the host-resident streams of every image on
-    ``host_workers`` threads. Pure host work, no device waits."""
-    huff = HuffmanTables.default()
+    ``host_workers`` threads. Pure host work, no device waits. ``tables``:
+    None for the standard tables, else a function of the image index that
+    returns its tables, called in that image's task."""
     if state[0] == "dense":
-        return native_pack_scan_batch(
-            state[1], pattern, huff, options.restart_interval, nthreads=host_workers
-        )
-    _, dc, counts, poss, vals = state
+        if tables is None:
+            return native_pack_scan_batch(
+                state[1], pattern, HuffmanTables.default(), options.restart_interval,
+                nthreads=host_workers,
+            )
+        zz = state[1]
 
-    def pack_padded(i: int) -> bytes:
-        return native_pack_scan_padded(
-            dc[i], counts[i], poss[i], vals[i], pattern, huff, options.restart_interval
-        )
+        def pack_one(i: int) -> bytes:
+            return native_pack_scan(zz[i], pattern, tables(i), options.restart_interval)
 
+        n = zz.shape[0]
+    else:
+        _, dc, counts, poss, vals = state
+
+        def pack_one(i: int) -> bytes:
+            return native_pack_scan_padded(
+                dc[i], counts[i], poss[i], vals[i], pattern,
+                HuffmanTables.default() if tables is None else tables(i), options.restart_interval,
+            )
+
+        n = dc.shape[0]
     with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
-        return list(ex.map(pack_padded, range(dc.shape[0])))
+        return list(ex.map(pack_one, range(n)))
 
 
-def _assemble_jpeg(scan: bytes, options: JpegOptions, quant: QuantizationTables) -> bytes:
-    """Wrap a baseline std-table entropy scan in the JPEG marker frame."""
+def _assemble_jpeg(scan: bytes, options: JpegOptions, quant: QuantizationTables,
+                   huff: Optional[HuffmanTables] = None) -> bytes:
+    """Wrap a baseline entropy scan in the JPEG marker frame, with the
+    tables ``huff`` it was packed with (the standard ones by default)."""
     out = bytearray()
     markers.write_soi(out)
     markers.write_app0(out)
@@ -148,7 +176,7 @@ def _assemble_jpeg(scan: bytes, options: JpegOptions, quant: QuantizationTables)
         out, markers.SOF0, options.width, options.height,
         options.color_type, options.subsampling,
     )
-    markers.write_dht(out, HuffmanTables.default())
+    markers.write_dht(out, HuffmanTables.default() if huff is None else huff)
     if options.restart_interval is not None:
         markers.write_dri(out, options.restart_interval)
     markers.write_sos(out, options.color_type)
@@ -158,19 +186,15 @@ def _assemble_jpeg(scan: bytes, options: JpegOptions, quant: QuantizationTables)
 
 
 def encode_jpeg_batch_sharded(
-    imgs, options: JpegOptions, *, device, host_workers: int = 8
+    imgs, options: JpegOptions, *, device="cuda", host_workers: int = 8
 ) -> List[bytes]:
     """Encode a batch of same-shape images ([B, H, W, 3] RGB or [B, H, W]
-    gray uint8, numpy or tensor) to baseline JPEG bytes, computing on
-    ``device`` ("cpu" or a CUDA device) and packing on the host.
+    gray uint8, numpy or tensor) to JPEG bytes, computing on ``device``
+    ("cpu" or a CUDA device) and entropy-coding on the host.
 
-    Byte-identical, image by image, to the JAX package's
-    ``encode_jpeg_batch_sharded`` and ``jpeg.encode``."""
-    if not _use_sparse_fast_path(options):
-        raise NotImplementedError(
-            "optimize_huffman, optimal_huffman, progressive and trellis_quant are "
-            "not ported yet (ROADMAP.md queue 1 item 6, JPEG remainder)"
-        )
+    Byte-identical, image by image, to the JAX package's ``jpeg.encode``
+    for every option but ``trellis_quant``, which raises."""
+    jenc.refuse_unported(options)
     if len(imgs) == 0:
         return []
     jenc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
@@ -178,9 +202,31 @@ def encode_jpeg_batch_sharded(
     color, sub = _color_sub(options)
     _, _, pattern = scan_layout(options.width, options.height, color, sub)
     zz_dev = jpeg_coeffs_sharded(imgs, options, device=device)
+    if options.progressive:
+        zz = zz_dev.cpu().numpy()
+
+        def emit(i: int) -> bytes:
+            return jenc._emit_with_sa_fallback(zz[i], None, options, quant, pattern, zz.shape[1])
+
+        with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
+            return list(ex.map(emit, range(zz.shape[0])))
+    counts = None
+    if not _use_sparse_fast_path(options):
+        counts = count_symbols(zz_dev, pattern, options.restart_interval)
     compacted = compact_padded(zz_dev, PADDED_CAP_PER_BLOCK)
-    scans = _pack_hosted(_fetch_compacted(zz_dev, compacted), options, pattern, host_workers)
-    return [_assemble_jpeg(s, options, quant) for s in scans]
+    state = _fetch_compacted(zz_dev, compacted)
+    if counts is None:
+        scans = _pack_hosted(state, options, pattern, host_workers)
+        return [_assemble_jpeg(s, options, quant) for s in scans]
+    # the histograms were counted before the compaction that
+    # _fetch_compacted waited for: these copies wait for no further work
+    dc, ac = (h.cpu().numpy() for h in counts)
+    # each image's tables are built in its pack task (Python, under the GIL)
+    # and kept for its frame
+    tables = functools.lru_cache(maxsize=None)(
+        lambda i: jenc.tables_from_counts(dc[i], ac[i], options))
+    scans = _pack_hosted(state, options, pattern, host_workers, tables)
+    return [_assemble_jpeg(s, options, quant, tables(i)) for i, s in enumerate(scans)]
 
 
 def _png_route_batch(px: torch.Tensor, options: PngOptions):

@@ -45,6 +45,9 @@ HAND_COUNTS = [
      12_582_912 + 196_608 + 98_304 + 786_432 + 1_572_864, 4.55),
     ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=16), 12_582_912 + BLOCKS_420 * (3 + 48), None),
     ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=32), 12_582_912 + BLOCKS_420 * (3 + 96), None),
+    # the balanced route: the coefficients read, 536 int64 counters an image written
+    ("count_symbols", dict(b=16, n=BLOCKS_420 // 16), 12_582_912 + 16 * 536 * 8, 3.78),
+    ("count_symbols", dict(b=1, n=1), 128 + 536 * 8, None),
     ("filter_rows", dict(b=16, h=512, rb=1536), 12_582_912 + 16 * 512 * 1537, 7.51),
     ("filter_bank", dict(b=16, h=512, rb=1536), 6 * 12_582_912 + 16 * 512 * 5 * 4, 22.59),
     ("idct_planes", dict(n=BLOCKS_420, out_bytes=16 * (512 * 512 + 2 * 256 * 256)),

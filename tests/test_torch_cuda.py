@@ -14,10 +14,12 @@ import pytest
 import torch
 
 from chip_smoke import (
+    COUNT_PATTERNS,
     at_offset,
     check_dither_repeats,
     coeff_edge_cases,
     compact_edge_batch,
+    count_edge_blocks,
     dither_global_ring,
     dither_inputs,
     dither_repeat_case,
@@ -37,18 +39,21 @@ from pixo_tpu_torch import (
     Subsampling,
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
+    jpeg,
     png,
     thumbnail_pipeline,
 )
 from pixo_tpu_torch.decode import decode_jpeg_batch, jpeg_decoder
 from pixo_tpu_torch.jpeg.tables import QuantizationTables
 from pixo_tpu_torch.native import (
+    native_count_symbols,
     native_jpeg_coefficients,
     native_png_filter,
     native_resize_lanczos3,
 )
 from pixo_tpu_torch.ops import (
     dct,
+    huffman_device,
     jpeg_decode,
     kernels,
     png_filters,
@@ -193,6 +198,97 @@ def test_main_path_launches_both_kernels_and_matches_cpu(dev, seeded):
         outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
         assert kernels.coeffs.launches == 1 and kernels.compact_padded.launches >= 1
         assert outs == encode_jpeg_batch_sharded(imgs, opts, device="cpu")
+
+
+def _count_equal(zz, pattern, ri):
+    """The count kernel on ``zz`` equals its plain version on the card and,
+    image by image, the host library's count."""
+    got = kernels.count_symbols(zz, pattern, ri)
+    for g, r in zip(got, huffman_device.count_symbols_plain(zz, pattern, ri)):
+        assert g.device == zz.device and g.dtype == torch.int64
+        assert torch.equal(g, r)
+    dc, ac = (t.cpu().numpy() for t in got)
+    host = zz.cpu().numpy()
+    for i in range(host.shape[0]):
+        ref = native_count_symbols(host[i], pattern, ri)
+        assert all(np.array_equal(a, b) for a, b in zip((dc[i, 0], dc[i, 1], ac[i, 0], ac[i, 1]), ref))
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("ri", [None, 1, 2, 7])
+@pytest.mark.parametrize("mode", list(COUNT_PATTERNS))
+def test_count_kernel_edge_blocks(dev, mode, ri, offset):
+    """The CPU tests' edge blocks at batch 1 and 64, at byte offsets 0 and
+    2 (the kernel's single-load path)."""
+    rng = np.random.default_rng(21)
+    edge = np.stack([count_edge_blocks(rng) for _ in range(64)])
+    for zz in (edge[:1], edge):
+        _count_equal(at_offset(zz, offset, dev), COUNT_PATTERNS[mode], ri)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_count_kernel_on_coefficients(dev, seeded, mode):
+    """Coefficients of noise and of smooth images from the coefficient
+    kernel, thread blocks that end inside an image (n not a multiple of 128)."""
+    qt = QuantizationTables(90)
+    for h, w in ((517, 389), (8, 8), (40, 56)):
+        imgs = torch.from_numpy(_pixels(seeded, 3, h, w, mode)).to(dev)
+        zz = kernels.coeffs(imgs, qt.luminance_table, qt.chrominance_table, mode)
+        _count_equal(zz, COUNT_PATTERNS[mode], None)
+        _count_equal(zz, COUNT_PATTERNS[mode], 3)
+
+
+def test_count_kernel_refuses_what_it_does_not_take(dev):
+    zz = torch.zeros((1, 6, 64), dtype=torch.int16, device=dev)
+    with pytest.raises(ValueError):
+        kernels.count_symbols(torch.zeros((65536, 1, 64), dtype=torch.int16, device=dev), (0,))
+    with pytest.raises(ValueError):
+        kernels.count_symbols(zz[:, :5], COUNT_PATTERNS["420"])
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.count_symbols(torch.zeros((1, 6, 128), dtype=torch.int16, device=dev)[..., ::2], (0,))
+
+
+JPEG_ROUTES = {
+    "balanced": dict(optimize_huffman=True),
+    "optimal": dict(optimal_huffman=True),
+    "progressive_sa": dict(progressive=True),
+    "progressive_no_sa": dict(progressive=True, progressive_sa=False),
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("route", list(JPEG_ROUTES))
+def test_jpeg_routes_on_the_card_equal_the_host_tier(dev, seeded, route, mode):
+    """The optimized, optimal and progressive batch routes on the card emit
+    each file of the host tier (``jpeg.encode(..., device="cpu")``), with
+    one coefficient launch and, on the optimized routes, one count launch;
+    ``jpeg.encode`` on the card is a batch of one."""
+    base = np.add.outer(np.arange(40) * 3, np.arange(56) * 2)[..., None]
+    imgs = (base + seeded.normal(0, 10, (3, 40, 56, 3))).clip(0, 255).astype(np.uint8)
+    if mode == "gray":
+        imgs = np.ascontiguousarray(imgs[..., 0])
+    opts = JpegOptions(width=56, height=40, quality=85, restart_interval=2,
+                       color_type=ColorType.GRAY if mode == "gray" else ColorType.RGB,
+                       subsampling=Subsampling("444" if mode == "gray" else mode), **JPEG_ROUTES[route])
+    kernels.coeffs.launches = kernels.count_symbols.launches = 0
+    outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+    assert kernels.coeffs.launches == 1
+    assert kernels.count_symbols.launches == (0 if opts.progressive else 1)
+    assert outs == [jpeg.encode(img, opts, device="cpu") for img in imgs]
+    assert jpeg.encode(imgs[0], opts) == outs[0]
+    assert jpeg.encode_batch(imgs, opts) == outs
+
+
+@pytest.mark.parametrize("quality", [75, 90, 98])
+def test_balanced_route_escalates_on_the_card(dev, seeded, quality):
+    """Noise that escalates the compaction cap and that falls back to the
+    dense stream, under the balanced preset."""
+    base = np.add.outer(np.arange(64) * 4, np.arange(64) * 4)[..., None]
+    imgs = np.concatenate([(base + seeded.normal(0, s, (2, 64, 64, 3))).clip(0, 255).astype(np.uint8)
+                           for s in (4, 8)] + [seeded.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)])
+    opts = JpegOptions.from_preset(64, 64, quality, 1).replace(subsampling=Subsampling.S420)
+    assert encode_jpeg_batch_sharded(imgs, opts, device=dev) == \
+        [jpeg.encode(img, opts, device="cpu") for img in imgs]
 
 
 FILTER_BPPS = [1, 2, 3, 4, 6, 8]
