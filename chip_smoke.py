@@ -59,7 +59,16 @@ printing its own lines:
    ``count_cases`` (``count_edge_blocks`` under every MCU pattern, at batch
    1 with restart intervals none, 1, 2 and 7, and at batch 64), each at byte
    offsets 0 and 2, also held against the host library's count image by
-   image;
+   image; and the max preset's two kernels (``check_trellis_kernels``):
+   ``dct_zz``, the coefficient kernel's f32 variant, in all four modes on the
+   gradient, noise and edge batches of the coefficient kernel, bit for bit
+   against its plain version and image by image against the host library's
+   unquantized DCT, with the occupancy of both variants; ``trellis_quantize``
+   on ``trellis_edge_blocks`` (exact halves, the extension's and the
+   all-zero exit's boundaries, ZRL runs, DC edges, tied lattices, extremes,
+   under every MCU pattern), 70,000 random blocks and the real DCT of the
+   max cells (m1) and (m2), against its plain version and the host
+   library's DP;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -74,7 +83,14 @@ printing its own lines:
    approximation on the corpus batch and on 64x64 crops that take the SA
    fallback; every file is held against the host tier (``jpeg.encode(img,
    opts, device="cpu")``, ``host_tier``), with the launch counts of each
-   call (``count_symbols`` once on the optimized routes). Then the PNG main path,
+   call (``count_symbols`` once on the optimized routes). Then the max
+   preset (``check_trellis_path``, ``trellis_cells``): (m1) the gradient
+   batch and (m2) 12 corpus photos at q85 4:2:0 (one ``dct_zz`` and one
+   ``trellis_quantize`` launch, no ``coeffs``), then gray with restarts,
+   4:4:4 optimal without SA, 64x64 crops (the SA fallback; one image and a
+   batch) and a baseline encode with
+   ``trellis_quant`` (``trellis_route_cases``), every file byte-equal to
+   the host tier (``jpeg.encode_batch(..., device="cpu")``). Then the PNG main path,
    ``encode_png_batch_sharded(..., device="cuda")``, on (a) 16 512x512 RGB
    photos (the four corpus fixtures and three shifts of each) under the
    balanced preset, with the fused filter kernel's launch count, (b) the
@@ -122,7 +138,12 @@ printing its own lines:
    every image, the pack with them, the whole call, the host tier on 8
    threads), and for the progressive route with SA on the corpus batch the
    device stage with its copy back, the host stage, the whole call and the
-   host tier on 8 threads (``time_jpeg_routes``); and for decode batches (d1) and (d3) the host stage with 8 workers
+   host tier on 8 threads (``time_jpeg_routes``); for the max cells (m1)
+   and (m2) ``dct_zz`` and ``trellis_quantize`` four ways beside their
+   bounds, the stages (copy up, DCT, trellis, copy back, the progressive
+   scans on 8 threads, the whole call, the host library's DP alone and the
+   host tier, on 8 threads) (``time_trellis``); and for decode batches (d1)
+   and (d3) the host stage with 8 workers
    and with 1, and its parts (parse, buffer, the Python work of each call,
    the library calls on 1 and 8 threads, the progressive files), the copy
    of the coefficients, the kernel, the upsampling and colour, the device
@@ -349,9 +370,9 @@ def reset_counts() -> None:
     from pixo_tpu_torch.ops import kernels
 
     for fn in (kernels.coeffs, kernels.compact_padded, kernels.count_symbols, kernels.dct8x8_aan,
-               kernels.filter_bank, kernels.filter_rows, kernels.idct_planes,
-               kernels.idct8x8_int, kernels.resize_lanczos3, kernels.kmeans_refine,
-               kernels.palette_lut, kernels.dither_fs):
+               kernels.dct_zz, kernels.trellis_quantize, kernels.filter_bank, kernels.filter_rows,
+               kernels.idct_planes, kernels.idct8x8_int, kernels.resize_lanczos3,
+               kernels.kmeans_refine, kernels.palette_lut, kernels.dither_fs):
         fn.launches = 0
 
 
@@ -441,9 +462,10 @@ def wall_stats(fn, runs: int = THUMB_RUNS):
 PROFILED = {}  # profiler_ms's last count of traced launches, by kernel name
 
 
-def profiler_ms(fn, kernel: str, calls: int = 20):
+def profiler_ms(fn, kernel, calls: int = 20):
     """Device time a call of ``fn`` spends in the kernels whose name holds
-    ``kernel`` (one kernel for most wrappers; the two passes of the resize,
+    ``kernel`` (or one of the names of a tuple: a template instance's
+    demangled and mangled forms; one kernel for most wrappers; the two passes of the resize,
     the k-means' kernel twice), from ``torch.profiler``'s
     ``key_averages()`` over ``calls`` warm calls of ``fn``: the kernels' own
     time, whatever the wrapper costs on the host. The trace may hold fewer
@@ -465,8 +487,9 @@ def profiler_ms(fn, kernel: str, calls: int = 20):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        keys = (kernel,) if isinstance(kernel, str) else kernel
         found = [(max(e.device_time_total, e.self_device_time_total), e.count)
-                 for e in prof.key_averages() if kernel in e.key and e.count]
+                 for e in prof.key_averages() if any(k in e.key for k in keys) and e.count]
         if found:
             break
     PROFILED[kernel] = sum(n for _, n in found)  # the kernels' launches the trace holds
@@ -496,7 +519,17 @@ H100_INT32_OPS_PER_S = 132 * 128 * 1.98e9
 REDMEAN_OPS = 20
 KMEANS_ACC_OPS = 10
 DITHER_PIXEL_OPS = 3 * 11 + 7 + 3 + 1
-OPS_TYPE = {"palette_lut": "int32", "kmeans_refine": "int32", "dither_fs": "int32"}
+# The trellis' work a block: the all-zero exit's test (an absolute value, a
+# doubling and a compare for each of the 63 ACs) for every block; for a block
+# that runs the DP, each of its 63 steps at least the candidates (a division,
+# floor, ceil and the extension: 4), a rate lookup, two adds and a compare
+# for each of up to 4 candidates and 8 states (128), and the merge of up to
+# 12 entries into 8 (36 compares). None of it is a multiply-add, so its rate
+# is one operation a lane a clock, the int32 issue rate below.
+TRELLIS_EXIT_OPS = 3 * 63
+TRELLIS_STEP_OPS = 4 + 4 * 8 * 4 + 36
+OPS_TYPE = {"palette_lut": "int32", "kmeans_refine": "int32", "dither_fs": "int32",
+            "trellis_quantize": "f32 without FMA"}
 # f32 operations of one block through the coefficient chain: 16 AAN passes
 # of 5 multiplies, 29 adds and 8 scales, then per coefficient the level
 # shift, the division and the rounding.
@@ -516,8 +549,10 @@ def per_image(shape: dict, key: str):
 def kernel_work(name: str, **shape):
     """(bytes, f32 operations) that kernel ``name`` must at least move and
     do at ``shape``: each input byte read once, each output byte written
-    once. Shapes: coeffs (b, h, w, c, mode); compact (b, n, cap);
-    count_symbols (b, n);
+    once. Shapes: coeffs and dct_zz (b, h, w, c, mode); compact (b, n, cap);
+    count_symbols (b, n); trellis_quantize (n, and ``dp``, the blocks of
+    this data that run the DP: ``TRELLIS_EXIT_OPS`` a block, and
+    ``TRELLIS_STEP_OPS`` a step of the DP, at the issue rate);
     filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
     dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
     kx: the taps of a vertical and a horizontal window, and optionally
@@ -541,6 +576,13 @@ def kernel_work(name: str, **shape):
 
         blocks = s["b"] * num_blocks(s["h"], s["w"], s["mode"])
         return s["b"] * s["h"] * s["w"] * s["c"] + 128 * blocks, COEFF_OPS * blocks
+    if name == "dct_zz":  # pixels in, f32 zigzag out; the AAN passes and the level shift
+        from pixo_tpu_torch.ops.blockify import num_blocks
+
+        blocks = s["b"] * num_blocks(s["h"], s["w"], s["mode"])
+        return s["b"] * s["h"] * s["w"] * s["c"] + 256 * blocks, (AAN_OPS + 64) * blocks
+    if name == "trellis_quantize":  # f32 blocks in, int16 out; dp: the blocks that run the DP
+        return 384 * s["n"], TRELLIS_EXIT_OPS * s["n"] + 63 * TRELLIS_STEP_OPS * s["dp"]
     if name == "compact":  # zz in; dc, counts, poss, vals out
         return s["b"] * s["n"] * (128 + 3 + 3 * s["cap"]), 0
     if name == "count_symbols":  # zz in; 536 int64 counters an image out
@@ -583,7 +625,8 @@ def kernel_bound(name: str, **shape):
     its operations over the rate of their type (``OPS_TYPE``: f32 unless
     named), and which of the two it is."""
     nbytes, ops = kernel_work(name, **shape)
-    rate = H100_INT32_OPS_PER_S if OPS_TYPE.get(name) == "int32" else H100_F32_OPS_PER_S
+    rate = (H100_INT32_OPS_PER_S if OPS_TYPE.get(name) in ("int32", "f32 without FMA")
+            else H100_F32_OPS_PER_S)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -663,6 +706,83 @@ def count_edge_blocks(rng):
     vals[:, 0] = rng.integers(-1024, 1024, rest)
     zz[i:] = vals
     return zz
+
+
+TRELLIS_PATTERNS = {"420": (0, 0, 0, 0, 1, 2), "444": (0, 1, 2), "422": (0, 0, 1, 2), "gray": (0,)}
+
+
+def trellis_edge_blocks(rng):
+    """(label, [N, 64] f32 zigzag DCT blocks, lum [64], chrom [64] zigzag
+    f32 tables, pattern) at the trellis' edges: exact halves coef = (k +
+    0.5) q and |fq| = 1.5 (rounding and the extension's bound), 2|coef| = q
+    and one float either side (the all-zero exit's boundary), runs of 15 and
+    16 zeros before a nonzero (the ZRL wrap), the DC at +-0.49999997 q and
+    at exact halves (the host library's f32 rounding), lattice blocks whose
+    values are multiples of q / 4 (many exactly tied costs), the extremes of
+    the JAX package's tests (an all-zero block, a dense one, a lone tail
+    coefficient, one at a rounding boundary) and values up to category 13;
+    every case under distinct lum and chrom tables, so the pattern picks."""
+    import numpy as np
+
+    f32 = np.float32
+    lum = rng.integers(1, 80, 64).astype(f32)
+    chrom = rng.integers(1, 80, 64).astype(f32)
+    cases = []
+    for pname, pattern in TRELLIS_PATTERNS.items():
+        bpm = len(pattern)
+        q = np.where((np.asarray(pattern)[np.arange(240) % bpm] != 0)[:, None], chrom, lum)
+        dct = np.zeros((240, 64), f32)
+        i = 0
+        for k in range(-3, 3):  # exact halves: fq = k + 0.5 at one position, at all
+            pos = 1 + rng.integers(0, 63)
+            dct[i, pos] = (k + 0.5) * q[i, pos]
+            dct[i + 1, 1:] = (k + 0.5) * q[i + 1, 1:]
+            i += 2
+        for sign in (1, -1):  # |fq| = 1.5, and 2|coef| = q with a float either side
+            dct[i, 1:] = sign * f32(1.5) * q[i, 1:]
+            half = sign * q[i + 1, 1:] / 2
+            dct[i + 1, 1:] = half
+            dct[i + 2, 1:] = np.nextafter(half.astype(f32), f32(0))
+            dct[i + 3, 1:] = np.nextafter(half.astype(f32), f32(sign * 1e9))
+            dct[i + 4, 5] = half[4]  # one coefficient at the boundary, the rest below
+            dct[i + 4, 6:] = np.nextafter(half[5:].astype(f32), f32(0))
+            i += 5
+        for run in (15, 16, 17, 31, 32):  # zero runs before a nonzero, from the DC and after one
+            for lead in (0, 2):
+                if lead:
+                    dct[i, lead] = 3 * q[i, lead]
+                if lead + run + 1 < 64:
+                    dct[i, lead + run + 1] = -2.2 * q[i, lead + run + 1]
+                i += 1
+        for x0 in (0.49999997, -0.49999997, 0.5, -0.5, 1.5, -2.5, 0.4999999):
+            dct[i, 0] = f32(x0) * q[i, 0]
+            dct[i, 1:] = rng.normal(0, 30, 63)
+            i += 1
+        lattice = 40
+        dct[i:i + lattice] = rng.integers(-12, 13, (lattice, 64)) * q[i:i + lattice] / 4
+        dct[i:i + lattice][rng.random((lattice, 64)) < 0.4] = 0
+        i += lattice
+        dct[i + 1] = rng.normal(0, 400, 64)  # i: all zero
+        dct[i + 2, 63] = 100.0
+        dct[i + 3, 1] = 8.0
+        dct[i + 4] = rng.normal(0, 3000, 64) * (rng.random(64) < 0.3)
+        i += 5
+        rest = 240 - i
+        dct[i:] = rng.normal(0, 80, (rest, 64)) * (rng.random((rest, 64)) < 0.5)
+        dct[i:, 0] = rng.normal(0, 500, rest)
+        cases.append((f"edge blocks 240 {pname}", dct.astype(f32), lum, chrom, pattern))
+    return cases
+
+
+def trellis_random_blocks(rng, n: int):
+    """[n, 64] f32 DCT-like blocks: AC normal(0, 80) with half of them zero,
+    DC normal(0, 500) (the JAX package's random trellis case, any size)."""
+    import numpy as np
+
+    dct = rng.normal(0, 80, (n, 64)).astype(np.float32)
+    dct[:, 0] = rng.normal(0, 500, n).astype(np.float32)
+    dct[rng.random((n, 64)) < 0.5] = 0.0
+    return dct
 
 
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
@@ -942,23 +1062,25 @@ def check_jpeg_routes(dev, grad, corpus) -> dict:
 
 
 def time_kernel(name: str, at: str, call, plain, alone, card: str, plain_calls=(10, 5),
-                **shape) -> dict:
+                kernel=None, **shape) -> dict:
     """Times kernel ``name`` four ways and prints one line: the profiler's
     device time (the kernel's own), the launch alone (the C function with
     everything made beforehand), the wrapper call and the
     plain version (CUDA events, per call; ``plain_calls`` gives the calls a
     repetition, the repetitions and the warm calls of a slow one), beside its bound at
     ``shape`` (``kernel_bound``) and the share of the bound that the device
-    time reaches. No single PyTorch call computes any kernel's function, so
-    ``library_ms`` is None."""
+    time reaches; ``kernel`` names the CUDA kernel for the profiler where
+    it is not ``name`` + "_". No single PyTorch call computes any kernel's
+    function, so ``library_ms`` is None."""
     bound, by = kernel_bound(name, **shape)
+    key = kernel or f"{name}_"  # filter_rows_strip_kernel, coeffs_kernel, ...
     t = {"at": at, "ms": event_ms(call), "plain_ms": event_ms(plain, *plain_calls),
-         "device_ms": profiler_ms(call, f"{name}_"),  # filter_rows_strip_kernel, coeffs_kernel, ...
+         "device_ms": profiler_ms(call, key),
          "launch_ms": event_ms(alone),
          "bound_ms": bound, "bound_by": by, "library_ms": None}
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     share = "not measured" if t["device_ms"] is None else f"{bound / t['device_ms']:.1%}"
-    print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler, {PROFILED[f'{name}_']} "
+    print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler, {PROFILED[key]} "
           f"launches traced in 20 calls), launch alone "
           f"{t['launch_ms']:.4f} ms, per call {t['ms']:.4f} ms, plain PyTorch {t['plain_ms']:.4f} ms; "
           f"bound {bound:.4f} ms ({by}, {kernel_work(name, **shape)[0]} B, "
@@ -1139,6 +1261,273 @@ def time_jpeg_routes(dev, grad, corpus, card: str) -> dict:
               f"4:2:0 SA: median {med:.4f} ms ({lo:.4f} to {hi:.4f}), {cmp / (med / 1e3):.1f} MP/s "
               f"over {THUMB_RUNS} warm runs [{card}]")
     return k_ms
+
+
+def max_options(**kw):
+    """The max preset (progressive with SA, optimized tables, trellis) at q85
+    4:2:0, SIZE x SIZE, with the options ``kw`` replaced."""
+    from pixo_tpu_torch import JpegOptions
+
+    return JpegOptions.max(SIZE, SIZE, QUALITY).replace(**kw)
+
+
+def trellis_cells(grad, corpus) -> dict:
+    """The max preset's cells, {key: (label, images)}: (m1) the gradient
+    batch (98,304 blocks, most of which take the all-zero exit) and (m2) the
+    first 12 images of PNG (a)'s batch (three photo fixtures, four shifts
+    each: 73,728 blocks, where the DP runs)."""
+    import numpy as np
+
+    return {"m1": (f"gradient {len(grad)}x{SIZE}x{SIZE}", grad),
+            "m2": (f"corpus 12x{SIZE}x{SIZE}", np.ascontiguousarray(corpus[:12]))}
+
+
+def cell_trellis_inputs(dev, imgs):
+    """A max cell's trellis inputs on the card: its [B * N, 64] f32 DCT (the
+    ``dct_zz`` kernel's), the zigzag tables and the 4:2:0 pattern."""
+    import torch
+
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+
+    dct = kernels.dct_zz(torch.from_numpy(imgs).to(dev), "420").reshape(-1, 64)
+    return dct, *jenc.zigzag_tables(QuantizationTables(QUALITY)), TRELLIS_PATTERNS["420"]
+
+
+def dp_blocks(dct, lum, chrom, pattern) -> int:
+    """The blocks of [N, 64] f32 ``dct`` that run the trellis DP: those with
+    an AC where 2|coef| >= q (the rest take the all-zero exit)."""
+    import torch
+
+    from pixo_tpu_torch.ops.trellis_device import block_tables
+
+    q = block_tables(lum, chrom, pattern, dct.shape[0], dct.device)
+    return int(((2 * dct[:, 1:].abs()) >= q[:, 1:]).any(dim=1).sum())
+
+
+def check_trellis_kernels(dev, grad, noise, cells) -> dict:
+    """Phase 2 for the max route's kernels. ``dct_zz`` in all four modes on
+    the gradient and noise batches and ``coeff_edge_cases``, bit for bit
+    against its plain version on the card and image by image against the
+    host library's ``native_jpeg_dct_zz``; ``trellis_quantize`` on
+    ``trellis_edge_blocks`` (every pattern), 70,000 random blocks and the
+    real DCT of cells (m1) and (m2) (``trellis_cells``), bit for bit against
+    its plain version on the card and against the host library's DP. Prints
+    the occupancy of the coefficient kernel and its f32 variant. Returns the
+    largest absolute error of each."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.trellis_device import trellis_quantize_batch_plain
+
+    occ = {raw: {m: kernels.coeffs_ctas_per_sm(m, 3, raw) for m in ("gray", "444", "420", "422")}
+           for raw in (False, True)}
+    print(f"occupancy at 3 channels, CTAs an SM: coeffs {occ[False]}, dct_zz {occ[True]}")
+    errs = {"dct_zz": 0.0, "trellis_quantize": 0}
+    named = [(f"{name} {'x'.join(map(str, batch.shape[:3]))}", batch)
+             for name, batch in (("gradient", grad), ("noise", noise))]
+    for label, batch in named + coeff_edge_cases(np.random.default_rng(8)):
+        for mode in ("gray", "444", "420", "422"):
+            host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
+            x = torch.from_numpy(host).to(dev)
+            got, ref = kernels.dct_zz(x, mode), kernels.dct_zz_plain(x, mode)
+            equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+            err = float((got - ref).abs().max())
+            errs["dct_zz"] = max(errs["dct_zz"], err)
+            got_h = got.cpu().numpy()
+            rgb = host if mode == "gray" else np.ascontiguousarray(host[..., :3])
+            host_bad = sum(not np.array_equal(got_h[i].view(np.int32),
+                                              native.native_jpeg_dct_zz(rgb[i], mode).view(np.int32))
+                           for i in range(len(host)))
+            _verdict(f"check dct_zz mode={mode} {label}: bitwise equal to plain {equal}, max_abs_err "
+                     f"{err}, images differing from the host library {host_bad}/{len(host)}",
+                     equal and host_bad == 0)
+
+    rng = np.random.default_rng(61)
+    cases = [(label, torch.from_numpy(dct).to(dev), lum, chrom, pat)
+             for label, dct, lum, chrom, pat in trellis_edge_blocks(rng)]
+    lum, chrom = (rng.integers(1, 80, 64).astype(np.float32) for _ in range(2))
+    cases.append(("random 70000 (over 65,535 blocks)",
+                  torch.from_numpy(trellis_random_blocks(rng, 70_000)).to(dev), lum, chrom,
+                  TRELLIS_PATTERNS["420"]))
+    cases += [(f"({key}) {label} q{QUALITY} 4:2:0 DCT", *cell_trellis_inputs(dev, imgs))
+              for key, (label, imgs) in cells.items()]
+    for label, dct, lum, chrom, pattern in cases:
+        got = kernels.trellis_quantize(dct, lum, chrom, pattern)
+        ref = trellis_quantize_batch_plain(dct, lum, chrom, pattern)
+        err = int((got.int() - ref.int()).abs().max())
+        errs["trellis_quantize"] = max(errs["trellis_quantize"], err)
+        host = native.native_trellis_quantize(dct.cpu().numpy(), pattern, lum, chrom)
+        host_bad = int((got.cpu().numpy() != host).any(axis=1).sum())
+        _verdict(f"check trellis_quantize {label}: {dct.shape[0]} blocks, "
+                 f"{dp_blocks(dct, lum, chrom, pattern)} through the DP; max_abs_err vs plain {err}, "
+                 f"blocks differing from the host library {host_bad}", err == 0 and host_bad == 0)
+    return errs
+
+
+def trellis_route_cases(corpus) -> list:
+    """Phase 3's further max-preset batches, for correctness: (label,
+    images, options, the launches the call must make)."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, Subsampling
+
+    small = np.ascontiguousarray(corpus[:, :64, :64])  # 96 blocks an image: the SA fallback runs
+    gray = np.ascontiguousarray(corpus[:4, :, :, 1])
+    trellis = {"coeffs": 0, "dct_zz": 1, "trellis_quantize": 1}
+    return [
+        ("corpus crops 64x64 (SA fallback)", small, max_options(width=64, height=64), trellis),
+        ("one corpus crop 64x64 (96 blocks)", small[:1], max_options(width=64, height=64), trellis),
+        ("gray, restart 5", gray, max_options(color_type=ColorType.GRAY, restart_interval=5), trellis),
+        ("4:4:4 optimal, no SA", corpus[:4],
+         max_options(subsampling=Subsampling.S444, optimal_huffman=True, progressive_sa=False), trellis),
+        ("baseline balanced with trellis_quant (the trellis unused)", corpus[:4],
+         balanced_options(trellis_quant=True), {"coeffs": 1, "dct_zz": 0, "trellis_quantize": 0}),
+    ]
+
+
+def check_trellis_path(dev, cells, corpus) -> dict:
+    """Phase 3 for the max route: each cell of ``trellis_cells`` through
+    ``encode_jpeg_batch_sharded(..., device="cuda")`` (one ``dct_zz`` and
+    one ``trellis_quantize`` launch, no ``coeffs``), then the batches of
+    ``trellis_route_cases``; every file byte-equal to the host tier
+    (``jpeg.encode_batch(..., device="cpu")``: the host library's DCT and
+    DP). Returns the launches of each cell's call, by cell."""
+    from pixo_tpu_torch import encode_jpeg_batch_sharded, jpeg
+    from pixo_tpu_torch.ops import kernels
+
+    def run(label, imgs, opts, want):
+        reset_counts()
+        outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+        launches = {"coeffs": kernels.coeffs.launches, "dct_zz": kernels.dct_zz.launches,
+                    "trellis_quantize": kernels.trellis_quantize.launches}
+        same = sum(a == b for a, b in zip(outs, jpeg.encode_batch(imgs, opts, device="cpu")))
+        _verdict(f"max route {label} q{opts.quality}: {same}/{len(imgs)} "
+                 f"files byte-equal to the host tier, mean {sum(map(len, outs)) / len(outs):.0f} B/file; "
+                 f"launches {launches}", same == len(imgs) and launches == want)
+        return launches
+
+    found = {key: run(f"({key}) {label}", imgs, max_options(),
+                      {"coeffs": 0, "dct_zz": 1, "trellis_quantize": 1})
+             for key, (label, imgs) in cells.items()}
+    for label, imgs, opts, want in trellis_route_cases(corpus):
+        run(label, imgs, opts, want)
+    return found
+
+
+def trellis_alone(kernels, dct, lum, chrom, pattern):
+    """The trellis kernel's launch alone on [N, 64] ``dct``: the C function
+    with its output made beforehand."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops.trellis_device import RATE_LUT
+
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty(dct.shape, dtype=torch.int16, device=dct.device)
+    lum32, chrom32 = kernels._table(lum), kernels._table(chrom)
+    pat = np.asarray(pattern, np.uint8)
+
+    def alone():
+        return lib.pixo_trellis_quantize(dct.data_ptr(), dct.shape[0], lum32.ctypes.data,
+                                         chrom32.ctypes.data, pat.ctypes.data, len(pat), 1.0,
+                                         RATE_LUT.ctypes.data, out.data_ptr(), stream)
+
+    if alone():
+        raise Failed("the trellis kernel's launch alone returned an error")
+    return alone
+
+
+def dct_zz_alone(kernels, imgs_dev):
+    """The ``dct_zz`` kernel's launch alone at 4:2:0 on ``imgs_dev``."""
+    import torch
+
+    from pixo_tpu_torch.ops.blockify import num_blocks
+
+    b, h, w, c = imgs_dev.shape
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty((b, num_blocks(h, w, "420"), 64), dtype=torch.float32, device=imgs_dev.device)
+
+    def alone():
+        return lib.pixo_dct_zz(imgs_dev.data_ptr(), b, h, w, c, 2, out.data_ptr(), stream)
+
+    if alone():
+        raise Failed("the dct_zz kernel's launch alone returned an error")
+    return alone
+
+
+def time_trellis(dev, cells, card: str) -> dict:
+    """Phase 4 for the max route. For each cell of ``trellis_cells``:
+    ``dct_zz`` and ``trellis_quantize`` four ways beside their bounds
+    (``time_kernel``; the trellis' operations count the blocks that run the
+    DP in this data), then the stages, median, least and most of THUMB_RUNS
+    synchronized calls (``wall_stats``): the copy up, ``dct_zz``, the
+    trellis kernel, the int16 copy back, the progressive scans of every
+    image on 8 threads, the whole call, the host library's DP alone on 8
+    threads (the f32 DCT already on the host) and the host tier
+    (``jpeg.encode_batch(..., device="cpu")``) on 8 threads. Returns (m1)'s
+    kernel times, with (m2)'s under "m2"."""
+    import torch
+
+    from pixo_tpu_torch import encode_jpeg_batch_sharded, jpeg, native
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.trellis_device import trellis_quantize_batch_plain
+
+    opts = max_options()
+    quant = QuantizationTables(QUALITY)
+    found = {}
+    for key, (label, imgs) in cells.items():
+        b = len(imgs)
+        imgs_dev = torch.from_numpy(imgs).to(dev)
+        dct, lum, chrom, pattern = cell_trellis_inputs(dev, imgs)
+        n = dct.shape[0] // b
+        dp = dp_blocks(dct, lum, chrom, pattern)
+        at = f"({key}) {label} q{QUALITY} 4:2:0 max"
+        k_ms = {
+            "dct_zz": time_kernel(
+                "dct_zz", at, lambda: kernels.dct_zz(imgs_dev, "420"),
+                lambda: kernels.dct_zz_plain(imgs_dev, "420"), dct_zz_alone(kernels, imgs_dev), card,
+                kernel=("coeffs_kernel<2, true>", "coeffs_kernelILi2ELb1E"), b=b, h=SIZE, w=SIZE, c=3,
+                mode="420"),
+            "trellis_quantize": time_kernel(
+                "trellis_quantize", f"{at}, {dp} of {dct.shape[0]} blocks through the DP",
+                lambda: kernels.trellis_quantize(dct, lum, chrom, pattern),
+                lambda: trellis_quantize_batch_plain(dct, lum, chrom, pattern),
+                trellis_alone(kernels, dct, lum, chrom, pattern), card, plain_calls=(2, 3),
+                n=dct.shape[0], dp=dp),
+        }
+        found[key] = k_ms
+        zz_dev = kernels.trellis_quantize(dct, lum, chrom, pattern)
+        zz = zz_dev.cpu().numpy().reshape(b, n, 64)
+        dct_host = dct.cpu().numpy()
+
+        def host_scans():
+            with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+                return list(ex.map(lambda i: jenc._emit_with_sa_fallback(
+                    zz[i], None, opts, quant, pattern, n), range(b)))
+
+        stages = {
+            "max_h2d": wall_stats(lambda: torch.from_numpy(imgs).to(dev)),
+            "max_dct_zz": wall_stats(lambda: kernels.dct_zz(imgs_dev, "420")),
+            "max_trellis": wall_stats(lambda: kernels.trellis_quantize(dct, lum, chrom, pattern)),
+            "max_d2h": wall_stats(lambda: zz_dev.cpu()),
+            "max_host_scans": wall_stats(host_scans),
+            "max_end_to_end": wall_stats(lambda: encode_jpeg_batch_sharded(imgs, opts, device=dev)),
+            "max_host_trellis_8_threads": wall_stats(
+                lambda: native.native_trellis_quantize(dct_host, pattern, lum, chrom, nthreads=8)),
+            "max_host_library_8_threads": wall_stats(
+                lambda: jpeg.encode_batch(imgs, opts, device="cpu")),
+        }
+        mp = b * SIZE * SIZE / 1e6
+        for name, (med, lo, hi) in stages.items():
+            print(f"stage {name} ({key}) {label} q{QUALITY} 4:2:0: median {med:.4f} ms ({lo:.4f} to "
+                  f"{hi:.4f}), {mp / (med / 1e3):.1f} MP/s over {THUMB_RUNS} warm runs [{card}]")
+    return {**found["m1"], "m2": found["m2"]}
 
 
 def filter_edge_cases(rng, bpp: int):
@@ -3534,6 +3923,8 @@ def main() -> int:
     try:
         errs = check_kernels(dev, grad, noise, 100_000)
         errs["count_symbols"] = check_count_kernel(dev, main_count_cases(dev, grad, corpus))
+        cells = trellis_cells(grad, corpus)
+        errs.update(check_trellis_kernels(dev, grad, noise, cells))
         errs.update(check_png_kernels(dev, corpus))
         cases = decode_cases(dev, grad, corpus)
         errs.update(check_decode_kernels(dev, cases, 100_000))
@@ -3543,6 +3934,8 @@ def main() -> int:
         errs.update(check_quantize_kernels(dev, corpus, grad))
         launches = check_main_path(dev, grad)
         launches["count_symbols"] = check_jpeg_routes(dev, grad, corpus)["count_symbols"]
+        max_launches = check_trellis_path(dev, cells, corpus)
+        launches.update({k: max_launches["m1"][k] for k in ("dct_zz", "trellis_quantize")})
         launches.update(check_png_main_path(dev, corpus, grad))
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
@@ -3553,7 +3946,9 @@ def main() -> int:
     missing = ([k for k, n in launches.items() if n < 1]
                + [f"{k} (thumbnail path)" for k, n in thumb_launches.items() if n < 1]
                + [f"{k} ({cell})" for cell, counts in lossy_launches.items()
-                  for k, n in counts.items() if n < 1])
+                  for k, n in counts.items() if n < 1]
+               + [f"{k} (max cell {cell})" for cell, counts in max_launches.items()
+                  for k in ("dct_zz", "trellis_quantize") if counts[k] < 1])
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
@@ -3564,6 +3959,7 @@ def main() -> int:
     k_ms.update(time_decode(dev, cases, card, 100_000))
     try:
         k_ms.update(time_jpeg_routes(dev, grad, corpus, card))
+        k_ms.update(time_trellis(dev, cells, card))
         resize_ms, thumb_ms = time_thumbnail(dev, tcases, card)
         k_ms.update(resize_ms)
         k_ms.update(time_lossy(dev, corpus, grad, card))
@@ -3582,8 +3978,11 @@ def main() -> int:
     # its error against the plain version on that path's tensors, and its
     # times and bound at one chunk's shapes. The quantization kernels'
     # launches and times are those of the lossy cell (q1); (q2)'s are under
-    # "q2".
+    # "q2". The max route's kernels (dct_zz, trellis_quantize) have the
+    # launches and times of cell (m1); (m2)'s are under "m2".
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
+               "dct_zz": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
+               "trellis_quantize": ("pixo_tpu_torch/csrc/trellis.cu", "pixo_tpu/ops/trellis_device.py:179"),
                "compact": ("pixo_tpu_torch/csrc/compact.cu", "pixo_tpu/ops/sparse_pack.py:117"),
                "count_symbols": ("pixo_tpu_torch/csrc/huffman.cu", "pixo_tpu/ops/huffman_device.py:73"),
                "filter_rows": ("pixo_tpu_torch/csrc/filter_bank.cu",
@@ -3602,7 +4001,9 @@ def main() -> int:
          **({"thumbnail_path": {"launches": thumb_launches[name], "max_abs_err": thumb_errs[name],
                                 "shapes": thumb_ms[name]}} if name in thumb_ms else {}),
          **({"q2": {"launches": lossy_launches["q2"][name], **{k: k_ms["q2"][name][k] for k in timed}}}
-            if name in LOSSY_KERNELS else {})}
+            if name in LOSSY_KERNELS else {}),
+         **({"m2": {"launches": max_launches["m2"][name], **{k: k_ms["m2"][name][k] for k in timed}}}
+            if name in ("dct_zz", "trellis_quantize") else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,8 +8,8 @@ from its source. The JAX package stays the reference: for the
 same input and options the port emits the same bytes.
 
 Ported so far are the JPEG encode, single-image and batched, baseline and
-progressive with the standard, optimized or optimal Huffman tables (all but
-the trellis), the batched 8-bit PNG encode, lossless and lossy (palette quantization with
+progressive with the standard, optimized or optimal Huffman tables, and
+the trellis quantizer of the ``max`` preset, the batched 8-bit PNG encode, lossless and lossy (palette quantization with
 Floyd-Steinberg dithering), the batched baseline and progressive
 JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
 thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying

@@ -45,11 +45,20 @@
 //   contiguous range of scan-order blocks, so the tile leaves with
 //   coalesced 16-byte stores.
 //
-// The second entry point, pixo_dct8x8_aan, is the standalone [N, 8, 8] f32
+// A variant (RAW) stores the column pass's f32 output in zigzag order
+// instead of quantizing it: pixo_dct_zz, [B, nblocks, 64] f32, the trellis
+// quantizer's front end (jpeg/encoder.py::_device_dct_zz of the JAX package,
+// which runs dct8x8_aan_pallas's function). Only the store and the output
+// tile differ: f32 doubles the tile (72 floats a block), which at 4:2:0 and
+// three channels takes the CTA to 45,568 bytes of shared memory, still five
+// CTAs of 384 threads on an SM.
+//
+// The third entry point, pixo_dct8x8_aan, is the standalone [N, 8, 8] f32
 // DCT: the direct counterpart of dct8x8_aan_pallas, sharing the butterfly.
 
 #include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 
@@ -74,7 +83,7 @@ constexpr int kTileW = 128;  // pixels a tile spans
 constexpr int kPlanePitch = kTileW + 8;  // bytes a uint8 plane row takes: 8-byte rows
 constexpr int kSumPitch = kTileW / 2 + 8;  // uint16 entries a chroma-sum row takes: 16-byte rows
 constexpr int kBlockPitch = 72;  // floats an 8x8 block takes: rows of 9, no bank conflicts
-constexpr int kOutPitch = 72;  // int16 an output block takes: its zigzag stores spread over the banks
+constexpr int kOutPitch = 72;  // entries an output block takes: its zigzag stores spread over the banks
 
 // The tile of each mode: MCU size, MCUs a tile, blocks an MCU, and its
 // chroma planes: full uint8 planes (4:4:4), or the integer sums of each
@@ -96,10 +105,14 @@ struct Tile {
 
 // Byte offsets in the dynamic shared memory: two buffers of staged raw rows
 // and their row offsets, the blocks between the two DCT passes, the tile's
-// output, the luma plane and the two chroma planes.
+// output (int16, or f32 for the RAW variant), the luma plane and the two
+// chroma planes.
 __host__ __device__ inline int raw_pitch(int c) { return kTileW * c + 32; }
 
-template <int MODE>
+template <bool RAW>
+using OutT = typename std::conditional<RAW, float, int16_t>::type;
+
+template <int MODE, bool RAW>
 struct Smem {
   using T = Tile<MODE>;
   int raw, fblk, otile, luma, chroma, rowoff, total;
@@ -107,7 +120,7 @@ struct Smem {
     raw = 0;
     fblk = raw + 2 * T::kRows * raw_pitch(c);
     otile = fblk + T::kBlocks * kBlockPitch * 4;
-    luma = otile + T::kBlocks * kOutPitch * 2;
+    luma = otile + T::kBlocks * kOutPitch * static_cast<int>(sizeof(OutT<RAW>));
     chroma = luma + T::kRows * kPlanePitch;
     rowoff = chroma + 2 * T::kChromaBytes;
     total = rowoff + 2 * T::kRows * 4;
@@ -245,19 +258,20 @@ __device__ __forceinline__ void convert_tile(const uint8_t* raw, const int* rowo
 }
 
 // A persistent loop over tiles: while a CTA converts and transforms one
-// tile, the copy of its next tile's rows is in flight.
-template <int MODE>
+// tile, the copy of its next tile's rows is in flight. RAW writes the f32
+// DCT in zigzag order; otherwise the quantized int16 coefficients.
+template <int MODE, bool RAW>
 __global__ void __launch_bounds__(Tile<MODE>::kThreads) coeffs_kernel(
     const uint8_t* __restrict__ imgs, int64_t h, int64_t w, int c, int64_t n_mcu_x,
     uint32_t n_tiles_x, uint32_t tiles_per_img, uint32_t n_tiles, int64_t nblocks, QTables qt,
-    int16_t* __restrict__ out) {
+    OutT<RAW>* __restrict__ out) {
   using T = Tile<MODE>;
   extern __shared__ int4 smem[];
-  const Smem<MODE> lay(c);
+  const Smem<MODE, RAW> lay(c);
   uint8_t* const sm = reinterpret_cast<uint8_t*>(smem);
   const int rp = raw_pitch(c);
   float* fblk = reinterpret_cast<float*>(sm + lay.fblk);
-  int16_t* otile = reinterpret_cast<int16_t*>(sm + lay.otile);
+  OutT<RAW>* otile = reinterpret_cast<OutT<RAW>*>(sm + lay.otile);
   uint8_t* luma = sm + lay.luma;
   uint8_t* chroma = sm + lay.chroma;
   int* rowoffs = reinterpret_cast<int*>(sm + lay.rowoff);
@@ -352,18 +366,25 @@ __global__ void __launch_bounds__(Tile<MODE>::kThreads) coeffs_kernel(
     if (mcu < p.n_mcus) {
 #pragma unroll
       for (int k = 0; k < 8; ++k) {
-        // IEEE division, then roundf: round half away from zero (Rust f32::round)
-        otile[zo[k]] = static_cast<int16_t>(static_cast<int>(roundf(__fdiv_rn(v[k], tq[k]))));
+        if constexpr (RAW) {
+          otile[zo[k]] = v[k];
+        } else {
+          // IEEE division, then roundf: round half away from zero (Rust f32::round)
+          otile[zo[k]] = static_cast<int16_t>(static_cast<int>(roundf(__fdiv_rn(v[k], tq[k]))));
+        }
       }
     }
     __syncthreads();
 
-    // the tile's blocks are one contiguous range of the scan order
+    // the tile's blocks are one contiguous range of the scan order; a block
+    // is 8 (int16) or 16 (f32) 16-byte words
+    constexpr int kShift = RAW ? 4 : 3;
+    constexpr int kPitchWords = kOutPitch * static_cast<int>(sizeof(OutT<RAW>)) / 16;
     const int64_t first_block = p.img * nblocks + (p.my * n_mcu_x + p.mx0) * T::kBpm;
     int4* dst = reinterpret_cast<int4*>(out + first_block * 64);
     const int4* src = reinterpret_cast<const int4*>(otile);
-    for (int k = tid; k < p.n_mcus * T::kBpm * 8; k += T::kThreads)
-      dst[k] = src[(k >> 3) * (kOutPitch / 8) + (k & 7)];
+    for (int k = tid; k < (p.n_mcus * T::kBpm) << kShift; k += T::kThreads)
+      dst[k] = src[(k >> kShift) * kPitchWords + (k & ((1 << kShift) - 1))];
   }
 }
 
@@ -393,14 +414,28 @@ constexpr int kMaxDevices = 64;
 
 inline unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
-template <int MODE>
+// CTAs of coeffs_kernel<MODE, RAW> that fit on one SM at c channels (after
+// raising its shared-memory limit where the tile needs more than 48 KB).
+template <int MODE, bool RAW>
+cudaError_t ctas_per_sm(int c, int* per_sm) {
+  const int smem = Smem<MODE, RAW>(c).total;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(coeffs_kernel<MODE, RAW>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, coeffs_kernel<MODE, RAW>, Tile<MODE>::kThreads,
+                                                       smem);
+}
+
+template <int MODE, bool RAW>
 cudaError_t launch_coeffs(const uint8_t* imgs, int64_t batch, int64_t h, int64_t w, int c,
-                          const QTables& qt, int16_t* out, cudaStream_t s) {
+                          const QTables& qt, OutT<RAW>* out, cudaStream_t s) {
   using T = Tile<MODE>;
   const int64_t n_mcu_x = (w + T::kMcuW - 1) / T::kMcuW, n_mcu_y = (h + T::kRows - 1) / T::kRows;
   const int64_t n_tiles_x = (n_mcu_x + T::kMcus - 1) / T::kMcus;
   const int64_t tiles_per_img = n_tiles_x * n_mcu_y;
-  const int smem = Smem<MODE>(c).total;
+  const int smem = Smem<MODE, RAW>(c).total;
   if (c > kMaxChannels || batch * tiles_per_img > 0x7FFFFFFF) return cudaErrorInvalidValue;
   // CTAs that fit on the card at once, per device and channel count
   static int resident[kMaxDevices][kMaxChannels + 1];
@@ -409,21 +444,16 @@ cudaError_t launch_coeffs(const uint8_t* imgs, int64_t batch, int64_t h, int64_t
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (resident[dev][c] == 0) {
-    if (smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(coeffs_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return err;
-    }
     int sms = 0, per_sm = 0;
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, coeffs_kernel<MODE>, T::kThreads, smem);
+    if (err == cudaSuccess) err = ctas_per_sm<MODE, RAW>(c, &per_sm);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) return cudaErrorInvalidConfiguration;
     resident[dev][c] = sms * per_sm;
   }
   const int64_t n_tiles = batch * tiles_per_img;
   const unsigned grid = static_cast<unsigned>(n_tiles < resident[dev][c] ? n_tiles : resident[dev][c]);
-  coeffs_kernel<MODE><<<grid, T::kThreads, smem, s>>>(
+  coeffs_kernel<MODE, RAW><<<grid, T::kThreads, smem, s>>>(
       imgs, h, w, c, n_mcu_x, static_cast<uint32_t>(n_tiles_x), static_cast<uint32_t>(tiles_per_img),
       static_cast<uint32_t>(n_tiles), n_mcu_x * n_mcu_y * T::kBpm, qt, out);
   return cudaGetLastError();
@@ -448,12 +478,51 @@ int pixo_coeffs(const uint8_t* imgs, int64_t batch, int64_t h, int64_t w, int32_
   std::memcpy(qt.chrom, chrom, sizeof(qt.chrom));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kGray: return static_cast<int>(launch_coeffs<kGray>(imgs, batch, h, w, c, qt, out, s));
-    case k444: return static_cast<int>(launch_coeffs<k444>(imgs, batch, h, w, c, qt, out, s));
-    case k420: return static_cast<int>(launch_coeffs<k420>(imgs, batch, h, w, c, qt, out, s));
-    case k422: return static_cast<int>(launch_coeffs<k422>(imgs, batch, h, w, c, qt, out, s));
+    case kGray: return static_cast<int>(launch_coeffs<kGray, false>(imgs, batch, h, w, c, qt, out, s));
+    case k444: return static_cast<int>(launch_coeffs<k444, false>(imgs, batch, h, w, c, qt, out, s));
+    case k420: return static_cast<int>(launch_coeffs<k420, false>(imgs, batch, h, w, c, qt, out, s));
+    case k422: return static_cast<int>(launch_coeffs<k422, false>(imgs, batch, h, w, c, qt, out, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The RAW variant: imgs as pixo_coeffs takes them; out: [batch, nblocks, 64]
+// f32 zigzag DCT on the device, 16-byte aligned.
+int pixo_dct_zz(const uint8_t* imgs, int64_t batch, int64_t h, int64_t w, int32_t c, int32_t mode,
+                float* out, void* stream) {
+  using namespace pixo;
+  if (batch <= 0 || h <= 0 || w <= 0 || c <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  QTables qt;  // not read by the RAW variant
+  std::memset(&qt, 0, sizeof(qt));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kGray: return static_cast<int>(launch_coeffs<kGray, true>(imgs, batch, h, w, c, qt, out, s));
+    case k444: return static_cast<int>(launch_coeffs<k444, true>(imgs, batch, h, w, c, qt, out, s));
+    case k420: return static_cast<int>(launch_coeffs<k420, true>(imgs, batch, h, w, c, qt, out, s));
+    case k422: return static_cast<int>(launch_coeffs<k422, true>(imgs, batch, h, w, c, qt, out, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// CTAs of the coefficient kernel (raw = 0) or its RAW variant (raw = 1) an
+// SM holds at c channels, into *per_sm: the occupancy check of the
+// variant's larger tile. Returns the CUDA error.
+int pixo_coeffs_ctas_per_sm(int32_t mode, int32_t c, int32_t raw, int32_t* per_sm) {
+  using namespace pixo;
+  if (c <= 0 || c > kMaxChannels) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (mode * 2 + (raw != 0)) {
+    case 2 * kGray: err = ctas_per_sm<kGray, false>(c, per_sm); break;
+    case 2 * kGray + 1: err = ctas_per_sm<kGray, true>(c, per_sm); break;
+    case 2 * k444: err = ctas_per_sm<k444, false>(c, per_sm); break;
+    case 2 * k444 + 1: err = ctas_per_sm<k444, true>(c, per_sm); break;
+    case 2 * k420: err = ctas_per_sm<k420, false>(c, per_sm); break;
+    case 2 * k420 + 1: err = ctas_per_sm<k420, true>(c, per_sm); break;
+    case 2 * k422: err = ctas_per_sm<k422, false>(c, per_sm); break;
+    case 2 * k422 + 1: err = ctas_per_sm<k422, true>(c, per_sm); break;
+    default: break;
+  }
+  return static_cast<int>(err);
 }
 
 // in/out: [n, 8, 8] f32 on the device, 16-byte aligned.

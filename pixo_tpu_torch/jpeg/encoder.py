@@ -8,21 +8,23 @@ every image: pad -> fixed-point RGB->YCbCr -> level shift -> MCU blockify
 on the host: [optimize_huffman] symbol histograms -> canonical tables (a
 16-bit overflow falls back to the K.3 standard tables) -> Huffman bit-pack
 with 0xFF stuffing and restart markers, or the progressive scans ->
-marker framing.
+marker framing. With ``trellis_quant`` (the ``max`` preset) the progressive
+pass takes trellis-quantized coefficients instead (the unquantized zigzag
+DCT, then a Viterbi DP per block: ``ops/trellis_device.py``); a baseline
+encode ignores the option, as the reference's baseline scan does.
 
 The ``device`` argument picks the tier, where the JAX package reads its
-``PIXO_TPU_COEFFS`` and ``PIXO_TPU_HUFFMAN`` knobs:
+``PIXO_TPU_COEFFS``, ``PIXO_TPU_HUFFMAN`` and ``PIXO_TPU_TRELLIS`` knobs:
 
 - ``device="cpu"``: the reference's host tier (its ``auto_host_tier`` under a
   CPU backend): the host library's coefficients and count per image, or its
-  fused coefficient + pack call for the baseline standard-table encode;
+  fused coefficient + pack call for the baseline standard-table encode; for
+  the trellis, its unquantized DCT and its DP;
 - a CUDA device: the batch path of ``parallel/pipeline.py``; the
   coefficient chain is one hand-written kernel (``ops/kernels.py::coeffs``),
-  the optimized-Huffman count another (``count_symbols``). ``encode`` is a
-  batch of one there.
-
-Not ported yet (ROADMAP queue 1 item 6, trellis): ``trellis_quant``, and with
-it the ``max`` preset, raises ``NotImplementedError``.
+  the optimized-Huffman count another (``count_symbols``), the trellis' DCT
+  and DP two more (``dct_zz``, ``trellis_quantize``). ``encode`` is a batch
+  of one there.
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from ..color import ColorType
 from ..options import MAX_DIMENSION, JpegOptions
 from ..ops.blockify import scan_layout
 from . import markers
-from .tables import HuffmanTables, QuantizationTables
+from .tables import ZIGZAG, HuffmanTables, QuantizationTables
 
 
 def _validate(options: JpegOptions, data_len: int) -> int:
@@ -61,15 +63,6 @@ def _validate(options: JpegOptions, data_len: int) -> int:
     if data_len != expected:
         raise errors.InvalidDataLength(expected, data_len)
     return bpp
-
-
-def refuse_unported(options: JpegOptions) -> None:
-    """Raises for the one JPEG option the port does not serve yet."""
-    if options.trellis_quant:
-        raise NotImplementedError(
-            "trellis_quant (and so the max preset) is not ported yet "
-            "(ROADMAP.md queue 1 item 6, JPEG remainder: trellis)"
-        )
 
 
 def _device_coeffs_batch(
@@ -105,6 +98,26 @@ def compute_coefficients_host(
 
     return native_jpeg_coefficients(img, _mode(options), quant.luminance_table,
                                     quant.chrominance_table)
+
+
+def zigzag_tables(quant: QuantizationTables):
+    """(luminance, chrominance) quantization tables in zigzag order, f32:
+    the trellis' tables."""
+    return (quant.luminance_table[ZIGZAG].astype(np.float32),
+            quant.chrominance_table[ZIGZAG].astype(np.float32))
+
+
+def _trellis_coefficients(
+    img: np.ndarray, options: JpegOptions, quant: QuantizationTables, pattern: Sequence[int]
+) -> np.ndarray:
+    """The progressive pass's trellis-quantized [nblocks, 64] int16 zigzag
+    coefficients of one image, on the host: the host library's unquantized
+    DCT (the coefficient chain's op order, bit-equal to ``dct_zz``), then its
+    trellis DP."""
+    from ..native import native_jpeg_dct_zz, native_trellis_quantize
+
+    return native_trellis_quantize(native_jpeg_dct_zz(img, _mode(options)), pattern,
+                                   *zigzag_tables(quant))
 
 
 def _pack(
@@ -167,7 +180,11 @@ def _emit_jpeg(
 ) -> bytes:
     """Frame + entropy-code one image from its coefficients ``zz``; with
     ``zz`` None (the baseline standard-table encode, ``_fused_ok``), the
-    host library's fused call computes them from ``img``."""
+    host library's fused call computes them from ``img``. A progressive
+    encode with ``trellis_quant`` takes the trellis-quantized coefficients
+    as ``zz`` (the trellis applies to the progressive pass only; the
+    callers compute them once an image, where the reference recomputes them
+    in every call)."""
     out = bytearray()
     markers.write_soi(out)
     markers.write_app0(out)
@@ -274,7 +291,13 @@ def encode_host(img: np.ndarray, options: JpegOptions) -> bytes:
     """The host tier of one validated [H, W(, 3)] uint8 image."""
     quant = QuantizationTables(options.quality)
     n_blocks, pattern = _pattern(options)
-    zz = None if _fused_ok(options) else compute_coefficients_host(img, options, quant)
+    if options.progressive and options.trellis_quant:
+        # no plain-quantized pass: the progressive scans read the trellis'
+        zz = _trellis_coefficients(img, options, quant, pattern)
+    elif _fused_ok(options):
+        zz = None
+    else:
+        zz = compute_coefficients_host(img, options, quant)
     return _emit_with_sa_fallback(zz, img, options, quant, pattern, n_blocks)
 
 
@@ -288,7 +311,6 @@ def encode(data, options: JpegOptions, *, device="cuda") -> bytes:
     on ``device``. Byte-identical to the JAX package's ``jpeg.encode``."""
     data_len = data.size if isinstance(data, np.ndarray) else len(data)
     bpp = _validate(options, data_len)
-    refuse_unported(options)
     img = _as_image_array(data, options, bpp)
     if _on_cpu(device):
         return encode_host(img, options)
@@ -300,7 +322,6 @@ def encode_batch(imgs, options: JpegOptions, *, device="cuda") -> List[bytes]:
     images. With ``device="cpu"`` each image takes the host tier on a thread
     pool (ctypes releases the GIL); on a CUDA device the batch goes through
     ``parallel/pipeline.py::encode_jpeg_batch_sharded``."""
-    refuse_unported(options)
     if len(imgs) == 0:
         return []
     if not _on_cpu(device):

@@ -14,6 +14,10 @@ package. Only the entry points of the ported slices are bound:
   coefficient pipeline and the fused host encode: the JPEG encode's host
   tier (``jpeg/encoder.py``, ``device="cpu"``), and the references that
   the device path is held against;
+- ``jpeg_dct_zz`` and ``jpeg_trellis_quantize``: the trellis quantizer's
+  host tier (the same chain as ``jpeg_coefficients`` up to the unquantized
+  zigzag DCT, then the Viterbi DP on threads), and the oracles of the DCT
+  and trellis kernels;
 - ``jpeg_count_symbols``: the baseline scan's symbol histograms, the host
   tier's count and the oracle of the count kernel;
 - ``jpeg_count_progressive_scan`` and ``jpeg_encode_progressive_scan``: one
@@ -165,6 +169,21 @@ def _configure(lib) -> None:
         *_HUFF,
         ctypes.c_int32,                                        # restart interval (0 = off)
         _u8p, ctypes.c_int64,                                  # out buffer, capacity
+    ]
+    lib.jpeg_dct_zz.restype = ctypes.c_int64
+    lib.jpeg_dct_zz.argtypes = [
+        _u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,  # img, h, w, c_in
+        ctypes.c_int32,                                        # mode
+        _f32p,                                                 # out [nblocks, 64] f32
+    ]
+    lib.jpeg_trellis_quantize.restype = ctypes.c_int32
+    lib.jpeg_trellis_quantize.argtypes = [
+        _f32p, ctypes.c_int64,           # zigzag dct [nblocks, 64], nblocks
+        _u8p, ctypes.c_int32,            # pattern, blocks per mcu
+        _f32p, _f32p,                    # lum, chrom tables (zigzag [64])
+        ctypes.c_float,                  # lambda
+        _i16p,                           # out [nblocks, 64]
+        ctypes.c_int32,                  # threads
     ]
     lib.jpeg_count_symbols.restype = ctypes.c_int32
     lib.jpeg_count_symbols.argtypes = [
@@ -415,6 +434,46 @@ def native_jpeg_coefficients(
     )
     if rc != nblocks:
         raise RuntimeError(f"native jpeg_coefficients failed ({rc}; needs AVX2)")
+    return out
+
+
+def native_jpeg_dct_zz(img: np.ndarray, mode: str) -> np.ndarray:
+    """The unquantized zigzag DCT of one [h, w] or [h, w, 3] uint8 image,
+    through the same clamp-pad -> YCbCr -> blockify -> AAN chain as
+    ``native_jpeg_coefficients``: the trellis front end. Returns
+    [nblocks, 64] f32 in scan order."""
+    lib = load()
+    img, h, w, c_in, m, _, _ = _image_args(img, mode, np.ones(64), np.ones(64))
+    nblocks = num_blocks(h, w, mode)
+    out = np.empty((nblocks, 64), np.float32)
+    rc = lib.jpeg_dct_zz(_ptr(img, _u8p), h, w, c_in, m, _ptr(out, _f32p))
+    if rc != nblocks:
+        raise RuntimeError(f"native jpeg_dct_zz failed ({rc}; needs AVX2)")
+    return out
+
+
+def native_trellis_quantize(dct_zz, pattern: Sequence[int], lum_q_zz, chrom_q_zz,
+                            lambda_: float = 1.0, nthreads: Optional[int] = None) -> np.ndarray:
+    """Trellis quantization of [nblocks, 64] zigzag f32 DCT blocks ->
+    [nblocks, 64] int16; block i takes the chroma table where
+    ``pattern[i % len(pattern)]`` is not 0. Blocks are independent, so the
+    library splits them over ``nthreads`` threads (the GIL released; by
+    default up to 8, and one below 2048 blocks, where threads cost more than
+    they save), with the output of the serial loop."""
+    lib = load()
+    dct_zz = np.ascontiguousarray(dct_zz, dtype=np.float32)
+    pat = np.asarray(pattern, dtype=np.uint8)
+    lum = np.ascontiguousarray(lum_q_zz, dtype=np.float32)
+    chrom = np.ascontiguousarray(chrom_q_zz, dtype=np.float32)
+    out = np.empty((dct_zz.shape[0], 64), dtype=np.int16)
+    if nthreads is None:
+        nthreads = 1 if dct_zz.shape[0] < 2048 else min(8, os.cpu_count() or 1)
+    rc = lib.jpeg_trellis_quantize(
+        _ptr(dct_zz, _f32p), dct_zz.shape[0], _ptr(pat, _u8p), len(pat),
+        _ptr(lum, _f32p), _ptr(chrom, _f32p), lambda_, _ptr(out, _i16p), int(nthreads),
+    )
+    if rc != 0:
+        raise RuntimeError(f"native jpeg_trellis_quantize failed ({rc})")
     return out
 
 

@@ -9,9 +9,17 @@ stream.
 - ``coeffs``: uint8 pixels -> int16 zigzag coefficients, the whole per-block
   chain of the encoder (``csrc/coeffs.cu``). It replaces ``dct8x8_aan_pallas``
   widened to ``jpeg/encoder.py::_device_coeffs``.
+- ``dct_zz``: the same chain up to the unquantized f32 DCT in zigzag order,
+  the coefficient kernel's RAW variant (``csrc/coeffs.cu``): the trellis
+  quantizer's front end, replacing ``dct8x8_aan_pallas`` widened to
+  ``jpeg/encoder.py::_device_dct_zz``.
 - ``dct8x8_aan``: the standalone [N, 8, 8] f32 AAN DCT, sharing the
   coefficient kernel's butterfly (``csrc/aan.cuh``): the direct counterpart
   of ``dct8x8_aan_pallas``.
+- ``trellis_quantize``: the trellis quantizer's Viterbi DP, a thread a block
+  (``csrc/trellis.cu``), replacing the jit ``trellis_quantize_batch_device``
+  of the JAX package's ``ops/trellis_device.py``, which has no Pallas
+  kernel.
 - ``compact_padded``: per-block compaction of the coefficient stream
   (``csrc/compact.cu``), replacing the ``lax.top_k`` of
   ``ops/sparse_pack.py::sparsify_blocks_padded``.
@@ -83,11 +91,12 @@ from . import quantize_device
 from .quantize import quantize_blocks, zigzag_blocks
 from .resize_kernels import _lanczos_pass, pad_taps
 from .sparse_pack import PADDED_CAP_TIERS, sparsify_blocks_padded_batch
+from .trellis_device import RATE_LUT, trellis_quantize_batch_plain
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
-                                           "resize.cu", "quantize.cu", "huffman.cu", "aan.cuh",
-                                           "idct.cuh", "redmean.cuh")]
+                                           "resize.cu", "quantize.cu", "huffman.cu", "trellis.cu",
+                                           "aan.cuh", "idct.cuh", "redmean.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -127,6 +136,12 @@ def load():
             vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
             lib.pixo_coeffs.restype = ctypes.c_int
             lib.pixo_coeffs.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp, vp, vp]
+            lib.pixo_dct_zz.restype = ctypes.c_int
+            lib.pixo_dct_zz.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp]
+            lib.pixo_coeffs_ctas_per_sm.restype = ctypes.c_int
+            lib.pixo_coeffs_ctas_per_sm.argtypes = [i32, i32, i32, vp]
+            lib.pixo_trellis_quantize.restype = ctypes.c_int
+            lib.pixo_trellis_quantize.argtypes = [vp, i64, vp, vp, vp, i32, ctypes.c_float, vp, vp, vp]
             lib.pixo_dct8x8_aan.restype = ctypes.c_int
             lib.pixo_dct8x8_aan.argtypes = [vp, vp, i64, vp]
             lib.pixo_compact.restype = ctypes.c_int
@@ -214,30 +229,37 @@ def coeffs_plain(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
     return zigzag_blocks(quantize_blocks(dct, qmap)).reshape(b, -1, 64)
 
 
-def coeffs(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
-    """[B, H, W] (gray) or [B, H, W, C>=3] uint8 pixels -> [B, nblocks, 64]
-    int16 zigzag coefficients in scan order, on ``imgs``' device.
-
-    ``mode`` is "gray", "444", "420" or "422"; ``lum_q``/``chrom_q`` are the
-    natural-order f32 quantization tables (numpy, [64] or [8, 8])."""
+def _pixels_shape(imgs: torch.Tensor, mode: str):
+    """(b, h, w, c) of a coefficient kernel's input, checked."""
     if mode not in MODES:
         raise ValueError(f"unknown coefficient mode {mode!r}")
     _require(imgs, torch.uint8, "imgs")
     if mode == "gray":
         if imgs.dim() != 3:
             raise ValueError(f"gray input must be [B, H, W], got {tuple(imgs.shape)}")
-        b, h, w = imgs.shape
-        c = 1
-    else:
-        if imgs.dim() != 4 or imgs.shape[3] < 3:
-            raise ValueError(f"color input must be [B, H, W, C>=3], got {tuple(imgs.shape)}")
-        b, h, w, c = imgs.shape
-    if _device_kind(imgs) == "cpu":
-        return coeffs_plain(imgs, lum_q, chrom_q, mode)
+        return (*imgs.shape, 1)
+    if imgs.dim() != 4 or imgs.shape[3] < 3:
+        raise ValueError(f"color input must be [B, H, W, C>=3], got {tuple(imgs.shape)}")
+    return tuple(imgs.shape)
+
+
+def _kernel_pixels(b: int, h: int, w: int, c: int) -> None:
     if b * h * w == 0:
         raise ValueError("empty batch")
     if c > MAX_CHANNELS:
         raise ValueError(f"the coefficient kernel takes at most {MAX_CHANNELS} channels, got {c}")
+
+
+def coeffs(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
+    """[B, H, W] (gray) or [B, H, W, C>=3] uint8 pixels -> [B, nblocks, 64]
+    int16 zigzag coefficients in scan order, on ``imgs``' device.
+
+    ``mode`` is "gray", "444", "420" or "422"; ``lum_q``/``chrom_q`` are the
+    natural-order f32 quantization tables (numpy, [64] or [8, 8])."""
+    b, h, w, c = _pixels_shape(imgs, mode)
+    if _device_kind(imgs) == "cpu":
+        return coeffs_plain(imgs, lum_q, chrom_q, mode)
+    _kernel_pixels(b, h, w, c)
     lib = load()
     lum, chrom = _table(lum_q), _table(chrom_q)
     out = torch.empty((b, num_blocks(h, w, mode), 64), dtype=torch.int16, device=imgs.device)
@@ -252,6 +274,81 @@ def coeffs(imgs: torch.Tensor, lum_q, chrom_q, mode: str) -> torch.Tensor:
 
 
 coeffs.launches = 0
+
+
+def dct_zz_plain(imgs: torch.Tensor, mode: str) -> torch.Tensor:
+    """The plain PyTorch chain without the quantizer, on ``imgs``' device:
+    blockify -> AAN DCT -> zigzag. Returns [B, nblocks, 64] f32 in scan
+    order (the counterpart of the JAX package's ``_device_dct_zz``)."""
+    blocks = _PLAIN_BLOCKS[mode](imgs)
+    return zigzag_blocks(dct8x8_aan_plain(blocks)).reshape(blocks.shape[0], -1, 64)
+
+
+def dct_zz(imgs: torch.Tensor, mode: str) -> torch.Tensor:
+    """[B, H, W] (gray) or [B, H, W, C>=3] uint8 pixels -> [B, nblocks, 64]
+    f32 unquantized DCT in zigzag and scan order, on ``imgs``' device: the
+    trellis quantizer's input, bit-equal to ``dct_zz_plain`` and to the host
+    library's ``native_jpeg_dct_zz``."""
+    b, h, w, c = _pixels_shape(imgs, mode)
+    if _device_kind(imgs) == "cpu":
+        return dct_zz_plain(imgs, mode)
+    _kernel_pixels(b, h, w, c)
+    lib = load()
+    out = torch.empty((b, num_blocks(h, w, mode), 64), dtype=torch.float32, device=imgs.device)
+    with _device_guard(imgs):
+        rc = lib.pixo_dct_zz(imgs.data_ptr(), b, h, w, c, MODES[mode], out.data_ptr(), _stream(imgs))
+    _check(lib, rc, "dct_zz")
+    dct_zz.launches += 1
+    return out
+
+
+dct_zz.launches = 0
+
+
+def coeffs_ctas_per_sm(mode: str, c: int, raw: bool) -> int:
+    """CTAs of the coefficient kernel (or, ``raw``, its f32 ``dct_zz``
+    variant) that one SM of the current card holds at ``c`` channels."""
+    lib = load()
+    per_sm = ctypes.c_int32(0)
+    _check(lib, lib.pixo_coeffs_ctas_per_sm(MODES[mode], c, int(raw), ctypes.byref(per_sm)),
+           "coeffs occupancy")
+    return per_sm.value
+
+
+MAX_PATTERN = 8  # csrc/trellis.cu's kMaxPattern: blocks an MCU pattern may hold
+
+
+def trellis_quantize(dct_zz: torch.Tensor, lum_zz, chrom_zz, pattern, lam: float = 1.0) -> torch.Tensor:
+    """[N, 64] f32 zigzag DCT blocks -> [N, 64] int16 trellis-quantized, on
+    ``dct_zz``'s device, bit-equal to
+    ``ops/trellis_device.py::trellis_quantize_batch_plain`` and to the host
+    library's ``native_trellis_quantize``. ``lum_zz``/``chrom_zz`` are the
+    zigzag f32 tables (numpy [64]); block i takes the chroma one where
+    ``pattern[i % len(pattern)]`` is not 0."""
+    _require(dct_zz, torch.float32, "dct_zz")
+    if dct_zz.dim() != 2 or dct_zz.shape[1] != 64:
+        raise ValueError(f"dct_zz must be [N, 64], got {tuple(dct_zz.shape)}")
+    if not 1 <= len(pattern) <= MAX_PATTERN:
+        raise ValueError(f"the pattern must hold 1 to {MAX_PATTERN} blocks, got {len(pattern)}")
+    if _device_kind(dct_zz) == "cpu":
+        return trellis_quantize_batch_plain(dct_zz, lum_zz, chrom_zz, pattern, lam)
+    n = dct_zz.shape[0]
+    if n == 0:
+        raise ValueError("empty batch")
+    lib = load()
+    lum, chrom = _table(lum_zz), _table(chrom_zz)
+    pat = np.ascontiguousarray(pattern, dtype=np.uint8)
+    out = torch.empty((n, 64), dtype=torch.int16, device=dct_zz.device)
+    with _device_guard(dct_zz):
+        rc = lib.pixo_trellis_quantize(dct_zz.data_ptr(), n, lum.ctypes.data, chrom.ctypes.data,
+                                       pat.ctypes.data, len(pat), lam, RATE_LUT.ctypes.data,
+                                       out.data_ptr(), _stream(dct_zz))
+    _check(lib, rc, "trellis_quantize")
+    trellis_quantize.launches += 1
+    return out
+
+
+trellis_quantize.launches = 0
 
 
 def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:

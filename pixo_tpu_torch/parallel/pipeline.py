@@ -21,7 +21,14 @@ named by ``device=`` instead of a mesh:
   - progressive (with or without successive approximation): one dense copy
     of the coefficients to the host, then each image's
     ``jpeg/encoder.py::_emit_with_sa_fallback`` on the pool, as the
-    reference's general path does.
+    reference's general path does;
+  - progressive with the trellis (the ``max`` preset): no quantized
+    coefficients; the unquantized zigzag DCT of the batch
+    (``ops/kernels.py::dct_zz``, one launch), then the trellis once for the
+    batch (``trellis_coeffs_sharded``): on a card the trellis kernel
+    (``trellis_quantize``, one launch, one copy of the int16 back); with
+    ``device="cpu"`` the host library's DP on the pool's threads; then the
+    progressive scans per image on the pool.
 - ``encode_png_batch_sharded``: the batch goes to the device once; the
   reduction analysis, each group's layout transform and the fused filter
   kernel (``ops/kernels.py::filter_rows``) run there; one copy per group
@@ -47,8 +54,8 @@ named by ``device=`` instead of a mesh:
   is the one-device form of the reference's fused thumbnail dispatch
   (``_fused_thumb_jit``).
 
-Every JPEG encode option but the trellis (ROADMAP queue 1 item 6) is
-ported, and the 8-bit non-interlaced PNG encode, lossless and lossy. The
+Every JPEG encode option is ported, and the 8-bit non-interlaced PNG
+encode, lossless and lossy. The
 stream pipelines and the row-sharded PNG encode are not (ROADMAP queue 1
 items 7 and 8).
 """
@@ -72,10 +79,11 @@ from ..decode import jpeg_decoder as jdec
 from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
-from ..native import native_pack_scan, native_pack_scan_batch, native_pack_scan_padded
+from ..native import (native_pack_scan, native_pack_scan_batch, native_pack_scan_padded,
+                      native_trellis_quantize)
 from ..options import JpegOptions, PngOptions, QuantizationMode
 from ..ops.blockify import scan_layout
-from ..ops.kernels import compact_padded, count_symbols, filter_rows
+from ..ops.kernels import compact_padded, count_symbols, dct_zz, filter_rows, trellis_quantize
 from ..ops.resize_kernels import resize_lanczos3_batch
 from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
@@ -107,11 +115,29 @@ def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda") -> torch.T
 
 
 def _use_sparse_fast_path(options: JpegOptions) -> bool:
-    """True for the baseline standard-table encode."""
-    return not (
-        options.optimize_huffman or options.optimal_huffman
-        or options.progressive or options.trellis_quant
-    )
+    """True for the baseline standard-table encode (``trellis_quant`` does
+    not change a baseline encode's bytes: its scan never reads the trellis)."""
+    return not (options.optimize_huffman or options.optimal_huffman or options.progressive)
+
+
+def trellis_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda",
+                           host_workers: int = 8) -> np.ndarray:
+    """[B, H, W, C] (or [B, H, W] gray) uint8 -> [B, nblocks, 64] int16
+    trellis-quantized zigzag coefficients on the host: the unquantized DCT on
+    ``device`` in one call, then the trellis of the whole batch once, where
+    the DCT lies: on a card the trellis kernel and one copy of its result;
+    on the CPU the host library's DP on ``host_workers`` threads."""
+    quant = QuantizationTables(options.quality)
+    n_blocks, pattern = jenc._pattern(options)
+    dct = dct_zz(_to_device(imgs, device), jenc._mode(options))
+    b = dct.shape[0]
+    flat = dct.reshape(b * n_blocks, 64)
+    tables = jenc.zigzag_tables(quant)
+    if flat.device.type == "cpu":
+        zz = native_trellis_quantize(flat.numpy(), pattern, *tables, nthreads=host_workers)
+    else:
+        zz = trellis_quantize(flat, *tables, pattern).cpu().numpy()
+    return zz.reshape(b, n_blocks, 64)
 
 
 def _fetch_compacted(zz_dev: torch.Tensor, compacted):
@@ -192,24 +218,25 @@ def encode_jpeg_batch_sharded(
     gray uint8, numpy or tensor) to JPEG bytes, computing on ``device``
     ("cpu" or a CUDA device) and entropy-coding on the host.
 
-    Byte-identical, image by image, to the JAX package's ``jpeg.encode``
-    for every option but ``trellis_quant``, which raises."""
-    jenc.refuse_unported(options)
+    Byte-identical, image by image, to the JAX package's ``jpeg.encode``."""
     if len(imgs) == 0:
         return []
     jenc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
     quant = QuantizationTables(options.quality)
     color, sub = _color_sub(options)
     _, _, pattern = scan_layout(options.width, options.height, color, sub)
-    zz_dev = jpeg_coeffs_sharded(imgs, options, device=device)
     if options.progressive:
-        zz = zz_dev.cpu().numpy()
+        if options.trellis_quant:  # the progressive pass reads only the trellis' coefficients
+            zz = trellis_coeffs_sharded(imgs, options, device=device, host_workers=host_workers)
+        else:
+            zz = jpeg_coeffs_sharded(imgs, options, device=device).cpu().numpy()
 
         def emit(i: int) -> bytes:
             return jenc._emit_with_sa_fallback(zz[i], None, options, quant, pattern, zz.shape[1])
 
         with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
             return list(ex.map(emit, range(zz.shape[0])))
+    zz_dev = jpeg_coeffs_sharded(imgs, options, device=device)
     counts = None
     if not _use_sparse_fast_path(options):
         counts = count_symbols(zz_dev, pattern, options.restart_interval)

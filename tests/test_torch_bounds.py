@@ -41,6 +41,9 @@ BLOCKS_420 = 16 * 6 * 32 * 32  # 16 images of 512x512 at 4:2:0: 98,304 blocks
 # table rounds it, where the table gives one)
 HAND_COUNTS = [
     ("coeffs", dict(b=16, h=512, w=512, c=3, mode="420"), 12_582_912 + BLOCKS_420 * 128, 7.51),
+    # the f32 variant: the pixels read, 64 f32 a block written
+    ("dct_zz", dict(b=16, h=512, w=512, c=3, mode="420"), 12_582_912 + BLOCKS_420 * 256, 11.27),
+    ("dct_zz", dict(b=12, h=512, w=512, c=3, mode="444"), 9_437_184 + 12 * 3 * 4096 * 256, None),
     ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=8),
      12_582_912 + 196_608 + 98_304 + 786_432 + 1_572_864, 4.55),
     ("compact", dict(b=16, n=BLOCKS_420 // 16, cap=16), 12_582_912 + BLOCKS_420 * (3 + 48), None),
@@ -141,6 +144,23 @@ def test_quantization_kernels_count_int32_operations(name, shape, nbytes, ops, b
     assert H100_INT32_OPS_PER_S == 132 * 128 * 1.98e9
     bound = max(nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S) * 1e3
     assert kernel_bound(name, **shape) == (pytest.approx(bound), by)
+
+
+@pytest.mark.parametrize("n,dp,by", [(73_728, 73_728, "operations"), (98_304, 0, "bytes"),
+                                     (98_304, 2_000, "bytes"), (1, 1, "operations")],
+                         ids=["all through the DP", "all exit", "few through the DP", "one block"])
+def test_trellis_counts_the_dp_this_data_runs(n, dp, by):
+    """256 bytes in and 128 out a block; the all-zero exit's test for every
+    block and the DP's steps for the ``dp`` blocks that run it, at one
+    operation a lane a clock (no multiply-add among them)."""
+    from chip_smoke import H100_INT32_OPS_PER_S, TRELLIS_EXIT_OPS, TRELLIS_STEP_OPS
+
+    nbytes, ops = kernel_work("trellis_quantize", n=n, dp=dp)
+    assert nbytes == 384 * n
+    assert (TRELLIS_EXIT_OPS, TRELLIS_STEP_OPS) == (189, 168)
+    assert ops == 189 * n + 63 * 168 * dp
+    bound = max(nbytes / H100_BYTES_PER_S, ops / H100_INT32_OPS_PER_S) * 1e3
+    assert kernel_bound("trellis_quantize", n=n, dp=dp) == (pytest.approx(bound), by)
 
 
 def test_unknown_kernel_has_no_work_model():

@@ -15,6 +15,7 @@ import torch
 
 from chip_smoke import (
     COUNT_PATTERNS,
+    TRELLIS_PATTERNS,
     at_offset,
     check_dither_repeats,
     coeff_edge_cases,
@@ -30,6 +31,8 @@ from chip_smoke import (
     quantize_edge_cases,
     quantize_host_oracles,
     resize_cases,
+    trellis_edge_blocks,
+    trellis_random_blocks,
 )
 from pixo_tpu_torch import (
     ColorType,
@@ -44,12 +47,14 @@ from pixo_tpu_torch import (
     thumbnail_pipeline,
 )
 from pixo_tpu_torch.decode import decode_jpeg_batch, jpeg_decoder
-from pixo_tpu_torch.jpeg.tables import QuantizationTables
+from pixo_tpu_torch.jpeg.tables import ZIGZAG, QuantizationTables
 from pixo_tpu_torch.native import (
     native_count_symbols,
     native_jpeg_coefficients,
+    native_jpeg_dct_zz,
     native_png_filter,
     native_resize_lanczos3,
+    native_trellis_quantize,
 )
 from pixo_tpu_torch.ops import (
     dct,
@@ -60,6 +65,7 @@ from pixo_tpu_torch.ops import (
     quantize_device,
     resize_kernels,
     sparse_pack,
+    trellis_device,
 )
 from pixo_tpu_torch.options import ResizeFilter, ResizeOptions
 from pixo_tpu_torch.resize import resize
@@ -289,6 +295,125 @@ def test_balanced_route_escalates_on_the_card(dev, seeded, quality):
     opts = JpegOptions.from_preset(64, 64, quality, 1).replace(subsampling=Subsampling.S420)
     assert encode_jpeg_batch_sharded(imgs, opts, device=dev) == \
         [jpeg.encode(img, opts, device="cpu") for img in imgs]
+
+
+def _bits(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().numpy().view(np.int32)
+
+
+@pytest.mark.parametrize("case", range(len(EDGE_LABELS)), ids=EDGE_LABELS)
+@pytest.mark.parametrize("mode", MODES)
+def test_dct_zz_kernel_equals_plain_and_host_library(dev, mode, case):
+    """The coefficient kernel's f32 variant at the tile edges, bit for bit
+    against its plain version and, image by image, the host library."""
+    _, batch = coeff_edge_cases(np.random.default_rng(8))[case]
+    host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
+    imgs = torch.from_numpy(host).to(dev)
+    kernels.dct_zz.launches = 0
+    got = kernels.dct_zz(imgs, mode)
+    assert kernels.dct_zz.launches == 1 and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), kernels.dct_zz_plain(imgs, mode).view(torch.int32))
+    for i in range(len(host)):
+        rgb = host[i] if mode == "gray" else np.ascontiguousarray(host[i, ..., :3])
+        np.testing.assert_array_equal(_bits(got[i]), native_jpeg_dct_zz(rgb, mode).view(np.int32))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_dct_zz_kernel_at_odd_sizes_and_offsets(dev, seeded, mode):
+    """Odd sizes (the clamp padding) and a batch whose rows start at odd bytes."""
+    imgs = torch.from_numpy(_pixels(seeded, 3, 517, 389, mode)).to(dev)
+    assert torch.equal(kernels.dct_zz(imgs, mode).view(torch.int32),
+                       kernels.dct_zz_plain(imgs, mode).view(torch.int32))
+    if mode != "gray":
+        flat = seeded.integers(0, 256, 3 * 21 * 37 * 3 + 16, dtype=np.uint8)
+        sliced = torch.from_numpy(flat).to(dev)[16:].view(3, 21, 37, 3)
+        assert torch.equal(kernels.dct_zz(sliced, mode).view(torch.int32),
+                           kernels.dct_zz_plain(sliced, mode).view(torch.int32))
+
+
+def test_dct_zz_keeps_the_coefficient_kernels_occupancy(dev):
+    """The f32 tile doubles the output's shared memory; at 3 channels every
+    mode still holds at least as many CTAs an SM as the int16 kernel, or one
+    fewer (the variant needs no divisors, and so fewer registers)."""
+    for mode in MODES:
+        raw, plain = kernels.coeffs_ctas_per_sm(mode, 3, True), kernels.coeffs_ctas_per_sm(mode, 3, False)
+        assert raw >= max(1, plain - 1), (mode, raw, plain)
+
+
+TRELLIS_LABELS = [c[0] for c in trellis_edge_blocks(np.random.default_rng(5))]
+
+
+def _trellis_equal(dct, lum, chrom, pattern):
+    """The trellis kernel on ``dct`` equals its plain version on the card and
+    the host library's DP."""
+    kernels.trellis_quantize.launches = 0
+    got = kernels.trellis_quantize(dct, lum, chrom, pattern)
+    assert kernels.trellis_quantize.launches == 1 and got.dtype == torch.int16
+    assert torch.equal(got, trellis_device.trellis_quantize_batch_plain(dct, lum, chrom, pattern))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  native_trellis_quantize(dct.cpu().numpy(), pattern, lum, chrom))
+
+
+@pytest.mark.parametrize("case", range(len(TRELLIS_LABELS)), ids=TRELLIS_LABELS)
+def test_trellis_kernel_at_ties_and_boundaries(dev, case):
+    _, dct, lum, chrom, pattern = trellis_edge_blocks(np.random.default_rng(5))[case]
+    _trellis_equal(torch.from_numpy(dct).to(dev), lum, chrom, pattern)
+
+
+@pytest.mark.parametrize("n", [1, 127, 129, 70_000])
+@pytest.mark.parametrize("pname", list(TRELLIS_PATTERNS))
+def test_trellis_kernel_on_random_blocks(dev, pname, n):
+    """Thread blocks that end inside the batch, a batch not a multiple of
+    the pattern, and 70,000 blocks (past 65,535)."""
+    rng = np.random.default_rng(n)
+    lum, chrom = (rng.integers(1, 80, 64).astype(np.float32) for _ in range(2))
+    _trellis_equal(torch.from_numpy(trellis_random_blocks(rng, n)).to(dev), lum, chrom,
+                   TRELLIS_PATTERNS[pname])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_trellis_kernel_on_real_dct(dev, seeded, mode):
+    """The DCT of noisy gradients from the dct_zz kernel, at q 30 and 90."""
+    base = np.add.outer(np.arange(96) * 2, np.arange(120) * 2)[..., None]
+    imgs = (base + seeded.normal(0, 12, (4, 96, 120, 3))).clip(0, 255).astype(np.uint8)
+    host = np.ascontiguousarray(imgs[..., 0]) if mode == "gray" else imgs
+    dct = kernels.dct_zz(torch.from_numpy(host).to(dev), mode).reshape(-1, 64)
+    pattern = TRELLIS_PATTERNS[mode]
+    for q in (30, 90):
+        qt = QuantizationTables(q)
+        _trellis_equal(dct, qt.luminance_table[ZIGZAG], qt.chrominance_table[ZIGZAG], pattern)
+
+
+def test_trellis_kernel_refuses_what_it_does_not_take(dev):
+    q = np.ones(64, np.float32)
+    with pytest.raises(ValueError, match="empty"):
+        kernels.trellis_quantize(torch.zeros((0, 64), device=dev), q, q, (0,))
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.trellis_quantize(torch.zeros(65 * 64, device=dev)[1:1 + 64 * 64].view(64, 64), q, q, (0,))
+    with pytest.raises(TypeError):
+        kernels.trellis_quantize(torch.zeros((4, 64), dtype=torch.float16, device=dev), q, q, (0,))
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("case", ["max 4:2:0", "max gray restart 2", "max 4:2:2 no SA"])
+def test_max_preset_on_the_card_equals_the_cpu(dev, seeded, case, b):
+    """The max preset on the card emits the files of ``device="cpu"``, from
+    a batch of one (180 blocks or fewer) up: it launches ``dct_zz`` once and
+    ``trellis_quantize`` once, and no ``coeffs``."""
+    kw = {"max 4:2:0": {}, "max gray restart 2": dict(color_type=ColorType.GRAY, restart_interval=2),
+          "max 4:2:2 no SA": dict(subsampling=Subsampling.S422, progressive_sa=False)}[case]
+    opts = JpegOptions.max(120, 96, 85).replace(**kw)
+    base = np.add.outer(np.arange(96) * 2, np.arange(120) * 2)[..., None]
+    imgs = (base + seeded.normal(0, 12, (b, 96, 120, 3))).clip(0, 255).astype(np.uint8)
+    if opts.color_type == ColorType.GRAY:
+        imgs = np.ascontiguousarray(imgs[..., 0])
+    for k in (kernels.coeffs, kernels.dct_zz, kernels.trellis_quantize):
+        k.launches = 0
+    outs = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+    launches = (kernels.coeffs.launches, kernels.dct_zz.launches, kernels.trellis_quantize.launches)
+    assert launches == (0, 1, 1)
+    assert outs == jpeg.encode_batch(imgs, opts, device="cpu")
+    assert jpeg.encode(imgs[0], opts) == outs[0]
 
 
 FILTER_BPPS = [1, 2, 3, 4, 6, 8]

@@ -198,11 +198,14 @@ def test_entry_points_on_a_cpu_tensor_and_flat_bytes(rng):
     assert jpeg.encode_batch(imgs[:0], opts, device="cpu") == []
 
 
-def test_trellis_raises_naming_the_roadmap(rng):
-    opts = _options("420", 8, 8, trellis_quant=True)
-    img = _images(rng, "420", 8, 8, b=1)
-    for call in (lambda: jpeg.encode(img[0], opts, device="cpu"),
-                 lambda: jpeg.encode_batch(img, opts, device="cpu"),
-                 lambda: jpeg.encode_batch(img, opts, device="cuda")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-            call()
+def test_max_preset_is_served(rng):
+    """The ``max`` preset (progressive, optimized tables, trellis) from every
+    entry point: progressive files equal to the JAX package's
+    (``tests/test_torch_trellis.py`` holds the trellis in depth)."""
+    opts = JpegOptions.max(16, 16, 80)
+    imgs = _images(rng, "420", 16, 16)
+    ref = [jax_encode(im, _jax_options(opts).replace(trellis_quant=True)) for im in imgs]
+    assert [jpeg.encode(im, opts, device="cpu") for im in imgs] == ref
+    assert jpeg.encode_batch(imgs, opts, device="cpu") == ref
+    assert encode_jpeg_batch_sharded(imgs, opts, device="cpu") == ref
+    assert all(b"\xff\xc2" in o for o in ref)

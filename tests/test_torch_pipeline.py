@@ -116,9 +116,14 @@ def test_empty_batch():
     "flags", [("trellis_quant",), ("progressive", "trellis_quant")]
 )
 def test_unported_options_raise(flags):
+    """The options that raised until the trellis was ported (ROADMAP queue 1
+    item 6, closed) raise no more: the batch's files equal the JAX package's,
+    baseline with ``trellis_quant`` (the trellis unused) and progressive with
+    it (the host library's trellis of ``device="cpu"``)."""
     opts = JpegOptions(width=8, height=8, quality=85).replace(**{f: True for f in flags})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 6"):
-        encode_jpeg_batch_sharded(np.zeros((1, 8, 8, 3), np.uint8), opts, device="cpu")
+    imgs = np.random.default_rng(3).integers(0, 256, (2, 8, 8, 3), dtype=np.uint8)
+    ref = [jax_encode(im, _jax_options(opts).replace(**{f: True for f in flags})) for im in imgs]
+    assert encode_jpeg_batch_sharded(imgs, opts, device="cpu") == ref
 
 
 def test_invalid_options_raise():
