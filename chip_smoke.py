@@ -785,6 +785,47 @@ def trellis_random_blocks(rng, n: int):
     return dct
 
 
+def trellis_mixed_blocks(rng, n: int):
+    """([n, 64] f32 DCT blocks, lum, chrom, the 4:2:0 pattern) whose warps
+    mix the trellis kernel's kinds of step: rows in turn a ZRL block (runs
+    of 15, 16, 17, 31 or 32 zeros before a nonzero, from the DC or after
+    one; exact zeros, or in half of them values under 0.7 q), a dense block (no AC zero), a sparse one (three nonzeros,
+    the rest exact zeros: steps with no nonzero candidate), a block that
+    takes the all-zero exit and a random one; in the first half row by row,
+    in the second 32 rows at a time (warps of one kind); the first row is a
+    ZRL block."""
+    import numpy as np
+
+    f32 = np.float32
+    lum = rng.integers(1, 80, 64).astype(f32)
+    chrom = rng.integers(1, 80, 64).astype(f32)
+    pattern = TRELLIS_PATTERNS["420"]
+    q = np.where((np.asarray(pattern)[np.arange(n) % len(pattern)] != 0)[:, None], chrom, lum)
+    dct = np.zeros((n, 64), f32)
+    for i in range(n):
+        kind = i % 5 if i < n // 2 else i // 32 % 5
+        if kind == 0:
+            lead, run = int(rng.choice([0, 1, 2])), int(rng.choice([15, 16, 17, 31, 32]))
+            if lead:
+                dct[i, lead] = rng.choice([3.0, -1.6]) * q[i, lead]
+            if rng.random() < 0.5:  # the run's zeros close calls, not exact zeros
+                dct[i, lead + 1:] = rng.uniform(-0.7, 0.7, 63 - lead) * q[i, lead + 1:]
+            for at in (lead + run + 1, lead + 2 * run + 2):
+                if at < 64:
+                    dct[i, at] = rng.choice([-2.2, 1.3, 0.7]) * q[i, at]
+        elif kind == 1:
+            dct[i, 1:] = rng.normal(0, 60, 63)
+        elif kind == 2:
+            at = rng.choice(np.arange(1, 64), 3, replace=False)
+            dct[i, at] = rng.normal(0, 3, 3) * q[i, at]
+        elif kind == 3:
+            dct[i, 1:] = rng.uniform(-0.49, 0.49, 63) * q[i, 1:]
+        else:
+            dct[i, 1:] = rng.normal(0, 80, 63) * (rng.random(63) < 0.5)
+        dct[i, 0] = rng.normal(0, 500)
+    return dct.astype(f32), lum, chrom, pattern
+
+
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
     """Phase 2: each kernel against its plain version on ``dev``, and the
     coefficient kernel against the host library. Returns the largest
@@ -1311,10 +1352,11 @@ def check_trellis_kernels(dev, grad, noise, cells) -> dict:
     the gradient and noise batches and ``coeff_edge_cases``, bit for bit
     against its plain version on the card and image by image against the
     host library's ``native_jpeg_dct_zz``; ``trellis_quantize`` on
-    ``trellis_edge_blocks`` (every pattern), 70,000 random blocks and the
-    real DCT of cells (m1) and (m2) (``trellis_cells``), bit for bit against
-    its plain version on the card and against the host library's DP. Prints
-    the occupancy of the coefficient kernel and its f32 variant. Returns the
+    ``trellis_edge_blocks`` (every pattern), 70,000 random blocks,
+    ``trellis_mixed_blocks`` and the real DCT of cells (m1) and (m2)
+    (``trellis_cells``), bit for bit against its plain version on the card
+    and against the host library's DP. Prints the occupancy of the
+    coefficient kernel, its f32 variant and the trellis kernel. Returns the
     largest absolute error of each."""
     import numpy as np
     import torch
@@ -1325,7 +1367,8 @@ def check_trellis_kernels(dev, grad, noise, cells) -> dict:
 
     occ = {raw: {m: kernels.coeffs_ctas_per_sm(m, 3, raw) for m in ("gray", "444", "420", "422")}
            for raw in (False, True)}
-    print(f"occupancy at 3 channels, CTAs an SM: coeffs {occ[False]}, dct_zz {occ[True]}")
+    print(f"occupancy at 3 channels, CTAs an SM: coeffs {occ[False]}, dct_zz {occ[True]}; "
+          f"trellis_quantize {kernels.load().pixo_trellis_ctas_per_sm()}")
     errs = {"dct_zz": 0.0, "trellis_quantize": 0}
     named = [(f"{name} {'x'.join(map(str, batch.shape[:3]))}", batch)
              for name, batch in (("gradient", grad), ("noise", noise))]
@@ -1353,6 +1396,9 @@ def check_trellis_kernels(dev, grad, noise, cells) -> dict:
     cases.append(("random 70000 (over 65,535 blocks)",
                   torch.from_numpy(trellis_random_blocks(rng, 70_000)).to(dev), lum, chrom,
                   TRELLIS_PATTERNS["420"]))
+    dct, lum, chrom, pattern = trellis_mixed_blocks(rng, 4099)
+    cases.append(("mixed warps 4099 (ZRL, pass-through, dense, exit)", torch.from_numpy(dct).to(dev), lum,
+                  chrom, pattern))
     cases += [(f"({key}) {label} q{QUALITY} 4:2:0 DCT", *cell_trellis_inputs(dev, imgs))
               for key, (label, imgs) in cells.items()]
     for label, dct, lum, chrom, pattern in cases:
@@ -1418,15 +1464,17 @@ def check_trellis_path(dev, cells, corpus) -> dict:
     return found
 
 
-def trellis_alone(kernels, dct, lum, chrom, pattern):
+def trellis_alone(lib, dct, lum, chrom, pattern):
     """The trellis kernel's launch alone on [N, 64] ``dct``: the C function
-    with its output made beforehand."""
+    of ``lib`` (the kernel library, or a variant of ``trellis_parts``) with
+    its output made beforehand, which the launcher keeps as ``.out``."""
     import numpy as np
     import torch
 
+    from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.ops.trellis_device import RATE_LUT
 
-    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream().cuda_stream
     out = torch.empty(dct.shape, dtype=torch.int16, device=dct.device)
     lum32, chrom32 = kernels._table(lum), kernels._table(chrom)
     pat = np.asarray(pattern, np.uint8)
@@ -1438,6 +1486,7 @@ def trellis_alone(kernels, dct, lum, chrom, pattern):
 
     if alone():
         raise Failed("the trellis kernel's launch alone returned an error")
+    alone.out = out
     return alone
 
 
@@ -1498,7 +1547,7 @@ def time_trellis(dev, cells, card: str) -> dict:
                 "trellis_quantize", f"{at}, {dp} of {dct.shape[0]} blocks through the DP",
                 lambda: kernels.trellis_quantize(dct, lum, chrom, pattern),
                 lambda: trellis_quantize_batch_plain(dct, lum, chrom, pattern),
-                trellis_alone(kernels, dct, lum, chrom, pattern), card, plain_calls=(2, 3),
+                trellis_alone(kernels.load(), dct, lum, chrom, pattern), card, plain_calls=(2, 3),
                 n=dct.shape[0], dp=dp),
         }
         found[key] = k_ms
@@ -3186,8 +3235,11 @@ def measure_tree(root: str) -> dict:
     decode (d1) and (d3), the profiler's device time, the launch alone and
     the call as the path makes it; the device stages, the decode's host
     stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
-    encode, standard and balanced, PNG (a) and (b), decode (d1) and (d3)). Every kernel result is
-    first held against its plain version."""
+    encode, standard and balanced, PNG (a) and (b), decode (d1) and (d3));
+    ``dct_zz`` and ``trellis_quantize`` at the max cells (m1) and (m2), and
+    the max call there beside the host tier on 8 threads (the median of
+    THUMB_RUNS). Every kernel result is first held against its plain
+    version."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -3290,6 +3342,27 @@ def measure_tree(root: str) -> dict:
                 "call_ms": None}
         stages["thumb_end_to_end (t1)"] = wall_stats(lambda: thumbnail_pipeline(
             files, thumb_size=THUMB, quality=THUMB_QUALITY, chunk_size=chunk, device=dev))[0]
+    if hasattr(kernels, "trellis_quantize"):  # a checkout from before the max preset has none
+        from pixo_tpu_torch import jpeg
+        from pixo_tpu_torch.ops.trellis_device import trellis_quantize_batch_plain
+
+        lib = kernels.load()
+        if hasattr(lib, "pixo_trellis_ctas_per_sm"):
+            print(f"occupancy [{root}]: trellis_quantize {lib.pixo_trellis_ctas_per_sm()} CTAs an SM")
+        for key, (_, imgs) in trellis_cells(grad, corpus).items():
+            imgs_dev = torch.from_numpy(imgs).to(dev)
+            dct, lum, chrom, pattern = cell_trellis_inputs(dev, imgs)
+            three_ways(f"dct_zz ({key})", ("coeffs_kernel<2, true>", "coeffs_kernelILi2ELb1E"),
+                       lambda: kernels.dct_zz(imgs_dev, "420"), dct_zz_alone(kernels, imgs_dev),
+                       lambda: kernels.dct_zz_plain(imgs_dev, "420"))
+            three_ways(f"trellis_quantize ({key})", "trellis_quantize_kernel",
+                       lambda: kernels.trellis_quantize(dct, lum, chrom, pattern),
+                       trellis_alone(lib, dct, lum, chrom, pattern),
+                       lambda: trellis_quantize_batch_plain(dct, lum, chrom, pattern))
+            stages[f"max_end_to_end ({key})"] = wall_stats(
+                lambda: encode_jpeg_batch_sharded(imgs, max_options(), device=dev))[0]
+            stages[f"max_host_library_8_threads ({key})"] = wall_stats(
+                lambda: jpeg.encode_batch(imgs, max_options(), device="cpu"))[0]
     if hasattr(kernels, "dither_fs"):  # a checkout from before the lossy path has none
         from pixo_tpu_torch.png import quantize as q
 
@@ -3497,9 +3570,10 @@ DITHER_PARTS["all three"] = [r for edits in list(DITHER_PARTS.values()) for r in
 
 
 def variant_libs(source: str, parts: dict, prefix: str) -> dict:
-    """Builds csrc/``source`` as it is and with each of ``parts`` taken
-    out, one library each, all at once, beside the kernel library and the
-    host library: {part name or "as it is": library path}."""
+    """Builds csrc/``source`` (or the file at the absolute path ``source``)
+    as it is and with each of ``parts`` taken out, one library each, all at
+    once, beside the kernel library and the host library: {part name or "as
+    it is": library path}."""
     from pixo_tpu_torch import native
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
@@ -3666,6 +3740,169 @@ def kmeans_parts(card: str) -> int:
               f"in {len(plan.chunks)} chunks of at most {plan.per_chunk}; as it is {fmt(base)} "
               f"(bound {bound:.4f} ms, {by}); without " + "; ".join(
                   f"{n} {fmt(t)}" for n, t in times.items()) + f" [{card}]")
+    return 0
+
+
+# Parts of the trellis kernel (csrc/trellis.cu) that ``trellis_parts`` takes
+# out, one at a time and the first four together, by design: {design: {part
+# name: [(source text, replacement)]}}. The first design whose texts are all
+# in the source is applied, so a parent checkout's kernel is taken apart as
+# its own design allows: the merge by counting (the kernel as it is) or the
+# first design (an 11 x 10 rank and an 8 x 11 selection). A part's time is
+# what the kernel saves without it; the results are wrong, only timed, but
+# for the last three parts of the merge by counting: without the packing of
+# DP blocks a thread runs its own block, without the grid sized to the card
+# a CTA takes 128 consecutive blocks, without the warp's skips every step
+# takes every slot and the children's count.
+TRELLIS_PARTS = {
+    "merge by counting": {
+        "the nonzero minima": [
+            ("    c[p] = __fadd_rn(__fadd_rn(cost[p], lds_f32(rate + 4 * run[p])), ld);",
+             "    c[p] = p == 0 ? __fadd_rn(__fadd_rn(cost[0], lds_f32(rate + 4 * run[0])), ld) : inf();")],
+        "the merge (counting and placement)": [
+            ("    if (need_count) {", "    if (false) {"),
+            ("      ra = rank_nonzero(zc, rz, ca);", "      ra = 0;"),
+            ("      rb = rank_nonzero(zc, rz, cb);", "      rb = 0;"),
+            ("      rc = rank_nonzero(zc, rz, cc);", "      rc = 0;"),
+            ("""#pragma unroll
+    for (int p = 0; p < kStates; ++p) {
+      sts_u2(slot + min(rz[p], kStates) * kSlotBytes, __float_as_uint(zc[p]), zrun[p] << 8 | p);
+    }
+    sts_u2(slot + min(ra, kStates) * kSlotBytes, __float_as_uint(ca), ma);
+    sts_u2(slot + min(rb, kStates) * kSlotBytes, __float_as_uint(cb), mb);
+    sts_u2(slot + min(rc, kStates) * kSlotBytes, __float_as_uint(cc), mc);
+    uint32_t meta[kStates];
+#pragma unroll
+    for (int i = 0; i < kStates; ++i) {
+      const uint2 e = lds_u2(slot + i * kSlotBytes);
+      cost[i] = __uint_as_float(e.x);
+      run[i] = e.y >> 8;
+      meta[i] = e.y;
+    }""", """    uint32_t meta[kStates];
+#pragma unroll
+    for (int i = 0; i < kStates; ++i) {
+      cost[i] = i == 0 ? ca : i == 1 ? cb : i == 2 ? cc : zc[i];
+      run[i] = zrun[i];
+      meta[i] = i == 0 ? ma : i == 1 ? mb : i == 2 ? mc : i;
+    }""")],
+        "the history store": [("    hist[zz - 1] = make_uint2(__byte_perm(",
+                               "    if (meta[0] == 1) hist[zz - 1] = make_uint2(__byte_perm(")],
+        "the division": [("    const float fq_next = __fdiv_rn(x[at], q[at]);",
+                          "    const float fq_next = __fmul_rn(x[at], q[at]);")],
+        "the packing of DP blocks": [
+            ("  if (tid >= ndp) return;\n  const unsigned lanes = ndp - warp * 32 >= 32 ? 0xFFFFFFFFu : "
+             "(1u << (ndp - warp * 32)) - 1;", "  if (!dp) return;\n  const unsigned lanes = ballot;"),
+            ("  const int r = s_rows[tid];", "  const int r = tid;")],
+        "the grid sized to the card": [
+            ("  const int64_t first = blockIdx.x, stride = gridDim.x;",
+             "  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads, stride = 1;"),
+            ("  const int per_cta = static_cast<int>((n + slots - 1) / slots < kThreads ? (n + slots - 1) / slots : kThreads);",
+             "  const int per_cta = kThreads;")],
+        "the warp's skips": [
+            ("    const bool need_a = __any_sync(lanes, has_fl || has_ce), need_count = __any_sync(lanes, unsorted);",
+             "    const bool need_a = true, need_count = true;"),
+            ("    const bool need_b = __any_sync(lanes, has_fl && has_ce), need_c = __any_sync(lanes, afq > 1.5f);",
+             "    const bool need_b = true, need_c = true;")],
+    },
+    "rank and selection": {
+        "the nonzero minima": [
+            ("        for (int p = 0; p < kStates; ++p) {\n          const float rate = cat < 16",
+             "        for (int p = 0; p < 1; ++p) {\n          const float rate = cat < 16")],
+        "the merge (rank and placement)": [("""      int rank[kEntries];
+#pragma unroll
+      for (int e = 0; e < kEntries; ++e) {
+        int r = 0;
+#pragma unroll
+        for (int f = 0; f < kEntries; ++f) {
+          if (f != e) r += ec[f] < ec[e] || (ec[f] == ec[e] && eo[f] < eo[e]);
+        }
+        rank[e] = finite(ec[e]) ? r : kEntries;
+      }
+      uint64_t h = 0;
+#pragma unroll
+      for (int i = 0; i < kStates; ++i) {
+        float c = inf;
+        int r = 0, code = 0;
+#pragma unroll
+        for (int e = 0; e < kEntries; ++e) {
+          if (rank[e] == i) {
+            c = ec[e];
+            r = erun[e];
+            code = ecode[e];
+          }
+        }
+        cost[i] = c;
+        run[i] = r;
+        h |= static_cast<uint64_t>(code) << (6 * i);
+      }""", """      uint64_t h = 0;
+#pragma unroll
+      for (int i = 0; i < kStates; ++i) {
+        const int e = i < kNz ? kStates + i : i;
+        cost[i] = ec[e];
+        run[i] = erun[e];
+        h |= static_cast<uint64_t>(ecode[e]) << (6 * i);
+      }""")],
+        "the history store": [("      hist[zz - 1] = h;", "      if (h == 1) hist[zz - 1] = h;")],
+        "the division": [("      candidates(__fdiv_rn(coef, qq), v, ok);",
+                          "      candidates(__fmul_rn(coef, qq), v, ok);")],
+    },
+}
+for _parts in TRELLIS_PARTS.values():
+    _parts["the first four"] = [r for edits in list(_parts.values())[:4] for r in edits]
+
+
+def trellis_parts(card: str, roots) -> int:
+    """Where the trellis kernel's time goes: for the csrc/trellis.cu of each
+    checkout in ``roots`` (this one where none is named), its launch (the C
+    function) at (m1) and (m2) as it is and with each of ``TRELLIS_PARTS``
+    taken out, as its design allows (all built at once), as the profiler's
+    device time and SM clocks a DP step. The kernel as it is must equal the
+    wrapper's result, which phase 2 holds to the plain version and the host
+    library. Exit code 1 on a difference or a failed launch."""
+    import ctypes
+
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    dev = torch.device("cuda")
+    grad, corpus = gradient_batch(BATCH, SIZE), corpus_batch()
+    inputs = {key: cell_trellis_inputs(dev, imgs) for key, (_, imgs) in trellis_cells(grad, corpus).items()}
+    for n, root in enumerate(roots or [os.path.dirname(os.path.abspath(__file__))]):
+        source = os.path.join(os.path.abspath(root), "pixo_tpu_torch", "csrc", "trellis.cu")
+        text = open(source).read()
+        design = next((d for d, parts in TRELLIS_PARTS.items()
+                       if all(old in text for edits in parts.values() for old, _ in edits)), None)
+        if design is None:
+            print(f"trellis parts: {source} is of no design that TRELLIS_PARTS knows", file=sys.stderr)
+            return 1
+        libs = variant_libs(source, TRELLIS_PARTS[design], f"trellis_part_{n}")
+        lib = ctypes.CDLL(libs["as it is"])
+        occupancy = lib.pixo_trellis_ctas_per_sm() if hasattr(lib, "pixo_trellis_ctas_per_sm") else None
+        print(f"trellis parts of {root}: the {design} design, CTAs an SM {occupancy}")
+        for key, (dct, lum, chrom, pattern) in inputs.items():
+            want = kernels.trellis_quantize(dct, lum, chrom, pattern)
+            dp = dp_blocks(dct, lum, chrom, pattern)
+            bound, by = kernel_bound("trellis_quantize", n=dct.shape[0], dp=dp)
+            times, mhz = {}, None
+            for name, path in libs.items():
+                lib = ctypes.CDLL(path)
+                lib.pixo_trellis_quantize.restype = ctypes.c_int
+                lib.pixo_trellis_quantize.argtypes = kernels.load().pixo_trellis_quantize.argtypes
+                alone = trellis_alone(lib, dct, lum, chrom, pattern)
+                if name == "as it is":
+                    torch.cuda.synchronize()
+                    if not torch.equal(alone.out, want):
+                        print(f"trellis parts: ({key}) of {root} differs from the wrapper's result",
+                              file=sys.stderr)
+                        return 1
+                    mhz = busy_sm_mhz(alone)
+                times[name] = profiler_ms(alone, "trellis_quantize_kernel")
+            base = times.pop("as it is")
+            fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms ({step_line(t, 63, mhz)})"  # noqa: E731
+            print(f"trellis parts ({key}) of {root}: {dct.shape[0]} blocks, {dp} through the DP, bound "
+                  f"{bound:.4f} ms ({by}); as it is {fmt(base)}; without "
+                  + "; ".join(f"{k} {fmt(t)}" for k, t in times.items()) + f" [{card}]")
     return 0
 
 
@@ -3878,13 +4115,15 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
-                         ["--dither-parts"], ["--kmeans-parts"], ["--pack-workers"]):
+                         ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
         if sys.argv[1] == "--compare":
             return same_call_comparison(sys.argv[2:])
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        if sys.argv[1] == "--trellis-parts":
+            return trellis_parts(card, sys.argv[2:])
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
                 "--kmeans-parts": kmeans_parts,

@@ -32,6 +32,7 @@ from chip_smoke import (
     quantize_host_oracles,
     resize_cases,
     trellis_edge_blocks,
+    trellis_mixed_blocks,
     trellis_random_blocks,
 )
 from pixo_tpu_torch import (
@@ -369,6 +370,24 @@ def test_trellis_kernel_on_random_blocks(dev, pname, n):
     lum, chrom = (rng.integers(1, 80, 64).astype(np.float32) for _ in range(2))
     _trellis_equal(torch.from_numpy(trellis_random_blocks(rng, n)).to(dev), lum, chrom,
                    TRELLIS_PATTERNS[pname])
+
+
+@pytest.mark.parametrize("n", [1, 129, 4099])
+def test_trellis_kernel_on_mixed_warps(dev, n):
+    """Warps that mix ZRL steps, steps with no nonzero candidate (exact
+    zeros: the whole warp passes its states through where every lane has
+    one), dense and ordinary steps and blocks that take the all-zero exit
+    (the CTA packs the others onto its first threads): one block, a CTA and
+    one past it, and 4099 blocks, in part in warps of one kind."""
+    dct, lum, chrom, pattern = trellis_mixed_blocks(np.random.default_rng(n), n)
+    _trellis_equal(torch.from_numpy(dct).to(dev), lum, chrom, pattern)
+
+
+def test_trellis_kernel_occupancy(dev):
+    """The kernel's CTAs an SM: at least 5 (20 warps). The launch sizes its
+    grid to the card's CTA slots, so a batch of up to 84,480 blocks is one
+    wave with every SM holding as many CTAs."""
+    assert kernels.load().pixo_trellis_ctas_per_sm() >= 5
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -42,12 +42,18 @@ from pixo_tpu_torch import ColorType, JpegOptions, Subsampling, encode_jpeg_batc
 from pixo_tpu_torch.jpeg.tables import ZIGZAG, QuantizationTables
 from pixo_tpu_torch.native import native_jpeg_dct_zz, native_trellis_quantize
 from pixo_tpu_torch.ops import kernels
-from pixo_tpu_torch.ops.trellis_device import RATE_LUT, block_tables, trellis_quantize_batch_plain
+from pixo_tpu_torch.ops.trellis_device import RATE_LUT, _step, block_tables, trellis_quantize_batch_plain
 from pixo_tpu_torch.parallel import pipeline
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import TRELLIS_PATTERNS, trellis_edge_blocks, trellis_random_blocks  # noqa: E402
+from chip_smoke import (  # noqa: E402
+    TRELLIS_PATTERNS,
+    read_png,
+    trellis_edge_blocks,
+    trellis_mixed_blocks,
+    trellis_random_blocks,
+)
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -201,6 +207,83 @@ def test_rate_lut_is_the_host_librarys():
         run, size = rs >> 4, rs & 15
         est = f(special[rs]) if rs in special else f(f(f(3.0) + f(f(run) * f(0.5))) + f(f(size) * f(0.3)))
         assert f(est + f(size)) == RATE_LUT[rs]
+
+
+def _merge_premise(dct, lum, chrom, pattern):
+    """Runs the plain DP's steps on [N, 64] ``dct`` and checks, before every
+    step, what the trellis kernel's merge by counting rests on: the valid
+    states are a prefix of the 8 slots, sorted by (cost, slot); the zero
+    children of the parents without a ZRL (run < 15), in parent order, are
+    in order of cost, and so are those of the parents with one (run 15, +10:
+    both are sorted parents plus one constant, so a ZRL child only moves
+    later). Returns (the block-steps with a ZRL, the most states of run 15
+    in one step)."""
+    d = torch.from_numpy(dct)
+    b = d.shape[0]
+    q = block_tables(lum, chrom, pattern, b, "cpu")
+    lam, lut = torch.tensor(1.0), torch.as_tensor(RATE_LUT)
+    cost = torch.full((b, 8), float("inf"))
+    cost[:, 0] = 0.0
+    run = torch.zeros((b, 8), dtype=torch.int64)
+    zrl_steps, most = 0, 0
+    for zz in range(1, 64):
+        valid = torch.isfinite(cost)
+        assert not (valid[:, 1:] & ~valid[:, :-1]).any(), f"step {zz}: the valid states are no prefix"
+        pairs = valid[:, 1:]
+        assert not (pairs & (cost[:, 1:] < cost[:, :-1])).any(), f"step {zz}: the states are not sorted"
+        coef = d[:, zz]
+        zrl = valid & (run == 15)
+        zc = (cost + torch.where(zrl, 10.0, 0.0)) + lam * (coef * coef)[:, None]
+        for cls in (zrl, valid & ~zrl):  # each class in parent order: never a cheaper child later
+            held = torch.where(cls, zc, torch.tensor(float("-inf")))
+            assert (held.cummax(dim=1).values <= torch.where(cls, zc, torch.tensor(float("inf")))).all(), \
+                f"step {zz}: zero children out of order"
+        zrl_steps += int(zrl.any(dim=1).sum())
+        most = max(most, int(zrl.sum(dim=1).max()))
+        cost, run, _, _ = _step(cost, run, coef, q[:, zz], lam, lut)
+    return zrl_steps, most
+
+
+def _corpus_dct(name: str, quality: int):
+    img = read_png(str(Path(__file__).resolve().parent / "fixtures" / f"corpus_{name}_512.png"))[..., :3]
+    dct = kernels.dct_zz_plain(torch.from_numpy(np.ascontiguousarray(img[None])), "420").reshape(-1, 64)
+    qt = QuantizationTables(quality)
+    return (dct.numpy(), qt.luminance_table[ZIGZAG].astype(np.float32),
+            qt.chrominance_table[ZIGZAG].astype(np.float32), TRELLIS_PATTERNS["420"])
+
+
+MERGE_PREMISE_SETS = {
+    "edge blocks": lambda: trellis_edge_blocks(np.random.default_rng(5)),
+    "random blocks": lambda: [("random", trellis_random_blocks(np.random.default_rng(40), 3000),
+                               *(np.random.default_rng(41).integers(1, 80, (2, 64)).astype(np.float32)),
+                               TRELLIS_PATTERNS["420"])],
+    "mixed warps": lambda: [("mixed", *trellis_mixed_blocks(np.random.default_rng(129), 1000))],
+    "corpus browser q85": lambda: [("browser", *_corpus_dct("browser", 85))],
+    "corpus browser q50": lambda: [("browser", *_corpus_dct("browser", 50))],
+    "corpus rocket q85": lambda: [("rocket", *_corpus_dct("rocket", 85))],
+    "corpus rocket q50": lambda: [("rocket", *_corpus_dct("rocket", 50))],
+}
+
+
+@pytest.mark.parametrize("name", list(MERGE_PREMISE_SETS))
+def test_merge_premise_holds_after_every_step(name):
+    """The trellis kernel cannot run here; its merge's premise can, on the
+    plain DP (see ``_merge_premise``): on every pattern of the edge blocks,
+    random blocks, the kernel tests' mixed warps and the DCT of two corpus
+    fixtures at q85 and q50. Each set has steps with a ZRL, so the premise
+    is tested where the zero children are two lists."""
+    zrl_steps = 0
+    for _, dct, lum, chrom, pattern in MERGE_PREMISE_SETS[name]():
+        zrl_steps += _merge_premise(dct, lum, chrom, pattern)[0]
+    assert zrl_steps > 0
+
+
+@pytest.mark.parametrize("name", ["edge blocks", "mixed warps", "corpus rocket q50"])
+def test_more_than_three_states_share_run_15(name):
+    """The corpus at q85 has at most 3 states of run 15 in a step, but these
+    sets have more (5, 8 and 4): the kernel's count of out-of-order zero
+    children takes any number of ZRL children, not a fixed few."""
+    assert max(_merge_premise(*case[1:])[1] for case in MERGE_PREMISE_SETS[name]()) > 3
 
 
 def test_trellis_wrapper_on_cpu_equals_host_library(rng):
