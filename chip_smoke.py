@@ -55,11 +55,15 @@ printing its own lines:
    ``native_dither_fs``); the dither also with its rings in global memory,
    and 20 times on one input whose rings fill (``check_dither_repeats``);
    and the symbol-count kernel (``count_symbols``, ``check_count_kernel``) on
-   the coefficients of the gradient and corpus batches at q85 4:2:0 and on
-   ``count_cases`` (``count_edge_blocks`` under every MCU pattern, at batch
-   1 with restart intervals none, 1, 2 and 7, and at batch 64), each at byte
-   offsets 0 and 2, also held against the host library's count image by
-   image; and the max preset's two kernels (``check_trellis_kernels``):
+   the coefficients of the gradient and corpus batches and of 3 noise
+   images of 517x389 (the wrapper's shares cross images) at q85 4:2:0 and
+   on ``count_cases`` (``count_edge_blocks`` under every MCU pattern, at
+   batch 1 with restart intervals none, 1, 2 and 7, and at batch 64; one
+   image of one block), each at byte offsets 0 and 2 and, but for the two
+   largest batches, also under shares of 1, 7 and 61 blocks
+   (``COUNT_FORCED_SHARES``: shares that start inside MCUs, restart
+   segments and images), also held against the host library's count image
+   by image; and the max preset's two kernels (``check_trellis_kernels``):
    ``dct_zz``, the coefficient kernel's f32 variant, in all four modes on the
    gradient, noise and edge batches of the coefficient kernel, bit for bit
    against its plain version and image by image against the host library's
@@ -134,7 +138,8 @@ printing its own lines:
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
    (b); for the balanced route on the gradient batch the count kernel four
-   ways and the stages (copy up, device stage, copies back, the tables of
+   ways (and again on its first image alone, ``jpeg.encode``'s batch of
+   one) and the stages (copy up, device stage, copies back, the tables of
    every image, the pack with them, the whole call, the host tier on 8
    threads), and for the progressive route with SA on the corpus batch the
    device stage with its copy back, the host stage, the whole call and the
@@ -174,8 +179,9 @@ Two checkouts compare on one card with
     python3 chip_smoke.py --compare PARENT . . PARENT
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
-its own (the coefficient, compaction, count, filter, decode-tail and resize
-kernels three ways, the quantization kernels at (q1), the device stages and the
+its own (the coefficient, compaction, count (also at one image), filter,
+decode-tail and resize kernels three ways, the quantization kernels at (q1),
+the device stages and the
 end-to-end stages; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
@@ -188,8 +194,14 @@ dither kernel at (q1) and (q2) as it is and with each of its parts taken out
 (``dither_parts``); ``python3 chip_smoke.py --kmeans-parts`` times the
 k-means kernel at (q1) and (q2) as it is and without its argmin, its
 atomics, its last CTA's update or its second launch (``kmeans_parts``);
-``python3 chip_smoke.py --pack-workers`` times the host pack stage on 1, 2,
-4 and 8 threads (``pack_workers``); ``python3 chip_smoke.py --sass NAME``
+``python3 chip_smoke.py --count-parts [CHECKOUT ...]`` times the count
+kernel of each checkout named (this one by default) at (b1) as it is and
+with each part its design has taken out (``COUNT_PARTS``: the global
+flush, the AC walk, the DC adds, the predictor loads, the loads alone, the
+memset alone), at one image, and on grids of 1 to 4 CTAs an SM
+(``count_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
+pack stage on 1, 2, 4 and 8 threads (``pack_workers``); ``python3
+chip_smoke.py --sass NAME``
 counts the instructions of the built kernels whose name holds NAME, loop by
 loop (``sass_loops``).
 """
@@ -197,6 +209,7 @@ loop (``sass_loops``).
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import json
 import os
 import subprocess
@@ -966,7 +979,7 @@ def count_cases(rng):
     """The count kernel's cases of phase 2: (label, [B, N, 64] int16,
     pattern, restart interval): ``count_edge_blocks`` under every MCU
     pattern at batch 1 with restart intervals none, 1, 2 and 7, and at
-    batch 64 (64 draws of them)."""
+    batch 64 (64 draws of them), and one image of one block."""
     import numpy as np
 
     edge = np.stack([count_edge_blocks(rng) for _ in range(64)])
@@ -975,29 +988,58 @@ def count_cases(rng):
         cases += [(f"edge blocks 1x240 {mode} restart {ri}", edge[:1], pattern, ri)
                   for ri in (None, 1, 2, 7)]
         cases.append((f"edge blocks 64x240 {mode} restart 7", edge, pattern, 7))
+    cases.append(("one image of one block", np.ascontiguousarray(edge[:1, :1]), (0,), None))
     return cases
 
 
-def main_count_cases(dev, grad, corpus) -> list:
+# Shares that check_count_kernel also forces on the count kernel: one block
+# a CTA (every image's CTAs meet through the tickets), and 7 and 61 blocks
+# (shares that start inside MCUs, restart segments and images).
+COUNT_FORCED_SHARES = (1, 7, 61)
+
+
+@contextlib.contextmanager
+def count_shares(kernels, share):
+    """Makes ``kernels.count_symbols`` split every batch into shares of
+    ``share`` blocks, where it would take its own plan (``count_plan``;
+    None leaves it)."""
+    if share is None:
+        yield
+        return
+    plan = kernels.count_plan
+    kernels.count_plan = lambda b, n, sms=None: (-(-b * n // share), share)
+    try:
+        yield
+    finally:
+        kernels.count_plan = plan
+
+
+def main_count_cases(dev, grad, corpus, noise) -> list:
     """The coefficients the balanced route gives the count kernel: the
-    gradient and corpus batches at q85 4:2:0, on the card."""
+    gradient and corpus batches at q85 4:2:0, and 3 noise images of
+    517x389 (4,950 blocks an image: the wrapper's shares cross images), on
+    the card."""
     import torch
 
     from pixo_tpu_torch.parallel.pipeline import jpeg_coeffs_sharded
 
-    opts = balanced_options()
     pattern = COUNT_PATTERNS["420"]
-    return [(f"{name} {len(imgs)}x{SIZE}x{SIZE} q{QUALITY} 4:2:0 coefficients",
-             jpeg_coeffs_sharded(torch.from_numpy(imgs).to(dev), opts, device=dev), pattern, None)
-            for name, imgs in (("gradient", grad), ("corpus", corpus))]
+    cases = []
+    for name, imgs in (("gradient", grad), ("corpus", corpus), ("noise", noise[:3])):
+        h, w = imgs.shape[1], imgs.shape[2]
+        opts = balanced_options(width=w, height=h)
+        cases.append((f"{name} {len(imgs)}x{h}x{w} q{QUALITY} 4:2:0 coefficients",
+                      jpeg_coeffs_sharded(torch.from_numpy(imgs).to(dev), opts, device=dev), pattern, None))
+    return cases
 
 
 def check_count_kernel(dev, main_cases) -> int:
     """Phase 2 for ``count_symbols``: on ``count_cases`` and on
     ``main_cases`` ((label, coefficients on the card, pattern, restart)),
-    at byte offsets 0 and 2 of the input, equal to its plain version on the
-    card and, image by image, to the host library's count. Returns the
-    largest absolute error."""
+    at byte offsets 0 and 2 of the input, under the wrapper's own plan and
+    (but for the two largest batches) under ``COUNT_FORCED_SHARES``, equal
+    to its plain version on the card and, image by image, to the host
+    library's count. Returns the largest absolute error."""
     import numpy as np
 
     from pixo_tpu_torch import native
@@ -1007,19 +1049,23 @@ def check_count_kernel(dev, main_cases) -> int:
     worst = 0
     cases = [(label, zz.cpu().numpy(), pat, ri) for label, zz, pat, ri in main_cases]
     for label, host, pattern, ri in cases + count_cases(np.random.default_rng(21)):
-        for offset in (0, 1):  # int16 elements: byte offsets 0 and 2
+        ref_host = [native.native_count_symbols(host[i], pattern, ri) for i in range(host.shape[0])]
+        shares = (None,) if host.size > 2**22 else (None, *COUNT_FORCED_SHARES)
+        for share, offset in ((s, o) for s in shares for o in (0, 1)):  # int16 elements: bytes 0 and 2
             zz = at_offset(host, offset, dev)
-            got = kernels.count_symbols(zz, pattern, ri)
+            with count_shares(kernels, share):
+                got = kernels.count_symbols(zz, pattern, ri)
             ref = count_symbols_plain(zz, pattern, ri)
             err = max(int((g - r).abs().max()) for g, r in zip(got, ref))
             dc, ac = (t.cpu().numpy() for t in got)
             host_bad = sum(
                 not all(np.array_equal(a, b) for a, b in zip(
-                    (dc[i, 0], dc[i, 1], ac[i, 0], ac[i, 1]), native.native_count_symbols(host[i], pattern, ri)))
+                    (dc[i, 0], dc[i, 1], ac[i, 0], ac[i, 1]), ref_host[i]))
                 for i in range(host.shape[0]))
             worst = max(worst, err)
-            _verdict(f"check count_symbols {label} at byte offset {2 * offset}: max_abs_err vs plain "
-                     f"{err}, images differing from the host library {host_bad}/{host.shape[0]}",
+            plan = "the wrapper's plan" if share is None else f"shares of {share}"
+            _verdict(f"check count_symbols {label} at byte offset {2 * offset}, {plan}: max_abs_err vs "
+                     f"plain {err}, images differing from the host library {host_bad}/{host.shape[0]}",
                      err == 0 and host_bad == 0)
     return worst
 
@@ -1194,22 +1240,33 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     return k_ms
 
 
-def count_alone(kernels, zz, pattern):
+def count_alone(kernels, zz, pattern, lib=None, planned=None, plan=None):
     """The count kernel's launch alone on ``zz`` [B, N, 64]: the C function
-    with its output and slot table made beforehand (no restart interval)."""
+    of ``lib`` (the kernel library by default) with its output, slot table,
+    plan and scratch made beforehand (no restart interval). The design of
+    PR 12 (CTAs of 128 blocks) takes no plan; this one takes the wrapper's
+    plan (or ``plan``, (grid, share)). ``planned`` says which (by default:
+    whether ``kernels`` has a plan)."""
     import torch
 
     b, n = zz.shape[0], zz.shape[1]
-    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    lib, stream = lib or kernels.load(), torch.cuda.current_stream().cuda_stream
     hist = torch.empty((b, kernels.HIST_BINS), dtype=torch.int64, device=zz.device)
     slots = kernels.count_layout(tuple(pattern))
+    if hasattr(kernels, "count_plan") if planned is None else planned:
+        grid, share = plan or kernels.count_plan(b, n, kernels._count_slots(zz.device))
 
-    def alone():
-        return lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern), 0,
-                                      hist.data_ptr(), stream)
+        def alone():
+            return lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern), 0,
+                                          grid, share, hist.data_ptr(), stream)
+    else:
+        def alone():
+            return lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern), 0,
+                                          hist.data_ptr(), stream)
 
     if alone():
         raise Failed("the count kernel's launch alone returned an error")
+    alone.hist = hist
     return alone
 
 
@@ -1247,6 +1304,10 @@ def time_jpeg_routes(dev, grad, corpus, card: str) -> dict:
         "count_symbols", at, lambda: kernels.count_symbols(zz, pattern),
         lambda: count_symbols_plain(zz, pattern), count_alone(kernels, zz, pattern), card,
         b=b, n=zz.shape[1])}
+    one = zz[:1].contiguous()  # jpeg.encode's batch of one
+    time_kernel("count_symbols", f"1x{size}x{size} q{QUALITY} 4:2:0 balanced, one image",
+                lambda: kernels.count_symbols(one, pattern), lambda: count_symbols_plain(one, pattern),
+                count_alone(kernels, one, pattern), card, b=1, n=one.shape[1])
 
     counts = kernels.count_symbols(zz, pattern)
     compacted = kernels.compact_padded(zz, 8)
@@ -3231,7 +3292,8 @@ def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: i
 def measure_tree(root: str) -> dict:
     """The same-call comparison's numbers for the checkout at ``root`` (this
     slice or an earlier one): for ``coeffs``, ``compact`` and
-    ``count_symbols`` at 16x512x512 q85 4:2:0, ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
+    ``count_symbols`` at 16x512x512 q85 4:2:0 (the count also at its first
+    image alone), ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
     decode (d1) and (d3), the profiler's device time, the launch alone and
     the call as the path makes it; the device stages, the decode's host
     stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
@@ -3323,6 +3385,10 @@ def measure_tree(root: str) -> dict:
             raise Failed(f"count_symbols of {root} differs from its plain version")
         three_ways("count_symbols", "count_symbols_", lambda: kernels.count_symbols(zz, pattern)[1],
                    count_alone(kernels, zz, pattern), lambda: count_symbols_plain(zz, pattern)[1])
+        one = zz[:1].contiguous()
+        three_ways("count_symbols (one image)", "count_symbols_",
+                   lambda: kernels.count_symbols(one, pattern)[1], count_alone(kernels, one, pattern),
+                   lambda: count_symbols_plain(one, pattern)[1])
         stages["balanced_end_to_end"] = wall_ms(lambda: encode_jpeg_batch_sharded(grad, bopts, device=dev))
     if hasattr(kernels, "resize_lanczos3"):  # a checkout from before the thumbnail path has none
         from pixo_tpu_torch import thumbnail_pipeline
@@ -3906,6 +3972,151 @@ def trellis_parts(card: str, roots) -> int:
     return 0
 
 
+# Parts of csrc/huffman.cu that ``count_parts`` takes out, by design: the
+# one of PR 12 (a CTA of 128 threads takes 128 blocks of one image, all its
+# loads at once, into one shared table; a memset first) and the card-sized
+# grid (a CTA walks its share in passes of 128 blocks, a step of 16 a warp
+# in four rounds, a lane's first two nonzeros of a chunk counted in
+# straight-line code; a memset first). A part's time is what the kernel
+# saves without it; the results are wrong, only timed, but for "the two
+# straight-line nonzeros", whose kernel counts right.
+# "The loads alone" keeps the loads and drops everything after them; "the
+# memset alone" keeps only the memset.
+COUNT_PARTS = {
+    "128-block CTAs": {
+        "the global flush": [(
+            "    if (s_hist[i] != 0) atomicAdd(out + i, static_cast<unsigned long long>(s_hist[i]));",
+            "    if (s_hist[i] == 0x7FFFFFFF) out[i] = 0;")],
+        "the shared adds": [("      if (run >= 16) atomicAdd(&ac[0xF0], run >> 4);  // ZRL splits\n"
+                             "      atomicAdd(&ac[((run & 15) << 4) | bit_length(v)], 1);\n",
+                             "      (void)v;\n      (void)run;\n")],
+        "the predictor loads": [(
+            "      const int pred = prev >= 0 ? __ldg(image + static_cast<int64_t>(prev) * 64) : 0;",
+            "      const int pred = prev;")],
+        "the loads alone": [("  __syncthreads();  // s_hist is zeroed\n", """  __syncthreads();  // s_hist is zeroed
+  {
+    uint32_t x = 0;
+#pragma unroll
+    for (int k = 0; k < kCountPasses; ++k) x ^= words[k][0] ^ words[k][1] ^ words[k][2] ^ words[k][3];
+    if (x == 0x9E3779B9u) hist[tid] = x;
+    return;
+  }
+""")],
+        "the memset alone": [("""  if ((reinterpret_cast<uintptr_t>(zz) & 15) == 0)
+    count_symbols_kernel<true><<<grid, kCountThreads, 0, s>>>(zz, static_cast<int>(n), lay, out);
+  else
+    count_symbols_kernel<false><<<grid, kCountThreads, 0, s>>>(zz, static_cast<int>(n), lay, out);
+""", "  (void)grid;\n  (void)out;\n")],
+    },
+    "card-sized grid": {
+        "the global flush": [("      if (s != 0) atomicAdd(out + i, static_cast<unsigned long long>(s));",
+                              "      if (s == 0x7FFFFFFF) out[i] = 0;")],
+        "the AC walk": [
+            ("      count_ac<true>(mask, last[r], w[r], c, ac);  // a lane's first two nonzeros\n"
+             "      count_ac<true>(mask, last[r], w[r], c, ac);\n      rest[r] = mask;\n", "      rest[r] = 0;\n")],
+        "the two straight-line nonzeros (every nonzero in the loop)": [
+            ("      count_ac<true>(mask, last[r], w[r], c, ac);  // a lane's first two nonzeros\n"
+             "      count_ac<true>(mask, last[r], w[r], c, ac);\n", "")],
+        "the DC adds": [("    if (valid && cat < kDcBins) atomicAdd(&row[cls * kDcBins + cat], 1);",
+                         "    if (valid && cat == 99) row[0] = 1;")],
+        "the predictor loads": [("        if (pj >= 0) pred = __ldg(image + static_cast<int64_t>(pj) * 64);",
+                                 "        pred = pj;")],
+        "the loads alone": [("      count(w, dc, pred, (lay.chroma >> slot) & 1, len);\n", """      uint32_t x = dc ^ pred;
+#pragma unroll
+      for (int r = 0; r < kRounds; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x ^= w[r][e];
+      if (x == 0x9E3779B9u) hist[tid] = x;
+"""), ("    if (image_end || prow + plen == end) flush(pimg);\n", "")],
+        "the memset alone": [("""  if ((reinterpret_cast<uintptr_t>(zz) & 15) == 0)
+    count_symbols_kernel<true><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(zz, plan, lay, out);
+  else
+    count_symbols_kernel<false><<<static_cast<unsigned>(grid), kThreads, 0, s>>>(zz, plan, lay, out);
+""", "  (void)plan;\n  (void)out;\n")],
+    },
+}
+
+
+def count_parts(card: str, roots) -> int:
+    """Where the count kernel's time goes: for the csrc/huffman.cu of each
+    checkout in ``roots`` (this one where none is named), its launch (the C
+    function) at (b1), the balanced route's 16 gradient images, as it is
+    and with each of ``COUNT_PARTS`` taken out, as its design has them (all
+    built at once), as the profiler's device time (the memset's own where
+    the design has one) and the launch alone (CUDA events); and as it is at
+    one image. The kernel as it is (and each part that keeps its result)
+    must equal the wrapper's result, which phase 2 holds to the plain
+    version and the host library. Exit code 1 on a difference or a failed
+    launch."""
+    import ctypes
+
+    import torch
+
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.parallel.pipeline import jpeg_coeffs_sharded
+
+    dev = torch.device("cuda")
+    opts = balanced_options()
+    _, pattern = jenc._pattern(opts)
+    zz = jpeg_coeffs_sharded(torch.from_numpy(gradient_batch(BATCH, SIZE)).to(dev), opts, device=dev)
+    cells = {"b1": zz, "one image": zz[:1].contiguous()}
+    bound = {key: kernel_bound("count_symbols", b=z.shape[0], n=z.shape[1]) for key, z in cells.items()}
+    want = {key: torch.cat([h.reshape(z.shape[0], -1) for h in kernels.count_symbols(z, pattern)], 1)
+            for key, z in cells.items()}
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    for idx, root in enumerate(roots or [os.path.dirname(os.path.abspath(__file__))]):
+        source = os.path.join(os.path.abspath(root), "pixo_tpu_torch", "csrc", "huffman.cu")
+        text = open(source).read()
+        design = next((d for d, parts in COUNT_PARTS.items()
+                       if all(old in text for edits in parts.values() for old, _ in edits)), None)
+        if design is None:
+            print(f"count parts: {source} is of no design that COUNT_PARTS knows", file=sys.stderr)
+            return 1
+        planned = design != "128-block CTAs"
+        libs = variant_libs(source, COUNT_PARTS[design], f"count_part_{idx}")
+        if idx == 0:  # the kernel library's build: the count kernel's registers, stack and spills
+            block = kernels.build_log.split("Compiling entry function")
+            for part in block[1:]:
+                if "count_symbols_kernel" in part.splitlines()[0]:
+                    print("count parts: ptxas " + " | ".join(x.strip() for x in part.splitlines()
+                                                             if x.strip() and "Compiling" not in x)[:400])
+        times, loaded = {}, {}
+        for name, path in libs.items():
+            lib = loaded[name] = ctypes.CDLL(path)
+            lib.pixo_count_symbols.restype = ctypes.c_int
+            lib.pixo_count_symbols.argtypes = ([vp, i64, i64, vp, i32, i32, i64, i64, vp, vp] if planned
+                                               else [vp, i64, i64, vp, i32, i32, vp, vp])
+            for key in (("b1", "one image") if name == "as it is" else ("b1",)):
+                alone = count_alone(kernels, cells[key], pattern, lib, planned)
+                if name in ("as it is", "the two straight-line nonzeros (every nonzero in the loop)"):
+                    torch.cuda.synchronize()
+                    if not torch.equal(alone.hist, want[key]):
+                        print(f"count parts: ({key}) of {root} {name} differs from the wrapper's result",
+                              file=sys.stderr)
+                        return 1
+                device = profiler_ms(alone, "count_symbols_kernel") if name != "the memset alone" else None
+                memset = profiler_ms(alone, "Memset")
+                times[(name, key)] = (device, memset, event_ms(alone))
+        lib = loaded["as it is"]
+        occupancy = lib.pixo_count_ctas_per_sm() if hasattr(lib, "pixo_count_ctas_per_sm") else None
+        print(f"count parts of {root}: the {design} design, CTAs an SM {occupancy}; (b1) 16x512x512 q85 4:2:0, bound "
+              f"{bound['b1'][0]:.4f} ms, one image {bound['one image'][0]:.4f} ms [{card}]")
+        if planned:  # the grid at 1 to 4 CTAs an SM
+            for per_sm in range(1, 5):
+                for key, z in cells.items():
+                    plan = kernels.count_plan(z.shape[0], z.shape[1], kernels._sm_count(dev) * per_sm)
+                    alone = count_alone(kernels, z, pattern, lib, True, plan)
+                    print(f"count parts ({key}) of {root}: as it is on a grid of {per_sm} CTAs an SM, "
+                          f"{plan[0]} CTAs of {plan[1]} blocks: device "
+                          f"{fmt(profiler_ms(alone, 'count_symbols_kernel'))} [{card}]")
+        for (label, key), (device, memset, launch) in times.items():
+            print(f"count parts ({key}) of {root}: {label}: device {fmt(device)}, memset {fmt(memset)}, "
+                  f"launch alone {fmt(launch)} [{card}]")
+    return 0
+
+
 def _resize_lib(path: str):
     import ctypes
 
@@ -4115,7 +4326,8 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
-                         ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--pack-workers"]):
+                         ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--count-parts"],
+                         ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -4124,6 +4336,8 @@ def main() -> int:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         if sys.argv[1] == "--trellis-parts":
             return trellis_parts(card, sys.argv[2:])
+        if sys.argv[1] == "--count-parts":
+            return count_parts(card, sys.argv[2:])
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
                 "--kmeans-parts": kmeans_parts,
@@ -4161,7 +4375,7 @@ def main() -> int:
     corpus = corpus_batch()
     try:
         errs = check_kernels(dev, grad, noise, 100_000)
-        errs["count_symbols"] = check_count_kernel(dev, main_count_cases(dev, grad, corpus))
+        errs["count_symbols"] = check_count_kernel(dev, main_count_cases(dev, grad, corpus, noise))
         cells = trellis_cells(grad, corpus)
         errs.update(check_trellis_kernels(dev, grad, noise, cells))
         errs.update(check_png_kernels(dev, corpus))

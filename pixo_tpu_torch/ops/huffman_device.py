@@ -102,13 +102,14 @@ def count_symbols_plain(
 
 
 def count_symbols(
-    zz, pattern: Sequence[int], restart_interval: Optional[int] = None, *, device="cpu"
+    zz, pattern: Sequence[int], restart_interval: Optional[int] = None, *, device="cuda"
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Histogram of the DC/AC symbols of one image's [N, 64] int16 zigzag
-    blocks (numpy or tensor), counted on ``device`` (the kernel on a CUDA
-    device, the plain version on the CPU). Returns (dc_lum [12],
-    dc_chrom [12], ac_lum [256], ac_chrom [256]) as int64 numpy arrays,
-    equal to ``jpeg/packer.py::count_symbols``."""
+    blocks (numpy or tensor), counted on ``device``: the kernel on a CUDA
+    device, the default (as the JAX package's ``count_symbols_device`` runs
+    on its default device), the plain version with ``device="cpu"``.
+    Returns (dc_lum [12], dc_chrom [12], ac_lum [256], ac_chrom [256]) as
+    int64 numpy arrays, equal to ``jpeg/packer.py::count_symbols``."""
     from .kernels import count_symbols as count_kernel
 
     zz = torch.as_tensor(np.ascontiguousarray(zz) if isinstance(zz, np.ndarray) else zz)

@@ -147,7 +147,9 @@ def load():
             lib.pixo_compact.restype = ctypes.c_int
             lib.pixo_compact.argtypes = [vp, i64, i64, i32, vp, vp, vp, vp, vp, vp, vp]
             lib.pixo_count_symbols.restype = ctypes.c_int
-            lib.pixo_count_symbols.argtypes = [vp, i64, i64, vp, i32, i32, vp, vp]
+            lib.pixo_count_symbols.argtypes = [vp, i64, i64, vp, i32, i32, i64, i64, vp, vp]
+            lib.pixo_count_ctas_per_sm.restype = ctypes.c_int
+            lib.pixo_count_ctas_per_sm.argtypes = []
             lib.pixo_filter_bank.restype = ctypes.c_int
             lib.pixo_filter_bank.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp, vp]
             lib.pixo_filter_rows.restype = ctypes.c_int
@@ -187,6 +189,15 @@ def _device_guard(t: torch.Tensor):
     wrapper's host time)."""
     idx = t.get_device()
     return contextlib.nullcontext() if torch._C._cuda_getDevice() == idx else torch.cuda.device(idx)
+
+
+H100_SMS = 132
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SMs of ``device``, queried once a device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _require(t: torch.Tensor, dtype: torch.dtype, name: str) -> None:
@@ -373,6 +384,19 @@ def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:
 dct8x8_aan.launches = 0
 
 
+# Images a compaction launch takes: csrc/compact.cu takes at most 65,535, and
+# a multiple of 16 keeps every group's slices of the outputs 16-byte aligned.
+COMPACT_MAX_BATCH = 65520
+
+
+def batch_groups(b: int, most: int) -> list:
+    """[lo, hi) ranges that cut a batch of ``b`` images into groups of at
+    most ``most``, in order."""
+    if b < 1 or most < 1:
+        raise ValueError(f"a batch of at least 1 image and groups of at least 1, got {b} and {most}")
+    return [(lo, min(lo + most, b)) for lo in range(0, b, most)]
+
+
 def _compact_outputs(b: int, n: int, cap: int, device):
     """``compact_padded``'s six outputs; total and maxcount are the two rows
     of one [2, B] buffer, so the kernel library zeroes both with one memset."""
@@ -387,7 +411,9 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
     """[B, N, 64] int16 zigzag blocks -> per-block padded streams
     (dc [B, N] i16, counts [B, N] u8, poss [B, N, cap] u8, vals [B, N, cap]
     i16, total [B] i32, maxcount [B] i32), equal to
-    ``ops/sparse_pack.py::sparsify_blocks_padded_batch``."""
+    ``ops/sparse_pack.py::sparsify_blocks_padded_batch``. On a card the
+    kernel runs once a group of at most ``COMPACT_MAX_BATCH`` images
+    (``batch_groups``), each launch writing its slices of the outputs."""
     if cap_per_block not in PADDED_CAP_TIERS:
         raise ValueError(f"cap_per_block must be one of {PADDED_CAP_TIERS}")
     _require(zz, torch.int16, "zz")
@@ -396,24 +422,60 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
     if _device_kind(zz) == "cpu":
         return sparsify_blocks_padded_batch(zz, cap_per_block)
     b, n = zz.shape[0], zz.shape[1]
-    if not (1 <= b <= 65535 and n >= 1):
+    if not (b >= 1 and n >= 1):
         raise ValueError(f"unsupported batch shape {tuple(zz.shape)}")
     lib = load()
-    dc, counts, poss, vals, total, maxcount = _compact_outputs(b, n, cap_per_block, zz.device)
-    with _device_guard(zz):
-        rc = lib.pixo_compact(
-            zz.data_ptr(), b, n, cap_per_block, dc.data_ptr(), counts.data_ptr(),
-            poss.data_ptr(), vals.data_ptr(), total.data_ptr(), maxcount.data_ptr(), _stream(zz),
-        )
-    _check(lib, rc, "compact")
-    compact_padded.launches += 1
-    return dc, counts, poss, vals, total, maxcount
+    outs = _compact_outputs(b, n, cap_per_block, zz.device)
+    stream = _stream(zz)
+    for lo, hi in batch_groups(b, COMPACT_MAX_BATCH):
+        dc, counts, poss, vals, total, maxcount = (t[lo:hi] for t in outs)
+        with _device_guard(zz):
+            rc = lib.pixo_compact(
+                zz[lo:hi].data_ptr(), hi - lo, n, cap_per_block, dc.data_ptr(), counts.data_ptr(),
+                poss.data_ptr(), vals.data_ptr(), total.data_ptr(), maxcount.data_ptr(), stream,
+            )
+        _check(lib, rc, "compact")
+        compact_padded.launches += 1
+    return outs
 
 
 compact_padded.launches = 0
 
 
 HIST_BINS = 2 * 12 + 2 * 256  # csrc/huffman.cu's counters an image: dc [2][12], then ac [2][256]
+COUNT_CTAS_PER_SM = 3  # at most, of the count kernel's occupancy: 4 CTAs an SM were no faster (--count-parts)
+COUNT_STEP = 16  # csrc/huffman.cu's kStep: the blocks a warp counts in a pass
+COUNT_PASS = 128  # its kPass: the blocks a CTA of 8 warps counts in a pass
+COUNT_MAX_SHARE = 1 << 24  # its kMaxShare: the most blocks a CTA takes, which keeps its int32 sums exact
+
+
+def count_plan(b: int, n: int, ctas: int = 3 * H100_SMS):
+    """(grid, share): how ``count_symbols`` splits a batch of ``b`` images of
+    ``n`` blocks on a card that holds ``ctas`` CTAs of the count kernel at
+    once (``_count_slots``). CTA c takes blocks [c * share, (c + 1) * share)
+    of the flattened b * n, so every block once, in one contiguous share
+    each; a share may start inside an MCU, a restart segment or an image.
+    The share is the batch over the card's CTAs, in whole steps of
+    ``COUNT_STEP`` blocks, at least one pass (``COUNT_PASS``: fewer would
+    leave warps idle and give an image more CTAs to meet) and at most
+    ``COUNT_MAX_SHARE``; the grid is the shares it takes, none of them
+    empty."""
+    if b < 1 or n < 1 or ctas < 1:
+        raise ValueError(f"a plan needs b, n and ctas of at least 1, got {b}, {n} and {ctas}")
+    total = b * n
+    share = -(-total // ctas)
+    share = min(COUNT_MAX_SHARE, max(COUNT_PASS, -(-share // COUNT_STEP) * COUNT_STEP))
+    return -(-total // share), share
+
+
+@functools.lru_cache(maxsize=None)
+def _count_slots(device: torch.device) -> int:
+    """The count kernel's CTA slots on ``device``: SMs x CTAs an SM (its
+    occupancy, at most ``COUNT_CTAS_PER_SM``), queried once a device."""
+    per_sm = load().pixo_count_ctas_per_sm()
+    if per_sm < 1:
+        raise RuntimeError("the count kernel's occupancy query failed")
+    return _sm_count(device) * min(per_sm, COUNT_CTAS_PER_SM)
 
 
 @functools.lru_cache(maxsize=16)
@@ -439,7 +501,8 @@ def count_symbols(zz: torch.Tensor, pattern, restart_interval: Optional[int] = N
     component 0 and 1 for the others, equal to
     ``ops/huffman_device.py::count_symbols_plain``. ``pattern`` is the MCU's
     component ids (1 to 6 of 0, 1, 2); ``restart_interval`` the MCUs a
-    restart segment, or None. The kernel takes ``zz`` at any address."""
+    restart segment, or None. The kernel takes ``zz`` at any address, and
+    the batch in one launch at any size (``count_plan``)."""
     pattern = tuple(int(c) for c in pattern)
     if not 1 <= len(pattern) <= 6 or any(c not in (0, 1, 2) for c in pattern):
         raise ValueError(f"pattern must be 1 to 6 component ids of 0, 1, 2, got {pattern}")
@@ -455,14 +518,16 @@ def count_symbols(zz: torch.Tensor, pattern, restart_interval: Optional[int] = N
     if _device_kind(zz) == "cpu":
         return count_symbols_plain(zz, pattern, restart_interval)
     b, n = zz.shape[0], zz.shape[1]
-    if not (1 <= b <= 65535 and 1 <= n < 2**31):
+    if not (b >= 1 and 1 <= n < 2**31):
         raise ValueError(f"unsupported batch shape {tuple(zz.shape)}")
     lib = load()
+    dev = zz.device
     slots = count_layout(pattern)
-    hist = torch.empty((b, HIST_BINS), dtype=torch.int64, device=zz.device)
+    grid, share = count_plan(b, n, _count_slots(dev))
+    hist = torch.empty((b, HIST_BINS), dtype=torch.int64, device=dev)
     with _device_guard(zz):
         rc = lib.pixo_count_symbols(zz.data_ptr(), b, n, slots.ctypes.data, len(pattern),
-                                    restart_interval or 0, hist.data_ptr(), _stream(zz))
+                                    restart_interval or 0, grid, share, hist.data_ptr(), _stream(zz))
     _check(lib, rc, "count_symbols")
     count_symbols.launches += 1
     return hist[:, :24].view(b, 2, 12), hist[:, 24:].view(b, 2, 256)
@@ -929,7 +994,6 @@ def _quantize_inputs(tensors, batch: int, k: int) -> None:
 KMEANS_CHUNK_MIN = 64  # colours a chunk takes at least: a colour a thread of csrc/quantize.cu's two warps
 KMEANS_CHUNK_MAX = 1024
 KMEANS_CHUNKS_PER_SM = 8  # about 16 warps an SM
-H100_SMS = 132
 
 
 class KmeansPlan(NamedTuple):
@@ -964,11 +1028,6 @@ def kmeans_plan(counts: tuple, sms: int = H100_SMS) -> KmeansPlan:
 def _kmeans_chunks_on(counts: tuple, sms: int, device: torch.device) -> torch.Tensor:
     """``kmeans_plan(counts, sms).chunks`` on ``device``, cached."""
     return torch.from_numpy(kmeans_plan(counts, sms).chunks).to(device)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 _kmeans_scratch = {}  # (device, stream) -> int64 zeros: [B, K, 5] sums, then [B] uint32 tickets

@@ -21,6 +21,7 @@ from chip_smoke import (
     coeff_edge_cases,
     compact_edge_batch,
     count_edge_blocks,
+    count_shares,
     dither_global_ring,
     dither_inputs,
     dither_repeat_case,
@@ -221,38 +222,98 @@ def _count_equal(zz, pattern, ri):
         assert all(np.array_equal(a, b) for a, b in zip((dc[i, 0], dc[i, 1], ac[i, 0], ac[i, 1]), ref))
 
 
+@pytest.mark.parametrize("share", [None, 1, 7, 61])
 @pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("ri", [None, 1, 2, 7])
 @pytest.mark.parametrize("mode", list(COUNT_PATTERNS))
-def test_count_kernel_edge_blocks(dev, mode, ri, offset):
+def test_count_kernel_edge_blocks(dev, mode, ri, offset, share):
     """The CPU tests' edge blocks at batch 1 and 64, at byte offsets 0 and
-    2 (the kernel's single-load path)."""
+    2 (the kernel's single-load path), under the wrapper's plan and under
+    shares of 1, 7 and 61 blocks that start inside MCUs, restart segments
+    and images."""
     rng = np.random.default_rng(21)
     edge = np.stack([count_edge_blocks(rng) for _ in range(64)])
-    for zz in (edge[:1], edge):
-        _count_equal(at_offset(zz, offset, dev), COUNT_PATTERNS[mode], ri)
+    with count_shares(kernels, share):
+        for zz in (edge[:1], edge):
+            _count_equal(at_offset(zz, offset, dev), COUNT_PATTERNS[mode], ri)
 
 
+@pytest.mark.parametrize("share", [None, 7])
+@pytest.mark.parametrize("offset", [0, 1])
 @pytest.mark.parametrize("mode", MODES)
-def test_count_kernel_on_coefficients(dev, seeded, mode):
+def test_count_kernel_on_coefficients(dev, seeded, mode, offset, share):
     """Coefficients of noise and of smooth images from the coefficient
-    kernel, thread blocks that end inside an image (n not a multiple of 128)."""
+    kernel: 3 images of 517x389 (the wrapper's shares cross images), 3 of
+    8x8 and 40x56 (passes end inside a share), one 8x8 image (one block in
+    gray), at byte offsets 0 and 2, under the wrapper's plan and shares of
+    7 blocks."""
     qt = QuantizationTables(90)
-    for h, w in ((517, 389), (8, 8), (40, 56)):
-        imgs = torch.from_numpy(_pixels(seeded, 3, h, w, mode)).to(dev)
-        zz = kernels.coeffs(imgs, qt.luminance_table, qt.chrominance_table, mode)
-        _count_equal(zz, COUNT_PATTERNS[mode], None)
-        _count_equal(zz, COUNT_PATTERNS[mode], 3)
+    for b, h, w in ((3, 517, 389), (3, 8, 8), (3, 40, 56), (1, 8, 8)):
+        imgs = torch.from_numpy(_pixels(seeded, b, h, w, mode)).to(dev)
+        zz = at_offset(kernels.coeffs(imgs, qt.luminance_table, qt.chrominance_table, mode).cpu().numpy(),
+                       offset, dev)
+        with count_shares(kernels, share):
+            _count_equal(zz, COUNT_PATTERNS[mode], None)
+            _count_equal(zz, COUNT_PATTERNS[mode], 3)
 
 
 def test_count_kernel_refuses_what_it_does_not_take(dev):
     zz = torch.zeros((1, 6, 64), dtype=torch.int16, device=dev)
     with pytest.raises(ValueError):
-        kernels.count_symbols(torch.zeros((65536, 1, 64), dtype=torch.int16, device=dev), (0,))
+        kernels.count_symbols(zz, COUNT_PATTERNS["420"], 0)
     with pytest.raises(ValueError):
         kernels.count_symbols(zz[:, :5], COUNT_PATTERNS["420"])
     with pytest.raises(ValueError, match="contiguous"):
         kernels.count_symbols(torch.zeros((1, 6, 128), dtype=torch.int16, device=dev)[..., ::2], (0,))
+
+
+def test_count_kernel_takes_batches_past_65535_images(dev):
+    """65,536 and 65,537 images of one and of six blocks in one launch each
+    (the grid is 1-D), equal to the plain version and the host library."""
+    rng = np.random.default_rng(3)
+    for b, pattern in ((65536, (0,)), (65537, COUNT_PATTERNS["420"])):
+        zz = np.zeros((b, len(pattern), 64), np.int16)
+        zz[..., 0] = rng.integers(-1024, 1024, zz.shape[:2])
+        zz[..., 1:] = rng.integers(-3, 4, (b, len(pattern), 63)) * (rng.random((b, len(pattern), 63)) < 0.1)
+        kernels.count_symbols.launches = 0
+        got = kernels.count_symbols(torch.from_numpy(zz).to(dev), pattern)
+        assert kernels.count_symbols.launches == 1
+        ref = huffman_device.count_symbols_plain(torch.from_numpy(zz), pattern)
+        assert all(torch.equal(g.cpu(), r) for g, r in zip(got, ref))
+        for i in (0, 65535, b - 1):
+            want = native_count_symbols(zz[i], pattern, None)
+            assert all(np.array_equal(a, w) for a, w in zip(
+                (got[0][i, 0].cpu().numpy(), got[0][i, 1].cpu().numpy(), got[1][i, 0].cpu().numpy(),
+                 got[1][i, 1].cpu().numpy()), want))
+
+
+def test_compact_kernel_in_groups(dev, monkeypatch):
+    """With the group patched to 16 images, a batch of 70 takes five
+    launches into slices of one set of outputs, equal to the plain version."""
+    monkeypatch.setattr(kernels, "COMPACT_MAX_BATCH", 16)
+    zz = torch.from_numpy(compact_edge_batch(np.random.default_rng(9), 70, 3)).to(dev)
+    for cap in sparse_pack.PADDED_CAP_TIERS:
+        kernels.compact_padded.launches = 0
+        got = kernels.compact_padded(zz, cap)
+        assert kernels.compact_padded.launches == 5
+        for g, r in zip(got, sparse_pack.sparsify_blocks_padded_batch(zz, cap)):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("route", ["standard", "balanced"])
+def test_jpeg_batch_past_65535_images(dev, route):
+    """65,537 images of 8x8 through ``encode_jpeg_batch_sharded`` on the
+    card: the count in one launch, the compaction in two groups, every file
+    equal to ``device="cpu"``'s."""
+    imgs = np.random.default_rng(65537).integers(0, 256, (65537, 8, 8, 3), dtype=np.uint8)
+    opts = JpegOptions(width=8, height=8, quality=85, subsampling=Subsampling.S420)
+    if route == "balanced":
+        opts = opts.replace(optimize_huffman=True)
+    kernels.count_symbols.launches = kernels.compact_padded.launches = 0
+    got = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+    assert kernels.count_symbols.launches == (route == "balanced")
+    assert kernels.compact_padded.launches >= 2
+    assert got == encode_jpeg_batch_sharded(imgs, opts, device="cpu")
 
 
 JPEG_ROUTES = {
