@@ -19,8 +19,9 @@ printing its own lines:
    and at the tiled kernel's edges (``coeff_edge_cases``: batch 1, 8x8 and
    17x23 images, rows whose W*C is no multiple of 16, widths that end inside
    a tile, RGBA, one 3220x1812 image), also held against the host library's
-   coefficients image by image; the standalone AAN DCT on 100k random
-   blocks; the compaction kernel at caps 8, 16 and 32 on those coefficients
+   coefficients image by image; the standalone AAN DCT on 1, 3, 4, 5, 127,
+   129 and 100,000 random blocks and on 129 blocks 16 bytes into their
+   buffer (``aan_cases``); the compaction kernel at caps 8, 16 and 32 on those coefficients
    and on blocks with 0, cap, cap + 1 and 63 nonzeros
    (``compact_edge_batch``); the PNG filter bank and the fused filter
    kernel for every bpp 1 to 8, on rows at an odd byte offset (odd row
@@ -64,10 +65,13 @@ printing its own lines:
    (``COUNT_FORCED_SHARES``: shares that start inside MCUs, restart
    segments and images), also held against the host library's count image
    by image; and the max preset's two kernels (``check_trellis_kernels``):
-   ``dct_zz``, the coefficient kernel's f32 variant, in all four modes on the
-   gradient, noise and edge batches of the coefficient kernel, bit for bit
-   against its plain version and image by image against the host library's
-   unquantized DCT, with the occupancy of both variants; ``trellis_quantize``
+   ``dct_zz``, a kernel of its own beside the coefficient kernel, in all four
+   modes on the gradient, noise and edge batches of the coefficient kernel
+   and on batches of fewer tiles than the card's slots, twice the slots and
+   one tile past them (``dct_zz_tile_cases``), bit for bit against its plain
+   version and image by image against the host library's unquantized DCT,
+   with the occupancy of both kernels and the CTAs an SM of ``dct_zz``'s
+   plan; ``trellis_quantize``
    on ``trellis_edge_blocks`` (exact halves, the extension's and the
    all-zero exit's boundaries, ZRL runs, DC edges, tied lattices, extremes,
    under every MCU pattern), 70,000 random blocks and the real DCT of the
@@ -133,7 +137,9 @@ printing its own lines:
    against the per-image ``png.encode`` (host quantization);
 4. median timings over warm runs: each kernel four ways (``time_kernel``:
    the profiler's device time, the launch alone, the wrapper call and the
-   plain version) beside its bound (``kernel_bound``), the copy of the
+   plain version; the AAN contract also its yardstick, one ``torch.matmul``
+   by the 64x64 DCT matrix, ``aan_library``) beside its bound
+   (``kernel_bound``), the copy of the
    pixels to the card, the device stage with kernels and
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
@@ -179,12 +185,18 @@ Two checkouts compare on one card with
     python3 chip_smoke.py --compare PARENT . . PARENT
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
-its own (the coefficient, compaction, count (also at one image), filter,
-decode-tail and resize kernels three ways, the quantization kernels at (q1),
+its own (the coefficient (also at the (t1) chunk), compaction, count (also
+at one image), filter, decode-tail and resize kernels, the AAN contract at
+100,000 blocks and ``dct_zz`` at (m1) and (m2) three ways, the quantization
+kernels at (q1),
 the device stages and the
 end-to-end stages; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
+``python3 chip_smoke.py --coeffs-parts dct_zz [CHECKOUT ...]`` times the
+``dct_zz`` kernel of each checkout named (this one by default) at (m1) and
+(m2) as it is, with each part its design has taken out and each of its
+levers undone, and on grids of 1 to 5 CTAs an SM (``dct_zz_parts``);
 ``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
 each strategy (``filter_parts``); ``python3 chip_smoke.py --resize-parts``
 checks the resize kernel alone on every case and offset and times each of
@@ -839,6 +851,44 @@ def trellis_mixed_blocks(rng, n: int):
     return dct.astype(f32), lum, chrom, pattern
 
 
+AAN_COUNTS = (1, 3, 4, 5, 127, 129)  # blocks: a group of 32 cut short, around a warp's four
+
+
+def aan_cases(dev, n_dct: int) -> list:
+    """The AAN contract's inputs on ``dev``, (label, [N, 8, 8] f32): the
+    tail sizes ``AAN_COUNTS``, ``n_dct`` random blocks, and 129 blocks of a
+    tensor that starts 16 bytes into its buffer."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(2)
+    cases = [(f"{n} blocks", torch.from_numpy(rng.uniform(-128, 127, (n, 8, 8)).astype(np.float32)).to(dev))
+             for n in (*AAN_COUNTS, n_dct)]
+    flat = torch.from_numpy(rng.uniform(-1024, 1024, 4 + 129 * 64).astype(np.float32)).to(dev)
+    return cases + [("129 blocks 16 bytes into their buffer", flat[4:].view(129, 8, 8))]
+
+
+def dct_zz_tile_cases(slots: dict) -> list:
+    """``dct_zz`` batches whose tile counts sit at the card's CTA slots of
+    each mode (``slots``: ``dct_zz_slots`` by mode), (label, mode, images):
+    128 pixels wide, one tile an MCU row, so an image of R MCU rows is R
+    tiles; fewer tiles than slots, twice the slots, and one tile past them."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(17)
+    cases = []
+    for mode, n in slots.items():
+        rows = kernels.TILE_MCU[mode][1]
+        for label, b, r in (("below the slots", 1, n // 2 + 1), ("twice the slots", 2, n),
+                            ("one tile past the slots", 1, n + 1)):
+            shape = (b, rows * r - 3, 128) + (() if mode == "gray" else (3,))
+            cases.append((f"{label}: {b * r} tiles over {n} slots", mode,
+                           rng.integers(0, 256, shape, dtype=np.uint8)))
+    return cases
+
+
 def check_kernels(dev, grad, noise, n_dct: int) -> dict:
     """Phase 2: each kernel against its plain version on ``dev``, and the
     coefficient kernel against the host library. Returns the largest
@@ -881,13 +931,11 @@ def check_kernels(dev, grad, noise, n_dct: int) -> dict:
     zz_cases += [(f"edge counts {b}x{n}", torch.from_numpy(compact_edge_batch(rng, b, n)).to(dev))
                  for b, n in ((3, 101), (70, 1), (1, 64))]
 
-    blocks = torch.from_numpy(
-        np.random.default_rng(2).uniform(-128, 127, (n_dct, 8, 8)).astype(np.float32)
-    ).to(dev)
-    d_got, d_ref = kernels.dct8x8_aan(blocks), dct_plain(blocks)
-    equal = torch.equal(d_got.view(torch.int32), d_ref.view(torch.int32))
-    _verdict(f"check dct8x8_aan {n_dct} blocks: bitwise equal {equal}, "
-             f"max_abs_err {float((d_got - d_ref).abs().max())}", equal)
+    for label, blocks in aan_cases(dev, n_dct):
+        d_got, d_ref = kernels.dct8x8_aan(blocks), dct_plain(blocks)
+        equal = torch.equal(d_got.view(torch.int32), d_ref.view(torch.int32))
+        _verdict(f"check dct8x8_aan {label}: bitwise equal {equal}, "
+                 f"max_abs_err {float((d_got - d_ref).abs().max())}", equal)
 
     for label, zz in zz_cases:
         for cap in (8, 16, 32):
@@ -1149,7 +1197,7 @@ def check_jpeg_routes(dev, grad, corpus) -> dict:
 
 
 def time_kernel(name: str, at: str, call, plain, alone, card: str, plain_calls=(10, 5),
-                kernel=None, **shape) -> dict:
+                kernel=None, library=None, **shape) -> dict:
     """Times kernel ``name`` four ways and prints one line: the profiler's
     device time (the kernel's own), the launch alone (the C function with
     everything made beforehand), the wrapper call and the
@@ -1157,23 +1205,46 @@ def time_kernel(name: str, at: str, call, plain, alone, card: str, plain_calls=(
     repetition, the repetitions and the warm calls of a slow one), beside its bound at
     ``shape`` (``kernel_bound``) and the share of the bound that the device
     time reaches; ``kernel`` names the CUDA kernel for the profiler where
-    it is not ``name`` + "_". No single PyTorch call computes any kernel's
-    function, so ``library_ms`` is None."""
+    it is not ``name`` + "_". ``library`` is one PyTorch call that computes
+    the kernel's function, where there is one, timed as a yardstick
+    (``library_ms``, CUDA events; the port never calls it); else
+    ``library_ms`` is None."""
     bound, by = kernel_bound(name, **shape)
     key = kernel or f"{name}_"  # filter_rows_strip_kernel, coeffs_kernel, ...
     t = {"at": at, "ms": event_ms(call), "plain_ms": event_ms(plain, *plain_calls),
          "device_ms": profiler_ms(call, key),
          "launch_ms": event_ms(alone),
-         "bound_ms": bound, "bound_by": by, "library_ms": None}
+         "bound_ms": bound, "bound_by": by, "library_ms": None if library is None else event_ms(library)}
     fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"  # noqa: E731
     share = "not measured" if t["device_ms"] is None else f"{bound / t['device_ms']:.1%}"
     print(f"kernel {name} {at}: device {fmt(t['device_ms'])} (profiler, {PROFILED[key]} "
           f"launches traced in 20 calls), launch alone "
-          f"{t['launch_ms']:.4f} ms, per call {t['ms']:.4f} ms, plain PyTorch {t['plain_ms']:.4f} ms; "
+          f"{t['launch_ms']:.4f} ms, per call {t['ms']:.4f} ms, plain PyTorch {t['plain_ms']:.4f} ms, "
+          f"library {fmt(t['library_ms'])}; "
           f"bound {bound:.4f} ms ({by}, {kernel_work(name, **shape)[0]} B, "
           f"{kernel_work(name, **shape)[1]} {OPS_TYPE.get(name, 'f32')} operations), device time at "
           f"{share} of it [{card}]")
     return t
+
+
+def aan_library(blocks):
+    """The AAN contract's yardstick, not bit-equal and never called by the
+    port: one ``torch.matmul`` of the [N, 64] blocks by the 64x64 f32 matrix
+    whose rows are the plain ``dct8x8_aan`` of the 64 unit blocks, in full
+    f32 (TF32 off). Prints its largest difference from the kernel."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.dct import dct8x8_aan as dct_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = blocks.shape[0]
+    m = dct_plain(torch.eye(64, dtype=torch.float32, device=blocks.device).view(64, 8, 8)).view(64, 64)
+    flat = blocks.view(n, 64)
+    diff = float((torch.matmul(flat, m).view(n, 8, 8) - kernels.dct8x8_aan(blocks)).abs().max())
+    print(f"dct8x8_aan yardstick: torch.matmul by the 64x64 DCT matrix, not bit-equal (yardstick only): "
+          f"max_abs_diff from the kernel {diff}")
+    return lambda: torch.matmul(flat, m)
 
 
 def time_everything(dev, grad, n_dct: int, card: str) -> dict:
@@ -1218,7 +1289,7 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
             "dct8x8_aan", f"{n_dct} blocks", lambda: kernels.dct8x8_aan(blocks),
             lambda: dct_plain(blocks),
             lambda: lib.pixo_dct8x8_aan(blocks.data_ptr(), dct_out.data_ptr(), n_dct, stream),
-            card, n=n_dct),
+            card, library=aan_library(blocks), n=n_dct),
     }
 
     _, _, pattern = scan_layout(size, size, "rgb", "420")
@@ -1426,29 +1497,32 @@ def check_trellis_kernels(dev, grad, noise, cells) -> dict:
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.ops.trellis_device import trellis_quantize_batch_plain
 
-    occ = {raw: {m: kernels.coeffs_ctas_per_sm(m, 3, raw) for m in ("gray", "444", "420", "422")}
-           for raw in (False, True)}
-    print(f"occupancy at 3 channels, CTAs an SM: coeffs {occ[False]}, dct_zz {occ[True]}; "
+    modes = ("gray", "444", "420", "422")
+    occ = {raw: {m: kernels.coeffs_ctas_per_sm(m, 3, raw) for m in modes} for raw in (False, True)}
+    slots = {m: kernels.dct_zz_slots(dev, m, 1 if m == "gray" else 3) for m in modes}
+    print(f"occupancy at 3 channels, CTAs an SM: coeffs {occ[False]}, dct_zz {occ[True]} (its plan takes "
+          f"{ {m: kernels.dct_zz_plan_ctas(m) for m in modes} }: slots {slots}); "
           f"trellis_quantize {kernels.load().pixo_trellis_ctas_per_sm()}")
     errs = {"dct_zz": 0.0, "trellis_quantize": 0}
     named = [(f"{name} {'x'.join(map(str, batch.shape[:3]))}", batch)
              for name, batch in (("gradient", grad), ("noise", noise))]
-    for label, batch in named + coeff_edge_cases(np.random.default_rng(8)):
-        for mode in ("gray", "444", "420", "422"):
-            host = np.ascontiguousarray(batch[..., 0] if mode == "gray" else batch)
-            x = torch.from_numpy(host).to(dev)
-            got, ref = kernels.dct_zz(x, mode), kernels.dct_zz_plain(x, mode)
-            equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
-            err = float((got - ref).abs().max())
-            errs["dct_zz"] = max(errs["dct_zz"], err)
-            got_h = got.cpu().numpy()
-            rgb = host if mode == "gray" else np.ascontiguousarray(host[..., :3])
-            host_bad = sum(not np.array_equal(got_h[i].view(np.int32),
-                                              native.native_jpeg_dct_zz(rgb[i], mode).view(np.int32))
-                           for i in range(len(host)))
-            _verdict(f"check dct_zz mode={mode} {label}: bitwise equal to plain {equal}, max_abs_err "
-                     f"{err}, images differing from the host library {host_bad}/{len(host)}",
-                     equal and host_bad == 0)
+    cases = [(label, mode, batch) for label, batch in named + coeff_edge_cases(np.random.default_rng(8))
+             for mode in modes] + dct_zz_tile_cases(slots)
+    for label, mode, batch in cases:
+        host = np.ascontiguousarray(batch[..., 0] if mode == "gray" and batch.ndim == 4 else batch)
+        x = torch.from_numpy(host).to(dev)
+        got, ref = kernels.dct_zz(x, mode), kernels.dct_zz_plain(x, mode)
+        equal = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        err = float((got - ref).abs().max())
+        errs["dct_zz"] = max(errs["dct_zz"], err)
+        got_h = got.cpu().numpy()
+        rgb = host if mode == "gray" else np.ascontiguousarray(host[..., :3])
+        host_bad = sum(not np.array_equal(got_h[i].view(np.int32),
+                                          native.native_jpeg_dct_zz(rgb[i], mode).view(np.int32))
+                       for i in range(len(host)))
+        _verdict(f"check dct_zz mode={mode} {label}: bitwise equal to plain {equal}, max_abs_err "
+                 f"{err}, images differing from the host library {host_bad}/{len(host)}",
+                 equal and host_bad == 0)
 
     rng = np.random.default_rng(61)
     cases = [(label, torch.from_numpy(dct).to(dev), lum, chrom, pat)
@@ -1551,6 +1625,12 @@ def trellis_alone(lib, dct, lum, chrom, pattern):
     return alone
 
 
+# The dct_zz kernel at 4:2:0 in the profiler's names (demangled and mangled):
+# its own kernel, or an earlier checkout's f32 variant of the coefficient
+# kernel, so that --compare reads both trees.
+DCT_ZZ_KERNEL = ("dct_zz_kernel<2>", "dct_zz_kernelILi2EE", "coeffs_kernel<2, true>", "coeffs_kernelILi2ELb1E")
+
+
 def dct_zz_alone(kernels, imgs_dev):
     """The ``dct_zz`` kernel's launch alone at 4:2:0 on ``imgs_dev``."""
     import torch
@@ -1602,8 +1682,7 @@ def time_trellis(dev, cells, card: str) -> dict:
             "dct_zz": time_kernel(
                 "dct_zz", at, lambda: kernels.dct_zz(imgs_dev, "420"),
                 lambda: kernels.dct_zz_plain(imgs_dev, "420"), dct_zz_alone(kernels, imgs_dev), card,
-                kernel=("coeffs_kernel<2, true>", "coeffs_kernelILi2ELb1E"), b=b, h=SIZE, w=SIZE, c=3,
-                mode="420"),
+                kernel=DCT_ZZ_KERNEL, b=b, h=SIZE, w=SIZE, c=3, mode="420"),
             "trellis_quantize": time_kernel(
                 "trellis_quantize", f"{at}, {dp} of {dct.shape[0]} blocks through the DP",
                 lambda: kernels.trellis_quantize(dct, lum, chrom, pattern),
@@ -3293,9 +3372,10 @@ def measure_tree(root: str) -> dict:
     """The same-call comparison's numbers for the checkout at ``root`` (this
     slice or an earlier one): for ``coeffs``, ``compact`` and
     ``count_symbols`` at 16x512x512 q85 4:2:0 (the count also at its first
-    image alone), ``filter_rows`` at PNG (a) and (b) and ``idct_planes`` at
-    decode (d1) and (d3), the profiler's device time, the launch alone and
-    the call as the path makes it; the device stages, the decode's host
+    image alone), the AAN contract at 100,000 blocks, ``filter_rows`` at PNG
+    (a) and (b), ``idct_planes`` at decode (d1) and (d3) and ``resize`` and
+    ``coeffs`` (4:4:4) at the (t1) chunk, the profiler's device time, the
+    launch alone and the call as the path makes it; the device stages, the decode's host
     stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
     encode, standard and balanced, PNG (a) and (b), decode (d1) and (d3));
     ``dct_zz`` and ``trellis_quantize`` at the max cells (m1) and (m2), and
@@ -3355,6 +3435,11 @@ def measure_tree(root: str) -> dict:
         res["kernels"][name] = {"device_ms": profiler_ms(call, kernel), "launch_ms": event_ms(alone),
                                 "call_ms": event_ms(call)}
 
+    blocks = aan_cases(dev, 100_000)[len(AAN_COUNTS)][1]
+    dct_out, stream = torch.empty_like(blocks), torch.cuda.current_stream().cuda_stream
+    three_ways("dct8x8_aan (100,000 blocks)", "dct8x8_aan_kernel", lambda: kernels.dct8x8_aan(blocks),
+               lambda: kernels.load().pixo_dct8x8_aan(blocks.data_ptr(), dct_out.data_ptr(), 100_000, stream),
+               lambda: kernels.dct8x8_aan_plain(blocks))
     stages["device_kernels"] = wall_ms(
         lambda: kernels.compact_padded(jpeg_coeffs_sharded(grad_dev, opts, device=dev), 8))
     stages["end_to_end"] = wall_ms(lambda: encode_jpeg_batch_sharded(grad, opts, device=dev))
@@ -3406,6 +3491,12 @@ def measure_tree(root: str) -> dict:
             res["kernels"][f"resize_lanczos3 {name} (t1 chunk)"] = {
                 "device_ms": profiler_ms(call, f"resize_lanczos3_{name[0]}_"), "launch_ms": None,
                 "call_ms": None}
+        thumb_q = QuantizationTables(THUMB_QUALITY)  # the chunk's coefficients, as the path takes them
+        thumb_lum, thumb_chrom = thumb_q.luminance_table, thumb_q.chrominance_table
+        thumbs = call()
+        _, chunk_launchers = main_path_launchers(kernels, thumbs, thumb_lum, thumb_chrom, mode="444")
+        three_ways("coeffs (t1 chunk)", "coeffs_", chunk_launchers["coeffs"][0], chunk_launchers["coeffs"][1],
+                   lambda: kernels.coeffs_plain(thumbs, thumb_lum, thumb_chrom, "444"))
         stages["thumb_end_to_end (t1)"] = wall_stats(lambda: thumbnail_pipeline(
             files, thumb_size=THUMB, quality=THUMB_QUALITY, chunk_size=chunk, device=dev))[0]
     if hasattr(kernels, "trellis_quantize"):  # a checkout from before the max preset has none
@@ -3418,7 +3509,7 @@ def measure_tree(root: str) -> dict:
         for key, (_, imgs) in trellis_cells(grad, corpus).items():
             imgs_dev = torch.from_numpy(imgs).to(dev)
             dct, lum, chrom, pattern = cell_trellis_inputs(dev, imgs)
-            three_ways(f"dct_zz ({key})", ("coeffs_kernel<2, true>", "coeffs_kernelILi2ELb1E"),
+            three_ways(f"dct_zz ({key})", DCT_ZZ_KERNEL,
                        lambda: kernels.dct_zz(imgs_dev, "420"), dct_zz_alone(kernels, imgs_dev),
                        lambda: kernels.dct_zz_plain(imgs_dev, "420"))
             three_ways(f"trellis_quantize ({key})", "trellis_quantize_kernel",
@@ -3486,6 +3577,56 @@ COEFF_PARTS = {
 COEFF_PARTS["all of them"] = [r for k in ("quantizer", "dct", "colour conversion", "staging copies")
                               for r in COEFF_PARTS[k]]
 
+# Parts of the dct_zz kernel that ``dct_zz_parts`` takes out, by design: the
+# coefficient kernel's f32 variant (``coeffs_kernel<MODE, true>``, the
+# template's store loop) or the kernel of its own (``dct_zz_kernel<MODE>``,
+# one bulk store a tile), so that ``--coeffs-parts dct_zz ../parent .``
+# takes both apart in one call. Only ``pixo_dct_zz`` is timed, so an edit
+# of a device function both kernels share is harmless. "the loads alone"
+# keeps the staging and its waits and skips the rest of each tile. ``DCT_ZZ_GRID`` holds each design's line that sizes the
+# grid, which ``dct_zz_parts`` sets to 1 to 5 CTAs an SM.
+_AAN_PASS = ("    aan_1d<1>(v);\n", "\n")
+_ZZ_CONVERT = ("    convert_words<MODE>(sm + lay.raw + stage * stage_bytes, rowoffs + stage * T::kRows, rp, c, last, luma,\n"
+               "                        luma + T::kRows * kPlanePitch);\n", "    (void)last;\n    (void)luma;\n")
+_ZZ_GRID_LINE = "    if (raw) per_sm = per_sm < zz_plan_ctas<MODE>() ? per_sm : zz_plan_ctas<MODE>();\n"
+_STAGING = ("        cp_async16(dst, reinterpret_cast<const void*>(g));", "        ;")
+DCT_ZZ_PARTS = {
+    "coefficient kernel's f32 variant": {
+        "the stores": [(
+            "      dst[k] = src[(k >> kShift) * kPitchWords + (k & ((1 << kShift) - 1))];",
+            "      {\n        const int4 x = src[(k >> kShift) * kPitchWords + (k & ((1 << kShift) - 1))];\n"
+            "        if (x.x == 0x7FFFFFF1 && x.y == 0x7FFFFFF3) dst[k] = x;\n      }")],
+        "the staging copies": [_STAGING],
+        "the conversion": [(
+            "    convert_tile<MODE>(sm + lay.raw + buf * T::kRows * rp, rowoffs + buf * T::kRows, rp, c, last,\n"
+            "                       luma, chroma);\n", "    (void)last;\n")],
+        "the AAN passes": [_AAN_PASS],
+        "the loads alone": [("    const int64_t x0 = p.mx0 * T::kMcuW;\n",
+                             "    if (n_tiles) continue;\n    const int64_t x0 = p.mx0 * T::kMcuW;\n")],
+    },
+    "kernel of its own": {
+        "the stores' bytes (a copy of 16 bytes a tile)": [(
+            "      bulk_store(out + first_block * 64, ot, p.n_mcus * T::kBpm * 64 * 4);",
+            "      bulk_store(out + first_block * 64, ot, 16);")],
+        "the staging copies": [("    if (mid_hi > mid_lo) {\n", "    if (false) {\n")],
+        "the conversion": [_ZZ_CONVERT],
+        "the AAN passes": [_AAN_PASS],
+        "the loads alone": [_ZZ_CONVERT, ("    // the passes of tile i\n", "    if (n_tiles == 0) {\n"),
+                            ("    // the conversion of tile i + 1\n", "    }\n")],
+        # the levers one by one; each keeps the result bit-equal
+        "the proxy fence": [('    asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");  // the tile, to the bulk copy\n',
+                             "")],
+        "three input stages": [("constexpr int kZzStages = 2;", "constexpr int kZzStages = 3;")],
+        "the aligned words (every pixel by two loads)": [(
+            "    if (c == 3 && (off & 3) == 0 && x + 3 <= last) {", "    if (false) {")],
+    },
+}
+DCT_ZZ_GRID = {"coefficient kernel's f32 variant": ("    resident[dev][c] = sms * per_sm;\n",
+                                                     "    resident[dev][c] = sms * {k};\n"),
+               "kernel of its own": (_ZZ_GRID_LINE, "    if (raw) per_sm = {k};\n")}
+# the parts of a design that leave its result bit-equal, held to the plain version
+DCT_ZZ_EXACT = ("three input stages", "the aligned words (every pixel by two loads)")
+
 
 def coeffs_parts(card: str) -> int:
     """Where the coefficient kernel's time goes: builds csrc/coeffs.cu as it
@@ -3517,7 +3658,7 @@ def coeffs_parts(card: str) -> int:
         with open(path, "w") as f:
             f.write(text)
         nvcc = kernels._nvcc()
-        return key, build_shared_library(f"coeffs_part_{i}", [nvcc, *kernels.NVCC_FLAGS],
+        return key, build_shared_library(f"coeffs_part_{i}", [nvcc, *kernels.NVCC_FLAGS, *VARIANT_FLAGS],
                                          [path, os.path.join(kernels.CSRC, "aan.cuh")], timeout=900,
                                          link=[nvcc, *kernels._ARCH, "-shared"]).path
 
@@ -3547,6 +3688,75 @@ def coeffs_parts(card: str) -> int:
           + "; ".join(f"{k} {t * 1e3:.1f} us (saves {(full - t) * 1e3:.1f})" for k, t in times.items())
           + f" [{card}]")
     return 0
+
+
+def dct_zz_parts(card: str, roots) -> int:
+    """Where the ``dct_zz`` kernel's time goes: for the csrc/coeffs.cu of each
+    checkout in ``roots`` (this one where none is named), its launch (the C
+    function ``pixo_dct_zz``) at the max cells (m1) and (m2) as it is, with
+    each of its design's ``DCT_ZZ_PARTS`` taken out, and on grids of 1 to 5
+    CTAs an SM (all built at once), as the profiler's device time and the
+    launch alone (CUDA events). The kernel as it is and on every grid must
+    equal the plain version bit for bit. Exit code 1 on a difference or a
+    failed launch."""
+    import ctypes
+
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.blockify import num_blocks
+
+    dev = torch.device("cuda")
+    cells = {key: torch.from_numpy(imgs).to(dev)
+             for key, (_, imgs) in trellis_cells(gradient_batch(BATCH, SIZE), corpus_batch()).items()}
+    want = {key: kernels.dct_zz_plain(x, "420") for key, x in cells.items()}
+    bound = {key: kernel_bound("dct_zz", b=x.shape[0], h=SIZE, w=SIZE, c=3, mode="420")[0]
+             for key, x in cells.items()}
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    stream = torch.cuda.current_stream().cuda_stream
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    for idx, root in enumerate(roots or [os.path.dirname(os.path.abspath(__file__))]):
+        source = os.path.join(os.path.abspath(root), "pixo_tpu_torch", "csrc", "coeffs.cu")
+        text = open(source).read()
+        design = next((d for d, parts in DCT_ZZ_PARTS.items()
+                       if all(old in text for edits in parts.values() for old, _ in edits)
+                       and DCT_ZZ_GRID[d][0] in text), None)
+        if design is None:
+            print(f"dct_zz parts: {source} is of no design that DCT_ZZ_PARTS knows", file=sys.stderr)
+            return 1
+        line, sized = DCT_ZZ_GRID[design]
+        grids = {f"a grid of {k} CTAs an SM": [(line, sized.format(k=k))] for k in range(1, 6)}
+        libs = variant_libs(source, {**DCT_ZZ_PARTS[design], **grids}, f"dct_zz_part_{idx}")
+        print(f"dct_zz parts of {root}: the {design} design; bound (m1) {bound['m1']:.4f} ms, "
+              f"(m2) {bound['m2']:.4f} ms [{card}]")
+        failed = False
+        for name, path in libs.items():
+            lib = ctypes.CDLL(path)
+            lib.pixo_dct_zz.restype = ctypes.c_int
+            lib.pixo_dct_zz.argtypes = [vp, i64, i64, i64, i32, i32, vp, vp]
+            line = []
+            for key, x in cells.items():
+                b = x.shape[0]
+                out = torch.empty((b, num_blocks(SIZE, SIZE, "420"), 64), dtype=torch.float32, device=dev)
+                alone = lambda: lib.pixo_dct_zz(x.data_ptr(), b, SIZE, SIZE, 3, 2,  # noqa: E731
+                                                out.data_ptr(), stream)
+                rc = alone()
+                if rc:
+                    print(f"dct_zz parts: ({key}) of {root} {name}: the launch failed: "
+                          f"{kernels.load().pixo_cuda_error_string(rc).decode()}", file=sys.stderr)
+                    failed = True
+                    break
+                torch.cuda.synchronize()
+                if (name == "as it is" or name in grids or name in DCT_ZZ_EXACT) and not torch.equal(
+                        out.view(torch.int32), want[key].view(torch.int32)):
+                    print(f"dct_zz parts: ({key}) of {root} {name} differs from the plain version",
+                          file=sys.stderr)
+                    return 1
+                device = profiler_ms(alone, ("coeffs_kernel", "dct_zz_kernel"))
+                share = "" if device is None else f" ({bound[key] / device:.1%} of the bound)"
+                line.append(f"({key}) device {fmt(device)}{share}, launch alone {fmt(event_ms(alone))}")
+            print(f"dct_zz parts of {root}: {name}: " + "; ".join(line) + f" [{card}]")
+    return int(failed)
 
 
 def filter_parts(card: str) -> int:
@@ -3635,6 +3845,14 @@ DITHER_PARTS = {
 DITHER_PARTS["all three"] = [r for edits in list(DITHER_PARTS.values()) for r in edits]
 
 
+# A variant library is loaded beside the kernel library and the other
+# variants: without this, g++ makes each static variable of a template or
+# inline function (a launcher's cache of CTA slots) a GNU unique symbol, one
+# object in the whole process, so every variant would take the first one's
+# cached grid (and skip its own shared-memory attribute).
+VARIANT_FLAGS = ("-Xcompiler", "-fno-gnu-unique")
+
+
 def variant_libs(source: str, parts: dict, prefix: str) -> dict:
     """Builds csrc/``source`` (or the file at the absolute path ``source``)
     as it is and with each of ``parts`` taken out, one library each, all at
@@ -3661,7 +3879,7 @@ def variant_libs(source: str, parts: dict, prefix: str) -> dict:
         with open(path, "w") as f:
             f.write(text)
         nvcc = kernels._nvcc()
-        return key, build_shared_library(f"{prefix}_{i}", [nvcc, *kernels.NVCC_FLAGS], [path],
+        return key, build_shared_library(f"{prefix}_{i}", [nvcc, *kernels.NVCC_FLAGS, *VARIANT_FLAGS], [path],
                                          timeout=900, link=[nvcc, *kernels._ARCH, "-shared"]).path
 
     with concurrent.futures.ThreadPoolExecutor(max_workers=len(variants) + 2) as ex:
@@ -4338,6 +4556,8 @@ def main() -> int:
             return trellis_parts(card, sys.argv[2:])
         if sys.argv[1] == "--count-parts":
             return count_parts(card, sys.argv[2:])
+        if sys.argv[1:3] == ["--coeffs-parts", "dct_zz"]:
+            return dct_zz_parts(card, sys.argv[3:])
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
                 "--kmeans-parts": kmeans_parts,

@@ -10,8 +10,9 @@ stream.
   chain of the encoder (``csrc/coeffs.cu``). It replaces ``dct8x8_aan_pallas``
   widened to ``jpeg/encoder.py::_device_coeffs``.
 - ``dct_zz``: the same chain up to the unquantized f32 DCT in zigzag order,
-  the coefficient kernel's RAW variant (``csrc/coeffs.cu``): the trellis
-  quantizer's front end, replacing ``dct8x8_aan_pallas`` widened to
+  a kernel of its own beside the coefficient kernel (``csrc/coeffs.cu``,
+  each CTA one contiguous share of the batch's tiles, ``dct_zz_plan``): the
+  trellis quantizer's front end, replacing ``dct8x8_aan_pallas`` widened to
   ``jpeg/encoder.py::_device_dct_zz``.
 - ``dct8x8_aan``: the standalone [N, 8, 8] f32 AAN DCT, sharing the
   coefficient kernel's butterfly (``csrc/aan.cuh``): the direct counterpart
@@ -103,7 +104,7 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # only without contraction); IEEE division stays the default (no fast math).
 NVCC_FLAGS = [*_ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", f"-I{CSRC}"]
 
-MAX_CHANNELS = 16  # csrc/coeffs.cu's kMaxChannels: two tiles of raw rows in shared memory
+MAX_CHANNELS = 16  # csrc/coeffs.cu's kMaxChannels: the dct_zz kernel's four stages of raw rows then take 133 KB
 RESIZE_MAX_CHANNELS = 4  # csrc/resize.cu's horizontal pass: a slot holds 4 channels of 4 rows as halves
 
 _PLAIN_BLOCKS = {"gray": blocks_gray, "444": blocks_444, "420": blocks_420, "422": blocks_422}
@@ -317,13 +318,75 @@ dct_zz.launches = 0
 
 
 def coeffs_ctas_per_sm(mode: str, c: int, raw: bool) -> int:
-    """CTAs of the coefficient kernel (or, ``raw``, its f32 ``dct_zz``
-    variant) that one SM of the current card holds at ``c`` channels."""
+    """CTAs of the coefficient kernel (or, ``raw``, of the ``dct_zz``
+    kernel) that one SM of the current card holds at ``c`` channels."""
     lib = load()
     per_sm = ctypes.c_int32(0)
     _check(lib, lib.pixo_coeffs_ctas_per_sm(MODES[mode], c, int(raw), ctypes.byref(per_sm)),
            "coeffs occupancy")
     return per_sm.value
+
+
+TILE_W = 128  # csrc/coeffs.cu's kTileW: the pixels a tile spans
+# each mode's MCU width and height and blocks an MCU (csrc/coeffs.cu's Tile<MODE>)
+TILE_MCU = {"gray": (8, 8, 1), "444": (8, 8, 3), "420": (16, 16, 6), "422": (16, 8, 4)}
+DCT_ZZ_THREADS_PER_SM = 1152  # csrc/coeffs.cu's kZzThreadsPerSm: the threads an SM the dct_zz plan sizes its grid by
+
+
+class ZzTiles(NamedTuple):
+    """How the coefficient and ``dct_zz`` kernels cut one image of a mode
+    into tiles: an image's run of ``mcus`` MCUs in one MCU row, in the order
+    images, MCU rows, runs."""
+
+    n_mcu_x: int
+    n_mcu_y: int
+    n_tiles_x: int
+    mcus: int  # MCUs a whole tile
+    bpm: int  # blocks an MCU
+
+    @property
+    def tiles_per_img(self) -> int:
+        return self.n_tiles_x * self.n_mcu_y
+
+    @property
+    def threads(self) -> int:  # a CTA's: eight lanes a block of a whole tile
+        return 8 * self.mcus * self.bpm
+
+
+def zz_tiles(h: int, w: int, mode: str) -> ZzTiles:
+    """The tiles of an ``h`` x ``w`` image in ``mode``."""
+    mcu_w, mcu_h, bpm = TILE_MCU[mode]
+    n_mcu_x, mcus = -(-w // mcu_w), TILE_W // mcu_w
+    return ZzTiles(n_mcu_x, -(-h // mcu_h), -(-n_mcu_x // mcus), mcus, bpm)
+
+
+def dct_zz_plan_ctas(mode: str) -> int:
+    """CTAs an SM the ``dct_zz`` kernel's plan takes in ``mode`` (its
+    ``__launch_bounds__``): gray 9, 4:4:4 3, 4:2:0 3, 4:2:2 4."""
+    return DCT_ZZ_THREADS_PER_SM // zz_tiles(1, 1, mode).threads
+
+
+def dct_zz_plan(n_tiles: int, slots: int) -> list:
+    """The ``dct_zz`` kernel's shares of a batch's ``n_tiles`` tiles on a
+    card that keeps ``slots`` CTAs at once (``dct_zz_slots``): [(begin,
+    end)] a CTA, contiguous, in order, differing by at most one tile, the
+    first ``n_tiles % grid`` one longer; the grid is ``min(n_tiles,
+    slots)``, so no share is empty. The kernel computes its own bounds from
+    ``blockIdx.x`` alike."""
+    if n_tiles < 1 or slots < 1:
+        raise ValueError(f"a plan needs n_tiles and slots of at least 1, got {n_tiles} and {slots}")
+    grid = min(n_tiles, slots)
+    q, r = divmod(n_tiles, grid)
+    return [(c * q + min(c, r), (c + 1) * q + min(c + 1, r)) for c in range(grid)]
+
+
+def dct_zz_slots(device: torch.device, mode: str, c: int) -> int:
+    """The ``dct_zz`` kernel's CTA slots on ``device`` at ``c`` channels, as
+    its launch sizes the grid: SMs x its occupancy, at most
+    ``dct_zz_plan_ctas``."""
+    with torch.cuda.device(device):
+        per_sm = coeffs_ctas_per_sm(mode, c, True)
+    return _sm_count(device) * min(per_sm, dct_zz_plan_ctas(mode))
 
 
 MAX_PATTERN = 8  # csrc/trellis.cu's kMaxPattern: blocks an MCU pattern may hold

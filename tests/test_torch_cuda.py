@@ -14,14 +14,17 @@ import pytest
 import torch
 
 from chip_smoke import (
+    AAN_COUNTS,
     COUNT_PATTERNS,
     TRELLIS_PATTERNS,
+    aan_cases,
     at_offset,
     check_dither_repeats,
     coeff_edge_cases,
     compact_edge_batch,
     count_edge_blocks,
     count_shares,
+    dct_zz_tile_cases,
     dither_global_ring,
     dither_inputs,
     dither_repeat_case,
@@ -163,6 +166,20 @@ def test_dct_kernel_bit_exact(dev, seeded):
     blocks = torch.from_numpy(seeded.uniform(-128, 127, (20_000, 8, 8)).astype(np.float32))
     got = kernels.dct8x8_aan(blocks.to(dev)).cpu()
     assert torch.equal(got.view(torch.int32), dct.dct8x8_aan(blocks).view(torch.int32))
+
+
+AAN_IDS = [f"{n} blocks" for n in (*AAN_COUNTS, 100_000)] + ["at a 16-byte offset"]  # aan_cases' order
+
+
+@pytest.mark.parametrize("case", range(len(AAN_IDS)), ids=AAN_IDS)
+def test_dct_kernel_at_tail_sizes_and_offsets(dev, case):
+    """Groups of 32 blocks cut short (1, 3, 4, 5, 127, 129 blocks), 100,000
+    blocks and a tensor 16 bytes into its buffer, bit for bit."""
+    _, blocks = aan_cases(dev, 100_000)[case]
+    kernels.dct8x8_aan.launches = 0
+    got = kernels.dct8x8_aan(blocks)
+    assert kernels.dct8x8_aan.launches == 1
+    assert torch.equal(got.cpu().view(torch.int32), dct.dct8x8_aan(blocks.cpu()).view(torch.int32))
 
 
 @pytest.mark.parametrize("cap", sparse_pack.PADDED_CAP_TIERS)
@@ -393,13 +410,32 @@ def test_dct_zz_kernel_at_odd_sizes_and_offsets(dev, seeded, mode):
                            kernels.dct_zz_plain(sliced, mode).view(torch.int32))
 
 
-def test_dct_zz_keeps_the_coefficient_kernels_occupancy(dev):
-    """The f32 tile doubles the output's shared memory; at 3 channels every
-    mode still holds at least as many CTAs an SM as the int16 kernel, or one
-    fewer (the variant needs no divisors, and so fewer registers)."""
+def test_dct_zz_kernel_holds_its_plans_ctas(dev):
+    """At its mode's usual channels (gray 1, colour 3) every mode's dct_zz
+    kernel fits at least the CTAs an SM that its plan sizes the grid by (its
+    __launch_bounds__), so its shares all run at once; with more channels
+    the grid takes the CTAs that fit."""
     for mode in MODES:
-        raw, plain = kernels.coeffs_ctas_per_sm(mode, 3, True), kernels.coeffs_ctas_per_sm(mode, 3, False)
-        assert raw >= max(1, plain - 1), (mode, raw, plain)
+        plan = kernels.dct_zz_plan_ctas(mode)
+        for c in (1,) if mode == "gray" else (3, 4):
+            per_sm = kernels.coeffs_ctas_per_sm(mode, c, True)
+            assert c == 4 or per_sm >= plan, (mode, c, per_sm)
+            assert kernels.dct_zz_slots(dev, mode, c) == kernels._sm_count(dev) * min(per_sm, plan)
+
+
+@pytest.mark.parametrize("kind", ["below the slots", "twice the slots", "one tile past the slots"])
+@pytest.mark.parametrize("mode", MODES)
+def test_dct_zz_kernel_at_the_cards_tile_counts(dev, mode, kind):
+    """Tile counts below the card's CTA slots, on a multiple of them and one
+    tile past, against the plain version and the host library."""
+    slots = kernels.dct_zz_slots(dev, mode, 1 if mode == "gray" else 3)
+    (label, _, batch), = [c for c in dct_zz_tile_cases({mode: slots}) if c[0].startswith(kind)]
+    imgs = torch.from_numpy(batch).to(dev)
+    got = kernels.dct_zz(imgs, mode)
+    assert torch.equal(got.view(torch.int32), kernels.dct_zz_plain(imgs, mode).view(torch.int32)), label
+    for i in range(len(batch)):
+        rgb = batch[i] if mode == "gray" else np.ascontiguousarray(batch[i, ..., :3])
+        np.testing.assert_array_equal(_bits(got[i]), native_jpeg_dct_zz(rgb, mode).view(np.int32))
 
 
 TRELLIS_LABELS = [c[0] for c in trellis_edge_blocks(np.random.default_rng(5))]
