@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes
-(lossless and lossy), its batched JPEG decode and its thumbnail pipeline.
+(lossless, the max preset among them, and lossy), its batched JPEG decode
+and its thumbnail pipeline.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -29,8 +30,11 @@ printing its own lines:
    ``filter_edge_cases``: rows of 1 to 17 bytes, heights around a strip and
    the sticky limit, tied rows, rows at the strip kernel's shared-memory
    budget; 262,140-byte rows, which take the long-row kernel; the corpus
-   batch), the fused kernel in every ported strategy with the sticky rule
-   off and on, also held against the host library's filter image by image;
+   batch; and Bigrams' own shapes, ``bigram_edge_cases``: rows of 1 and 2
+   bytes, all-zero rows, tied candidates, the longest strip row and the
+   shortest long row under mode 7's plan), the fused kernel in every
+   strategy (Bigrams, mode 7, too) with the sticky rule off and on, also
+   held against the host library's filter image by image;
    the decode-tail kernel on the coefficients of decode batches (d1) and
    (d3), on the edge layout of ``plane_edge_case`` (three planes in one
    thread block's range, a plane of one block, gaps, wide pitches) and on
@@ -106,7 +110,16 @@ printing its own lines:
    batch that takes every route (pass, strip, gray-alpha) and both
    per-image fallbacks (gray, palette); every file is held against the
    per-image ``png.encode`` (which filters on the host) and (a) and (b)
-   also decode back to their input. Then the decode main path,
+   also decode back to their input. Then (e), the max preset (Bigrams in
+   ``filter_rows``' mode 7, the optimal DEFLATE on the host) on (a)'s first
+   12 images, held and decoded alike, with every ``filter_rows`` launch of
+   its call in mode 7 (``check_png_max_path``); and, for correctness only
+   (``check_png_options``), interlaced batches (gray, RGB, RGBA, reductions
+   to 1-, 2- and 4-bit gray and a 4-bit palette, one quantized), 16-bit
+   batches (RGB and RGBA, uint16 of either byte order),
+   ``encode_png_row_sharded`` at the max and balanced presets and
+   ``png.encode_batch`` with its default device, each file against the
+   per-image ``png.encode``. Then the decode main path,
    ``decode_jpeg_batch(files, device="cuda")``, on (d1) the 16 gradient
    JPEGs of the encode phase, (d2) the corpus batch encoded by the port,
    (d3) the golden oracle set's 9 baseline files (up to 3220x1812) and the
@@ -143,7 +156,12 @@ printing its own lines:
    pixels to the card, the device stage with kernels and
    with plain PyTorch, the copy of the results to the host, the host pack
    or DEFLATE and the whole encode, for JPEG and for PNG batches (a) and
-   (b); for the balanced route on the gradient batch the count kernel four
+   (b); for PNG (e) ``filter_rows`` in mode 7 four ways beside its bound
+   (its bytes, or five shared-memory atomics a byte pair at the banks'
+   rate) and the stages (device stage, the optimal DEFLATE on 8 threads,
+   the whole call, the per-image host ``png.encode`` on 8 threads; median,
+   least and most of 3 warm runs, ``time_png_max``); for the balanced
+   route on the gradient batch the count kernel four
    ways (and again on its first image alone, ``jpeg.encode``'s batch of
    one) and the stages (copy up, device stage, copies back, the tables of
    every image, the pack with them, the whole call, the host tier on 8
@@ -533,6 +551,10 @@ H100_F32_OPS_PER_S = 67e12
 # SM can issue. (64 lanes gave palette_lut a bound of 1.2036 ms at (q1),
 # which the kernel beat in 0.6207 ms: no bound.)
 H100_INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# 32-bit shared-memory atomics per second: 132 SMs x 32 a clock (the shared
+# memory's 32 banks, a word each a clock, none in conflict) x 1.98 GHz. No
+# data sheet gives the rate of ATOMS; this is the most the banks can take.
+H100_SHARED_ATOMICS_PER_S = 132 * 32 * 1.98e9
 # The quantization kernels' integer work: a redmean distance as
 # csrc/redmean.cuh writes it (4 differences, the red mean's add and shift,
 # the two weights, 4 squares, 2 weight products, the green shift, 2 adds,
@@ -554,7 +576,9 @@ DITHER_PIXEL_OPS = 3 * 11 + 7 + 3 + 1
 TRELLIS_EXIT_OPS = 3 * 63
 TRELLIS_STEP_OPS = 4 + 4 * 8 * 4 + 36
 OPS_TYPE = {"palette_lut": "int32", "kmeans_refine": "int32", "dither_fs": "int32",
-            "trellis_quantize": "f32 without FMA"}
+            "trellis_quantize": "f32 without FMA", "filter_rows": "shared-memory atomicOr"}
+OPS_RATE = {"int32": H100_INT32_OPS_PER_S, "f32 without FMA": H100_INT32_OPS_PER_S,
+            "shared-memory atomicOr": H100_SHARED_ATOMICS_PER_S}
 # f32 operations of one block through the coefficient chain: 16 AAN passes
 # of 5 multiplies, 29 adds and 8 scales, then per coefficient the level
 # shift, the division and the rounding.
@@ -578,7 +602,9 @@ def kernel_work(name: str, **shape):
     count_symbols (b, n); trellis_quantize (n, and ``dp``, the blocks of
     this data that run the DP: ``TRELLIS_EXIT_OPS`` a block, and
     ``TRELLIS_STEP_OPS`` a step of the DP, at the issue rate);
-    filter_rows and filter_bank (b, h, rb); idct_planes (n, out_bytes);
+    filter_rows and filter_bank (b, h, rb; filter_rows in mode 7 also
+    ``bigrams``: five shared-memory atomicOr a byte pair, ``OPS_TYPE``);
+    idct_planes (n, out_bytes);
     dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
     kx: the taps of a vertical and a horizontal window, and optionally
     ``passes``, "horizontal" or "vertical" for one launch alone, whose
@@ -612,8 +638,9 @@ def kernel_work(name: str, **shape):
         return s["b"] * s["n"] * (128 + 3 + 3 * s["cap"]), 0
     if name == "count_symbols":  # zz in; 536 int64 counters an image out
         return s["b"] * (128 * s["n"] + 8 * 536), 0
-    if name == "filter_rows":
-        return s["b"] * s["h"] * (2 * s["rb"] + 1), 0
+    if name == "filter_rows":  # under Bigrams (``bigrams``) an atomicOr a pair of each candidate
+        pairs = 5 * s["b"] * s["h"] * max(s["rb"] - 1, 0) if s.get("bigrams") else 0
+        return s["b"] * s["h"] * (2 * s["rb"] + 1), pairs
     if name == "filter_bank":  # rows in; five candidates and [5] int32 scores a row out
         return s["b"] * s["h"] * (6 * s["rb"] + 20), 0
     if name == "idct_planes":
@@ -650,8 +677,7 @@ def kernel_bound(name: str, **shape):
     its operations over the rate of their type (``OPS_TYPE``: f32 unless
     named), and which of the two it is."""
     nbytes, ops = kernel_work(name, **shape)
-    rate = (H100_INT32_OPS_PER_S if OPS_TYPE.get(name) in ("int32", "f32 without FMA")
-            else H100_F32_OPS_PER_S)
+    rate = OPS_RATE.get(OPS_TYPE.get(name), H100_F32_OPS_PER_S)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -1749,6 +1775,36 @@ def filter_edge_cases(rng, bpp: int):
     return cases
 
 
+def bigram_edge_cases(rng, bpp: int):
+    """Mode 7's (Bigrams') own edge shapes for ``bpp``, (label, [B, H, RB]
+    uint8): rows of 1 and 2 bytes (one pair or none); all-zero rows (every
+    candidate counts one pair: None wins the tie); identical ramp rows (Up
+    and Paeth tie at one pair, and on row 0 Sub and Paeth: the lower id
+    wins); and, for bpp 4, the longest row the strip kernel takes under
+    mode 7's plan (8 KB more a row) and the shortest the long-row kernel
+    does. The 262,140-byte noise rows of ``check_png_kernels``, whose pairs
+    fill most of the bitmap, take the long-row kernel in mode 7 too."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import kernels
+
+    strip = kernels.FILTER_STRIP_ROWS
+    cases = [(f"bigram noise 2x{strip + 1}x{rb}", rng.integers(0, 256, (2, strip + 1, rb), dtype=np.uint8))
+             for rb in (1, 2)]
+    cases.append((f"bigram zeros 2x{strip + 2}x{4 * bpp + 3}", np.zeros((2, strip + 2, 4 * bpp + 3), np.uint8)))
+    ramp = (np.arange(3 * bpp + 41) % 256).astype(np.uint8)
+    cases.append((f"bigram tied ramp 2x{strip + 3}x{ramp.size}",
+                  np.broadcast_to(ramp, (2, strip + 3, ramp.size)).copy()))
+    if bpp == 4:
+        h = strip + 1
+        fits = max(rb for rb in range(1, 1 << 17) if kernels.filter_rows_plan(h, rb, False, True))
+        for rb in (fits, fits + 1):
+            plan = kernels.filter_rows_plan(h, rb, False, True)
+            cases.append((f"bigram noise 1x{h}x{rb} ({'strips of ' + str(plan) if plan else 'long rows'})",
+                          rng.integers(0, 256, (1, h, rb), dtype=np.uint8)))
+    return cases
+
+
 def check_png_kernels(dev, corpus) -> dict:
     """Phase 2, PNG: both filter kernels against their plain versions on
     ``dev``, and the fused kernel against the host library's filter image by
@@ -1761,12 +1817,12 @@ def check_png_kernels(dev, corpus) -> dict:
     from pixo_tpu_torch.ops import kernels, png_filters
 
     rng = np.random.default_rng(4)
-    strategies = [s for s in FilterStrategy if s != FilterStrategy.BIGRAMS]
+    strategies = list(FilterStrategy)
     errs = {"filter_bank": 0, "filter_rows": 0}
     y, x = np.mgrid[0:16, 0:300]
     ramp = np.broadcast_to(((y + x) % 256).astype(np.uint8), (2, 16, 300))  # tied scores
     for bpp in range(1, 9):
-        cases = filter_edge_cases(rng, bpp) + [
+        cases = filter_edge_cases(rng, bpp) + bigram_edge_cases(rng, bpp) + [
             ("noise 4x33x1001", rng.integers(0, 256, (4, 33, 1001), dtype=np.uint8)),
             ("low noise 2x40x1001", rng.integers(0, 12, (2, 40, 1001), dtype=np.uint8)),
             ("ramp 2x16x300", np.ascontiguousarray(ramp)),
@@ -1859,6 +1915,140 @@ def check_png_main_path(dev, corpus, grad) -> dict:
     return launches
 
 
+MAX_PNG_IMAGES = 12  # PNG cell (e): the first 12 images of (a) at the max preset
+
+
+def png_max_case(corpus):
+    """PNG cell (e), the max preset: (label, options, images)."""
+    from pixo_tpu_torch import ColorType, PngOptions
+
+    return ("corpus RGB max", PngOptions.max(SIZE, SIZE).replace(color_type=ColorType.RGB),
+            corpus[:MAX_PNG_IMAGES])
+
+
+@contextlib.contextmanager
+def filter_modes_recorded():
+    """Yields a list that receives the mode (``native_mode``) of each
+    ``filter_rows`` call the PNG batch encode makes while it is open."""
+    from pixo_tpu_torch.ops import png_filters
+    from pixo_tpu_torch.parallel import pipeline
+
+    modes, real = [], pipeline.filter_rows
+
+    def recorded(rows, **kw):
+        modes.append(png_filters.native_mode(png_filters.resolve_strategy(kw["strategy"],
+                                                                          kw["small_image"])))
+        return real(rows, **kw)
+
+    pipeline.filter_rows = recorded
+    try:
+        yield modes
+    finally:
+        pipeline.filter_rows = real
+
+
+def check_png_max_path(dev, corpus) -> dict:
+    """Phase 3, PNG (e): the max preset's batch, byte-equal to the per-image
+    ``png.encode`` and decoded back, with its ``filter_rows`` launches, all
+    in mode 7 (Bigrams). Returns the launch counts."""
+    from pixo_tpu_torch.ops import kernels
+
+    label, opts, imgs = png_max_case(corpus)
+    reset_counts()
+    with filter_modes_recorded() as modes:
+        _check_png_bytes(dev, f"(e) {label}", imgs, opts, roundtrip=True)
+    launches = {"filter_rows": kernels.filter_rows.launches}
+    _verdict(f"main path png (e): launches {launches}, filter modes {modes}",
+             launches["filter_rows"] >= 1 and modes == [7] * launches["filter_rows"])
+    return launches
+
+
+def _decoded(data: bytes):
+    from pixo_tpu_torch.decode import decode_png as port_decode
+
+    return port_decode(data, keep_bit_depth=True).pixels
+
+
+def check_png_options(dev, corpus) -> None:
+    """Phase 3, PNG, correctness only: interlaced batches (gray, RGB and
+    RGBA; reductions to 1-, 2- and 4-bit gray and to palettes; one
+    quantized), 16-bit batches (RGB and RGBA, uint16 little- and big-endian),
+    ``encode_png_row_sharded`` at the max and balanced presets and
+    ``png.encode_batch`` with its default device: every file equal to the
+    per-image ``png.encode``; the interlaced and 16-bit files also decoded
+    by the port's decoder to the pixels of the same image's non-interlaced
+    file (16-bit: the input's values)."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, PngOptions, QuantizationMode, QuantizationOptions
+    from pixo_tpu_torch import encode_png_batch_sharded, encode_png_row_sharded, png
+    from pixo_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(17)
+    h, w = 45, 61
+    gray = lambda top: np.repeat(rng.integers(0, top + 1, (3, h, w, 1)).astype(np.uint8), 3, -1)  # noqa: E731
+    palette = rng.integers(0, 256, (12, 4), dtype=np.uint8)
+    palette[:, 3] = 255
+    # (colour type, images, the bit depth of the balanced and max files;
+    # the gray images with palettes off, so that they reduce to gray)
+    interlaced = {
+        "gray noise": (ColorType.GRAY, rng.integers(0, 256, (3, h, w, 1), dtype=np.uint8), 8),
+        "RGB photo crops": (ColorType.RGB, np.ascontiguousarray(corpus[:3, :h, :w]), 8),
+        "RGBA noise": (ColorType.RGBA, rng.integers(0, 256, (3, h, w, 4), dtype=np.uint8), 8),
+        "RGB of gray 0-1 (1-bit gray)": (ColorType.RGB, gray(1), 1),
+        "RGB of gray 0-3 (2-bit gray)": (ColorType.RGB, gray(3), 2),
+        "RGB of gray 0-15 (4-bit gray)": (ColorType.RGB, gray(15), 4),
+        "RGBA of 12 colours (4-bit palette)": (ColorType.RGBA, palette[rng.integers(0, 12, (3, h, w))], 4),
+    }
+    for label, (ct, imgs, depth) in interlaced.items():
+        for preset in ("balanced", "max"):
+            opts = getattr(PngOptions, preset)(w, h).replace(color_type=ct, interlace=True,
+                                                             reduce_palette="gray" not in label)
+            outs = encode_png_batch_sharded(imgs, opts, device=dev)
+            same = sum(o == png.encode(img, opts) for o, img in zip(outs, imgs))
+            back = sum(np.array_equal(_decoded(o), _decoded(png.encode(img, opts.replace(interlace=False))))
+                       for o, img in zip(outs, imgs))
+            depths = sorted({o[24] for o in outs})
+            _verdict(f"png interlaced {label} {preset}: {same}/{len(imgs)} files byte-equal to the "
+                     f"per-image png.encode, {back}/{len(imgs)} decode as the non-interlaced file, "
+                     f"bit depth {depths}", same == back == len(imgs) and depths == [depth])
+    opts = PngOptions.balanced(w, h).replace(color_type=ColorType.RGB, interlace=True, quantization=(
+        QuantizationOptions(mode=QuantizationMode.FORCE, max_colors=64, dithering=True)))
+    imgs = np.ascontiguousarray(corpus[:3, :h, :w])
+    outs = encode_png_batch_sharded(imgs, opts, device=dev)
+    same = sum(o == png.encode(img, opts) for o, img in zip(outs, imgs))
+    shapes = sum(_decoded(o).shape == (h, w, 3) for o in outs)
+    _verdict(f"png interlaced quantized FORCE 64: {same}/{len(imgs)} files byte-equal to the per-image "
+             f"png.encode, {shapes}/{len(imgs)} decode to {h}x{w}x3", same == shapes == len(imgs))
+
+    for ct, c in ((ColorType.RGB, 3), (ColorType.RGBA, 4)):
+        big = rng.integers(0, 65536, (3, h, w, c)).astype(">u2")
+        for preset in ("fast", "max"):
+            opts = getattr(PngOptions, preset)(w, h).replace(color_type=ct, bit_depth=16)
+            outs = encode_png_batch_sharded(big, opts, device=dev)
+            little = encode_png_batch_sharded(big.astype("<u2"), opts, device=dev)
+            same = sum(o == png.encode(img, opts) for o, img in zip(outs, big))
+            back = sum(np.array_equal(_decoded(o), img) for o, img in zip(outs, big))
+            _verdict(f"png 16-bit {ct.name} {preset}: {same}/{len(big)} files byte-equal to the per-image "
+                     f"png.encode, little-endian input {'the same' if little == outs else 'DIFFERENT'}, "
+                     f"{back}/{len(big)} decode to their input", same == back == len(big) and little == outs)
+
+    for preset in ("max", "balanced"):
+        opts = getattr(PngOptions, preset)(SIZE, SIZE).replace(color_type=ColorType.RGB)
+        kernels.filter_rows.launches = 0
+        outs = [encode_png_row_sharded(img, opts, device=dev) for img in corpus[:4]]
+        same = sum(o == png.encode(img, opts) for o, img in zip(outs, corpus))
+        _verdict(f"png row-sharded {preset} 4x{SIZE}x{SIZE}: {same}/4 files byte-equal to png.encode, "
+                 f"filter_rows launches {kernels.filter_rows.launches}",
+                 same == 4 and kernels.filter_rows.launches >= 1)
+
+    label, opts, imgs = png_max_case(corpus)
+    outs = png.encode_batch(imgs[:4], opts)
+    same = sum(o == png.encode(img, opts) for o, img in zip(outs, imgs))
+    _verdict(f"png.encode_batch (default device) {label} 4x{SIZE}x{SIZE}: {same}/4 files byte-equal to "
+             f"png.encode", same == 4)
+
+
 def filter_rows_alone(raw, kw):
     """The launch alone of ``filter_rows`` on ``raw`` with the keyword
     arguments ``kw``: the C function with its output made beforehand."""
@@ -1872,8 +2062,10 @@ def filter_rows_alone(raw, kw):
     b, h, rb = raw.shape
     out = torch.empty((b, h, rb + 1), dtype=torch.uint8, device=raw.device)
     lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
-    # a checkout from before the strip kernel has no plan and no such argument
-    plan = [kernels.filter_rows_plan(h, rb, bool(sticky))] if hasattr(kernels, "filter_rows_plan") else []
+    # a checkout from before the strip kernel has no plan and no such
+    # argument; one from before mode 7 has no ``bigrams`` argument
+    plan_args = (h, rb, bool(sticky)) + ((True,) if mode == 7 else ())
+    plan = [kernels.filter_rows_plan(*plan_args)] if hasattr(kernels, "filter_rows_plan") else []
     args = (raw.data_ptr(), b, h, rb, kw["bpp"], mode, png_filters.early_stop(mode, rb), sticky,
             *plan, out.data_ptr(), stream)
     return lambda: lib.pixo_filter_rows(*args)
@@ -1956,6 +2148,55 @@ def time_png(dev, corpus, grad, card: str) -> dict:
             print(f"stage {name} {at}: median {ms:.4f} ms, {mp / (ms / 1e3):.1f} MP/s over "
                   f"{WARM_RUNS} warm runs [{card}]")
     return k_ms
+
+
+MAX_PNG_RUNS = 3  # a max-preset call takes seconds: its optimal DEFLATE
+
+
+def time_png_max(dev, corpus, card: str) -> dict:
+    """Phase 4, PNG (e): ``filter_rows`` in mode 7 at the cell's device group
+    (``time_kernel``), then the cell's stages (median, least and most of
+    ``MAX_PNG_RUNS`` warm runs): the device stage (routing, layout and the
+    filter kernel), the optimal DEFLATE and framing on 8 threads, the whole
+    call, and beside it the per-image host ``png.encode`` on 8 threads.
+    Returns the kernel's times."""
+    import torch
+
+    from pixo_tpu_torch import encode_png_batch_sharded, png
+    from pixo_tpu_torch.ops import kernels, png_filters
+    from pixo_tpu_torch.parallel.pipeline import _png_route_batch, png_filter_kwargs, png_frame, png_group_rows
+
+    label, opts, imgs = png_max_case(corpus)
+    b = imgs.shape[0]
+    px = torch.from_numpy(imgs).to(dev).reshape(b, -1, 3)
+    groups, fallback = _png_route_batch(px, opts)
+    (((mode, ct), gidx),) = groups.items()  # one group: pass RGB
+    raw = png_group_rows(px, gidx, mode, ct, opts)
+    kw = png_filter_kwargs(ct, opts)
+    at = f"(e) {label} {b}x{SIZE}x{SIZE}, device group {'x'.join(map(str, raw.shape))}"
+    t = time_kernel("filter_rows", f"{at} BIGRAMS", lambda: kernels.filter_rows(raw, **kw),
+                    lambda: png_filters.filter_rows_plain(raw, **kw), filter_rows_alone(raw, kw), card,
+                    plain_calls=(3, 3, 1), **dict(zip(("b", "h", "rb"), raw.shape)), bigrams=True)
+    filtered = kernels.filter_rows(raw, **kw).cpu().numpy()
+
+    def pool(fn, items):
+        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+            return list(ex.map(fn, items))
+
+    stages = {
+        "png_max_device": wall_stats(lambda: png_device_stage(px, opts, kernels.filter_rows), MAX_PNG_RUNS),
+        "png_max_deflate": wall_stats(lambda: pool(lambda f: png_frame(f, ct, opts), filtered), MAX_PNG_RUNS),
+        "png_max_end_to_end": wall_stats(lambda: encode_png_batch_sharded(imgs, opts, device=dev),
+                                         MAX_PNG_RUNS),
+        "png_max_host_8_threads": wall_stats(lambda: pool(lambda img: png.encode(img, opts), imgs),
+                                             MAX_PNG_RUNS),
+    }
+    mp = b * SIZE * SIZE / 1e6
+    print(f"png (e): {len(gidx)} images in the device group, {len(fallback)} per-image on the host")
+    for name, (med, lo, hi) in stages.items():
+        print(f"stage {name} {at}: median {med:.4f} ms ({lo:.4f} to {hi:.4f}), "
+              f"{mp / (med / 1e3):.1f} MP/s over {MAX_PNG_RUNS} warm runs [{card}]")
+    return t
 
 
 I16_EXTREMES = (-32768, -32767, -1024, -1, 0, 1, 1023, 32766, 32767)
@@ -3759,13 +4000,48 @@ def dct_zz_parts(card: str, roots) -> int:
     return int(failed)
 
 
+def pair_collisions(raw, bpp: int):
+    """How mode 7's atomics meet in shared memory on rows ``raw`` [B, H, RB]:
+    over the kernel's warp instructions of ``atomicOr`` (lane l takes word
+    32i + l of a candidate's pairs, instruction j the pair 4k + j of word
+    k), the mean of the most lanes that hit one bitmap word and of the most
+    that carry one key. Counted on the host from the rows alone."""
+    import numpy as np
+
+    from pixo_tpu_torch.ops import png_filters
+
+    cands = png_filters._candidates(raw.cpu(), bpp).numpy().astype(np.int64)
+    keys = cands[..., :-1] * 256 + cands[..., 1:]
+    n = keys.shape[-1]
+    words = (n + 3) // 4
+    slots = -np.arange(1, 1 + ((words + 31) // 32) * 128)  # padding: a key of its own each
+    padded = np.broadcast_to(slots, keys.shape[:-1] + slots.shape).copy()
+    padded[..., :n] = keys
+    inst = np.moveaxis(padded.reshape(*keys.shape[:-1], -1, 32, 4), -1, -2).reshape(-1, 32)
+
+    def most_alike(v):  # the longest run of equal values in each sorted row
+        v = np.sort(v, axis=1)
+        run = best = np.zeros(len(v))
+        for i in range(1, 32):
+            run = (run + 1) * (v[:, i] == v[:, i - 1])
+            best = np.maximum(best, run)
+        return float((best + 1).mean())
+
+    word = np.where(inst >= 0, inst >> 5, inst)
+    return most_alike(word), most_alike(inst)
+
+
 def filter_parts(card: str) -> int:
     """Where the fused filter kernel's time goes: its device time (the
     profiler's) on the rows of PNG batches (a) and (b) under each strategy.
     None is the kernel's skeleton (the copy in, a sweep that moves the words,
     the copy out); a fixed filter adds that filter's arithmetic to the one
-    sweep; the adaptive rules add their scoring sweeps. Each result is first
-    held against the plain version."""
+    sweep; the adaptive rules add their scoring sweeps. Bigrams adds its five
+    counting sweeps of shared-memory atomics (strips of fewer rows: its
+    plan), timed also on noise rows of the same shape, whose pairs rarely
+    meet in one bitmap word (``pair_collisions`` counts how often they do).
+    Each result is first held against the plain version."""
+    import numpy as np
     import torch
 
     from pixo_tpu_torch import FilterStrategy
@@ -3773,20 +4049,24 @@ def filter_parts(card: str) -> int:
 
     dev = torch.device("cuda")
     grad = gradient_batch(BATCH, SIZE)
+    fmt = lambda ms: "not measured" if ms is None else f"{ms * 1e3:.1f} us"  # noqa: E731
     for key, (label, opts, imgs) in png_cases(corpus_batch(), grad).items():
         _, raw, _, kw = png_group(dev, opts, imgs)
+        noise = torch.from_numpy(np.random.default_rng(5).integers(0, 256, tuple(raw.shape), dtype=np.uint8))
         times = []
-        for strategy in FilterStrategy:
-            if strategy == FilterStrategy.BIGRAMS:
-                continue
+        for strategy, rows, name in [(s, raw, s.name) for s in FilterStrategy] + [
+                (FilterStrategy.BIGRAMS, noise.to(dev), "BIGRAMS on noise rows")]:
             kws = dict(kw, strategy=strategy)
-            if not torch.equal(kernels.filter_rows(raw, **kws),
-                               png_filters.filter_rows_plain(raw, **kws)):
-                raise Failed(f"filter parts: {strategy.name} differs from its plain version")
-            ms = profiler_ms(lambda: kernels.filter_rows(raw, **kws), "filter_rows_")
-            times.append(f"{strategy.name} {ms * 1e3:.1f} us")
+            if not torch.equal(kernels.filter_rows(rows, **kws), png_filters.filter_rows_plain(rows, **kws)):
+                raise Failed(f"filter parts: {name} differs from its plain version")
+            times.append(f"{name} {fmt(profiler_ms(lambda: kernels.filter_rows(rows, **kws), 'filter_rows_'))}")
         print(f"filter parts ({key}) {'x'.join(map(str, raw.shape))}, strips of "
-              f"{kernels.filter_rows_plan(*raw.shape[1:], False)}: {'; '.join(times)} [{card}]")
+              f"{kernels.filter_rows_plan(*raw.shape[1:], False)} (Bigrams "
+              f"{kernels.filter_rows_plan(*raw.shape[1:], False, True)}): {'; '.join(times)} [{card}]")
+        for rows, name in ((raw, "the rows"), (noise, "noise rows")):
+            word, same = pair_collisions(rows, kw["bpp"])
+            print(f"filter parts ({key}) Bigrams' atomics on {name}: the most lanes of a warp "
+                  f"instruction on one bitmap word {word:.2f}, on one key {same:.2f}, in the mean")
     return 0
 
 
@@ -4610,6 +4890,8 @@ def main() -> int:
         max_launches = check_trellis_path(dev, cells, corpus)
         launches.update({k: max_launches["m1"][k] for k in ("dct_zz", "trellis_quantize")})
         launches.update(check_png_main_path(dev, corpus, grad))
+        max_png_launches = check_png_max_path(dev, corpus)
+        check_png_options(dev, corpus)
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
         lossy_launches = check_lossy_main_path(dev, corpus, grad)
@@ -4621,7 +4903,8 @@ def main() -> int:
                + [f"{k} ({cell})" for cell, counts in lossy_launches.items()
                   for k, n in counts.items() if n < 1]
                + [f"{k} (max cell {cell})" for cell, counts in max_launches.items()
-                  for k in ("dct_zz", "trellis_quantize") if counts[k] < 1])
+                  for k in ("dct_zz", "trellis_quantize") if counts[k] < 1]
+               + [f"{k} (png max cell e)" for k, n in max_png_launches.items() if n < 1])
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
@@ -4629,6 +4912,7 @@ def main() -> int:
     launches.update(lossy_launches["q1"])
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
+    k_ms["e"] = {"filter_rows": time_png_max(dev, corpus, card)}
     k_ms.update(time_decode(dev, cases, card, 100_000))
     try:
         k_ms.update(time_jpeg_routes(dev, grad, corpus, card))
@@ -4652,7 +4936,9 @@ def main() -> int:
     # times and bound at one chunk's shapes. The quantization kernels'
     # launches and times are those of the lossy cell (q1); (q2)'s are under
     # "q2". The max route's kernels (dct_zz, trellis_quantize) have the
-    # launches and times of cell (m1); (m2)'s are under "m2".
+    # launches and times of cell (m1); (m2)'s are under "m2". filter_rows
+    # has those of PNG (a); mode 7's (Bigrams, the PNG max preset) in cell
+    # (e) are under "e".
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "dct_zz": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "trellis_quantize": ("pixo_tpu_torch/csrc/trellis.cu", "pixo_tpu/ops/trellis_device.py:179"),
@@ -4676,7 +4962,9 @@ def main() -> int:
          **({"q2": {"launches": lossy_launches["q2"][name], **{k: k_ms["q2"][name][k] for k in timed}}}
             if name in LOSSY_KERNELS else {}),
          **({"m2": {"launches": max_launches["m2"][name], **{k: k_ms["m2"][name][k] for k in timed}}}
-            if name in ("dct_zz", "trellis_quantize") else {})}
+            if name in ("dct_zz", "trellis_quantize") else {}),
+         **({"e": {"launches": max_png_launches[name], **{k: k_ms["e"][name][k] for k in timed}}}
+            if name in max_png_launches else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,10 @@ same input and options the port emits the same bytes.
 
 Ported so far are the JPEG encode, single-image and batched, baseline and
 progressive with the standard, optimized or optimal Huffman tables, and
-the trellis quantizer of the ``max`` preset, the batched 8-bit PNG encode, lossless and lossy (palette quantization with
-Floyd-Steinberg dithering), the batched baseline and progressive
+the trellis quantizer of the ``max`` preset, the PNG encode, single-image
+and batched, lossless (every preset, the ``max`` one's Bigrams filter and
+optimal DEFLATE among them, Adam7 interlace, 16-bit) and lossy (palette
+quantization with Floyd-Steinberg dithering), the batched baseline and progressive
 JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
 thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying
 on the device from the decode to the compacted streams):
@@ -27,10 +29,15 @@ on the device from the decode to the compacted streams):
     files = jpeg.encode_batch(batch_u8, balanced.replace(progressive=True))
     same = jpeg.encode(image_u8, balanced, device="cpu")   # the host library's tier
 
-    from pixo_tpu_torch import ColorType, PngOptions, encode_png_batch_sharded
+    from pixo_tpu_torch import ColorType, PngOptions, encode_png_batch_sharded, png
 
     opts = PngOptions.balanced(512, 512).replace(color_type=ColorType.RGB)
     files = encode_png_batch_sharded(batch_u8, opts, device="cuda")
+    files = png.encode_batch(batch_u8, PngOptions.max(512, 512))  # Bigrams on the card
+
+    from pixo_tpu_torch import encode_png_row_sharded
+
+    one = encode_png_row_sharded(image_u8, opts)           # == png.encode(image_u8, opts)
 
     from pixo_tpu_torch import QuantizationMode, QuantizationOptions
 
@@ -71,6 +78,7 @@ from .parallel import (
     decode_png_batch,
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
+    encode_png_row_sharded,
     jpeg_coeffs_sharded,
     thumbnail_pipeline,
 )
@@ -90,6 +98,7 @@ __all__ = [
     "decode_png_batch",
     "encode_jpeg_batch_sharded",
     "encode_png_batch_sharded",
+    "encode_png_row_sharded",
     "errors",
     "jpeg",
     "jpeg_coeffs_sharded",

@@ -55,7 +55,7 @@ def _with_channels(img):
     return px, img.width, img.height, img.color_type
 
 
-def load_image(data: bytes, fancy_upsampling: bool = False, *, device):
+def load_image(data: bytes, fancy_upsampling: bool = False, *, device="cuda"):
     """-> (pixels [H, W, C] uint8 numpy, width, height, color_type). A JPEG's
     pixel tail runs on ``device`` ("cpu" or a CUDA device); PNG and PNM
     inputs decode on the host."""

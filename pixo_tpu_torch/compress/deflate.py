@@ -1,9 +1,10 @@
-"""zlib-wrapped DEFLATE and INFLATE through the native C++ stack.
+"""DEFLATE and INFLATE through the native C++ stack.
 
 Counterpart of the JAX package's ``compress/deflate.py``: ``deflate_zlib``,
-``inflate_zlib`` and ``inflate_raw``. The JAX package falls back to Python's
-``zlib`` when its native library is missing; the port has no such tier: the
-native library builds or the call raises. Where the native INFLATE rejects a
+``deflate_raw``, ``deflate_optimal_zlib`` (the PNG ``max`` preset's optimal
+parse), ``inflate_zlib`` and ``inflate_raw``. The JAX package falls back to
+Python's ``zlib`` when its native library is missing; the port has no such
+tier: the native library builds or the call raises. Where the native INFLATE rejects a
 stream, Python's ``zlib`` decodes it again under the same size cap, as in the
 JAX package, so that a malformed stream raises that package's error.
 """
@@ -15,7 +16,8 @@ import zlib
 from typing import Optional
 
 from ..errors import InvalidDecode
-from ..native import NativeInflateError, native_deflate, native_inflate
+from ..native import (NativeInflateError, native_deflate, native_deflate_optimal,
+                      native_deflate_optimal_parity, native_inflate)
 
 
 def _parity_default() -> bool:
@@ -34,6 +36,37 @@ def deflate_zlib(data, level: int = 6, parity: bool = None, packed: bool = False
     if parity is None:
         parity = _parity_default()
     return native_deflate(data, level, True, parity=parity, packed=packed)
+
+
+def deflate_raw(data, level: int = 6, parity: bool = None, packed: bool = False) -> bytes:
+    """``deflate_zlib`` without the zlib wrapper: a raw DEFLATE stream."""
+    if parity is None:
+        parity = _parity_default()
+    return native_deflate(data, level, False, parity=parity, packed=packed)
+
+
+def deflate_optimal_zlib(data, iterations: int = 5) -> bytes:
+    """The zopfli-style iterative optimal parse of pixo's
+    ``deflate_optimal_zlib``: per-position match tables, an entropy cost
+    model and a shortest-path DP, ``iterations`` rounds.
+
+    Under ``PIXO_TPU_DEFLATE_PARITY=1`` it is the reference's own path
+    (byte-identical to pixo). Otherwise the performance path's parse, or
+    ``deflate_zlib(data, 9)`` where that is shorter. The JAX package's
+    ``PIXO_TPU_LZ77=device`` route (its match tables' first chain steps on
+    the device) is not ported yet and raises: its bytes would be the same,
+    but its two kernels are ROADMAP.md queue 2b item 1.
+    """
+    if _parity_default():
+        return native_deflate_optimal_parity(data, iterations)
+    if os.environ.get("PIXO_TPU_LZ77") == "device":
+        raise NotImplementedError(
+            "PIXO_TPU_LZ77=device (the device-assisted LZ77 match tables) is not ported yet "
+            "(ROADMAP.md queue 2b item 1)"
+        )
+    out = native_deflate_optimal(data, iterations, True)
+    greedy = deflate_zlib(data, 9)
+    return out if len(out) < len(greedy) else greedy
 
 
 def _zlib_inflate_capped(data: bytes, wbits: int, expected_size: Optional[int]) -> bytes:

@@ -1,11 +1,13 @@
-"""Length-limited Huffman code lengths (package-merge).
+"""DEFLATE-side Huffman code construction (Python surface).
 
 Copied from the JAX package's ``compress/huffman.py`` (capability parity
-with pixo ``src/compress/huffman.rs``): ``build_code_lengths`` and its
-native hook. The port needs it for the JPEG encode's optimal tables
-(``jpeg/tables.py::build_bits_vals_optimal``); its DEFLATE is the host
-library's own. Length limiting uses package-merge (provably optimal under
-the limit and always Kraft-complete).
+with pixo ``src/compress/huffman.rs``): code lengths under a hard length
+limit (``build_code_lengths`` and its native hook), canonical code
+assignment and the fixed literal/distance tables. The JPEG encode's optimal
+tables use ``build_code_lengths`` (``jpeg/tables.py::build_bits_vals_optimal``);
+the DEFLATE streams are the host library's own, and the rest is the
+inspectable surface. Length limiting uses package-merge (provably optimal
+under the limit and always Kraft-complete).
 """
 
 from __future__ import annotations
@@ -73,3 +75,56 @@ def build_code_lengths(
         for s in syms:
             lengths[s] += 1
     return lengths
+
+
+def generate_canonical_codes(lengths: Sequence[int]) -> np.ndarray:
+    """Canonical code values (MSB-first numbering) per symbol."""
+    lengths = np.asarray(lengths, np.uint8)
+    codes = np.zeros(len(lengths), np.uint16)
+    bl_count = np.bincount(lengths, minlength=17)
+    bl_count[0] = 0
+    next_code = np.zeros(17, np.uint32)
+    code = 0
+    for b in range(1, 17):
+        code = (code + int(bl_count[b - 1])) << 1
+        next_code[b] = code
+    for s, ln in enumerate(lengths):
+        if ln:
+            codes[s] = next_code[ln]
+            next_code[ln] += 1
+    return codes
+
+
+def reverse_bits(code: int, length: int) -> int:
+    """Bit-reverse for DEFLATE's LSB-first transmission order."""
+    out = 0
+    for _ in range(length):
+        out = (out << 1) | (code & 1)
+        code >>= 1
+    return out
+
+
+def build_codes(
+    freqs: Sequence[int], max_len: int = 15
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(lengths, LSB-first codes) — the full encoder-side pipeline."""
+    lengths = build_code_lengths(freqs, max_len)
+    canon = generate_canonical_codes(lengths)
+    codes = np.array(
+        [reverse_bits(int(c), int(l)) for c, l in zip(canon, lengths)], np.uint16
+    )
+    return lengths, codes
+
+
+def fixed_literal_lengths() -> np.ndarray:
+    """RFC 1951 fixed literal/length code lengths (288 symbols)."""
+    out = np.empty(288, np.uint8)
+    out[:144] = 8
+    out[144:256] = 9
+    out[256:280] = 7
+    out[280:] = 8
+    return out
+
+
+def fixed_distance_lengths() -> np.ndarray:
+    return np.full(30, 5, np.uint8)

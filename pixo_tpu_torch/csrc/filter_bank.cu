@@ -11,7 +11,10 @@
 // - pixo_filter_rows: the encode's kernel. It fuses the scores, the
 //   reference's selection rule and the write of the chosen filter with its
 //   type byte: what ops/png_filters.py::filter_image_batch computes, laid out
-//   as PNG rows [B, H, RB+1].
+//   as PNG rows [B, H, RB+1]. Mode 7 is the max preset's Bigrams, the JAX
+//   package's _bigram_scores and argmin (pixo_tpu/ops/png_filters.py:85,161):
+//   for each row the candidate with the fewest distinct byte pairs
+//   (c[i], c[i+1]), the lowest filter id on a tie.
 //
 // What bounds it on the card: bytes by the count (each input byte read once,
 // each output byte written once, a few integer operations a byte), but
@@ -50,6 +53,17 @@
 // - with the sticky adaptive-fast rule (height <= 32) every warp scores row 0
 //   of its image itself (staged beside the strip), so no block waits on
 //   another.
+// - Bigrams (mode 7), its own instance of both kernels (the other modes' code
+//   is as it was): a row's distinct pairs are counted in a bitmap of the
+//   65,536 pair keys, 8 KB of shared memory a row in flight. Each lane sets
+//   the bits of its pairs with atomicOr and counts the ones that were clear;
+//   after a __syncwarp it stores 0 to the words it touched, so the bitmap is
+//   empty again for the next candidate and is swept only once, when the
+//   block starts. The five candidates take turns on one bitmap; their counts
+//   stay in registers, summed over the warp with shuffles. A lane takes word
+//   k of the candidate and the word one byte further on: their bytes j are
+//   the pair that starts at byte 4k + j. What bounds mode 7 is the shared
+//   atomics, five a byte.
 // Rows above the budget (a row may hold 65,535 x 8 bytes) take the long-row
 // kernel, the first design: one thread block a row, byte by byte from device
 // memory in two sweeps, the scores reduced through shared memory. On the
@@ -83,6 +97,34 @@ namespace pixo {
 
 constexpr int kFilterThreads = 256;
 constexpr int kFilters = 5;
+constexpr int kBigramBytes = 8192;  // a bitmap of the 65,536 byte pairs (mode 7)
+
+// The kernels' dynamic shared memory. Rows and bitmaps are named by their
+// byte offset in it, so that every access is known to be a shared-memory one.
+extern __shared__ __align__(16) uint8_t smem[];
+
+// Sets the bit of pair `key` in the bitmap at offset `bits` of the shared
+// memory; 1 if it was clear (the pair is new to the bitmap), else 0.
+__device__ __forceinline__ int mark_pair(int bits, uint32_t key) {
+  const uint32_t bit = 1u << (key & 31);
+  return (atomicOr(reinterpret_cast<uint32_t*>(smem + bits) + (key >> 5), bit) & bit) ? 0 : 1;
+}
+
+// Clears the word of pair `key` in the bitmap at offset `bits`.
+__device__ __forceinline__ void clear_pair(int bits, uint32_t key) {
+  reinterpret_cast<uint32_t*>(smem + bits)[key >> 5] = 0u;
+}
+
+// The filter with the fewest distinct pairs, the lowest id on a tie (the host
+// library's strict <, jnp.argmin).
+__device__ __forceinline__ int select_fewest(const int (&s)[kFilters]) {
+  int chosen = 0;
+#pragma unroll
+  for (int f = 1; f < kFilters; ++f) {
+    if (s[f] < s[chosen]) chosen = f;
+  }
+  return chosen;
+}
 
 // byte x filtered with filter F, from its left (a), up (b) and upper-left (c)
 // neighbours, mod 256
@@ -225,6 +267,36 @@ __global__ void __launch_bounds__(kFilterThreads) filter_bank_kernel(
   if (threadIdx.x < kFilters) scores[r * kFilters + threadIdx.x] = s[threadIdx.x];
 }
 
+// The pair (byte i, byte i + 1) of the row filtered with F, as the key
+// byte i << 8 | byte i + 1.
+template <int F>
+__device__ __forceinline__ uint32_t pair_key(const uint8_t* __restrict__ cur,
+                                             const uint8_t* __restrict__ prev, int64_t i, int bpp) {
+  int x, a, b, c;
+  neighbours(cur, prev, i, bpp, x, a, b, c);
+  const int first = filter_byte<F>(x, a, b, c);
+  neighbours(cur, prev, i + 1, bpp, x, a, b, c);
+  return static_cast<uint32_t>(first) << 8 | static_cast<uint32_t>(filter_byte<F>(x, a, b, c));
+}
+
+// Adds this thread's share of the row's distinct pairs under filter F to n;
+// the bitmap (offset 0 of the shared memory) is empty before and after.
+template <int F>
+__device__ void count_pairs_long(const uint8_t* __restrict__ cur, const uint8_t* __restrict__ prev,
+                                 int64_t rb, int bpp, int& n) {
+  for (int64_t i = threadIdx.x; i + 1 < rb; i += kFilterThreads) {
+    n += mark_pair(0, pair_key<F>(cur, prev, i, bpp));
+  }
+  __syncthreads();
+  for (int64_t i = threadIdx.x; i + 1 < rb; i += kFilterThreads) {
+    clear_pair(0, pair_key<F>(cur, prev, i, bpp));
+  }
+  __syncthreads();
+}
+
+// One thread block a row. BIGRAMS: mode 7, with kBigramBytes of dynamic
+// shared memory for the bitmap.
+template <bool BIGRAMS>
 __global__ void __launch_bounds__(kFilterThreads) filter_rows_long_kernel(
     const uint8_t* __restrict__ rows, int64_t h, int64_t rb, int bpp, int mode, int early,
     int sticky, uint8_t* __restrict__ out) {
@@ -233,7 +305,20 @@ __global__ void __launch_bounds__(kFilterThreads) filter_rows_long_kernel(
   const uint8_t* cur = rows + r * rb;
   const uint8_t* prev = y > 0 ? cur - rb : nullptr;
   int chosen = mode;
-  if (mode >= 5) {
+  if (BIGRAMS) {
+    for (int i = threadIdx.x; i < kBigramBytes / 4; i += kFilterThreads) {
+      reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+    }
+    __syncthreads();
+    int s[kFilters] = {0, 0, 0, 0, 0};
+    count_pairs_long<0>(cur, prev, rb, bpp, s[0]);
+    count_pairs_long<1>(cur, prev, rb, bpp, s[1]);
+    count_pairs_long<2>(cur, prev, rb, bpp, s[2]);
+    count_pairs_long<3>(cur, prev, rb, bpp, s[3]);
+    count_pairs_long<4>(cur, prev, rb, bpp, s[4]);
+    block_sum5(s);
+    chosen = select_fewest(s);
+  } else if (mode >= 5) {
     // the sticky adaptive-fast rule takes row 0's choice for every row
     const int64_t sy = sticky ? 0 : y;
     const uint8_t* scur = rows + (img * h + sy) * rb;
@@ -257,10 +342,6 @@ __global__ void __launch_bounds__(kFilterThreads) filter_rows_long_kernel(
 constexpr int kStripRows = 8;                  // rows a strip, a warp each
 constexpr int kStripMaxSmem = 200 * 1024;      // ops/kernels.py::FILTER_SMEM_BUDGET
 constexpr uint32_t kHigh = 0x80808080u;
-
-// The strip kernel's dynamic shared memory. Rows are named by their byte
-// offset in it, so that every access is known to be a shared-memory one.
-extern __shared__ __align__(16) uint8_t smem[];
 
 // Shared-memory bytes of a region that holds n staged bytes: 16 before them
 // (the left neighbours of a row's first bytes are read, then masked), up to
@@ -436,6 +517,58 @@ __device__ __forceinline__ int choose_filter(const RowIn& r, int mode, int early
   return select_adaptive_fast(s, early);
 }
 
+// The row's distinct pairs under filter F, summed over the warp (every lane
+// receives the sum); the row's bitmap at offset `bits` is empty before and
+// after. Word k of the candidate and the candidate's word one byte further on
+// (its bytes' left neighbours exist from byte bpp - 1 of that stream) hold
+// in their bytes j the pair that starts at byte 4k + j; the first pass marks
+// the pairs, the second clears their words.
+template <int F, bool PREV>
+__device__ __forceinline__ int count_pairs(const RowIn& r, int lane, int bits) {
+  const Words xs(r.cur), as(r.cur - r.bpp), bs(r.prev), cs(r.prev - r.bpp);
+  const Words xn(r.cur + 1), an(r.cur + 1 - r.bpp), bn(r.prev + 1), cn(r.prev + 1 - r.bpp);
+  const int pairs = r.rb - 1;
+  int n = 0;
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    for_row_words(pairs, lane, [&](int k, auto edge) {
+      constexpr bool kEdge = decltype(edge)::value;
+      uint32_t x, a, b, c;
+      load_words<1 << F, PREV, kEdge>(xs, as, bs, cs, k, r.bpp, x, a, b, c);
+      const uint32_t d = filter_word<F>(x, a, b, c);
+      load_words<1 << F, PREV, kEdge>(xn, an, bn, cn, k, r.bpp - 1, x, a, b, c);
+      const uint32_t e = filter_word<F>(x, a, b, c);
+      // pairs j = 0, 1 and 2, 3 as the two halves of a word: (d_j << 8) | e_j
+      const uint32_t lo = __byte_perm(e, d, 0x5140), hi = __byte_perm(e, d, 0x7362);
+      const uint32_t keys[4] = {lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu, hi >> 16};
+      const int m = kEdge ? min(4, pairs - 4 * k) : 4;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j < m) {
+          if (pass == 0) {
+            n += mark_pair(bits, keys[j]);
+          } else {
+            clear_pair(bits, keys[j]);
+          }
+        }
+      }
+    });
+    __syncwarp();
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(0xFFFFFFFFu, n, off);
+  return n;
+}
+
+// The filter of the fewest distinct pairs for the row (mode 7).
+template <bool PREV>
+__device__ __forceinline__ int choose_bigrams(const RowIn& r, int lane, int bits) {
+  const int s[kFilters] = {count_pairs<0, PREV>(r, lane, bits), count_pairs<1, PREV>(r, lane, bits),
+                           count_pairs<2, PREV>(r, lane, bits), count_pairs<3, PREV>(r, lane, bits),
+                           count_pairs<4, PREV>(r, lane, bits)};
+  return select_fewest(s);
+}
+
 // Filters the row with filter F into the rb bytes at offset `out` of the
 // shared memory (any alignment: byte stores).
 template <int F, bool PREV>
@@ -470,6 +603,8 @@ __device__ __forceinline__ void apply_chosen(const RowIn& r, int chosen, int lan
 }
 
 // One thread block: rows [y0, y0 + strip) of one image, a warp a row.
+// BIGRAMS: mode 7, a bitmap of kBigramBytes a row after the output rows.
+template <bool BIGRAMS>
 __global__ void __launch_bounds__(32 * kStripRows) filter_rows_strip_kernel(
     const uint8_t* __restrict__ rows, int h, int rb, int bpp, int mode, int early, int sticky,
     int strip, int strips, uint8_t* __restrict__ out) {
@@ -489,6 +624,11 @@ __global__ void __launch_bounds__(32 * kStripRows) filter_rows_strip_kernel(
   region += static_cast<int>(region_bytes(int64_t(strip) * (rb + 1)));
   int row0 = raw + rb;  // the image's row 0, for the sticky rule
   if (sticky && y0 > 0) row0 = stage_in(region, image, rb);
+  if (BIGRAMS) {  // never sticky: the bitmaps follow the output rows, swept once
+    for (int i = threadIdx.x; i < strip * kBigramBytes / 16; i += blockDim.x) {
+      reinterpret_cast<uint4*>(smem + region)[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
@@ -498,7 +638,10 @@ __global__ void __launch_bounds__(32 * kStripRows) filter_rows_strip_kernel(
     const int y = y0 + warp;
     const RowIn r = {raw + (warp + 1) * rb, raw + warp * rb, rb, bpp};
     int chosen = mode;
-    if (mode >= 5) {
+    if (BIGRAMS) {
+      const int bits = region + warp * kBigramBytes;
+      chosen = y > 0 ? choose_bigrams<true>(r, lane, bits) : choose_bigrams<false>(r, lane, bits);
+    } else if (mode >= 5) {
       if (sticky) {
         chosen = choose_filter<false>({row0, row0, rb, bpp}, mode, early, lane);
       } else {
@@ -583,10 +726,10 @@ __global__ void __launch_bounds__(32 * kStripRows) filter_bank_strip_kernel(
   }
 }
 
-// Shared memory of a strip kernel launch.
-inline int64_t strip_smem(int64_t strip, int64_t rb, bool sticky) {
+// Shared memory of a strip kernel launch (ops/kernels.py::filter_rows_plan).
+inline int64_t strip_smem(int64_t strip, int64_t rb, bool sticky, bool bigrams) {
   return region_bytes((strip + 1) * rb) + region_bytes(strip * (rb + 1)) +
-         (sticky ? region_bytes(rb) : 0);
+         (sticky ? region_bytes(rb) : 0) + (bigrams ? strip * kBigramBytes : 0);
 }
 
 static bool valid_rows(int64_t batch, int64_t h, int64_t rb, int32_t bpp) {
@@ -639,32 +782,34 @@ int pixo_filter_bank(const uint8_t* rows, int64_t batch, int64_t h, int64_t rb, 
 }
 
 // rows: [batch, h, rb] uint8 on the device; bpp 1..8. mode: 0-4 a fixed
-// filter, 5 adaptive/min-sum, 6 adaptive-fast; early: the selection's stop
-// score (rb/4+1 for 5, rb/8+1 for 6); sticky (mode 6 only): every row takes
-// row 0's choice. strip: rows a thread block of the strip kernel takes, 1 to
-// 8 (its shared memory must fit the budget), or 0 for the long-row kernel.
-// out: [batch, h, rb + 1] uint8 on the device, each row's filter id first.
-// Returns cudaGetLastError().
+// filter, 5 adaptive/min-sum, 6 adaptive-fast, 7 bigrams; early: the
+// selection's stop score (rb/4+1 for 5, rb/8+1 for 6); sticky (mode 6 only):
+// every row takes row 0's choice. strip: rows a thread block of the strip
+// kernel takes, 1 to 8 (its shared memory, with mode 7's bitmaps, must fit
+// the budget), or 0 for the long-row kernel. out: [batch, h, rb + 1] uint8
+// on the device, each row's filter id first. Returns cudaGetLastError().
 int pixo_filter_rows(const uint8_t* rows, int64_t batch, int64_t h, int64_t rb, int32_t bpp,
                      int32_t mode, int32_t early, int32_t sticky, int32_t strip, uint8_t* out,
                      void* stream) {
   using namespace pixo;
-  if (!valid_rows(batch, h, rb, bpp) || mode < 0 || mode > 6 || (sticky && mode != 6) ||
+  if (!valid_rows(batch, h, rb, bpp) || mode < 0 || mode > 7 || (sticky && mode != 6) ||
       strip < 0 || strip > kStripRows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  const bool bigrams = mode == 7;
   if (strip == 0) {
-    filter_rows_long_kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, 0, s>>>(
+    const auto kernel = bigrams ? filter_rows_long_kernel<true> : filter_rows_long_kernel<false>;
+    kernel<<<static_cast<unsigned>(batch * h), kFilterThreads, bigrams ? kBigramBytes : 0, s>>>(
         rows, h, rb, bpp, mode, early, sticky, out);
     return static_cast<int>(cudaGetLastError());
   }
-  const int64_t smem = strip_smem(strip, rb, sticky != 0);
+  const int64_t smem = strip_smem(strip, rb, sticky != 0, bigrams);
+  const auto kernel = bigrams ? filter_rows_strip_kernel<true> : filter_rows_strip_kernel<false>;
   int64_t strips;
-  const cudaError_t e = strip_launch(filter_rows_strip_kernel, batch, h, strip, smem, &strips);
+  const cudaError_t e = strip_launch(kernel, batch, h, strip, smem, &strips);
   if (e != cudaSuccess) return static_cast<int>(e);
-  filter_rows_strip_kernel<<<static_cast<unsigned>(batch * strips), 32 * strip,
-                             static_cast<size_t>(smem), s>>>(
+  kernel<<<static_cast<unsigned>(batch * strips), 32 * strip, static_cast<size_t>(smem), s>>>(
       rows, static_cast<int>(h), static_cast<int>(rb), bpp, mode, early, sticky, strip,
       static_cast<int>(strips), out);
   return static_cast<int>(cudaGetLastError());

@@ -40,7 +40,7 @@ def decode_jpeg_batch(
     *,
     fancy_upsampling: bool = False,
     workers: int = 8,
-    device,
+    device="cuda",
 ) -> List[JpegImage]:
     """Decode many JPEGs, baseline or progressive, of any sizes and
     samplings (order preserved): entropy on the host (the baseline scans'

@@ -904,7 +904,7 @@ def decode_files(files: Sequence[bytes], fancy_upsampling: bool, workers: int,
     return _images(pixels.cpu().numpy(), _pixel_groups(batch))
 
 
-def decode_jpeg(data: bytes, fancy_upsampling: bool = False, *, device) -> JpegImage:
+def decode_jpeg(data: bytes, fancy_upsampling: bool = False, *, device="cuda") -> JpegImage:
     """Decode one baseline or progressive JPEG, its pixel tail on ``device``
     ("cpu" or a CUDA device). ``fancy_upsampling=True`` uses libjpeg-style
     triangle chroma interpolation; the default nearest matches the pixo

@@ -27,9 +27,13 @@ package. Only the entry points of the ported slices are bound:
   (``compress/huffman.py``, the optimal JPEG tables);
 - ``deflate_compress`` / ``deflate_compress_parity``: the zlib-wrapped
   DEFLATE of every PNG encode (``compress/deflate.py``);
+- ``deflate_compress_optimal`` / ``deflate_optimal_parity``: the iterative
+  optimal parse of the PNG ``max`` preset (``compress/deflate.py::
+  deflate_optimal_zlib``), the performance path and the reference mirror;
 - ``png_filter_apply``: the host PNG filter tier of the per-image encode,
   and an oracle for the filter kernel;
-- ``crc32``: the PNG chunk checksum;
+- ``crc32`` and ``adler32``: the PNG chunk checksum and zlib's
+  (``compress/checksums.py``);
 - ``jpeg_decode_scan``, ``jpeg_prog_dc_segment`` and ``jpeg_prog_ac_segment``:
   the JPEG decode's entropy stage, baseline and progressive, writing int16
   zigzag coefficient planes in place (a baseline scan as a prepared call that
@@ -225,6 +229,19 @@ def _configure(lib) -> None:
         ctypes.c_int32,                  # packed semantics (0/1)
         _u8p, ctypes.c_int64,            # out, capacity
     ]
+    lib.deflate_compress_optimal.restype = ctypes.c_int64
+    lib.deflate_compress_optimal.argtypes = [
+        _u8p, ctypes.c_int64,            # input
+        ctypes.c_int32,                  # iterations
+        ctypes.c_int32,                  # zlib wrap (0/1)
+        _u8p, ctypes.c_int64,            # out, capacity
+    ]
+    lib.deflate_optimal_parity.restype = ctypes.c_int64
+    lib.deflate_optimal_parity.argtypes = [
+        _u8p, ctypes.c_int64,            # input (always zlib-wrapped)
+        ctypes.c_int32,                  # iterations
+        _u8p, ctypes.c_int64,            # out, capacity
+    ]
     lib.png_filter_apply.restype = ctypes.c_int32
     lib.png_filter_apply.argtypes = [
         _u8p, ctypes.c_int64, ctypes.c_int64,  # rows, height, row bytes
@@ -234,6 +251,8 @@ def _configure(lib) -> None:
     ]
     lib.crc32.restype = ctypes.c_uint32
     lib.crc32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
+    lib.adler32.restype = ctypes.c_uint32
+    lib.adler32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     huff = [_u8p, _u8p, _i32p]           # bits [n x 16], values, value offsets [n]
     lib.jpeg_decode_scan.restype = i32
@@ -597,6 +616,10 @@ def _byte_view(data) -> np.ndarray:
     return src if src.size else np.zeros(1, dtype=np.uint8)
 
 
+def _deflate_capacity(n_in: int) -> int:
+    return n_in + (n_in >> 3) + 4096
+
+
 def native_deflate(data, level: int, zlib_wrap: bool, parity: bool = False,
                    packed: bool = False) -> bytes:
     """DEFLATE ``data`` (bytes or a contiguous uint8 array) at ``level`` 1-9.
@@ -607,7 +630,7 @@ def native_deflate(data, level: int, zlib_wrap: bool, parity: bool = False,
     lib = load()
     n_in = len(np.frombuffer(data, dtype=np.uint8))
     src = _byte_view(data)
-    cap = n_in + (n_in >> 3) + 4096
+    cap = _deflate_capacity(n_in)
     out = np.empty(cap, dtype=np.uint8)
     if parity:
         n = lib.deflate_compress_parity(
@@ -617,6 +640,35 @@ def native_deflate(data, level: int, zlib_wrap: bool, parity: bool = False,
         n = lib.deflate_compress(_ptr(src, _u8p), n_in, level, int(zlib_wrap), _ptr(out, _u8p), cap)
     if n < 0:
         raise RuntimeError(f"native deflate failed ({n})")
+    return out[:n].tobytes()
+
+
+def native_deflate_optimal(data, iterations: int, zlib_wrap: bool) -> bytes:
+    """The iterative optimal parse (per-position match tables, an entropy
+    cost model and a shortest-path DP, ``iterations`` rounds) of ``data``."""
+    lib = load()
+    n_in = len(np.frombuffer(data, dtype=np.uint8))
+    src = _byte_view(data)
+    cap = _deflate_capacity(n_in)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.deflate_compress_optimal(_ptr(src, _u8p), n_in, iterations, int(zlib_wrap),
+                                     _ptr(out, _u8p), cap)
+    if n < 0:
+        raise RuntimeError(f"native deflate_compress_optimal failed ({n})")
+    return out[:n].tobytes()
+
+
+def native_deflate_optimal_parity(data, iterations: int = 5) -> bytes:
+    """The reference's own ``deflate_optimal_zlib(data, iterations)``, the
+    DEFLATE of its PNG max preset (``png/mod.rs:571-573``): zlib-wrapped."""
+    lib = load()
+    n_in = len(np.frombuffer(data, dtype=np.uint8))
+    src = _byte_view(data)
+    cap = _deflate_capacity(n_in)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.deflate_optimal_parity(_ptr(src, _u8p), n_in, iterations, _ptr(out, _u8p), cap)
+    if n < 0:
+        raise RuntimeError(f"native deflate_optimal_parity failed ({n})")
     return out[:n].tobytes()
 
 
@@ -641,6 +693,13 @@ def native_crc32(data: bytes, crc: int = 0) -> int:
     lib = load()
     src = _byte_view(data)
     return int(lib.crc32(_ptr(src, _u8p), len(data), crc))
+
+
+def native_adler32(data: bytes, adler: int = 1) -> int:
+    """Adler-32 of ``data``, continuing from ``adler``."""
+    lib = load()
+    src = _byte_view(data)
+    return int(lib.adler32(_ptr(src, _u8p), len(data), adler))
 
 
 class NativeDecodeError(Exception):

@@ -33,7 +33,8 @@ stream.
 - ``filter_rows``: the PNG encode's filter stage in one kernel (scores,
   the reference's selection rule, the chosen filter with its type byte),
   sharing ``filter_bank``'s source; it replaces ``filter_bank_pallas`` with
-  the selection of ``ops/png_filters.py::filter_image_batch`` fused in.
+  the selection of ``ops/png_filters.py::filter_image_batch`` fused in, the
+  max preset's Bigrams (``_bigram_scores`` and its argmin) among them.
 - ``idct_planes``: the JPEG decode's tail up to the planes (dequantize,
   un-zigzag, jidctint IDCT, plane assembly) over every plane of a batch in
   one launch (``csrc/idct.cu``); it replaces ``idct8x8_int_pallas`` widened
@@ -81,6 +82,7 @@ from .jpeg_decode import dequant_idct_blocks
 from .jpeg_decode import idct8x8_int as idct8x8_int_plain
 from .png_filters import (
     MODE_ADAPTIVE_FAST,
+    MODE_BIGRAMS,
     _candidates,
     _signed_abs_scores,
     early_stop,
@@ -647,6 +649,7 @@ filter_bank.launches = 0
 
 FILTER_STRIP_ROWS = 8  # csrc/filter_bank.cu's kStripRows: rows a strip, a warp each
 FILTER_SMEM_BUDGET = 200 * 1024  # its kStripMaxSmem: shared memory a strip may take
+FILTER_BIGRAM_BYTES = 8192  # its kBigramBytes: a row's bitmap of the 65,536 byte pairs (mode 7)
 
 
 def _filter_region(nbytes: int) -> int:
@@ -655,19 +658,20 @@ def _filter_region(nbytes: int) -> int:
     return (nbytes + 63) & ~15
 
 
-def filter_rows_plan(h: int, rb: int, sticky: bool) -> int:
+def filter_rows_plan(h: int, rb: int, sticky: bool, bigrams: bool = False) -> int:
     """Which kernel ``filter_rows`` launches for [*, h, rb] rows, by shape
-    alone: the rows a thread block of the strip kernel takes (1 to 8), or 0
-    for the long-row kernel.
+    alone (and mode 7, ``bigrams``): the rows a thread block of the strip
+    kernel takes (1 to 8), or 0 for the long-row kernel.
 
     A strip holds its rows, the row above them and its output rows in shared
-    memory (and row 0 of the image under the sticky rule). It takes as many
-    rows as fit the budget, up to 8 and the image's height; where fewer than
-    4 fit (and the image has more), a warp a row would leave most of the
-    card idle, and the long-row kernel (a thread block a row) takes over."""
+    memory (and row 0 of the image under the sticky rule; under Bigrams, a
+    bitmap of 8 KB a row). It takes as many rows as fit the budget, up to 8
+    and the image's height; where fewer than 4 fit (and the image has more),
+    a warp a row would leave most of the card idle, and the long-row kernel
+    (a thread block a row) takes over."""
     def smem(strip):
         return (_filter_region((strip + 1) * rb) + _filter_region(strip * (rb + 1))
-                + (_filter_region(rb) if sticky else 0))
+                + (_filter_region(rb) if sticky else 0) + (strip * FILTER_BIGRAM_BYTES if bigrams else 0))
 
     most = min(FILTER_STRIP_ROWS, h)
     strip = next((s for s in range(most, 0, -1) if smem(s) <= FILTER_SMEM_BUDGET), 0)
@@ -694,7 +698,7 @@ def filter_rows(rows: torch.Tensor, *, bpp: int, strategy, small_image: bool,
     with _device_guard(rows):
         rc = lib.pixo_filter_rows(
             rows.data_ptr(), b, h, rb, bpp, mode, early_stop(mode, rb), int(sticky),
-            filter_rows_plan(h, rb, sticky), out.data_ptr(), _stream(rows),
+            filter_rows_plan(h, rb, sticky, mode == MODE_BIGRAMS), out.data_ptr(), _stream(rows),
         )
     _check(lib, rc, "filter_rows")
     filter_rows.launches += 1

@@ -10,13 +10,16 @@ bit for bit (pixo ``src/png/filter.rs``):
     improvements, stop early when the running best reaches row_len/4 + 1.
   - AdaptiveFast: Sub,Up,Paeth with early stop at row_len/8 + 1; for images
     of height <= 32 the row-0 winner is reused for all rows.
-  - Small images (area <= 4096) force Sub for the adaptive strategies.
+  - Bigrams: the fewest distinct consecutive byte pairs, the lowest filter id
+    on a tie.
+  - Small images (area <= 4096) force Sub for the adaptive strategies and
+    Bigrams.
 
 Scores are sum(|byte as i8|). The functions here are the plain versions of
 the CUDA filter kernels (``ops/kernels.py::filter_bank``/``filter_rows``),
 which the wrappers take for tensors on the CPU. The per-image encode filters
 on the host instead (``apply_filters``, the native tier, as the JAX package's
-default does). Bigrams is not ported (ROADMAP.md queue 1 item 8).
+default does).
 """
 
 from __future__ import annotations
@@ -41,24 +44,22 @@ _FIXED_IDS = {
 }
 
 # Filter modes as the native library and the CUDA kernel number them.
-MODE_ADAPTIVE, MODE_ADAPTIVE_FAST = 5, 6
+MODE_ADAPTIVE, MODE_ADAPTIVE_FAST, MODE_BIGRAMS = 5, 6, 7
 _NATIVE_MODES = {
     **_FIXED_IDS,
     FilterStrategy.ADAPTIVE: MODE_ADAPTIVE,
     FilterStrategy.MIN_SUM: MODE_ADAPTIVE,
     FilterStrategy.ADAPTIVE_FAST: MODE_ADAPTIVE_FAST,
+    FilterStrategy.BIGRAMS: MODE_BIGRAMS,
 }
 
 
 def resolve_strategy(strategy, small_image: bool) -> FilterStrategy:
-    """The strategy that runs: Sub in place of an adaptive one on a small
-    image. Raises for Bigrams, which is not ported."""
+    """The strategy that runs: Sub in place of an adaptive one or Bigrams on
+    a small image."""
     strat = FilterStrategy(strategy)
-    if strat == FilterStrategy.BIGRAMS:
-        raise NotImplementedError(
-            "FilterStrategy.BIGRAMS is not ported yet (ROADMAP.md queue 1 item 8, max preset)"
-        )
-    if small_image and strat in (FilterStrategy.ADAPTIVE, FilterStrategy.ADAPTIVE_FAST):
+    if small_image and strat in (FilterStrategy.ADAPTIVE, FilterStrategy.ADAPTIVE_FAST,
+                                 FilterStrategy.BIGRAMS):
         return FilterStrategy.SUB
     return strat
 
@@ -114,6 +115,19 @@ def _signed_abs_scores(cands: torch.Tensor) -> torch.Tensor:
     return mag.sum(dim=-1).transpose(-1, -2).to(torch.int32)
 
 
+def _bigram_scores(cands: torch.Tensor) -> torch.Tensor:
+    """[..., 5, H, RB] -> [..., H, 5] int32 counts of the distinct pairs
+    (c[i], c[i+1]) of each row's candidate; 0 for a row of fewer than 2
+    bytes."""
+    rb = cands.shape[-1]
+    if rb < 2:
+        return torch.zeros((*cands.shape[:-3], cands.shape[-2], 5), dtype=torch.int32,
+                           device=cands.device)
+    keys = torch.sort(cands[..., :-1] * 256 + cands[..., 1:], dim=-1).values
+    distinct = 1 + (keys[..., 1:] != keys[..., :-1]).sum(dim=-1)
+    return distinct.transpose(-1, -2).to(torch.int32)
+
+
 def _select_adaptive(scores: torch.Tensor, early: int) -> torch.Tensor:
     """Reference adaptive_filter selection over [..., H, 5] scores -> [..., H]
     int32 filter ids."""
@@ -154,13 +168,16 @@ def filter_image_batch(
         ids = torch.full((b, h), fid, dtype=torch.int32, device=batch_rows.device)
         return cands[:, fid].to(torch.uint8), ids
 
-    scores = _signed_abs_scores(cands)
-    if strat == FilterStrategy.ADAPTIVE_FAST:
-        ids = _select_adaptive_fast(scores, rb // 8 + 1)
+    if strat == FilterStrategy.BIGRAMS:
+        # argmin takes the first of equal counts: the lowest filter id wins a
+        # tie, as under the host library's strict < and jnp.argmin
+        ids = torch.argmin(_bigram_scores(cands), dim=-1).to(torch.int32)
+    elif strat == FilterStrategy.ADAPTIVE_FAST:
+        ids = _select_adaptive_fast(_signed_abs_scores(cands), rb // 8 + 1)
         if sticky_fast:
             ids = ids[:, :1].expand(b, h).contiguous()
     else:  # ADAPTIVE, MIN_SUM
-        ids = _select_adaptive(scores, rb // 4 + 1)
+        ids = _select_adaptive(_signed_abs_scores(cands), rb // 4 + 1)
     index = ids.to(torch.int64)[:, None, :, None].expand(b, 1, h, rb)
     chosen = torch.gather(cands, 1, index)[:, 0]
     return chosen.to(torch.uint8), ids

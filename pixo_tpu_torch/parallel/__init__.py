@@ -6,6 +6,7 @@ from .pipeline import (
     decode_png_batch,
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
+    encode_png_row_sharded,
     jpeg_coeffs_sharded,
     thumbnail_pipeline,
 )
@@ -15,6 +16,7 @@ __all__ = [
     "decode_png_batch",
     "encode_jpeg_batch_sharded",
     "encode_png_batch_sharded",
+    "encode_png_row_sharded",
     "jpeg_coeffs_sharded",
     "thumbnail_pipeline",
 ]

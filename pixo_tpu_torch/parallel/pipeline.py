@@ -31,14 +31,19 @@ named by ``device=`` instead of a mesh:
     progressive scans per image on the pool.
 - ``encode_png_batch_sharded``: the batch goes to the device once; the
   reduction analysis, each group's layout transform and the fused filter
-  kernel (``ops/kernels.py::filter_rows``) run there; one copy per group
-  brings the filtered rows back, and native DEFLATE and chunk framing run on
-  a thread pool. Images whose layout depends on their content (palette,
-  sub-8-bit gray) take the per-image ``png.encode`` on the same pool. With
-  quantization (FORCE or AUTO), the images to quantize go through
+  kernel (``ops/kernels.py::filter_rows``, Bigrams too: the ``max`` preset)
+  run there; one copy per group brings the filtered rows back, and native
+  DEFLATE (the optimal parse under ``max``) and chunk framing run on a
+  thread pool. Images whose layout depends on their content (palette,
+  sub-8-bit gray) take the per-image ``png.encode`` on the same pool, and so
+  do interlaced and 16-bit batches, image by image. With quantization
+  (FORCE or AUTO), the images to quantize go through
   ``png/quantize.py::quantize_batch`` (histograms and median cut on the host;
   k-means, LUT and dither for the whole batch on the device), then
   ``encode_indexed`` on the pool; the others take ``png.encode`` there.
+- ``encode_png_row_sharded``: one image whose filter stage is one
+  ``filter_rows`` launch on its rows; on one device a row split exchanges
+  no halo, so the JAX package's sharded dispatch is that launch.
 
 - ``decode_jpeg_batch`` and ``decode_png_batch``: the aliases of
   ``decode.decode_jpeg_batch`` and ``decode.decode_png_batch`` under the
@@ -54,10 +59,8 @@ named by ``device=`` instead of a mesh:
   is the one-device form of the reference's fused thumbnail dispatch
   (``_fused_thumb_jit``).
 
-Every JPEG encode option is ported, and the 8-bit non-interlaced PNG
-encode, lossless and lossy. The
-stream pipelines and the row-sharded PNG encode are not (ROADMAP queue 1
-items 7 and 8).
+Every JPEG and PNG encode option is ported. The stream pipelines are not
+(ROADMAP queue 1 item 7).
 """
 
 from __future__ import annotations
@@ -335,25 +338,30 @@ def png_frame(filtered: np.ndarray, out_ct: ColorType, options: PngOptions) -> b
 
 
 def encode_png_batch_sharded(
-    imgs, options: PngOptions, *, device, host_workers: int = 8
+    imgs, options: PngOptions, *, device="cuda", host_workers: int = 8
 ) -> List[bytes]:
-    """Encode a batch of same-shape 8-bit images ([B, H, W, C] uint8, numpy
-    or tensor; C the bytes per pixel of ``options.color_type``) to PNG bytes,
-    computing on ``device`` ("cpu" or a CUDA device) and compressing on the
-    host with ``host_workers`` threads.
+    """Encode a batch of same-shape images ([B, H, W, C] uint8, numpy or
+    tensor; C the bytes per pixel of ``options.color_type``; at 16-bit
+    numpy uint16 or big-endian bytes) to PNG bytes, computing on ``device``
+    ("cpu" or a CUDA device) and compressing on the host with
+    ``host_workers`` threads.
 
     Byte-identical, image by image, to the JAX package's
-    ``encode_png_batch_sharded`` and ``png.encode``. With
+    ``encode_png_batch_sharded`` and ``png.encode``. Interlaced and 16-bit
+    batches take the per-image ``png.encode`` on the pool (Adam7 filters by
+    pass, and 16-bit has no 8-bit reductions to group by). With
     ``options.quantization.mode`` FORCE or AUTO, each image's decision is
     made on the host (FORCE: every RGB or RGBA image; AUTO: those that
     ``should_quantize_auto`` accepts), the images to quantize go through one
     ``quantize_batch`` on ``device`` and ``encode_indexed`` on the pool, and
-    the others through the per-image ``png.encode`` there. Interlace,
-    16-bit, Bigrams and optimal compression raise ``NotImplementedError``."""
-    penc.check_ported(options)
+    the others through the per-image ``png.encode`` there."""
     b = len(imgs)
     if b == 0:
         return []
+    if options.interlace or options.bit_depth != 8:
+        host = imgs.cpu().numpy() if torch.is_tensor(imgs) else imgs
+        with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
+            return list(ex.map(lambda img: penc.encode(img, options), host))
     if imgs.dtype not in (np.uint8, torch.uint8):
         raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
     bpp = options.color_type.bytes_per_pixel
@@ -399,8 +407,27 @@ def _encode_png_lossy(imgs, options: PngOptions, device, host_workers: int) -> L
         return [futures[i].result() for i in range(b)]
 
 
+def encode_png_row_sharded(img, options: PngOptions, *, device="cuda") -> bytes:
+    """Encode one image with its filter stage on ``device``: the image's rows
+    as a batch of one through ``filter_rows`` (one launch), the rest of
+    ``png.encode`` (reductions, DEFLATE, framing) on the host, so the bytes
+    equal ``png.encode``'s. The JAX package shards the rows over a mesh and
+    XLA exchanges each shard's row above; on one device there is no halo.
+    Interlaced output filters by Adam7 pass and takes the ordinary path."""
+    if options.interlace:
+        return penc.encode(img, options)
+
+    def row_filter(payload, w: int, h: int, row_bytes: int, bpp: int, strategy) -> bytes:
+        rows = torch.from_numpy(np.frombuffer(payload, np.uint8).reshape(1, h, row_bytes).copy())
+        out = filter_rows(rows.to(device), bpp=bpp, strategy=strategy, small_image=w * h <= 4096,
+                          sticky_fast=h <= 32)
+        return out.cpu().numpy().tobytes()
+
+    return penc.encode(img, options, filter_fn=row_filter)
+
+
 def decode_jpeg_batch(encoded: Sequence[bytes], host_workers: int = 8, *,
-                      device) -> List[JpegImage]:
+                      device="cuda") -> List[JpegImage]:
     """Batched JPEG decode on ``device``: the alias of
     ``pixo_tpu_torch.decode.decode_jpeg_batch`` (which also takes
     ``fancy_upsampling``), kept for the reference's ``host_workers``
@@ -493,7 +520,7 @@ def thumbnail_pipeline(
     host_workers: int = 8,
     chunk_size: int = 64,
     *,
-    device,
+    device="cuda",
     stats: Optional[dict] = None,
 ) -> List[bytes]:
     """Overlapped decode -> resize -> re-encode (BASELINE.json config #5):

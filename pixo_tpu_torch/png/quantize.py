@@ -366,7 +366,7 @@ def quantize_finish(batch: LossyBatch, pal: torch.Tensor, lut: torch.Tensor, idx
 
 
 def quantize_batch(imgs: np.ndarray, max_colors: int, dithering: bool, *,
-                   device) -> List[Tuple[np.ndarray, np.ndarray]]:
+                   device="cuda") -> List[Tuple[np.ndarray, np.ndarray]]:
     """[B, H, W, 3|4] uint8 -> list of (palette [K, 4], indices [H*W]),
     each equal to ``quantize_image`` of its image.
 

@@ -19,7 +19,7 @@ from .options import ResizeFilter, ResizeOptions
 MAX_RESIZE_DIMENSION = 1 << 24
 
 
-def resize(data, options: ResizeOptions, *, device) -> np.ndarray:
+def resize(data, options: ResizeOptions, *, device="cuda") -> np.ndarray:
     """Resize an image; accepts flat bytes or [H, W, C] uint8 array.
 
     Returns a [dst_h, dst_w, C] uint8 array (C = bytes/pixel; squeezed for
@@ -63,7 +63,7 @@ def resize(data, options: ResizeOptions, *, device) -> np.ndarray:
     return out[..., 0] if squeeze else out
 
 
-def resize_into(output: bytearray, data, options: ResizeOptions, *, device) -> None:
+def resize_into(output: bytearray, data, options: ResizeOptions, *, device="cuda") -> None:
     """Buffer-reuse variant (parity: ``resize_into``, src/resize.rs:180)."""
     output.clear()
     output += resize(data, options, device=device).tobytes()

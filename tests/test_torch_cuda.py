@@ -28,6 +28,7 @@ from chip_smoke import (
     dither_global_ring,
     dither_inputs,
     dither_repeat_case,
+    bigram_edge_cases,
     filter_edge_cases,
     host_decode,
     lossy_options,
@@ -47,6 +48,7 @@ from pixo_tpu_torch import (
     Subsampling,
     encode_jpeg_batch_sharded,
     encode_png_batch_sharded,
+    encode_png_row_sharded,
     jpeg,
     png,
     thumbnail_pipeline,
@@ -533,7 +535,7 @@ def test_max_preset_on_the_card_equals_the_cpu(dev, seeded, case, b):
 
 
 FILTER_BPPS = [1, 2, 3, 4, 6, 8]
-STRATEGIES = [s for s in FilterStrategy if s != FilterStrategy.BIGRAMS]
+STRATEGIES = list(FilterStrategy)
 
 
 @pytest.mark.parametrize("bpp", FILTER_BPPS)
@@ -578,9 +580,12 @@ def test_filter_kernels_at_strip_and_row_edges(dev, bpp):
     """``filter_edge_cases``: rows of 1, bpp - 1, bpp, 15, 16 and 17 bytes,
     heights around a strip and the sticky limit, tied rows, rows at the
     shared-memory budget (strip kernel and long-row kernel), every strategy,
-    the sticky rule off and on, rows at an odd byte offset: both kernels
-    against their plain versions and the fused one against the host filter."""
-    for label, host in filter_edge_cases(np.random.default_rng(40 + bpp), bpp):
+    the sticky rule off and on, rows at an odd byte offset; and
+    ``bigram_edge_cases`` (Bigrams' ties, rows of 1 and 2 bytes, rows at
+    mode 7's budget): both kernels against their plain versions and the
+    fused one against the host filter."""
+    rng = np.random.default_rng(40 + bpp)
+    for label, host in filter_edge_cases(rng, bpp) + bigram_edge_cases(rng, bpp):
         flat = torch.empty(host.size + 1, dtype=torch.uint8, device=dev)
         rows = flat[1:].view(host.shape).copy_(torch.from_numpy(host))
         cands, scores = kernels.filter_bank(rows, bpp)
@@ -610,6 +615,22 @@ def test_filter_rows_launches_the_kernel_its_plan_names(dev, seeded):
             kw = dict(bpp=4, strategy=strategy, small_image=False, sticky_fast=False)
             assert torch.equal(kernels.filter_rows(rows, **kw),
                                png_filters.filter_rows_plain(rows, **kw))
+
+
+def test_png_max_batch_on_the_card_equals_per_image_encode(dev, seeded):
+    """The max preset (Bigrams in filter_rows' mode 7, optimal DEFLATE on
+    the host) on RGB and RGBA batches: every file equals ``png.encode``,
+    through one mode-7 launch a group, and so does the row-sharded encode."""
+    h, w = 72, 90
+    base = np.add.outer(np.arange(h), np.arange(w))[..., None] % 256
+    for c, ct in ((3, ColorType.RGB), (4, ColorType.RGBA)):
+        imgs = (base + seeded.integers(0, 40, (3, h, w, c))).astype(np.uint8)
+        opts = PngOptions.max(w, h).replace(color_type=ct)
+        kernels.filter_rows.launches = 0
+        outs = encode_png_batch_sharded(imgs, opts, device=dev)
+        assert kernels.filter_rows.launches >= 1
+        assert outs == [png.encode(img, opts) for img in imgs]
+        assert encode_png_row_sharded(imgs[0], opts, device=dev) == outs[0]
 
 
 def test_png_batch_on_the_card_equals_per_image_encode(dev):

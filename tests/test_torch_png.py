@@ -25,6 +25,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from pixo_tpu import errors as jax_errors
 from pixo_tpu import png as jax_png
 from pixo_tpu.color import ColorType as JaxColorType
 from pixo_tpu.decode import decode_png
@@ -33,6 +34,8 @@ from pixo_tpu.ops import reduce_analysis as jax_analysis
 from pixo_tpu.ops.pallas_kernels import filter_bank_pallas
 from pixo_tpu.options import FilterStrategy as JaxFilterStrategy
 from pixo_tpu.options import PngOptions as JaxPngOptions
+from pixo_tpu.options import QuantizationMode as JaxQuantizationMode
+from pixo_tpu.options import QuantizationOptions as JaxQuantizationOptions
 from pixo_tpu.parallel.pipeline import encode_png_batch_sharded as jax_encode_batch
 
 import chip_smoke
@@ -53,12 +56,16 @@ jax.config.update("jax_platforms", "cpu")
 
 
 def _jax_options(o: PngOptions) -> JaxPngOptions:
+    q = o.quantization
     return JaxPngOptions(
         width=o.width, height=o.height, color_type=JaxColorType(int(o.color_type)),
         compression_level=o.compression_level,
         filter_strategy=JaxFilterStrategy(o.filter_strategy.value),
         optimize_alpha=o.optimize_alpha, reduce_color_type=o.reduce_color_type,
         strip_metadata=o.strip_metadata, reduce_palette=o.reduce_palette,
+        optimal_compression=o.optimal_compression, interlace=o.interlace, bit_depth=o.bit_depth,
+        quantization=JaxQuantizationOptions(mode=JaxQuantizationMode[q.mode.name],
+                                            max_colors=q.max_colors, dithering=q.dithering),
     )
 
 
@@ -210,9 +217,6 @@ def test_filter_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(TypeError, match="uint8"):
         kernels.filter_rows(torch.zeros((1, 2, 8), dtype=torch.int32), bpp=1,
                             strategy=FilterStrategy.SUB, small_image=False, sticky_fast=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.filter_rows(torch.zeros((1, 2, 8), dtype=torch.uint8), bpp=1,
-                            strategy=FilterStrategy.BIGRAMS, small_image=False, sticky_fast=False)
 
 
 # ------------------------------------------------------ analysis and transform
@@ -361,8 +365,6 @@ def test_empty_batch():
 UNPORTED = {
     "interlace": dict(interlace=True),
     "bit_depth_16": dict(bit_depth=16),
-    # quantization is ported (tests/test_torch_png_lossy.py); with an option
-    # that is not, it raises all the same
     "quantization_auto": dict(quantization=QuantizationOptions(mode=QuantizationMode.AUTO),
                               bit_depth=16),
     "quantization_force": dict(quantization=QuantizationOptions(mode=QuantizationMode.FORCE),
@@ -372,17 +374,33 @@ UNPORTED = {
 }
 
 
+def _encoded_or_error(encode):
+    try:
+        return encode()
+    except (errors.PixoError, jax_errors.PixoError) as e:
+        return type(e).__name__, str(e)
+
+
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_options_raise(name):
-    """Each raises, never falls back to an encode without it."""
+    """The option sets that raised ``NotImplementedError`` until the rest of
+    lossless PNG was ported (ROADMAP.md queue 1 item 8, closed) give the JAX
+    package's files now, or its error where it raises one (16-bit with AUTO
+    quantization: ``CompressionError``): ``png.encode``, the batch encode
+    and ``png.encode_batch`` on the CPU, also under the max preset."""
     opts = PngOptions.fast(8, 8).replace(**UNPORTED[name])
-    img = np.zeros((8, 8, 4), np.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_png_batch_sharded(img[None], opts, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        png.encode(img, opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        encode_png_batch_sharded(img[None], PngOptions.max(8, 8), device="cpu")
+    dtype = np.uint16 if opts.bit_depth == 16 else np.uint8
+    noise = np.random.default_rng(5).integers(0, 256, (8, 8, 4)).astype(dtype)
+    for img in (np.zeros((8, 8, 4), dtype), noise):
+        for o in (opts, PngOptions.max(8, 8).replace(**UNPORTED[name])):
+            ref = _encoded_or_error(lambda: jax_png.encode(img, _jax_options(o)))
+            assert _encoded_or_error(lambda: png.encode(img, o)) == ref
+            for batch in (lambda: encode_png_batch_sharded(img[None], o, device="cpu"),
+                          lambda: png.encode_batch(img[None], o, device="cpu")):
+                out = _encoded_or_error(batch)
+                assert out == (ref if isinstance(ref, tuple) else [ref])
+    if name == "quantization_auto":
+        assert ref[0] == "CompressionError"
 
 
 def test_invalid_options_raise():

@@ -151,16 +151,15 @@ def test_encode_indexed_refuses_bad_input():
         png.encode_indexed(idx, 4, 4, np.zeros((2, 3), np.uint8), np.zeros(3, np.uint8))
     with pytest.raises(errors.InvalidDataLength):
         png.encode_indexed(idx[:3], 4, 4, np.zeros((2, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="interlace"):
-        png.encode_indexed(idx, 4, 4, np.zeros((2, 3), np.uint8), None,
-                           PngOptions(width=4, height=4, interlace=True))
 
 
 def test_interlace_with_quantization_still_raises():
+    """Interlace with quantization raised until Adam7 was ported (ROADMAP.md
+    queue 1 item 8); it gives the JAX package's files now: each image
+    quantized on the host, then written as an interlaced indexed file."""
     imgs = _batch(3)
     h, w = imgs.shape[1:3]
-    opts, _ = _options(w, h, "FORCE", 64, True, interlace=True)
-    with pytest.raises(NotImplementedError, match="interlace"):
-        encode_png_batch_sharded(imgs, opts, device="cpu")
-    with pytest.raises(NotImplementedError, match="interlace"):
-        png.encode(imgs[0], opts)
+    opts, ref = _options(w, h, "FORCE", 64, True, interlace=True)
+    want = [jpng.encode(img, ref) for img in imgs]
+    assert encode_png_batch_sharded(imgs, opts, device="cpu") == want
+    assert png.encode(imgs[0], opts) == want[0]
