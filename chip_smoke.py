@@ -32,7 +32,9 @@ printing its own lines:
    budget; 262,140-byte rows, which take the long-row kernel; the corpus
    batch; and Bigrams' own shapes, ``bigram_edge_cases``: rows of 1 and 2
    bytes, all-zero rows, tied candidates, the longest strip row and the
-   shortest long row under mode 7's plan), the fused kernel in every
+   shortest long row under mode 7's plan, and ``bigram_merge_cases``: marks
+   of all 32 lanes on one key and on one bitmap word, pairs across every
+   step boundary of the strip kernel's walk), the fused kernel in every
    strategy (Bigrams, mode 7, too) with the sticky rule off and on, also
    held against the host library's filter image by image;
    the decode-tail kernel on the coefficients of decode batches (d1) and
@@ -204,7 +206,8 @@ Two checkouts compare on one card with
 
 which runs ``measure_tree`` on each directory in turn, each in a process of
 its own (the coefficient (also at the (t1) chunk), compaction, count (also
-at one image), filter, decode-tail and resize kernels, the AAN contract at
+at one image), filter (also mode 7 at (e)'s device group and on noise rows
+of its shape), decode-tail and resize kernels, the AAN contract at
 100,000 blocks and ``dct_zz`` at (m1) and (m2) three ways, the quantization
 kernels at (q1),
 the device stages and the
@@ -216,7 +219,9 @@ kernel as it is and with each of its parts taken out (``coeffs_parts``);
 (m2) as it is, with each part its design has taken out and each of its
 levers undone, and on grids of 1 to 5 CTAs an SM (``dct_zz_parts``);
 ``python3 chip_smoke.py --filter-parts`` times the fused filter kernel under
-each strategy (``filter_parts``); ``python3 chip_smoke.py --resize-parts``
+each strategy, and mode 7 as it is, with each of its parts taken out
+(``BIGRAM_PARTS``), as each of the designs it was measured against
+(``BIGRAM_VARIANTS``) and on strips of 1 to 8 rows (``filter_parts``); ``python3 chip_smoke.py --resize-parts``
 checks the resize kernel alone on every case and offset and times each of
 its passes as it is, with each of its parts taken out and under each tile
 (``resize_parts``); ``python3 chip_smoke.py --dither-parts`` times the
@@ -551,10 +556,11 @@ H100_F32_OPS_PER_S = 67e12
 # SM can issue. (64 lanes gave palette_lut a bound of 1.2036 ms at (q1),
 # which the kernel beat in 0.6207 ms: no bound.)
 H100_INT32_OPS_PER_S = 132 * 128 * 1.98e9
-# 32-bit shared-memory atomics per second: 132 SMs x 32 a clock (the shared
-# memory's 32 banks, a word each a clock, none in conflict) x 1.98 GHz. No
-# data sheet gives the rate of ATOMS; this is the most the banks can take.
-H100_SHARED_ATOMICS_PER_S = 132 * 32 * 1.98e9
+# Byte-pair marks in shared memory per second (mode 7 of filter_rows): 132
+# SMs x 32 a clock (the shared memory's 32 banks, a word each a clock, none
+# in conflict) x 1.98 GHz. No data sheet gives the rate of ATOMS; this is the
+# most the banks can take.
+H100_PAIR_MARKS_PER_S = 132 * 32 * 1.98e9
 # The quantization kernels' integer work: a redmean distance as
 # csrc/redmean.cuh writes it (4 differences, the red mean's add and shift,
 # the two weights, 4 squares, 2 weight products, the green shift, 2 adds,
@@ -576,9 +582,9 @@ DITHER_PIXEL_OPS = 3 * 11 + 7 + 3 + 1
 TRELLIS_EXIT_OPS = 3 * 63
 TRELLIS_STEP_OPS = 4 + 4 * 8 * 4 + 36
 OPS_TYPE = {"palette_lut": "int32", "kmeans_refine": "int32", "dither_fs": "int32",
-            "trellis_quantize": "f32 without FMA", "filter_rows": "shared-memory atomicOr"}
+            "trellis_quantize": "f32 without FMA", "filter_rows": "shared-memory pair mark"}
 OPS_RATE = {"int32": H100_INT32_OPS_PER_S, "f32 without FMA": H100_INT32_OPS_PER_S,
-            "shared-memory atomicOr": H100_SHARED_ATOMICS_PER_S}
+            "shared-memory pair mark": H100_PAIR_MARKS_PER_S}
 # f32 operations of one block through the coefficient chain: 16 AAN passes
 # of 5 multiplies, 29 adds and 8 scales, then per coefficient the level
 # shift, the division and the rounding.
@@ -603,7 +609,8 @@ def kernel_work(name: str, **shape):
     this data that run the DP: ``TRELLIS_EXIT_OPS`` a block, and
     ``TRELLIS_STEP_OPS`` a step of the DP, at the issue rate);
     filter_rows and filter_bank (b, h, rb; filter_rows in mode 7 also
-    ``bigrams``: five shared-memory atomicOr a byte pair, ``OPS_TYPE``);
+    ``bigrams``: five shared-memory pair marks a byte pair, one a candidate,
+    ``OPS_TYPE``, whatever the kernel issues);
     idct_planes (n, out_bytes);
     dct8x8_aan and idct8x8_int (n); resize_lanczos3 (b, h, w, c, dh, dw, ky,
     kx: the taps of a vertical and a horizontal window, and optionally
@@ -638,7 +645,7 @@ def kernel_work(name: str, **shape):
         return s["b"] * s["n"] * (128 + 3 + 3 * s["cap"]), 0
     if name == "count_symbols":  # zz in; 536 int64 counters an image out
         return s["b"] * (128 * s["n"] + 8 * 536), 0
-    if name == "filter_rows":  # under Bigrams (``bigrams``) an atomicOr a pair of each candidate
+    if name == "filter_rows":  # under Bigrams (``bigrams``) a pair mark a pair of each candidate
         pairs = 5 * s["b"] * s["h"] * max(s["rb"] - 1, 0) if s.get("bigrams") else 0
         return s["b"] * s["h"] * (2 * s["rb"] + 1), pairs
     if name == "filter_bank":  # rows in; five candidates and [5] int32 scores a row out
@@ -1783,7 +1790,9 @@ def bigram_edge_cases(rng, bpp: int):
     wins); and, for bpp 4, the longest row the strip kernel takes under
     mode 7's plan (8 KB more a row) and the shortest the long-row kernel
     does. The 262,140-byte noise rows of ``check_png_kernels``, whose pairs
-    fill most of the bitmap, take the long-row kernel in mode 7 too."""
+    fill most of the bitmap, take the long-row kernel in mode 7 too. For
+    bpp 1, 3, 4 and 8 also ``bigram_merge_cases``, which stress how the
+    strip kernel's lanes meet in the bitmap."""
     import numpy as np
 
     from pixo_tpu_torch.ops import kernels
@@ -1802,6 +1811,58 @@ def bigram_edge_cases(rng, bpp: int):
             plan = kernels.filter_rows_plan(h, rb, False, True)
             cases.append((f"bigram noise 1x{h}x{rb} ({'strips of ' + str(plan) if plan else 'long rows'})",
                           rng.integers(0, 256, (1, h, rb), dtype=np.uint8)))
+    if bpp in (1, 3, 4, 8):
+        cases += bigram_merge_cases(rng, bpp)
+    return cases
+
+
+BIGRAM_STEP = 128  # bytes a step of the mode 7 strip kernel's walk: 32 lanes of a word each
+
+
+def bigram_merge_cases(rng, bpp: int):
+    """Rows on which the lanes of one mode-7 mark instruction (lane l of a
+    step takes word k = 32s + l, instruction j the pair that starts at byte
+    4k + j) meet in the bitmap, (label, [B, H, RB] uint8):
+    - a period of four distinct bytes: under None every instruction puts
+      all 32 lanes on one key, and no pair equals the one before it;
+    - bytes 4k and 4k + 1 of None's words 77 and 96 + l for lane l: pair 0
+      of every lane on one bitmap word (word key >> 5) with 32 keys, pair 2
+      alike;
+    - at lengths around the steps of 128 bytes, images of two rows: a noise
+      row, and the same row but for one byte pair put at every lane-31/lane-0
+      step boundary (bytes 128s - 1 and 128s). Under Up and Paeth the second
+      row is zeros but at the boundaries, and the images drawn are those
+      whose second row ties its two fewest counts under ``bpp`` (the plain
+      version's), so that a count one off at a boundary changes the filter
+      chosen."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops import png_filters
+
+    step = BIGRAM_STEP
+    period = np.resize(np.array([17, 90, 201, 3], np.uint8), 2 * step + 1)
+    cases = [(f"bigram one key a lane instruction 2x9x{period.size}",
+              np.broadcast_to(period, (2, 9, period.size)).copy())]
+    words = 3 * 32 + 1
+    row = rng.integers(0, 256, 4 * words + 2, dtype=np.uint8)
+    k = np.arange(words)
+    row[4 * k], row[4 * k + 1] = 77, 96 + k % 32
+    row[4 * k + 2], row[4 * k + 3] = 200, 32 + (k + 5) % 32
+    cases.append((f"bigram one word 32 keys 2x9x{row.size}", np.broadcast_to(row, (2, 9, row.size)).copy()))
+    for rb in [step * s + t for s in (1, 2, 3) for t in (-1, 0, 1, 2, 5)]:
+        tied, edges = [], np.arange(step, rb, step)
+        for _ in range(400):
+            img = np.broadcast_to(rng.integers(0, 256, rb, dtype=np.uint8), (2, rb)).copy()
+            img[1, edges - 1], img[1, edges] = rng.integers(0, 256, 2)
+            counts = png_filters._bigram_scores(png_filters._candidates(torch.from_numpy(img), bpp))
+            two = np.sort(counts[1].numpy())[:2]
+            if two[0] == two[1]:
+                tied.append(img)
+            if len(tied) == 2:
+                break
+        found = tied or [img]
+        cases.append((f"bigram step boundaries {len(found)}x2x{rb}", np.stack(found)))
     return cases
 
 
@@ -3614,7 +3675,8 @@ def measure_tree(root: str) -> dict:
     slice or an earlier one): for ``coeffs``, ``compact`` and
     ``count_symbols`` at 16x512x512 q85 4:2:0 (the count also at its first
     image alone), the AAN contract at 100,000 blocks, ``filter_rows`` at PNG
-    (a) and (b), ``idct_planes`` at decode (d1) and (d3) and ``resize`` and
+    (a) and (b) and in mode 7 (Bigrams) at (e)'s device group and on noise
+    rows of its shape, ``idct_planes`` at decode (d1) and (d3) and ``resize`` and
     ``coeffs`` (4:4:4) at the (t1) chunk, the profiler's device time, the
     launch alone and the call as the path makes it; the device stages, the decode's host
     stage and copy to the card, and the end-to-end stages of phase 4 (JPEG
@@ -3691,6 +3753,15 @@ def measure_tree(root: str) -> dict:
         stages[f"png_device ({key})"] = wall_ms(lambda: png_device_stage(px, popts, kernels.filter_rows))
         stages[f"png_end_to_end ({key})"] = wall_ms(
             lambda: encode_png_batch_sharded(imgs, popts, device=dev))
+    if hasattr(png_filters, "MODE_BIGRAMS"):  # a checkout from before the max preset has no mode 7
+        import numpy as np
+
+        _, popts, imgs = png_max_case(corpus)
+        _, raw, _, kw = png_group(dev, popts, imgs)
+        noise = torch.from_numpy(np.random.default_rng(5).integers(0, 256, tuple(raw.shape), dtype=np.uint8))
+        for key, rows in (("e", raw), ("noise rows of (e)'s shape", noise.to(dev))):
+            three_ways(f"filter_rows mode 7 ({key})", "filter_rows_", lambda: kernels.filter_rows(rows, **kw),
+                       filter_rows_alone(rows, kw), lambda: png_filters.filter_rows_plain(rows, **kw))
     cases = decode_cases(dev, grad, corpus)
     for key in ("d1", "d3"):
         files = cases[key][1]
@@ -4000,12 +4071,16 @@ def dct_zz_parts(card: str, roots) -> int:
     return int(failed)
 
 
-def pair_collisions(raw, bpp: int):
-    """How mode 7's atomics meet in shared memory on rows ``raw`` [B, H, RB]:
-    over the kernel's warp instructions of ``atomicOr`` (lane l takes word
-    32i + l of a candidate's pairs, instruction j the pair 4k + j of word
-    k), the mean of the most lanes that hit one bitmap word and of the most
-    that carry one key. Counted on the host from the rows alone."""
+def pair_collisions(raw, bpp: int) -> dict:
+    """How mode 7's marks meet in shared memory on rows ``raw`` [B, H, RB]:
+    over the strip kernel's mark instructions (lane l of a step takes word
+    32s + l of a candidate, instruction j the pair 4k + j of word k), the
+    mean of the most lanes that carry one key, and of the most that hit one
+    bitmap word under the kernel's layout (word key >> 5) and with the
+    bank from the second byte (word key & 2047, one of ``BIGRAM_VARIANTS``),
+    before and after the merge that skips a pair whose key equals the
+    pair's before it (but for lane 0's first pair of a step). Counted on
+    the host from the rows alone."""
     import numpy as np
 
     from pixo_tpu_torch.ops import png_filters
@@ -4014,21 +4089,73 @@ def pair_collisions(raw, bpp: int):
     keys = cands[..., :-1] * 256 + cands[..., 1:]
     n = keys.shape[-1]
     words = (n + 3) // 4
-    slots = -np.arange(1, 1 + ((words + 31) // 32) * 128)  # padding: a key of its own each
+    slots = -np.arange(1, 1 + ((words + 31) // 32) * 128)  # padding and skipped pairs: a key of its own each
     padded = np.broadcast_to(slots, keys.shape[:-1] + slots.shape).copy()
     padded[..., :n] = keys
-    inst = np.moveaxis(padded.reshape(*keys.shape[:-1], -1, 32, 4), -1, -2).reshape(-1, 32)
+    skip = np.zeros(padded.shape, bool)
+    skip[..., 1:n] = keys[..., 1:] == keys[..., :-1]
+    skip[..., ::128] = False  # lane 0's first pair of a step always marks
+    runs = np.where(skip, np.broadcast_to(slots, padded.shape), padded)  # pairs the merge skips
+    out = {}
+    for merged, v in (("", padded), (" after the merge", runs)):
+        inst = np.moveaxis(v.reshape(*keys.shape[:-1], -1, 32, 4), -1, -2).reshape(-1, 32)
 
-    def most_alike(v):  # the longest run of equal values in each sorted row
-        v = np.sort(v, axis=1)
-        run = best = np.zeros(len(v))
-        for i in range(1, 32):
-            run = (run + 1) * (v[:, i] == v[:, i - 1])
-            best = np.maximum(best, run)
-        return float((best + 1).mean())
+        def most_alike(v):  # the longest run of equal values in each sorted row
+            v = np.sort(v, axis=1)
+            run = best = np.zeros(len(v))
+            for i in range(1, 32):
+                run = (run + 1) * (v[:, i] == v[:, i - 1])
+                best = np.maximum(best, run)
+            return float((best + 1).mean())
 
-    word = np.where(inst >= 0, inst >> 5, inst)
-    return most_alike(word), most_alike(inst)
+        out[f"one key{merged}"] = most_alike(inst)
+        out[f"one word (key >> 5){merged}"] = most_alike(np.where(inst >= 0, inst >> 5, inst))
+        out[f"one word (key & 2047){merged}"] = most_alike(np.where(inst >= 0, inst & 2047, inst))
+    return out
+
+
+# Parts of mode 7 in csrc/filter_bank.cu (the strip kernel's count_pairs)
+# that ``filter_parts`` takes out, one at a time: (name, [(source text,
+# replacement)]). A part's time is what the kernel saves without it; the
+# results are wrong, only timed. The candidate computation leaves the raw
+# word (two loads) for every candidate.
+BIGRAM_PARTS = {
+    "the candidate computation": [
+        ("    uint32_t x, a, b, c;\n    load_words<1 << F, PREV, kEdge>(xs, as, bs, cs, min(k, last), r.bpp, x, a, b, c);\n"
+         "    return filter_word<F>(x, a, b, c);", "    return xs[min(k, last)];")],
+    "the merge": [("      const bool run = key[j] == (j > 0 ? key[j - 1] : left) && (j > 0 || lane > 0);",
+                   "      const bool run = false;")],
+    "the marks": [("(bit & ~atomicOr(map + (on ? pair_word(key[j]) : spare_word(lane)), bit))",
+                   "(bit & ~(on ? pair_word(key[j]) : spare_word(lane)))")],
+    "the clearing": [("  for (int i = lane; i < kBigramBytes / 16; i += 32) map4[i] = make_uint4(0u, 0u, 0u, 0u);\n",
+                      "  (void)map4;\n")],
+}
+# Other designs of the same parts, each built and held to the plain version.
+BIGRAM_VARIANTS = {
+    "the bank from the second byte (word key & 2047, bit key >> 11)": [
+        ("uint32_t pair_word(uint32_t key) { return key >> 5; }", "uint32_t pair_word(uint32_t key) { return key & 2047u; }"),
+        ("uint32_t pair_bit(uint32_t key) { return __funnelshift_l(0u, 1u, key); }",
+         "uint32_t pair_bit(uint32_t key) { return 1u << (key >> 11); }"),
+        ("uint32_t spare_word(int lane) { return 1024u + lane; }", "uint32_t spare_word(int lane) { return 128u + lane; }")],
+    "two steps an iteration": [("#pragma unroll 1\n  for (; k0 + 32 <= (pairs >> 2); k0 += 32)",
+                                "#pragma unroll 2\n  for (; k0 + 32 <= (pairs >> 2); k0 += 32)")],
+    "a test of the bit before each mark": [
+        ("      const bool on = (kWhole || j < m) && !run;",
+         "      const bool on = (kWhole || j < m) && !run && !(map[pair_word(key[j])] & pair_bit(key[j]));")],
+    "a branch around each mark": [
+        ("      n += (bit & ~atomicOr(map + (on ? pair_word(key[j]) : spare_word(lane)), bit)) ? 1 : 0;",
+         "      if (on) n += (bit & ~atomicOr(map + pair_word(key[j]), bit)) ? 1 : 0;")],
+}
+SM_SHARED_BYTES = 233_472  # an SM's shared memory on the H100 (228 KB), 1 KB of it reserved a CTA
+
+
+def bigram_strip_smem(strip: int, rb: int) -> int:
+    """csrc/filter_bank.cu's strip_smem under mode 7: the strip's rows, its
+    output rows and a bitmap a row."""
+    from pixo_tpu_torch.ops import kernels
+
+    return (kernels._filter_region((strip + 1) * rb) + kernels._filter_region(strip * (rb + 1))
+            + strip * kernels.FILTER_BIGRAM_BYTES)
 
 
 def filter_parts(card: str) -> int:
@@ -4036,37 +4163,94 @@ def filter_parts(card: str) -> int:
     profiler's) on the rows of PNG batches (a) and (b) under each strategy.
     None is the kernel's skeleton (the copy in, a sweep that moves the words,
     the copy out); a fixed filter adds that filter's arithmetic to the one
-    sweep; the adaptive rules add their scoring sweeps. Bigrams adds its five
-    counting sweeps of shared-memory atomics (strips of fewer rows: its
-    plan), timed also on noise rows of the same shape, whose pairs rarely
-    meet in one bitmap word (``pair_collisions`` counts how often they do).
-    Each result is first held against the plain version."""
+    sweep; the adaptive rules add their scoring sweeps. Bigrams (mode 7)
+    adds its five counting sweeps; it is timed also on noise rows of the
+    same shape, whose pairs rarely meet in one bitmap word
+    (``pair_collisions`` counts how often they do), and, launched alone
+    from libraries of csrc/filter_bank.cu built at once, as it is, with each
+    of ``BIGRAM_PARTS`` taken out and as each of ``BIGRAM_VARIANTS``, and as
+    it is on strips of 1 to 8 rows (its plan's strip is 8 at these rows;
+    fewer rows a strip fit more CTAs an SM). (a)'s rows are (e)'s device
+    group. Each result as it is or of a variant is first held against the
+    plain version."""
+    import ctypes
+
     import numpy as np
     import torch
 
     from pixo_tpu_torch import FilterStrategy
     from pixo_tpu_torch.ops import kernels, png_filters
 
+    libs = variant_libs("filter_bank.cu", {**BIGRAM_PARTS, **BIGRAM_VARIANTS}, "bigram_part")
+    log = kernels.build_log.splitlines()
+    for i, line in enumerate(log):
+        if "entry function" in line and "filter_rows_strip_kernel" in line:
+            print(f"ptxas: {line.strip()} " + " ".join(x.strip() for x in log[i + 1:i + 4]
+                                                        if "registers" in x or "spill" in x))
     dev = torch.device("cuda")
     grad = gradient_batch(BATCH, SIZE)
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     fmt = lambda ms: "not measured" if ms is None else f"{ms * 1e3:.1f} us"  # noqa: E731
+    loaded = {}
+    for name, path in libs.items():
+        lib = ctypes.CDLL(path)
+        lib.pixo_filter_rows.restype = ctypes.c_int
+        lib.pixo_filter_rows.argtypes = [vp, i64, i64, i64, i32, i32, i32, i32, i32, vp, vp]
+        loaded[name] = lib
     for key, (label, opts, imgs) in png_cases(corpus_batch(), grad).items():
         _, raw, _, kw = png_group(dev, opts, imgs)
-        noise = torch.from_numpy(np.random.default_rng(5).integers(0, 256, tuple(raw.shape), dtype=np.uint8))
+        noise = torch.from_numpy(np.random.default_rng(5).integers(0, 256, tuple(raw.shape), dtype=np.uint8)).to(dev)
         times = []
         for strategy, rows, name in [(s, raw, s.name) for s in FilterStrategy] + [
-                (FilterStrategy.BIGRAMS, noise.to(dev), "BIGRAMS on noise rows")]:
+                (FilterStrategy.BIGRAMS, noise, "BIGRAMS on noise rows")]:
             kws = dict(kw, strategy=strategy)
             if not torch.equal(kernels.filter_rows(rows, **kws), png_filters.filter_rows_plain(rows, **kws)):
                 raise Failed(f"filter parts: {name} differs from its plain version")
             times.append(f"{name} {fmt(profiler_ms(lambda: kernels.filter_rows(rows, **kws), 'filter_rows_'))}")
-        print(f"filter parts ({key}) {'x'.join(map(str, raw.shape))}, strips of "
-              f"{kernels.filter_rows_plan(*raw.shape[1:], False)} (Bigrams "
-              f"{kernels.filter_rows_plan(*raw.shape[1:], False, True)}): {'; '.join(times)} [{card}]")
+        b, h, rb = raw.shape
+        plan = kernels.filter_rows_plan(h, rb, False, True)
+        print(f"filter parts ({key}) {b}x{h}x{rb}, strips of {kernels.filter_rows_plan(h, rb, False)} "
+              f"(Bigrams {plan}): {'; '.join(times)} [{card}]")
         for rows, name in ((raw, "the rows"), (noise, "noise rows")):
-            word, same = pair_collisions(rows, kw["bpp"])
-            print(f"filter parts ({key}) Bigrams' atomics on {name}: the most lanes of a warp "
-                  f"instruction on one bitmap word {word:.2f}, on one key {same:.2f}, in the mean")
+            kws = dict(kw, strategy=FilterStrategy.BIGRAMS)
+            want = kernels.filter_rows(rows, **kws)
+            out = torch.empty_like(want)
+
+            def alone(lib, strip):
+                return lambda: lib.pixo_filter_rows(rows.data_ptr(), b, h, rb, kw["bpp"], 7, 0, 0, strip,
+                                                    out.data_ptr(), stream)
+
+            parts = {}
+            for part, lib in loaded.items():
+                call = alone(lib, plan)
+                rc = call()
+                if rc:
+                    raise Failed(f"filter parts: Bigrams without or as {part!r} failed to launch: "
+                                 f"{kernels.load().pixo_cuda_error_string(rc).decode()}")
+                torch.cuda.synchronize()
+                if part not in BIGRAM_PARTS and not torch.equal(out, want):
+                    raise Failed(f"filter parts: Bigrams {part!r} differs from the plain version")
+                parts[part] = profiler_ms(call, "filter_rows_strip_kernel")
+            base = parts.pop("as it is")
+            print(f"filter parts ({key}) Bigrams on {name}, launched alone: as it is {fmt(base)}; without "
+                  + "; ".join(f"{p} {fmt(parts[p])}" for p in BIGRAM_PARTS) + "; as "
+                  + "; ".join(f"{p} {fmt(parts[p])}" for p in BIGRAM_VARIANTS) + f" [{card}]")
+            strips = []
+            for strip in range(1, kernels.FILTER_STRIP_ROWS + 1):
+                smem = bigram_strip_smem(strip, rb)
+                call = alone(loaded["as it is"], strip)
+                if smem > kernels.FILTER_SMEM_BUDGET or call():
+                    continue
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise Failed(f"filter parts: Bigrams on strips of {strip} differs from the plain version")
+                ctas = min(SM_SHARED_BYTES // (smem + 1024), 2048 // (32 * strip), 32)
+                strips.append(f"{strip} rows ({smem} B, {ctas} CTAs, {ctas * strip} warps an SM) "
+                              f"{fmt(profiler_ms(call, 'filter_rows_strip_kernel'))}")
+            print(f"filter parts ({key}) Bigrams on {name} by strip: {'; '.join(strips)} [{card}]")
+            print(f"filter parts ({key}) Bigrams' marks on {name}, the most lanes of an instruction in the "
+                  "mean: " + ", ".join(f"on {k} {v:.2f}" for k, v in pair_collisions(rows, kw["bpp"]).items()))
     return 0
 
 
@@ -4804,7 +4988,7 @@ def sass_loops(kernel: str) -> int:
                         ("LDS", "LDS"), ("STS", "STS"), ("LDG", "LDG"), ("STG", "STG"),
                         ("VABSDIFF4", "VABSDIFF4.U8 "), ("VABSDIFF4.ACC", "VABSDIFF4.U8.ACC"),
                         ("SHFL", "SHFL"), ("FMUL", "FMUL"), ("FADD", "FADD"), ("PRMT", "PRMT"),
-                        ("ISETP", "ISETP"), ("BRA", "BRA")))
+                        ("ISETP", "ISETP"), ("BRA", "BRA"), ("ATOMS", "ATOMS"), ("POPC", "POPC")))
                 print(f"sass   loop at {target:#x}: {len(body)} instructions, {counts}")
     return 0
 

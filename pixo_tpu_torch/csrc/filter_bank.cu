@@ -55,15 +55,18 @@
 //   another.
 // - Bigrams (mode 7), its own instance of both kernels (the other modes' code
 //   is as it was): a row's distinct pairs are counted in a bitmap of the
-//   65,536 pair keys, 8 KB of shared memory a row in flight. Each lane sets
-//   the bits of its pairs with atomicOr and counts the ones that were clear;
-//   after a __syncwarp it stores 0 to the words it touched, so the bitmap is
-//   empty again for the next candidate and is swept only once, when the
-//   block starts. The five candidates take turns on one bitmap; their counts
-//   stay in registers, summed over the warp with shuffles. A lane takes word
-//   k of the candidate and the word one byte further on: their bytes j are
-//   the pair that starts at byte 4k + j. What bounds mode 7 is the shared
-//   atomics, five a byte.
+//   65,536 pair keys, 8 KB of shared memory a row in flight. The five
+//   candidates take turns on one bitmap, a sweep each (count_pairs): a lane
+//   computes each word of the candidate once and takes the byte one on from
+//   the next lane's word by a shuffle; each pair is one atomicOr of its bit,
+//   counted where the bit was clear; a pair whose key equals the pair's
+//   before it is not marked (so a run of one residual pair marks once a
+//   step), and such a lane ORs 0 into a spare word of its own bank instead,
+//   so that no mark needs a branch. After a __syncwarp the warp empties the
+//   bitmap with 16-byte zero stores for the next candidate. The counts stay
+//   in registers, summed over the warp with shuffles. What bounds mode 7 is
+//   the integer pipe: some 70 to 100 instructions a word and candidate, most
+//   of them forming, filtering and addressing the four pairs.
 // Rows above the budget (a row may hold 65,535 x 8 bytes) take the long-row
 // kernel, the first design: one thread block a row, byte by byte from device
 // memory in two sweeps, the scores reduced through shared memory. On the
@@ -84,6 +87,14 @@
 // (all within a tenth of strips of 8: the staging is not what holds it).
 // Tried and lost: the masks for the left edge and the last word
 // computed for every word instead of for the edge words alone (18.5 us).
+// Mode 7 on the same rows (PNG cell (e)'s device group): 52.9 us, 43.8 on
+// noise rows, against 132.7 and 103.7 for its first design (every word
+// computed four times, a pass that recomputed the keys to clear them, an
+// atomic a pair); without its marks 37.2 us. Tried and lost: __match_any_sync
+// to merge the lanes of one bitmap word (0.80 ms), counting by __popc in the
+// clearing sweep (59.6), a test of the bit before each mark (65.5), a branch
+// around each mark (63.7), the bank from the second byte (54.3), two steps
+// an iteration (53.2), strips of 1 to 7 rows (52.2 to 65.7).
 // Rows are named by offsets into the shared memory, not by pointers: with
 // pointers in a struct the loads compiled to generic LD instead of LDS.
 
@@ -517,46 +528,77 @@ __device__ __forceinline__ int choose_filter(const RowIn& r, int mode, int early
   return select_adaptive_fast(s, early);
 }
 
+// Mode 7's strip kernel. Pair key (first byte << 8 | second) lies at word
+// key >> 5 of a row's bitmap, bit key & 31 (one funnel shift, which takes
+// the shift mod 32). spare_word(lane) is a word that only rare pairs take
+// (first byte 128 to 131: a residual near -128), one bank a lane: a lane
+// with no pair to mark ORs 0 into it, so that the marks need no branch.
+__device__ __forceinline__ uint32_t pair_word(uint32_t key) { return key >> 5; }
+__device__ __forceinline__ uint32_t pair_bit(uint32_t key) { return __funnelshift_l(0u, 1u, key); }
+__device__ __forceinline__ uint32_t spare_word(int lane) { return 1024u + lane; }
+
 // The row's distinct pairs under filter F, summed over the warp (every lane
-// receives the sum); the row's bitmap at offset `bits` is empty before and
-// after. Word k of the candidate and the candidate's word one byte further on
-// (its bytes' left neighbours exist from byte bpp - 1 of that stream) hold
-// in their bytes j the pair that starts at byte 4k + j; the first pass marks
-// the pairs, the second clears their words.
+// receives the sum); the row's bitmap at offset `bits` (16-byte aligned) is
+// empty before and after. One sweep: lane l of step s takes word k = 32s + l
+// of the candidate, computed once (the first step masks the left edge) and a
+// step ahead; the word one byte on is funnel-shifted from word k + 1, lane
+// l + 1's, and lane 31's is the next step's lane 0's. Bytes j of the two
+// words are the pair that starts at byte 4k + j. Loads past the row's last
+// word take that word: such words start no pair. Each pair is an atomicOr
+// of its bit, counted where the bit was clear, but for a pair whose key
+// equals the pair's just before it (in the lane's word, or the lane
+// before's last): that pair marked it, or one before it did, so a run of one
+// residual pair marks once a step instead of once a lane. A lane with no
+// pair to mark ORs 0 into its spare word. Steps whose every lane holds four
+// pairs skip the tests of the row's end. Then the warp sweeps the bitmap
+// with 16-byte zero stores.
 template <int F, bool PREV>
 __device__ __forceinline__ int count_pairs(const RowIn& r, int lane, int bits) {
+  constexpr uint32_t kFull = 0xFFFFFFFFu;
   const Words xs(r.cur), as(r.cur - r.bpp), bs(r.prev), cs(r.prev - r.bpp);
-  const Words xn(r.cur + 1), an(r.cur + 1 - r.bpp), bn(r.prev + 1), cn(r.prev + 1 - r.bpp);
-  const int pairs = r.rb - 1;
+  const int pairs = r.rb - 1, nk = (pairs + 3) >> 2, last = (r.rb - 1) >> 2;
+  if (pairs <= 0) return 0;  // uniform over the warp
+  uint32_t* const map = reinterpret_cast<uint32_t*>(smem + bits);
+  const auto word = [&](int k, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    uint32_t x, a, b, c;
+    load_words<1 << F, PREV, kEdge>(xs, as, bs, cs, min(k, last), r.bpp, x, a, b, c);
+    return filter_word<F>(x, a, b, c);
+  };
   int n = 0;
+  uint32_t d = word(lane, std::true_type{});
+  const auto step = [&](int k0, auto whole) {
+    constexpr bool kWhole = decltype(whole)::value;  // every lane's four pairs lie in the row
+    const uint32_t next = word(k0 + 32 + lane, std::false_type{});
+    const uint32_t up = __shfl_sync(kFull, lane == 0 ? next : d, (lane + 1) & 31);
+    const uint32_t before = __shfl_up_sync(kFull, d, 1);  // the lane before's word
+    const uint32_t e = __funnelshift_r(d, up, 8);
+    // pairs j = 0, 1 and 2, 3 as the two halves of a word: (d_j << 8) | e_j
+    const uint32_t lo = __byte_perm(e, d, 0x5140), hi = __byte_perm(e, d, 0x7362);
+    const uint32_t key[4] = {lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu, hi >> 16};
+    // the key of the pair before the word's first: the lane before's last byte, then byte 0
+    const uint32_t left = __byte_perm(d, before, 0x0070) & 0xFFFFu;
+    const int m = kWhole ? 4 : pairs - 4 * (k0 + lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const bool run = key[j] == (j > 0 ? key[j - 1] : left) && (j > 0 || lane > 0);
+      const bool on = (kWhole || j < m) && !run;
+      const uint32_t bit = on ? pair_bit(key[j]) : 0u;
+      n += (bit & ~atomicOr(map + (on ? pair_word(key[j]) : spare_word(lane)), bit)) ? 1 : 0;
+    }
+    d = next;
+  };
+  int k0 = 0;
 #pragma unroll 1
-  for (int pass = 0; pass < 2; ++pass) {
-    for_row_words(pairs, lane, [&](int k, auto edge) {
-      constexpr bool kEdge = decltype(edge)::value;
-      uint32_t x, a, b, c;
-      load_words<1 << F, PREV, kEdge>(xs, as, bs, cs, k, r.bpp, x, a, b, c);
-      const uint32_t d = filter_word<F>(x, a, b, c);
-      load_words<1 << F, PREV, kEdge>(xn, an, bn, cn, k, r.bpp - 1, x, a, b, c);
-      const uint32_t e = filter_word<F>(x, a, b, c);
-      // pairs j = 0, 1 and 2, 3 as the two halves of a word: (d_j << 8) | e_j
-      const uint32_t lo = __byte_perm(e, d, 0x5140), hi = __byte_perm(e, d, 0x7362);
-      const uint32_t keys[4] = {lo & 0xFFFFu, lo >> 16, hi & 0xFFFFu, hi >> 16};
-      const int m = kEdge ? min(4, pairs - 4 * k) : 4;
+  for (; k0 + 32 <= (pairs >> 2); k0 += 32) step(k0, std::true_type{});
+  if (k0 < nk) step(k0, std::false_type{});
+  __syncwarp();
+  uint4* const map4 = reinterpret_cast<uint4*>(map);
+#pragma unroll 4
+  for (int i = lane; i < kBigramBytes / 16; i += 32) map4[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (j < m) {
-          if (pass == 0) {
-            n += mark_pair(bits, keys[j]);
-          } else {
-            clear_pair(bits, keys[j]);
-          }
-        }
-      }
-    });
-    __syncwarp();
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(0xFFFFFFFFu, n, off);
+  for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(kFull, n, off);
   return n;
 }
 
