@@ -82,7 +82,16 @@ printing its own lines:
    all-zero exit's boundaries, ZRL runs, DC edges, tied lattices, extremes,
    under every MCU pattern), 70,000 random blocks and the real DCT of the
    max cells (m1) and (m2), against its plain version and the host
-   library's DP;
+   library's DP; and the ``PIXO_TPU_LZ77=device`` route's kernels
+   (``check_lz77_kernels``): ``hash4``, ``chain_candidates`` at k = 1 and
+   16 and ``batched_match_lengths`` at max_len 3 and 258 (on pairs with
+   cand > pos near the end, pos past the end and negative indices,
+   ``match_pairs``) on (e)'s 8 filtered streams of 786,944 bytes and on
+   ``lz77_cases`` (1 MiB of zeros, 1 MiB of noise, 16 MiB of values 0-3,
+   three tiles of the chain sort and 20 bytes, a 37-byte period, n = 0 to
+   5), each equal to its plain version, and ``adler32_device`` against its
+   plain version and ``zlib.adler32`` at ``ADLER_SIZES`` (0 to 16 MiB,
+   around its 2048-byte chunks) from ``ADLER_STARTS``;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -115,7 +124,11 @@ printing its own lines:
    also decode back to their input. Then (e), the max preset (Bigrams in
    ``filter_rows``' mode 7, the optimal DEFLATE on the host) on (a)'s first
    12 images, held and decoded alike, with every ``filter_rows`` launch of
-   its call in mode 7 (``check_png_max_path``); and, for correctness only
+   its call in mode 7 (``check_png_max_path``); then under
+   ``PIXO_TPU_LZ77=device`` (``check_lz77_route``) each of (e)'s streams'
+   ``deflate_optimal_zlib`` on the card, equal to its bytes with the
+   variable unset, and the (e) call end to end, every file equal to its
+   host reference, with one ``chain_candidates`` launch an image; and, for correctness only
    (``check_png_options``), interlaced batches (gray, RGB, RGBA, reductions
    to 1-, 2- and 4-bit gray and a 4-bit palette, one quantized), 16-bit
    batches (RGB and RGBA, uint16 of either byte order),
@@ -162,7 +175,13 @@ printing its own lines:
    (its bytes, or five shared-memory atomics a byte pair at the banks'
    rate) and the stages (device stage, the optimal DEFLATE on 8 threads,
    the whole call, the per-image host ``png.encode`` on 8 threads; median,
-   least and most of 3 warm runs, ``time_png_max``); for the balanced
+   least and most of 3 warm runs, ``time_png_max``), the DEFLATE and the
+   whole call also under ``PIXO_TPU_LZ77=device``, and that route image by
+   image (``lz77_split``: upload, ``chain_candidates``, the tables back,
+   the assisted host parse, beside the host route's parse); the route's
+   ``chain_candidates`` four ways at one (e) stream and at 16 MiB, with
+   each of its kernels' device time (``profiler_ms``), and
+   ``adler32`` at 16 MiB (``time_lz77``); for the balanced
    route on the gradient batch the count kernel four
    ways (and again on its first image alone, ``jpeg.encode``'s batch of
    one) and the stages (copy up, device stage, copies back, the tables of
@@ -415,12 +434,14 @@ def host_decode(data: bytes, fancy: bool = False, fused: bool = False):
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
-    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.compress import checksums
+    from pixo_tpu_torch.ops import kernels, lz77_assist
 
     for fn in (kernels.coeffs, kernels.compact_padded, kernels.count_symbols, kernels.dct8x8_aan,
                kernels.dct_zz, kernels.trellis_quantize, kernels.filter_bank, kernels.filter_rows,
                kernels.idct_planes, kernels.idct8x8_int, kernels.resize_lanczos3,
-               kernels.kmeans_refine, kernels.palette_lut, kernels.dither_fs):
+               kernels.kmeans_refine, kernels.palette_lut, kernels.dither_fs, lz77_assist.hash4,
+               lz77_assist.batched_match_lengths, lz77_assist.chain_candidates, checksums.adler32_device):
         fn.launches = 0
 
 
@@ -652,6 +673,10 @@ def kernel_work(name: str, **shape):
         return s["b"] * s["h"] * (6 * s["rb"] + 20), 0
     if name == "idct_planes":
         return 128 * s["n"] + s["out_bytes"], 0
+    if name == "chain_candidates":  # n bytes in; the [n, k] int32 candidates and lengths out
+        return s["n"] + 8 * s["n"] * s["k"], 0
+    if name == "adler32":  # n bytes in
+        return s["n"], 0
     if name == "dct8x8_aan":
         return 512 * s["n"], AAN_OPS * s["n"]
     if name == "idct8x8_int":
@@ -2219,8 +2244,11 @@ def time_png_max(dev, corpus, card: str) -> dict:
     (``time_kernel``), then the cell's stages (median, least and most of
     ``MAX_PNG_RUNS`` warm runs): the device stage (routing, layout and the
     filter kernel), the optimal DEFLATE and framing on 8 threads, the whole
-    call, and beside it the per-image host ``png.encode`` on 8 threads.
-    Returns the kernel's times."""
+    call, and beside it the per-image host ``png.encode`` on 8 threads; the
+    DEFLATE and the whole call also under ``PIXO_TPU_LZ77=device``
+    (``png_max_deflate_lz77_device``, ``png_max_end_to_end_lz77_device``),
+    and that route's time image by image (``lz77_split``). Returns the
+    kernel's times."""
     import torch
 
     from pixo_tpu_torch import encode_png_batch_sharded, png
@@ -2240,24 +2268,309 @@ def time_png_max(dev, corpus, card: str) -> dict:
                     plain_calls=(3, 3, 1), **dict(zip(("b", "h", "rb"), raw.shape)), bigrams=True)
     filtered = kernels.filter_rows(raw, **kw).cpu().numpy()
 
-    def pool(fn, items):
-        with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
-            return list(ex.map(fn, items))
-
-    stages = {
-        "png_max_device": wall_stats(lambda: png_device_stage(px, opts, kernels.filter_rows), MAX_PNG_RUNS),
-        "png_max_deflate": wall_stats(lambda: pool(lambda f: png_frame(f, ct, opts), filtered), MAX_PNG_RUNS),
-        "png_max_end_to_end": wall_stats(lambda: encode_png_batch_sharded(imgs, opts, device=dev),
+    with lz77_route(False):
+        stages = {
+            "png_max_device": wall_stats(lambda: png_device_stage(px, opts, kernels.filter_rows),
                                          MAX_PNG_RUNS),
-        "png_max_host_8_threads": wall_stats(lambda: pool(lambda img: png.encode(img, opts), imgs),
-                                             MAX_PNG_RUNS),
-    }
+            "png_max_deflate": wall_stats(lambda: _pool(lambda f: png_frame(f, ct, opts), filtered),
+                                          MAX_PNG_RUNS),
+        }
+    with lz77_route(True):
+        stages["png_max_deflate_lz77_device"] = wall_stats(
+            lambda: _pool(lambda f: png_frame(f, ct, opts, dev), filtered), MAX_PNG_RUNS)
+    with lz77_route(False):
+        stages["png_max_end_to_end"] = wall_stats(lambda: encode_png_batch_sharded(imgs, opts, device=dev),
+                                                  MAX_PNG_RUNS)
+    with lz77_route(True):
+        stages["png_max_end_to_end_lz77_device"] = wall_stats(
+            lambda: encode_png_batch_sharded(imgs, opts, device=dev), MAX_PNG_RUNS)
+    with lz77_route(False):
+        stages["png_max_host_8_threads"] = wall_stats(lambda: _pool(lambda img: png.encode(img, opts), imgs),
+                                                      MAX_PNG_RUNS)
     mp = b * SIZE * SIZE / 1e6
     print(f"png (e): {len(gidx)} images in the device group, {len(fallback)} per-image on the host")
     for name, (med, lo, hi) in stages.items():
         print(f"stage {name} {at}: median {med:.4f} ms ({lo:.4f} to {hi:.4f}), "
               f"{mp / (med / 1e3):.1f} MP/s over {MAX_PNG_RUNS} warm runs [{card}]")
+    lz77_split(dev, filtered, card)
     return t
+
+
+LZ77_SORT_TILE = 4096  # csrc/lz77.cu's kSortTile: positions a tile of the chain sort
+LZ77_KERNELS = ("hash4_kernel", "digit_hist_kernel", "exclusive_scan_kernel", "digit_scatter_kernel",
+                "chain_kernel")  # the launches of one chain_candidates call (the counting passes twice)
+ADLER_KERNELS = ("adler_segments_kernel", "adler_combine_kernel")
+ADLER_SIZES = (0, 1, 2047, 2048, 2049, 5552, 5553, 1 << 24)  # around its 2048-byte chunks and zlib's NMAX
+ADLER_STARTS = (1, 0x12345678)
+
+
+def lz77_cases(rng) -> dict:
+    """The LZ77 kernels' inputs beside (e)'s streams, (label -> [N] uint8):
+    1 MiB of zeros (one bucket, every length 258), 1 MiB of noise, 16 MiB of
+    values 0-3 (256 buckets of 65,536 positions), three tiles of the chain
+    sort and 20 bytes of values 0-3, a 37-byte period, and n = 0 to 5 of
+    zeros and of a ramp."""
+    import numpy as np
+
+    cases = {
+        "1 MiB of zeros": np.zeros(1 << 20, np.uint8),
+        "1 MiB of noise": rng.integers(0, 256, 1 << 20, dtype=np.uint8),
+        "16 MiB of values 0-3": rng.integers(0, 4, 1 << 24, dtype=np.uint8),
+        "3 sort tiles and 20 bytes of values 0-3": rng.integers(0, 4, 3 * LZ77_SORT_TILE + 20, dtype=np.uint8),
+        "37-byte period": np.tile(rng.integers(0, 256, 37, dtype=np.uint8), 300),
+    }
+    for n in range(6):
+        cases[f"n = {n}, zeros"] = np.zeros(n, np.uint8)
+        cases[f"n = {n}, ramp"] = np.arange(n, dtype=np.uint8)
+    return cases
+
+
+def match_pairs(rng, n: int, m: int):
+    """``m`` (position, candidate) int32 pairs for ``batched_match_lengths``
+    on ``n`` bytes: anywhere from -3 to past the end (pos >= n, negative
+    indices), and the first ones with cand > pos near the end."""
+    import numpy as np
+
+    pos = rng.integers(-3, n + 8, m)
+    cand = rng.integers(-5, n + 10, m)
+    tail = np.arange(max(n - 12, 0), n)[:m]
+    pos[: len(tail)], cand[: len(tail)] = tail - 3, tail
+    return pos.astype(np.int32), cand.astype(np.int32)
+
+
+@contextlib.contextmanager
+def lz77_route(on: bool):
+    """``PIXO_TPU_LZ77=device`` set (``on``) or unset while open."""
+    before = os.environ.pop("PIXO_TPU_LZ77", None)
+    if on:
+        os.environ["PIXO_TPU_LZ77"] = "device"
+    try:
+        yield
+    finally:
+        os.environ.pop("PIXO_TPU_LZ77", None)
+        if before is not None:
+            os.environ["PIXO_TPU_LZ77"] = before
+
+
+def png_max_streams(dev, corpus):
+    """(e)'s filtered streams: the device group's rows through
+    ``filter_rows`` in mode 7, [8, 512, 1537] uint8 on the host."""
+    from pixo_tpu_torch.ops import kernels
+
+    _, opts, imgs = png_max_case(corpus)
+    _, raw, _, kw = png_group(dev, opts, imgs)
+    return kernels.filter_rows(raw, **kw).cpu().numpy()
+
+
+def _max_abs(got, ref) -> int:
+    return 0 if got.numel() == 0 else int((got.long() - ref.long()).abs().max())
+
+
+def check_lz77_kernels(dev, streams) -> dict:
+    """Phase 2, the device LZ77 route's kernels against their plain versions
+    on the card, on (e)'s streams and ``lz77_cases``: ``hash4``,
+    ``chain_candidates`` at k = 1 and 16, ``batched_match_lengths`` at
+    max_len 3 and 258 on 100,000 ``match_pairs``; then ``adler32_device``
+    against its plain version and ``zlib.adler32`` at ``ADLER_SIZES`` from
+    ``ADLER_STARTS``. Returns the largest difference of each kernel."""
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.compress.checksums import adler32_device, adler32_plain
+    from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
+    from pixo_tpu_torch.ops import lz77_assist as lz
+
+    rng = np.random.default_rng(29)
+    inputs = {f"(e) stream {i}": np.ascontiguousarray(f).reshape(-1) for i, f in enumerate(streams)}
+    inputs.update(lz77_cases(rng))
+    err = 0
+    for label, data in inputs.items():
+        t = torch.from_numpy(data.copy()).to(dev)
+        hashes = _max_abs(lz.hash4(t), lz.hash4_plain(t))
+        chains = []
+        for k in (1, LZ77_ASSIST_STEPS):
+            (cand, lens), (ref_cand, ref_lens) = lz.chain_candidates(t, k=k), lz.chain_candidates_plain(t, k)
+            chains.append(max(_max_abs(cand, ref_cand), _max_abs(lens, ref_lens)))
+            found = int((cand >= 0).sum())
+            del cand, lens, ref_cand, ref_lens
+        pos, cand = (torch.from_numpy(a).to(dev) for a in match_pairs(rng, len(data), 100_000))
+        lengths = max(_max_abs(lz.batched_match_lengths(t, pos, cand, max_len=ml),
+                               lz.batched_match_lengths_plain(t, pos, cand, ml)) for ml in (3, 258))
+        torch.cuda.synchronize()
+        err = max(err, hashes, lengths, *chains)
+        _verdict(f"lz77 {label} ({len(data)} B): largest difference to the plain version: hash4 {hashes}, "
+                 f"chain_candidates k=1 {chains[0]}, k={LZ77_ASSIST_STEPS} {chains[1]} ({found} candidates), "
+                 f"batched_match_lengths at max_len 3 and 258 {lengths}",
+                 hashes == lengths == chains[0] == chains[1] == 0)
+        del t
+        torch.cuda.empty_cache()
+    adler_err = 0
+    for n in ADLER_SIZES:
+        data = rng.integers(0, 256, n, dtype=np.uint8)
+        data[::3] = 255  # the largest weighted sums, on a third of the bytes
+        t = torch.from_numpy(data).to(dev)
+        for start in ADLER_STARTS:
+            got, plain, ref = adler32_device(t, start), adler32_plain(t, start), zlib.adler32(data.tobytes(), start)
+            adler_err = max(adler_err, abs(got - plain), abs(got - ref))
+            _verdict(f"adler32 {n} B from {start:#x}: kernel {got:#010x}, plain {plain:#010x}, "
+                     f"zlib {ref:#010x}", got == plain == ref)
+    return {"chain_candidates": err, "adler32": adler_err}
+
+
+def _pool(fn, items, workers: int = 8):
+    with concurrent.futures.ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(fn, items))
+
+
+def check_lz77_route(dev, corpus, streams) -> int:
+    """Phase 3, the route: under ``PIXO_TPU_LZ77=device`` each of (e)'s
+    streams' ``deflate_optimal_zlib`` on the card equals its bytes with the
+    variable unset and inflates back; then the (e) call end to end under the
+    variable, each file equal to its host reference (``png.encode`` with the
+    variable unset). Returns the launches of ``chain_candidates`` and
+    ``adler32_device`` in that call (the latter on no path, as in the JAX
+    package)."""
+    import zlib
+
+    from pixo_tpu_torch import encode_png_batch_sharded, png
+    from pixo_tpu_torch.compress import checksums, deflate_optimal_zlib
+    from pixo_tpu_torch.ops import lz77_assist as lz
+
+    with lz77_route(False):
+        host = _pool(lambda f: deflate_optimal_zlib(f, 5), streams)
+    with lz77_route(True):
+        card = _pool(lambda f: deflate_optimal_zlib(f, 5, device=dev), streams)
+    same = sum(a == b for a, b in zip(card, host))
+    back = sum(zlib.decompress(c) == f.tobytes() for c, f in zip(card, streams))
+    _verdict(f"lz77 route: {same}/{len(streams)} of (e)'s streams' deflate_optimal_zlib under "
+             f"PIXO_TPU_LZ77=device byte-equal to the host route's, {back}/{len(streams)} inflate back",
+             same == back == len(streams))
+    label, opts, imgs = png_max_case(corpus)
+    with lz77_route(False):
+        refs = _pool(lambda img: png.encode(img, opts), imgs)
+    reset_counts()
+    with lz77_route(True):
+        outs = encode_png_batch_sharded(imgs, opts, device=dev)
+    launches = {"chain_candidates": lz.chain_candidates.launches, "adler32": checksums.adler32_device.launches}
+    same = sum(o == r for o, r in zip(outs, refs))
+    _verdict(f"main path png (e) {label} under PIXO_TPU_LZ77=device: {same}/{len(imgs)} files byte-equal "
+             f"to the host route's png.encode, launches {launches}",
+             same == len(imgs) and launches["chain_candidates"] == len(imgs))
+    return launches
+
+
+def chain_alone(t, k: int):
+    """The launch alone of ``chain_candidates`` on ``t``: the C function with
+    its tables and workspace made beforehand."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    lib, n = kernels.load(), t.numel()
+    cand = torch.empty((n, k), dtype=torch.int32, device=t.device)
+    lens = torch.empty_like(cand)
+    work = torch.empty(lib.pixo_chain_workspace(n), dtype=torch.int32, device=t.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.pixo_chain_candidates(t.data_ptr(), n, k, work.data_ptr(), cand.data_ptr(),
+                                             lens.data_ptr(), stream)
+
+
+def adler_alone(t):
+    """The launch alone of ``adler32_device`` on ``t`` (its two kernels), with
+    its scratch made beforehand and the checksum left on the card."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    lib = kernels.load()
+    scratch = torch.empty(lib.pixo_adler32_scratch_words(t.numel()), dtype=torch.int32, device=t.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.pixo_adler32(t.data_ptr(), t.numel(), 1, scratch.data_ptr(), stream)
+
+
+def time_lz77(dev, streams, card: str) -> dict:
+    """Phase 4, the route's kernels (``time_kernel``): ``chain_candidates``
+    at k = 16 at one of (e)'s streams and at 16 MiB of values 0-3, and
+    ``adler32`` at 16 MiB. Returns the times at (e), the 16 MiB chain's
+    under "16 MiB"."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.compress.checksums import adler32_device, adler32_plain
+    from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
+    from pixo_tpu_torch.ops import lz77_assist as lz
+
+    e = torch.from_numpy(np.ascontiguousarray(streams[0]).reshape(-1).copy()).to(dev)
+    big = torch.from_numpy(np.random.default_rng(31).integers(0, 4, 1 << 24, dtype=np.uint8)).to(dev)
+    k = LZ77_ASSIST_STEPS
+    t = {"chain_candidates": time_kernel(
+        "chain_candidates", f"(e) stream 0, {e.numel()} B, k={k}", lambda: lz.chain_candidates(e, k=k),
+        lambda: lz.chain_candidates_plain(e, k), chain_alone(e, k), card, plain_calls=(2, 3, 1),
+        kernel=LZ77_KERNELS, n=e.numel(), k=k)}
+    t["chain_candidates"]["16 MiB"] = time_kernel(
+        "chain_candidates", f"16 MiB of values 0-3, k={k}", lambda: lz.chain_candidates(big, k=k),
+        lambda: lz.chain_candidates_plain(big, k), chain_alone(big, k), card, plain_calls=(1, 1, 1),
+        kernel=LZ77_KERNELS, n=big.numel(), k=k)
+    torch.cuda.empty_cache()
+    t["adler32"] = time_kernel(
+        "adler32", "16 MiB of values 0-3", lambda: adler32_device(big), lambda: adler32_plain(big),
+        adler_alone(big), card, plain_calls=(2, 3, 1), kernel=ADLER_KERNELS, n=big.numel())
+    print(f"lz77 launches a call: chain_candidates {PROFILED[LZ77_KERNELS]} kernels traced in 20 calls "
+          f"(8 a call), adler32 {PROFILED[ADLER_KERNELS]} in 20 (2 a call) [{card}]")
+    for at, t_in in (("(e) stream 0", e), ("16 MiB of values 0-3", big)):
+        parts = {name: profiler_ms(lambda: lz.chain_candidates(t_in, k=k), name) for name in LZ77_KERNELS}
+        print(f"kernel chain_candidates {at}, by kernel (profiler, ms a call; launches traced in 20 calls): "
+              + ", ".join(f"{name} {'not measured' if ms is None else f'{ms:.4f}'} ({PROFILED[name]})"
+                          for name, ms in parts.items()) + f" [{card}]")
+    return t
+
+
+def lz77_split(dev, streams, card: str) -> None:
+    """Phase 4, (e) under the route, image by image on one thread: the card's
+    part as the route takes it (the stream's upload, ``chain_candidates`` at
+    k = 16, the tables back, 8 * 16 bytes a byte, both copies through pinned
+    memory) and the host's assisted parse, beside the host route's parse of
+    the same stream (``native_deflate_optimal``); and the tables' copy back
+    to pageable memory (``.cpu()``), as the route first took it."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
+    from pixo_tpu_torch.native import native_deflate_optimal, native_deflate_optimal_assisted
+    from pixo_tpu_torch.ops import lz77_assist as lz
+
+    flat = [np.ascontiguousarray(f).reshape(-1) for f in streams]
+    # warm: the allocators' device and pinned blocks
+    lz.tables_to_host(*lz.chain_candidates(lz.stream_to(flat[0], dev), k=LZ77_ASSIST_STEPS))
+    rows = []
+    for i, f in enumerate(flat):
+        t0 = time.perf_counter()
+        t = lz.stream_to(f, dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cand, lens = lz.chain_candidates(t, k=LZ77_ASSIST_STEPS)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        c, ln = lz.tables_to_host(cand, lens)
+        t3 = time.perf_counter()
+        native_deflate_optimal_assisted(f, 5, True, c, ln)
+        t4 = time.perf_counter()
+        native_deflate_optimal(f, 5, True)
+        t5 = time.perf_counter()
+        cand.cpu(), lens.cpu()
+        t6 = time.perf_counter()
+        rows.append([1e3 * x for x in (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4, t6 - t5)])
+        print(f"lz77 split (e) stream {i} ({len(f)} B): upload {rows[-1][0]:.4f} ms, chain_candidates "
+              f"{rows[-1][1]:.4f}, tables back ({c.nbytes + ln.nbytes} B) {rows[-1][2]:.4f} (pageable "
+              f"{rows[-1][5]:.4f}), assisted host parse {rows[-1][3]:.4f}; host route's parse "
+              f"{rows[-1][4]:.4f} [{card}]")
+    med = [_median(col) for col in zip(*rows)]
+    print(f"lz77 split (e), median of {len(rows)} streams: card's part {med[0] + med[1] + med[2]:.4f} ms "
+          f"(upload {med[0]:.4f}, kernel {med[1]:.4f}, tables back {med[2]:.4f}; pageable {med[5]:.4f}), "
+          f"assisted host parse {med[3]:.4f}, route total {sum(med[:4]):.4f}; host route's parse "
+          f"{med[4]:.4f} [{card}]")
 
 
 I16_EXTREMES = (-32768, -32767, -1024, -1, 0, 1, 1023, 32766, 32767)
@@ -5063,6 +5376,8 @@ def main() -> int:
         cells = trellis_cells(grad, corpus)
         errs.update(check_trellis_kernels(dev, grad, noise, cells))
         errs.update(check_png_kernels(dev, corpus))
+        streams = png_max_streams(dev, corpus)
+        errs.update(check_lz77_kernels(dev, streams))
         cases = decode_cases(dev, grad, corpus)
         errs.update(check_decode_kernels(dev, cases, 100_000))
         errs.update(check_resize_kernel(dev))
@@ -5075,6 +5390,7 @@ def main() -> int:
         launches.update({k: max_launches["m1"][k] for k in ("dct_zz", "trellis_quantize")})
         launches.update(check_png_main_path(dev, corpus, grad))
         max_png_launches = check_png_max_path(dev, corpus)
+        lz77_launches = check_lz77_route(dev, corpus, streams)
         check_png_options(dev, corpus)
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
@@ -5088,15 +5404,19 @@ def main() -> int:
                   for k, n in counts.items() if n < 1]
                + [f"{k} (max cell {cell})" for cell, counts in max_launches.items()
                   for k in ("dct_zz", "trellis_quantize") if counts[k] < 1]
-               + [f"{k} (png max cell e)" for k, n in max_png_launches.items() if n < 1])
+               + [f"{k} (png max cell e)" for k, n in max_png_launches.items() if n < 1]
+               + (["chain_candidates (png max cell e under PIXO_TPU_LZ77=device)"]
+                  if lz77_launches["chain_candidates"] < 1 else []))
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
     launches["resize_lanczos3"] = thumb_launches["resize_lanczos3"]
+    launches.update(lz77_launches)  # adler32's: 0 where no path calls it, as in the JAX package
     launches.update(lossy_launches["q1"])
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
     k_ms["e"] = {"filter_rows": time_png_max(dev, corpus, card)}
+    k_ms.update(time_lz77(dev, streams, card))
     k_ms.update(time_decode(dev, cases, card, 100_000))
     try:
         k_ms.update(time_jpeg_routes(dev, grad, corpus, card))
@@ -5122,7 +5442,10 @@ def main() -> int:
     # "q2". The max route's kernels (dct_zz, trellis_quantize) have the
     # launches and times of cell (m1); (m2)'s are under "m2". filter_rows
     # has those of PNG (a); mode 7's (Bigrams, the PNG max preset) in cell
-    # (e) are under "e".
+    # (e) are under "e". chain_candidates has the launches of the (e) call
+    # under PIXO_TPU_LZ77=device and the times at one (e) stream; its times
+    # at 16 MiB are under "16 MiB". adler32 is on no path (0 launches), as
+    # adler32_jnp in the JAX package.
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "dct_zz": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "trellis_quantize": ("pixo_tpu_torch/csrc/trellis.cu", "pixo_tpu/ops/trellis_device.py:179"),
@@ -5135,7 +5458,9 @@ def main() -> int:
                                    "pixo_tpu/ops/resize_kernels.py:154"),
                "kmeans_refine": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:67"),
                "palette_lut": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:118"),
-               "dither_fs": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:138")}
+               "dither_fs": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:138"),
+               "chain_candidates": ("pixo_tpu_torch/csrc/lz77.cu", "pixo_tpu/ops/lz77_assist.py:85"),
+               "adler32": ("pixo_tpu_torch/csrc/adler32.cu", "pixo_tpu/compress/checksums.py:89")}
     timed = ("at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -5148,7 +5473,8 @@ def main() -> int:
          **({"m2": {"launches": max_launches["m2"][name], **{k: k_ms["m2"][name][k] for k in timed}}}
             if name in ("dct_zz", "trellis_quantize") else {}),
          **({"e": {"launches": max_png_launches[name], **{k: k_ms["e"][name][k] for k in timed}}}
-            if name in max_png_launches else {})}
+            if name in max_png_launches else {}),
+         **({"16 MiB": {k: k_ms[name]["16 MiB"][k] for k in timed}} if "16 MiB" in k_ms[name] else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

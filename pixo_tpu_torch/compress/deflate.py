@@ -2,7 +2,8 @@
 
 Counterpart of the JAX package's ``compress/deflate.py``: ``deflate_zlib``,
 ``deflate_raw``, ``deflate_optimal_zlib`` (the PNG ``max`` preset's optimal
-parse), ``inflate_zlib`` and ``inflate_raw``. The JAX package falls back to
+parse, with its ``PIXO_TPU_LZ77=device`` route, whose match tables start on
+the card), ``inflate_zlib`` and ``inflate_raw``. The JAX package falls back to
 Python's ``zlib`` when its native library is missing; the port has no such
 tier: the native library builds or the call raises. Where the native INFLATE rejects a
 stream, Python's ``zlib`` decodes it again under the same size cap, as in the
@@ -15,9 +16,14 @@ import os
 import zlib
 from typing import Optional
 
+import numpy as np
+
 from ..errors import InvalidDecode
 from ..native import (NativeInflateError, native_deflate, native_deflate_optimal,
-                      native_deflate_optimal_parity, native_inflate)
+                      native_deflate_optimal_assisted, native_deflate_optimal_parity,
+                      native_inflate)
+
+LZ77_ASSIST_STEPS = 16  # chain steps a position the device route's tables hold
 
 
 def _parity_default() -> bool:
@@ -45,26 +51,31 @@ def deflate_raw(data, level: int = 6, parity: bool = None, packed: bool = False)
     return native_deflate(data, level, False, parity=parity, packed=packed)
 
 
-def deflate_optimal_zlib(data, iterations: int = 5) -> bytes:
+def deflate_optimal_zlib(data, iterations: int = 5, *, device="cuda") -> bytes:
     """The zopfli-style iterative optimal parse of pixo's
     ``deflate_optimal_zlib``: per-position match tables, an entropy cost
     model and a shortest-path DP, ``iterations`` rounds.
 
     Under ``PIXO_TPU_DEFLATE_PARITY=1`` it is the reference's own path
     (byte-identical to pixo). Otherwise the performance path's parse, or
-    ``deflate_zlib(data, 9)`` where that is shorter. The JAX package's
-    ``PIXO_TPU_LZ77=device`` route (its match tables' first chain steps on
-    the device) is not ported yet and raises: its bytes would be the same,
-    but its two kernels are ROADMAP.md queue 2b item 1.
+    ``deflate_zlib(data, 9)`` where that is shorter. Under
+    ``PIXO_TPU_LZ77=device`` (the JAX package's route) the match tables'
+    first 16 chain steps of every position come from
+    ``ops/lz77_assist.py::chain_candidates`` on ``device``, the only thing
+    ``device`` decides; the host walks the chains past them and the bytes
+    are the same. A kernel that fails raises: there is no fallback to the
+    host matcher.
     """
     if _parity_default():
         return native_deflate_optimal_parity(data, iterations)
-    if os.environ.get("PIXO_TPU_LZ77") == "device":
-        raise NotImplementedError(
-            "PIXO_TPU_LZ77=device (the device-assisted LZ77 match tables) is not ported yet "
-            "(ROADMAP.md queue 2b item 1)"
-        )
-    out = native_deflate_optimal(data, iterations, True)
+    src = np.frombuffer(data, dtype=np.uint8)
+    if os.environ.get("PIXO_TPU_LZ77") == "device" and src.size:
+        from ..ops import lz77_assist as lz  # the device layer loads only for this route
+
+        cand, lens = lz.chain_candidates(lz.stream_to(src, device), k=LZ77_ASSIST_STEPS)
+        out = native_deflate_optimal_assisted(data, iterations, True, *lz.tables_to_host(cand, lens))
+    else:
+        out = native_deflate_optimal(data, iterations, True)
     greedy = deflate_zlib(data, 9)
     return out if len(out) < len(greedy) else greedy
 

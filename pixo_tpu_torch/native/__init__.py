@@ -30,6 +30,10 @@ package. Only the entry points of the ported slices are bound:
 - ``deflate_compress_optimal`` / ``deflate_optimal_parity``: the iterative
   optimal parse of the PNG ``max`` preset (``compress/deflate.py::
   deflate_optimal_zlib``), the performance path and the reference mirror;
+- ``deflate_compress_optimal_assisted``: the same performance parse reading
+  the first chain steps from tables made on the card
+  (``ops/lz77_assist.py::chain_candidates``), the ``PIXO_TPU_LZ77=device``
+  route, byte-identical to the plain entry;
 - ``png_filter_apply``: the host PNG filter tier of the per-image encode,
   and an oracle for the filter kernel;
 - ``crc32`` and ``adler32``: the PNG chunk checksum and zlib's
@@ -234,6 +238,14 @@ def _configure(lib) -> None:
         _u8p, ctypes.c_int64,            # input
         ctypes.c_int32,                  # iterations
         ctypes.c_int32,                  # zlib wrap (0/1)
+        _u8p, ctypes.c_int64,            # out, capacity
+    ]
+    lib.deflate_compress_optimal_assisted.restype = ctypes.c_int64
+    lib.deflate_compress_optimal_assisted.argtypes = [
+        _u8p, ctypes.c_int64,            # input
+        ctypes.c_int32,                  # iterations
+        ctypes.c_int32,                  # zlib wrap (0/1)
+        _i32p, _i32p, ctypes.c_int32,    # cand, lens [input, k], k
         _u8p, ctypes.c_int64,            # out, capacity
     ]
     lib.deflate_optimal_parity.restype = ctypes.c_int64
@@ -655,6 +667,29 @@ def native_deflate_optimal(data, iterations: int, zlib_wrap: bool) -> bytes:
                                      _ptr(out, _u8p), cap)
     if n < 0:
         raise RuntimeError(f"native deflate_compress_optimal failed ({n})")
+    return out[:n].tobytes()
+
+
+def native_deflate_optimal_assisted(data, iterations: int, zlib_wrap: bool, cand: np.ndarray,
+                                    lens: np.ndarray) -> bytes:
+    """``native_deflate_optimal`` reading the first ``k`` steps of every
+    position's hash chain from ``cand`` and ``lens`` ([len(data), k] int32,
+    ``ops/lz77_assist.py::chain_candidates``); the host walks the chains
+    past them. The same bytes as ``native_deflate_optimal``."""
+    lib = load()
+    n_in = len(np.frombuffer(data, dtype=np.uint8))
+    cand = np.ascontiguousarray(cand, dtype=np.int32)
+    lens = np.ascontiguousarray(lens, dtype=np.int32)
+    if cand.ndim != 2 or cand.shape != lens.shape or cand.shape[0] != n_in:
+        raise ValueError(f"cand and lens must be [{n_in}, k] int32, got {cand.shape} and {lens.shape}")
+    src = _byte_view(data)
+    cap = _deflate_capacity(n_in)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.deflate_compress_optimal_assisted(_ptr(src, _u8p), n_in, iterations, int(zlib_wrap),
+                                              _ptr(cand, _i32p), _ptr(lens, _i32p), cand.shape[1],
+                                              _ptr(out, _u8p), cap)
+    if n < 0:
+        raise RuntimeError(f"native deflate_compress_optimal_assisted failed ({n})")
     return out[:n].tobytes()
 
 

@@ -54,6 +54,11 @@ stream.
   redmean argmin in ``csrc/redmean.cuh``); they replace the jit functions
   ``kmeans_refine_device``, ``palette_lut_device`` and ``dither_fs_device`` of
   the JAX package's ``ops/quantize_device.py``, which have no Pallas kernel.
+- ``hash4``, ``match_lengths`` and ``chain_candidates`` (``csrc/lz77.cu``):
+  the device half of the optimal parse's match tables, wrapped in
+  ``ops/lz77_assist.py``; and ``adler32`` (``csrc/adler32.cu``), wrapped in
+  ``compress/checksums.py::adler32_device``. They replace the jit functions
+  of the JAX package's ``ops/lz77_assist.py`` and ``adler32_jnp``.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -99,7 +104,7 @@ from .trellis_device import RATE_LUT, trellis_quantize_batch_plain
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
                                            "resize.cu", "quantize.cu", "huffman.cu", "trellis.cu",
-                                           "aan.cuh", "idct.cuh", "redmean.cuh")]
+                                           "lz77.cu", "adler32.cu", "aan.cuh", "idct.cuh", "redmean.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -170,10 +175,32 @@ def load():
             lib.pixo_kmeans_refine.argtypes = [vp, i64, i32, vp, vp, vp, i64, vp, i64, vp, vp, vp, vp]
             lib.pixo_dither_fs.restype = ctypes.c_int
             lib.pixo_dither_fs.argtypes = [vp, i64, i64, i64, vp, i32, vp, vp, i32, i32, vp, vp, vp]
+            lib.pixo_hash4.restype = ctypes.c_int
+            lib.pixo_hash4.argtypes = [vp, i64, vp, vp]
+            lib.pixo_match_lengths.restype = ctypes.c_int
+            lib.pixo_match_lengths.argtypes = [vp, i64, vp, vp, i64, i32, vp, vp]
+            lib.pixo_chain_workspace.restype = i64
+            lib.pixo_chain_workspace.argtypes = [i64]
+            lib.pixo_chain_candidates.restype = ctypes.c_int
+            lib.pixo_chain_candidates.argtypes = [vp, i64, i32, vp, vp, vp, vp]
+            lib.pixo_adler32_scratch_words.restype = i64
+            lib.pixo_adler32_scratch_words.argtypes = [i64]
+            lib.pixo_adler32.restype = ctypes.c_int
+            lib.pixo_adler32.argtypes = [vp, i64, ctypes.c_uint32, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib
     return _lib
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` under a lock: exact where threads
+    launch at once (the PNG pool runs the optimal DEFLATE's route on eight)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def _check(lib, rc: int, what: str) -> None:
@@ -814,10 +841,12 @@ def _idct_input(coeffs: torch.Tensor) -> None:
 
 
 def upload_pinned(host: np.ndarray, device) -> torch.Tensor:
-    """``host`` on ``device``, copied through pinned memory on the current
-    stream without waiting for it. PyTorch's pinned-memory cache hands the
-    staging block out again only once the copy has run."""
-    pinned = torch.empty(host.shape, dtype=torch.from_numpy(host).dtype, pin_memory=True)
+    """``host`` (which may be read-only) on ``device``, copied through pinned
+    memory on the current stream without waiting for it. PyTorch's
+    pinned-memory cache hands the staging block out again only once the copy
+    has run."""
+    dtype = torch.from_numpy(np.empty(0, host.dtype)).dtype
+    pinned = torch.empty(host.shape, dtype=dtype, pin_memory=True)
     pinned.numpy()[...] = host
     return pinned.to(device, non_blocking=True)
 

@@ -328,13 +328,14 @@ def png_filter_kwargs(out_ct: ColorType, options: PngOptions) -> dict:
                 small_image=w * h <= 4096, sticky_fast=h <= 32)
 
 
-def png_frame(filtered: np.ndarray, out_ct: ColorType, options: PngOptions) -> bytes:
+def png_frame(filtered: np.ndarray, out_ct: ColorType, options: PngOptions, device="cuda") -> bytes:
     """Host stage of one grouped image: DEFLATE its filtered rows and frame
-    the file (signature, IHDR, IDAT, IEND)."""
+    the file (signature, IHDR, IDAT, IEND); the optimal DEFLATE's
+    ``PIXO_TPU_LZ77=device`` route runs on ``device``."""
     out = bytearray()
     out += pchunks.PNG_SIGNATURE
     pchunks.write_ihdr(out, options.width, options.height, 8, out_ct.png_color_type)
-    return penc._finish(out, filtered, options)
+    return penc._finish(out, filtered, options, device)
 
 
 def encode_png_batch_sharded(
@@ -361,7 +362,7 @@ def encode_png_batch_sharded(
     if options.interlace or options.bit_depth != 8:
         host = imgs.cpu().numpy() if torch.is_tensor(imgs) else imgs
         with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
-            return list(ex.map(lambda img: penc.encode(img, options), host))
+            return list(ex.map(lambda img: penc.encode(img, options, device=device), host))
     if imgs.dtype not in (np.uint8, torch.uint8):
         raise TypeError(f"imgs must be uint8, got {imgs.dtype}")
     bpp = options.color_type.bytes_per_pixel
@@ -373,7 +374,7 @@ def encode_png_batch_sharded(
 
     def fallback_encode(i: int) -> bytes:
         img = imgs[i].cpu().numpy() if torch.is_tensor(imgs) else imgs[i]
-        return penc.encode(img, options)
+        return penc.encode(img, options, device=device)
 
     results: List[bytes] = [b""] * b
     with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
@@ -382,7 +383,7 @@ def encode_png_batch_sharded(
             raw = png_group_rows(px, gidx, mode, out_ct, options)
             filtered = filter_rows(raw, **png_filter_kwargs(out_ct, options)).cpu().numpy()
             for i, filt in zip(gidx, filtered):
-                futures[i] = ex.submit(png_frame, filt, out_ct, options)
+                futures[i] = ex.submit(png_frame, filt, out_ct, options, device)
         for i, fut in futures.items():
             results[i] = fut.result()
     return results
@@ -400,10 +401,10 @@ def _encode_png_lossy(imgs, options: PngOptions, device, host_workers: int) -> L
                                 options.quantization.dithering, device=device)
                  if quant_ids else [])
     with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
-        futures = {i: ex.submit(penc.encode, px[i], options)
+        futures = {i: ex.submit(penc.encode, px[i], options, device=device)
                    for i in sorted(set(range(b)) - set(quant_ids))}
         for i, (palette, indices) in zip(quant_ids, quantized):
-            futures[i] = ex.submit(penc.encode_quantized, palette, indices, options)
+            futures[i] = ex.submit(penc.encode_quantized, palette, indices, options, device=device)
         return [futures[i].result() for i in range(b)]
 
 
@@ -415,7 +416,7 @@ def encode_png_row_sharded(img, options: PngOptions, *, device="cuda") -> bytes:
     XLA exchanges each shard's row above; on one device there is no halo.
     Interlaced output filters by Adam7 pass and takes the ordinary path."""
     if options.interlace:
-        return penc.encode(img, options)
+        return penc.encode(img, options, device=device)
 
     def row_filter(payload, w: int, h: int, row_bytes: int, bpp: int, strategy) -> bytes:
         rows = torch.from_numpy(np.frombuffer(payload, np.uint8).reshape(1, h, row_bytes).copy())
@@ -423,7 +424,7 @@ def encode_png_row_sharded(img, options: PngOptions, *, device="cuda") -> bytes:
                           sticky_fast=h <= 32)
         return out.cpu().numpy().tobytes()
 
-    return penc.encode(img, options, filter_fn=row_filter)
+    return penc.encode(img, options, filter_fn=row_filter, device=device)
 
 
 def decode_jpeg_batch(encoded: Sequence[bytes], host_workers: int = 8, *,

@@ -61,9 +61,9 @@ def _as_pixels(data, options: PngOptions, bpp: int) -> np.ndarray:
     return arr.reshape(-1, bpp)
 
 
-def _compress(filtered, options: PngOptions) -> bytes:
+def _compress(filtered, options: PngOptions, device) -> bytes:
     if options.optimal_compression:
-        return deflate_optimal_zlib(filtered, 5)
+        return deflate_optimal_zlib(filtered, 5, device=device)
     # packed=True: the reference PNG path is deflate_zlib_packed (no block
     # splitting); it matters only in parity mode
     return deflate_zlib(filtered, options.compression_level, packed=True)
@@ -115,9 +115,10 @@ def _filter_stage(payload, samples: np.ndarray, row_bytes: int, bit_depth: int, 
                          verbose_filter_log=options.verbose_filter_log)
 
 
-def _finish(out: bytearray, filtered, options: PngOptions) -> bytes:
-    """DEFLATE the filtered stream and close the file (IDAT + IEND)."""
-    compressed = _compress(filtered, options)
+def _finish(out: bytearray, filtered, options: PngOptions, device) -> bytes:
+    """DEFLATE the filtered stream and close the file (IDAT + IEND); the
+    optimal DEFLATE's ``PIXO_TPU_LZ77=device`` route runs on ``device``."""
+    compressed = _compress(filtered, options, device)
     chunks.write_idat_chunks(out, compressed)
     chunks.write_iend(out)
     return bytes(out)
@@ -140,12 +141,13 @@ def max_colors(options: PngOptions) -> int:
     return min(options.quantization.max_colors, 256)
 
 
-def encode_quantized(palette_rgba: np.ndarray, indices: np.ndarray, options: PngOptions) -> bytes:
+def encode_quantized(palette_rgba: np.ndarray, indices: np.ndarray, options: PngOptions, *,
+                     device="cuda") -> bytes:
     """The indexed file of a quantized image: PLTE from the palette, tRNS
     from its alpha where any is below 255 (trailing 255s trimmed)."""
     alpha = reduce.maybe_trim_transparency(palette_rgba[:, 3])
     return encode_indexed(indices, options.width, options.height, palette_rgba[:, :3], alpha,
-                          options)
+                          options, device=device)
 
 
 def _data_len(data, options: PngOptions) -> int:
@@ -174,7 +176,7 @@ def _payload16(data) -> bytes:
     return bytes(data)
 
 
-def _encode16(data, options: PngOptions, bpp: int, filter_fn) -> bytes:
+def _encode16(data, options: PngOptions, bpp: int, filter_fn, device) -> bytes:
     """The 16-bit branch of ``encode``: the big-endian byte stream filtered
     with the byte offset bpp = channels * 2; no quantization or reductions."""
     if options.quantization.mode != QuantizationMode.OFF:
@@ -187,10 +189,10 @@ def _encode16(data, options: PngOptions, bpp: int, filter_fn) -> bytes:
                       interlace=int(options.interlace))
     samples = np.frombuffer(payload, np.uint8).reshape(h, w, bpp)  # Adam7 takes bytes at 16-bit
     filtered = _filter_stage(payload, samples, w * bpp, 8, bpp, options, filter_fn)
-    return _finish(out, filtered, options)
+    return _finish(out, filtered, options, device)
 
 
-def encode(data, options: PngOptions, *, filter_fn=None) -> bytes:
+def encode(data, options: PngOptions, *, filter_fn=None, device="cuda") -> bytes:
     """Encode one image (flat bytes or an [H, W, C] array: uint8, or at
     16-bit uint16 in any byte order or big-endian bytes) to PNG bytes, equal
     to the JAX package's ``png.encode``.
@@ -198,10 +200,11 @@ def encode(data, options: PngOptions, *, filter_fn=None) -> bytes:
     ``filter_fn`` replaces the filter stage (``apply_filters``' arguments
     without the keywords): the row-sharded encode's
     (``parallel/pipeline.py::encode_png_row_sharded``). Interlaced output
-    refuses it."""
+    refuses it. The image is encoded on the host; ``device`` is read only
+    by the optimal DEFLATE's ``PIXO_TPU_LZ77=device`` route."""
     bpp = _validate(options, _data_len(data, options))
     if options.bit_depth == 16:
-        return _encode16(data, options, bpp, filter_fn)
+        return _encode16(data, options, bpp, filter_fn, device)
     w, h = options.width, options.height
     pixels = _as_pixels(data, options, bpp)
 
@@ -209,7 +212,7 @@ def encode(data, options: PngOptions, *, filter_fn=None) -> bytes:
         palette_rgba, indices = quantize.quantize_image(
             pixels, w, h, max_colors(options), options.quantization.dithering
         )
-        return encode_quantized(palette_rgba, indices, options)
+        return encode_quantized(palette_rgba, indices, options, device=device)
 
     out = bytearray()
     out += chunks.PNG_SIGNATURE
@@ -240,7 +243,7 @@ def encode(data, options: PngOptions, *, filter_fn=None) -> bytes:
                              options, filter_fn)
     # strip_metadata: the encoder writes no ancillary metadata chunks, so
     # stripping is a no-op here
-    return _finish(out, filtered, options)
+    return _finish(out, filtered, options, device)
 
 
 def encode_indexed(
@@ -250,6 +253,8 @@ def encode_indexed(
     palette: np.ndarray,
     transparency: Optional[np.ndarray] = None,
     options: Optional[PngOptions] = None,
+    *,
+    device="cuda",
 ) -> bytes:
     """Encode pre-indexed data with an explicit palette, equal to the JAX
     package's ``png.encode_indexed``.
@@ -257,7 +262,7 @@ def encode_indexed(
     Parity: ``encode_indexed_into`` (``src/png/mod.rs:1814-1886``): 8-bit
     indexed, palette-aware filter override (the adaptive strategies and
     Bigrams become None); interlaced and optimally compressed as the options
-    say.
+    say; ``device`` as ``encode``'s.
     """
     options = options or PngOptions(width=width, height=height)
     palette = np.asarray(palette, dtype=np.uint8).reshape(-1, 3)
@@ -303,7 +308,7 @@ def encode_indexed(
             indexed.tobytes(), width, height, width, 1, strategy,
             verbose_filter_log=options.verbose_filter_log,
         )
-    return _finish(out, filtered, options)
+    return _finish(out, filtered, options, device)
 
 
 def encode_batch(imgs, options: PngOptions, *, device="cuda") -> List[bytes]:
@@ -322,5 +327,5 @@ def encode_batch(imgs, options: PngOptions, *, device="cuda") -> List[bytes]:
     imgs = imgs.numpy() if torch.is_tensor(imgs) else imgs
     if len(imgs) > 1:
         with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
-            return list(ex.map(lambda img: encode(img, options), imgs))
-    return [encode(img, options) for img in imgs]
+            return list(ex.map(lambda img: encode(img, options, device=device), imgs))
+    return [encode(img, options, device=device) for img in imgs]

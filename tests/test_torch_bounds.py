@@ -63,6 +63,11 @@ HAND_COUNTS = [
      12_582_912 + 3_145_728, 4.70),
     ("resize_lanczos3", dict(b=1, h=1812, w=3220, c=3, dh=128, dw=128, ky=87, kx=153),
      1812 * 3220 * 3 + 128 * 128 * 3, None),
+    # one (e) stream (512 rows of 1 + 1536 bytes) read, its [n, 16] int32 candidates and
+    # lengths written
+    ("chain_candidates", dict(n=786_944, k=16), 786_944 + 786_944 * 16 * 8, 30.30),
+    ("chain_candidates", dict(n=1 << 24, k=16), (1 << 24) * 129, None),
+    ("adler32", dict(n=1 << 24), 1 << 24, 5.01),
 ]
 
 

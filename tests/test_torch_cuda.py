@@ -15,6 +15,8 @@ import torch
 
 from chip_smoke import (
     AAN_COUNTS,
+    ADLER_SIZES,
+    ADLER_STARTS,
     COUNT_PATTERNS,
     TRELLIS_PATTERNS,
     aan_cases,
@@ -32,6 +34,9 @@ from chip_smoke import (
     filter_edge_cases,
     host_decode,
     lossy_options,
+    lz77_cases,
+    lz77_route,
+    match_pairs,
     plane_edge_case,
     quantize_edge_cases,
     quantize_host_oracles,
@@ -53,6 +58,7 @@ from pixo_tpu_torch import (
     png,
     thumbnail_pipeline,
 )
+from pixo_tpu_torch.compress import checksums, deflate
 from pixo_tpu_torch.decode import decode_jpeg_batch, jpeg_decoder
 from pixo_tpu_torch.jpeg.tables import ZIGZAG, QuantizationTables
 from pixo_tpu_torch.native import (
@@ -68,6 +74,7 @@ from pixo_tpu_torch.ops import (
     huffman_device,
     jpeg_decode,
     kernels,
+    lz77_assist,
     png_filters,
     quantize_device,
     resize_kernels,
@@ -1082,3 +1089,82 @@ def test_lossy_batch_on_the_card_past_the_kernels_limits(dev, monkeypatch, limit
     assert kernels.kmeans_refine.launches == (0 if limit == "dither pixels" else 3)
     assert got == encode_png_batch_sharded(imgs, opts, device="cpu")
     assert got == [png.encode(img, opts) for img in imgs]
+
+
+@pytest.fixture(scope="module")
+def lz77_inputs():
+    return lz77_cases(np.random.default_rng(29))
+
+
+def _on(dev, data):
+    return torch.from_numpy(np.ascontiguousarray(data).copy()).to(dev)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+def test_chain_candidates_kernel_equals_plain(dev, lz77_inputs, k):
+    """The stable counting sort and the rows' walk on every ``lz77_cases``
+    input (one bucket, noise, 256 buckets of 65,536, partial tiles, n = 0 to
+    5): the candidates in chain order and their lengths, exactly."""
+    for label, data in lz77_inputs.items():
+        t = _on(dev, data)
+        cand, lens = lz77_assist.chain_candidates(t, k=k)
+        ref_cand, ref_lens = lz77_assist.chain_candidates_plain(t, k)
+        assert torch.equal(cand, ref_cand), label
+        assert torch.equal(lens, ref_lens), label
+
+
+def test_hash4_and_match_lengths_kernels_equal_plain(dev, lz77_inputs):
+    rng = np.random.default_rng(31)
+    for label, data in lz77_inputs.items():
+        t = _on(dev, data)
+        assert torch.equal(lz77_assist.hash4(t), lz77_assist.hash4_plain(t)), label
+        pos, cand = (_on(dev, a) for a in match_pairs(rng, len(data), 20_000))
+        for max_len in (3, 258):
+            got = lz77_assist.batched_match_lengths(t, pos, cand, max_len=max_len)
+            assert torch.equal(got, lz77_assist.batched_match_lengths_plain(t, pos, cand, max_len)), label
+
+
+@pytest.mark.parametrize("n", ADLER_SIZES)
+def test_adler32_kernel_equals_zlib(dev, n):
+    import zlib
+
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+    data[::3] = 255
+    t = _on(dev, data)
+    for start in ADLER_STARTS:
+        got = checksums.adler32_device(t, start)
+        assert got == checksums.adler32_plain(t, start) == zlib.adler32(data.tobytes(), start)
+
+
+def test_lz77_route_on_the_card_equals_the_host_route(dev):
+    """``deflate_optimal_zlib`` under PIXO_TPU_LZ77=device on the card: one
+    ``chain_candidates`` launch, the host route's bytes; the max-preset batch
+    under the route, the CPU route's files."""
+    import zlib
+
+    rng = np.random.default_rng(37)
+    data = rng.integers(-3, 4, 200_000).astype(np.int8).astype(np.uint8)
+    data[rng.random(data.size) < 0.6] = 0
+    with lz77_route(False):
+        host = deflate.deflate_optimal_zlib(data.tobytes(), 5)
+    with lz77_route(True):
+        before = lz77_assist.chain_candidates.launches
+        got = deflate.deflate_optimal_zlib(data.tobytes(), 5, device=dev)
+        assert lz77_assist.chain_candidates.launches == before + 1
+        imgs = rng.integers(0, 256, (3, 64, 80, 3), dtype=np.uint8)
+        opts = PngOptions.max(80, 64).replace(color_type=ColorType.RGB)
+        files = encode_png_batch_sharded(imgs, opts, device=dev)
+        assert files == encode_png_batch_sharded(imgs, opts, device="cpu")
+    assert got == host and zlib.decompress(got) == data.tobytes()
+
+
+def test_lz77_launch_count_exact_under_threads(dev):
+    import concurrent.futures
+
+    t = _on(dev, np.random.default_rng(41).integers(0, 4, 50_000, dtype=np.uint8))
+    before = lz77_assist.chain_candidates.launches
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        outs = list(ex.map(lambda _: lz77_assist.chain_candidates(t, k=16), range(64)))
+    assert lz77_assist.chain_candidates.launches == before + 64
+    ref = lz77_assist.chain_candidates_plain(t, 16)
+    assert all(torch.equal(c, ref[0]) and torch.equal(ln, ref[1]) for c, ln in outs)

@@ -304,13 +304,17 @@ def test_deflate_equals_jax_and_inflates(name, monkeypatch):
             assert len(optimal) <= len(compress.deflate_zlib(data, 9))
 
 
-def test_device_lz77_route_raises(monkeypatch):
-    """The JAX package's PIXO_TPU_LZ77=device route is not ported: the
-    optimal DEFLATE says so instead of ignoring the variable."""
+@pytest.mark.parametrize("name", list(PAYLOADS))
+def test_device_lz77_route_equals_jax(name, monkeypatch):
+    """Under PIXO_TPU_LZ77=device the optimal DEFLATE reads its first chain
+    steps from ``chain_candidates`` (its plain version for ``device="cpu"``):
+    the JAX package's bytes under the same variable, which inflate back."""
+    data = PAYLOADS[name]
     monkeypatch.delenv("PIXO_TPU_DEFLATE_PARITY", raising=False)
     monkeypatch.setenv("PIXO_TPU_LZ77", "device")
-    with pytest.raises(NotImplementedError, match="queue 2b"):
-        compress.deflate_optimal_zlib(PAYLOADS["text"])
+    out = compress.deflate_optimal_zlib(data, device="cpu")
+    assert out == jax_compress.deflate_optimal_zlib(data)
+    assert zlib.decompress(out) == data
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -351,6 +355,10 @@ ENTRY_POINTS = [
     "pixo_tpu_torch.cli.load_image",
     "pixo_tpu_torch.png.quantize.quantize_batch",
     "pixo_tpu_torch.png.encoder.encode_batch",
+    "pixo_tpu_torch.png.encoder.encode",
+    "pixo_tpu_torch.png.encoder.encode_indexed",
+    "pixo_tpu_torch.compress.deflate.deflate_optimal_zlib",
+    "pixo_tpu_torch.parallel.pipeline.png_frame",
     "pixo_tpu_torch.jpeg.encoder.encode",
     "pixo_tpu_torch.jpeg.encoder.encode_batch",
     "pixo_tpu_torch.ops.huffman_device.count_symbols",
