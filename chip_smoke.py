@@ -228,9 +228,10 @@ its own (the coefficient (also at the (t1) chunk), compaction, count (also
 at one image), filter (also mode 7 at (e)'s device group and on noise rows
 of its shape), decode-tail and resize kernels, the AAN contract at
 100,000 blocks and ``dct_zz`` at (m1) and (m2) three ways, the quantization
-kernels at (q1),
+kernels at (q1), the LZ77 route's ``chain_candidates`` (with its rows'
+kernel and scans) at an (e) stream and at 16 MiB and ``adler32`` at 16 MiB,
 the device stages and the
-end-to-end stages; what a tree lacks
+end-to-end stages, the (e) call's under ``PIXO_TPU_LZ77=device`` too; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
 ``python3 chip_smoke.py --coeffs-parts dct_zz [CHECKOUT ...]`` times the
@@ -253,7 +254,11 @@ kernel of each checkout named (this one by default) at (b1) as it is and
 with each part its design has taken out (``COUNT_PARTS``: the global
 flush, the AC walk, the DC adds, the predictor loads, the loads alone, the
 memset alone), at one image, and on grids of 1 to 4 CTAs an SM
-(``count_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
+(``count_parts``); ``python3 chip_smoke.py --lz77-parts [CHECKOUT ...]``
+times ``chain_candidates`` of each checkout named (this one by default) at
+an (e) stream and at 16 MiB, each launch as it is and its rows' kernel
+with each part its design has taken out (``LZ77_DESIGNS``:
+``lz77_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
 pack stage on 1, 2, 4 and 8 threads (``pack_workers``); ``python3
 chip_smoke.py --sass NAME``
 counts the instructions of the built kernels whose name holds NAME, loop by
@@ -2297,18 +2302,85 @@ def time_png_max(dev, corpus, card: str) -> dict:
 
 
 LZ77_SORT_TILE = 4096  # csrc/lz77.cu's kSortTile: positions a tile of the chain sort
-LZ77_KERNELS = ("hash4_kernel", "digit_hist_kernel", "exclusive_scan_kernel", "digit_scatter_kernel",
-                "chain_kernel")  # the launches of one chain_candidates call (the counting passes twice)
-ADLER_KERNELS = ("adler_segments_kernel", "adler_combine_kernel")
-ADLER_SIZES = (0, 1, 2047, 2048, 2049, 5552, 5553, 1 << 24)  # around its 2048-byte chunks and zlib's NMAX
+LZ77_ROW_TILE = 512  # its kRowTile: sorted indices a CTA of the rows' kernel
+LZ77_KERNELS = ("hash4_kernel", "digit_hist_kernel", "bin_scan_kernel", "digit_scatter_kernel",
+                "chain_rows_kernel")  # the launches of one chain_candidates call (the counting passes twice)
+ADLER_KERNELS = ("adler32_kernel",)
+# around the plain version's 2048-byte chunks and zlib's NMAX, and the
+# kernel's shares: one of 4096 bytes (a chunk a thread), two, the second
+# with a ragged end of 15 bytes
+ADLER_SIZES = (0, 1, 15, 16, 17, 2047, 2048, 2049, 4095, 4096, 4097, 5552, 5553, 8207, 1 << 24)
 ADLER_STARTS = (1, 0x12345678)
+
+
+def adler_boundary_sizes(slots: int) -> tuple:
+    """Sizes where ``adler32_plan`` on ``slots`` CTA slots turns from shares
+    of ``ADLER_MIN_SHARE`` to a grid of ``slots``: n = slots * 4096 and a
+    byte either side, and that grid's shares at 16 MiB plus 17 bytes."""
+    from pixo_tpu_torch.compress.checksums import ADLER_MIN_SHARE
+
+    edge = slots * ADLER_MIN_SHARE
+    return edge - 1, edge, edge + 1, (1 << 24) + 17
+
+
+def _chain_keys(data):
+    """The chain sort's keys of ``data``, the 16-bit hash of each of its
+    first n - 3 positions, in numpy."""
+    import numpy as np
+
+    d = data.astype(np.uint64)
+    v = d[:-3] | d[1:-2] << 8 | d[2:-1] << 16 | d[3:] << 24
+    return ((v * 2654435761) & 0xFFFFFFFF) >> 16
+
+
+def lz77_edge_cases(rng) -> dict:
+    """Inputs at the edges of ``chain_candidates``' tiling, each at most
+    8,000 bytes (label -> [N] uint8): runs of one byte of 1 to 299 bytes
+    (lengths that two runs decide, or not); a 700-position bucket among noise (a
+    run of equal hashes across the rows' tiles of ``LZ77_ROW_TILE`` sorted
+    indices); buckets of exactly 1, 2, 4, 5, 16 and 17 positions (k and k +
+    1 at k = 1, 4 and 16) among noise; a zero run to the stream's end and
+    one that ends 100 bytes before it (lengths within 258 bytes of the end);
+    and values 0-3 with n - 3 = 3 rows' tiles of sorted indices and a byte
+    either side. The noise is drawn again until no noise position shares a
+    planted bucket's hash."""
+    import numpy as np
+
+    def planted(reps, n):
+        pats = [np.array([0xA0 + c, 0x5B, 0xC3 - c, 0x1D], np.uint8) for c in range(len(reps))]
+        while True:
+            d = rng.integers(0, 256, n, dtype=np.uint8)
+            at = 0
+            for pat, r in zip(pats, reps):
+                for _ in range(r):
+                    d[at:at + 4] = pat
+                    at += 9
+            keys = _chain_keys(d)
+            if [int((keys == _chain_keys(p)[0]).sum()) for p in pats] == list(reps):
+                return d
+
+    noise = rng.integers(0, 256, 3000, dtype=np.uint8)
+    runs = np.repeat(rng.integers(0, 4, 600, dtype=np.uint8), rng.integers(1, 300, 600))[:6000]
+    cases = {
+        "runs of 1 to 299 bytes of values 0-3": runs,
+        "a 700-position bucket among noise": planted((700,), 7000),
+        "buckets of 1, 2, 4, 5, 16 and 17 positions": planted((1, 2, 4, 5, 16, 17), 2000),
+        "noise, then zeros to the end": np.concatenate([noise, np.zeros(1000, np.uint8)]),
+        "noise, zeros, 100 bytes of noise": np.concatenate(
+            [noise, np.zeros(1000, np.uint8), rng.integers(0, 256, 100, dtype=np.uint8)]),
+    }
+    for dn in (-1, 0, 1):
+        n = 3 * LZ77_ROW_TILE + 3 + dn
+        cases[f"n = {n}, values 0-3"] = rng.integers(0, 4, n, dtype=np.uint8)
+    return cases
 
 
 def lz77_cases(rng) -> dict:
     """The LZ77 kernels' inputs beside (e)'s streams, (label -> [N] uint8):
     1 MiB of zeros (one bucket, every length 258), 1 MiB of noise, 16 MiB of
     values 0-3 (256 buckets of 65,536 positions), three tiles of the chain
-    sort and 20 bytes of values 0-3, a 37-byte period, and n = 0 to 5 of
+    sort and 20 bytes of values 0-3, n - 3 = two sort tiles and a byte
+    either side, a 37-byte period, ``lz77_edge_cases``, and n = 0 to 5 of
     zeros and of a ramp."""
     import numpy as np
 
@@ -2319,6 +2391,10 @@ def lz77_cases(rng) -> dict:
         "3 sort tiles and 20 bytes of values 0-3": rng.integers(0, 4, 3 * LZ77_SORT_TILE + 20, dtype=np.uint8),
         "37-byte period": np.tile(rng.integers(0, 256, 37, dtype=np.uint8), 300),
     }
+    for dn in (-1, 0, 1):
+        n = 2 * LZ77_SORT_TILE + 3 + dn
+        cases[f"n = {n}, values 0-3"] = rng.integers(0, 4, n, dtype=np.uint8)
+    cases.update(lz77_edge_cases(rng))
     for n in range(6):
         cases[f"n = {n}, zeros"] = np.zeros(n, np.uint8)
         cases[f"n = {n}, ramp"] = np.arange(n, dtype=np.uint8)
@@ -2369,16 +2445,17 @@ def _max_abs(got, ref) -> int:
 def check_lz77_kernels(dev, streams) -> dict:
     """Phase 2, the device LZ77 route's kernels against their plain versions
     on the card, on (e)'s streams and ``lz77_cases``: ``hash4``,
-    ``chain_candidates`` at k = 1 and 16, ``batched_match_lengths`` at
+    ``chain_candidates`` at k = 1, 4 and 16, ``batched_match_lengths`` at
     max_len 3 and 258 on 100,000 ``match_pairs``; then ``adler32_device``
-    against its plain version and ``zlib.adler32`` at ``ADLER_SIZES`` from
-    ``ADLER_STARTS``. Returns the largest difference of each kernel."""
+    against its plain version and ``zlib.adler32`` at ``ADLER_SIZES`` and
+    the card's ``adler_boundary_sizes`` from ``ADLER_STARTS``. Returns the
+    largest difference of each kernel."""
     import zlib
 
     import numpy as np
     import torch
 
-    from pixo_tpu_torch.compress.checksums import adler32_device, adler32_plain
+    from pixo_tpu_torch.compress.checksums import _adler_slots, adler32_device, adler32_plain
     from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
     from pixo_tpu_torch.ops import lz77_assist as lz
 
@@ -2390,7 +2467,7 @@ def check_lz77_kernels(dev, streams) -> dict:
         t = torch.from_numpy(data.copy()).to(dev)
         hashes = _max_abs(lz.hash4(t), lz.hash4_plain(t))
         chains = []
-        for k in (1, LZ77_ASSIST_STEPS):
+        for k in (1, 4, LZ77_ASSIST_STEPS):
             (cand, lens), (ref_cand, ref_lens) = lz.chain_candidates(t, k=k), lz.chain_candidates_plain(t, k)
             chains.append(max(_max_abs(cand, ref_cand), _max_abs(lens, ref_lens)))
             found = int((cand >= 0).sum())
@@ -2401,13 +2478,13 @@ def check_lz77_kernels(dev, streams) -> dict:
         torch.cuda.synchronize()
         err = max(err, hashes, lengths, *chains)
         _verdict(f"lz77 {label} ({len(data)} B): largest difference to the plain version: hash4 {hashes}, "
-                 f"chain_candidates k=1 {chains[0]}, k={LZ77_ASSIST_STEPS} {chains[1]} ({found} candidates), "
-                 f"batched_match_lengths at max_len 3 and 258 {lengths}",
-                 hashes == lengths == chains[0] == chains[1] == 0)
+                 f"chain_candidates k=1 {chains[0]}, k=4 {chains[1]}, k={LZ77_ASSIST_STEPS} {chains[2]} "
+                 f"({found} candidates), batched_match_lengths at max_len 3 and 258 {lengths}",
+                 hashes == lengths == max(chains) == 0)
         del t
         torch.cuda.empty_cache()
     adler_err = 0
-    for n in ADLER_SIZES:
+    for n in ADLER_SIZES + adler_boundary_sizes(_adler_slots(dev)):
         data = rng.integers(0, 256, n, dtype=np.uint8)
         data[::3] = 255  # the largest weighted sums, on a third of the bytes
         t = torch.from_numpy(data).to(dev)
@@ -2478,16 +2555,23 @@ def chain_alone(t, k: int):
 
 
 def adler_alone(t):
-    """The launch alone of ``adler32_device`` on ``t`` (its two kernels), with
-    its scratch made beforehand and the checksum left on the card."""
+    """The launch alone of ``adler32_device`` on ``t`` (the ticket's memset
+    and the kernel over ``adler32_plan``'s shares; a checkout from before the
+    one-launch kernel: its two kernels), with its scratch made beforehand
+    and the checksum left on the card."""
     import torch
 
+    from pixo_tpu_torch.compress import checksums
     from pixo_tpu_torch.ops import kernels
 
-    lib = kernels.load()
-    scratch = torch.empty(lib.pixo_adler32_scratch_words(t.numel()), dtype=torch.int32, device=t.device)
+    lib, n = kernels.load(), t.numel()
     stream = torch.cuda.current_stream().cuda_stream
-    return lambda: lib.pixo_adler32(t.data_ptr(), t.numel(), 1, scratch.data_ptr(), stream)
+    if not hasattr(checksums, "adler32_plan"):
+        scratch = torch.empty(lib.pixo_adler32_scratch_words(n), dtype=torch.int32, device=t.device)
+        return lambda: lib.pixo_adler32(t.data_ptr(), n, 1, scratch.data_ptr(), stream)
+    grid, share = checksums.adler32_plan(n, checksums._adler_slots(t.device))
+    scratch = torch.empty(2 * grid + 2, dtype=torch.int32, device=t.device)
+    return lambda: lib.pixo_adler32(t.data_ptr(), n, 1, grid, share, scratch.data_ptr(), stream)
 
 
 def time_lz77(dev, streams, card: str) -> dict:
@@ -2518,7 +2602,7 @@ def time_lz77(dev, streams, card: str) -> dict:
         "adler32", "16 MiB of values 0-3", lambda: adler32_device(big), lambda: adler32_plain(big),
         adler_alone(big), card, plain_calls=(2, 3, 1), kernel=ADLER_KERNELS, n=big.numel())
     print(f"lz77 launches a call: chain_candidates {PROFILED[LZ77_KERNELS]} kernels traced in 20 calls "
-          f"(8 a call), adler32 {PROFILED[ADLER_KERNELS]} in 20 (2 a call) [{card}]")
+          f"(8 a call), adler32 {PROFILED[ADLER_KERNELS]} in 20 (1 a call, after a memset) [{card}]")
     for at, t_in in (("(e) stream 0", e), ("16 MiB of values 0-3", big)):
         parts = {name: profiler_ms(lambda: lz.chain_candidates(t_in, k=k), name) for name in LZ77_KERNELS}
         print(f"kernel chain_candidates {at}, by kernel (profiler, ms a call; launches traced in 20 calls): "
@@ -3996,8 +4080,9 @@ def measure_tree(root: str) -> dict:
     encode, standard and balanced, PNG (a) and (b), decode (d1) and (d3));
     ``dct_zz`` and ``trellis_quantize`` at the max cells (m1) and (m2), and
     the max call there beside the host tier on 8 threads (the median of
-    THUMB_RUNS). Every kernel result is first held against its plain
-    version."""
+    THUMB_RUNS); the ``PIXO_TPU_LZ77=device`` route's kernels and its (e)
+    stages (``measure_lz77``). Every kernel result is first held against
+    its plain version."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -4155,7 +4240,65 @@ def measure_tree(root: str) -> dict:
             three_ways(f"{name} (q1)", f"{name}_", call, alone, plain)
         stages["png_lossy_end_to_end (q1)"] = wall_stats(
             lambda: encode_png_batch_sharded(imgs, popts, device=dev), LOSSY_RUNS)[0]
+    if hasattr(png_filters, "MODE_BIGRAMS"):  # a checkout from before the LZ77 route has none
+        measure_lz77(res, dev, corpus)
     return res
+
+
+def measure_lz77(res: dict, dev, corpus) -> None:
+    """``measure_tree``'s numbers of the ``PIXO_TPU_LZ77=device`` route:
+    ``chain_candidates`` (k = 16) at one of (e)'s streams and at 16 MiB of
+    values 0-3, with its rows' kernel and its scans alone (the profiler's
+    device time), ``adler32`` at 16 MiB, each held against its plain version
+    first; the (e) call's DEFLATE on 8 threads and end to end under the
+    route and beside it without (the median of ``MAX_PNG_RUNS``)."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    if importlib.util.find_spec("pixo_tpu_torch.ops.lz77_assist") is None:
+        return
+    from pixo_tpu_torch import encode_png_batch_sharded
+    from pixo_tpu_torch.compress import checksums
+    from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
+    from pixo_tpu_torch.ops import lz77_assist as lz
+    from pixo_tpu_torch.parallel.pipeline import png_frame
+
+    names = [kn for kernels_of, _, _ in LZ77_DESIGNS.values() for kn in kernels_of]
+    every, rows = tuple(dict.fromkeys(names)), tuple(r for _, r, _ in LZ77_DESIGNS.values())
+    scans = ("exclusive_scan_kernel", "bin_scan_kernel")
+    k, streams = LZ77_ASSIST_STEPS, png_max_streams(dev, corpus)
+    inputs = {"e stream 0": torch.from_numpy(np.ascontiguousarray(streams[0]).reshape(-1).copy()).to(dev),
+              "16 MiB": torch.from_numpy(np.random.default_rng(31).integers(0, 4, 1 << 24, dtype=np.uint8)).to(dev)}
+    for key, t in inputs.items():
+        got, ref = lz.chain_candidates(t, k=k), lz.chain_candidates_plain(t, k)
+        if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+            raise Failed(f"chain_candidates ({key}) differs from its plain version")
+        del got, ref
+        call = lambda: lz.chain_candidates(t, k=k)  # noqa: E731
+        res["kernels"][f"chain_candidates ({key})"] = {
+            "device_ms": profiler_ms(call, every), "launch_ms": event_ms(chain_alone(t, k)), "call_ms": event_ms(call)}
+        for part, kn in (("rows' kernel", rows), ("scans", scans)):
+            res["kernels"][f"chain_candidates {part} ({key})"] = {
+                "device_ms": profiler_ms(call, kn), "launch_ms": None, "call_ms": None}
+        torch.cuda.empty_cache()
+    big = inputs["16 MiB"]
+    if checksums.adler32_device(big) != checksums.adler32_plain(big):
+        raise Failed("adler32 (16 MiB) differs from its plain version")
+    call = lambda: checksums.adler32_device(big)  # noqa: E731
+    res["kernels"]["adler32 (16 MiB)"] = {
+        "device_ms": profiler_ms(call, ("adler_segments_kernel", "adler_combine_kernel", "adler32_kernel")),
+        "launch_ms": event_ms(adler_alone(big)), "call_ms": event_ms(call)}
+    _, opts, imgs = png_max_case(corpus)
+    ct = png_group(dev, opts, imgs)[2]
+    for on in (False, True):
+        suffix = "_lz77_device" if on else ""
+        with lz77_route(on):
+            res["stages"][f"png_max_deflate{suffix} (e)"] = wall_stats(
+                lambda: _pool(lambda f: png_frame(f, ct, opts, dev), streams), MAX_PNG_RUNS)[0]
+            res["stages"][f"png_max_end_to_end{suffix} (e)"] = wall_stats(
+                lambda: encode_png_batch_sharded(imgs, opts, device=dev), MAX_PNG_RUNS)[0]
 
 
 def same_call_comparison(roots) -> int:
@@ -5112,6 +5255,148 @@ def count_parts(card: str, roots) -> int:
     return 0
 
 
+# The designs of chain_candidates (csrc/lz77.cu) that ``lz77_parts`` knows:
+# {design: (its kernels in launch order, its rows' kernel, {part name:
+# [(source text, replacement)]})}. The first design whose texts are all in
+# the source is applied, so a parent checkout's kernel is taken apart as its
+# own design allows. A part's time is what the rows' kernel saves without
+# it; the results are wrong, only timed. "The lengths" writes every length
+# as 0; "the table stores" writes no row and keeps a checksum of it live.
+LZ77_DESIGNS = {
+    "a thread a sorted index": (
+        ("hash4_kernel", "digit_hist_kernel", "exclusive_scan_kernel", "digit_scatter_kernel", "chain_kernel"),
+        "chain_kernel",
+        {"the lengths": [("        lens[row * k + kk] = match_len(d, n, p, c, kMaxMatch);",
+                          "        lens[row * k + kk] = 0;")],
+         "the table stores": [("""      for (; kk < k && i - 1 - kk >= 0 && skey[i - 1 - kk] == key; kk++) {
+        const int32_t c = spos[i - 1 - kk];
+        cand[row * k + kk] = c;
+        lens[row * k + kk] = match_len(d, n, p, c, kMaxMatch);
+      }
+    }
+    for (; kk < k; kk++) {
+      cand[row * k + kk] = -1;
+      lens[row * k + kk] = 0;
+    }
+""", """      int32_t live = 0;
+      for (; kk < k && i - 1 - kk >= 0 && skey[i - 1 - kk] == key; kk++) {
+        const int32_t c = spos[i - 1 - kk];
+        live += c ^ match_len(d, n, p, c, kMaxMatch);
+      }
+      if (live == 0x7fffffff) cand[row * k] = live;
+    }
+""")]}),
+    "lane groups": (
+        LZ77_KERNELS, "chain_rows_kernel",
+        {"the lengths": [(
+            "          len = cand_len(d, n, p, c, s_win[at - lo], s_win[i - lo], s_run[at - lo], s_run[i - lo]);",
+            "          len = 0;")],
+         "the runs and windows (lengths from global memory)": [(
+             "          len = cand_len(d, n, p, c, s_win[at - lo], s_win[i - lo], s_run[at - lo], s_run[i - lo]);",
+             "          len = chain_len(d, n, p, c, kMaxMatch);")],
+         "the table stores": [
+             ("  const int lane = threadIdx.x & (group - 1);",
+              "  int32_t live = 0;\n  const int lane = threadIdx.x & (group - 1);"),
+             ("      __stcs(crow + j, c);\n      __stcs(lrow + j, len);", "      live += c ^ len;"),
+             ("  if (blockIdx.x == gridDim.x - 1)\n", "  if (live == 0x7fffffff) cand[0] = live;\n"
+                                                    "  if (blockIdx.x == gridDim.x - 1)\n")]}),
+}
+
+
+def lz77_design(text: str):
+    """The name of the first of ``LZ77_DESIGNS`` whose edits all match the
+    source ``text``, or None."""
+    return next((name for name, (_, _, parts) in LZ77_DESIGNS.items()
+                 if all(old in text for edits in parts.values() for old, _ in edits)), None)
+
+
+def lz77_parts(card: str, roots) -> int:
+    """Where ``chain_candidates``' time goes: for the csrc/lz77.cu of each
+    checkout in ``roots`` (this one where none is named), its launch (the C
+    function, k = 16) at one of (e)'s streams and at 16 MiB of values 0-3:
+    the profiler's device time of each of its kernels as it is, and of its
+    rows' kernel without each part of ``LZ77_DESIGNS`` (all built at once);
+    first, each input's candidates, those of length 16 or more and of 258,
+    and its share of zero bytes.
+    The launch as it is must equal the wrapper's result, which phase 2 holds
+    to the plain version. Exit code 1 on a difference or a failed launch."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.compress.deflate import LZ77_ASSIST_STEPS
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops import lz77_assist as lz
+
+    dev, k = torch.device("cuda"), LZ77_ASSIST_STEPS
+    kernels.load()
+    streams = png_max_streams(dev, corpus_batch())
+    inputs = {"(e) stream 0": torch.from_numpy(np.ascontiguousarray(streams[0]).reshape(-1).copy()).to(dev),
+              "16 MiB of values 0-3": torch.from_numpy(
+                  np.random.default_rng(31).integers(0, 4, 1 << 24, dtype=np.uint8)).to(dev)}
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    stream = torch.cuda.current_stream().cuda_stream
+    fmt = lambda t: "not measured" if t is None else f"{t:.4f} ms"  # noqa: E731
+    for at, t in inputs.items():  # what the lengths face
+        cand, lens = lz.chain_candidates(t, k=k)
+        print(f"lz77 parts {at}: {int((cand >= 0).sum())} candidates, {int((lens >= 16).sum())} of length 16 "
+              f"or more, {int((lens == 258).sum())} of 258; zero bytes {float((t == 0).float().mean()):.1%} [{card}]")
+        del cand, lens
+    for idx, root in enumerate(roots or [os.path.dirname(os.path.abspath(__file__))]):
+        source = os.path.join(os.path.abspath(root), "pixo_tpu_torch", "csrc", "lz77.cu")
+        design = lz77_design(open(source).read())
+        if design is None:
+            print(f"lz77 parts: {source} is of no design that LZ77_DESIGNS knows", file=sys.stderr)
+            return 1
+        names, rows, parts = LZ77_DESIGNS[design]
+        libs = variant_libs(source, parts, f"lz77_part_{idx}")
+        for at, t in inputs.items():
+            want = lz.chain_candidates(t, k=k)
+            n = t.numel()
+            times, split = {}, {}
+            for name, path in libs.items():
+                lib = ctypes.CDLL(path)
+                lib.pixo_chain_workspace.restype = i64
+                lib.pixo_chain_workspace.argtypes = [i64]
+                lib.pixo_chain_candidates.restype = ctypes.c_int
+                lib.pixo_chain_candidates.argtypes = [vp, i64, i32, vp, vp, vp, vp]
+                cand = torch.empty((n, k), dtype=torch.int32, device=dev)
+                lens = torch.empty_like(cand)
+                work = torch.empty(lib.pixo_chain_workspace(n), dtype=torch.int32, device=dev)
+
+                def alone(lib=lib, cand=cand, lens=lens, work=work):
+                    return lib.pixo_chain_candidates(t.data_ptr(), n, k, work.data_ptr(), cand.data_ptr(),
+                                                     lens.data_ptr(), stream)
+
+                rc = alone()
+                if rc:
+                    err = kernels.load().pixo_cuda_error_string(rc).decode()
+                    print(f"lz77 parts: {at} of {root}, the launch without {name!r} failed: {err}",
+                          file=sys.stderr)
+                    return 1
+                if name == "as it is":
+                    torch.cuda.synchronize()
+                    if not (torch.equal(cand, want[0]) and torch.equal(lens, want[1])):
+                        print(f"lz77 parts: {at} of {root} differs from the wrapper's result", file=sys.stderr)
+                        return 1
+                    split = {kn: profiler_ms(alone, kn) for kn in names}
+                    split["the call"] = profiler_ms(alone, names)
+                times[name] = profiler_ms(alone, rows)
+                del cand, lens, work
+                torch.cuda.empty_cache()
+            bound, by = kernel_bound("chain_candidates", n=n, k=k)
+            base = times.pop("as it is")
+            print(f"lz77 parts {at} ({n} B, k={k}) of {root}, the {design} design: bound {bound:.4f} ms ({by}); "
+                  "as it is, by kernel (profiler, ms a call): "
+                  + ", ".join(f"{kn} {fmt(ms)}" for kn, ms in split.items()) + f" [{card}]")
+            print(f"lz77 parts {at} of {root}: the rows' kernel {rows} as it is {fmt(base)}; without "
+                  + "; ".join(f"{p} {fmt(ms)}" for p, ms in times.items()) + f" [{card}]")
+            del want
+            torch.cuda.empty_cache()
+    return 0
+
+
 def _resize_lib(path: str):
     import ctypes
 
@@ -5322,7 +5607,7 @@ def main() -> int:
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
                          ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--count-parts"],
-                         ["--pack-workers"]):
+                         ["--lz77-parts"], ["--pack-workers"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -5333,6 +5618,8 @@ def main() -> int:
             return trellis_parts(card, sys.argv[2:])
         if sys.argv[1] == "--count-parts":
             return count_parts(card, sys.argv[2:])
+        if sys.argv[1] == "--lz77-parts":
+            return lz77_parts(card, sys.argv[2:])
         if sys.argv[1:3] == ["--coeffs-parts", "dct_zz"]:
             return dct_zz_parts(card, sys.argv[3:])
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,

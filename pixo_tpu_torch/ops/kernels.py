@@ -183,10 +183,10 @@ def load():
             lib.pixo_chain_workspace.argtypes = [i64]
             lib.pixo_chain_candidates.restype = ctypes.c_int
             lib.pixo_chain_candidates.argtypes = [vp, i64, i32, vp, vp, vp, vp]
-            lib.pixo_adler32_scratch_words.restype = i64
-            lib.pixo_adler32_scratch_words.argtypes = [i64]
+            lib.pixo_adler32_ctas_per_sm.restype = ctypes.c_int
+            lib.pixo_adler32_ctas_per_sm.argtypes = []
             lib.pixo_adler32.restype = ctypes.c_int
-            lib.pixo_adler32.argtypes = [vp, i64, ctypes.c_uint32, vp, vp]
+            lib.pixo_adler32.argtypes = [vp, i64, ctypes.c_uint32, i64, i64, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib

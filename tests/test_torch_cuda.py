@@ -20,6 +20,7 @@ from chip_smoke import (
     COUNT_PATTERNS,
     TRELLIS_PATTERNS,
     aan_cases,
+    adler_boundary_sizes,
     at_offset,
     check_dither_repeats,
     coeff_edge_cases,
@@ -1134,6 +1135,48 @@ def test_adler32_kernel_equals_zlib(dev, n):
     for start in ADLER_STARTS:
         got = checksums.adler32_device(t, start)
         assert got == checksums.adler32_plain(t, start) == zlib.adler32(data.tobytes(), start)
+
+
+def test_adler32_kernel_at_the_plans_grid_boundary(dev):
+    """Where ``adler32_plan`` turns from 4096-byte shares to a grid of the
+    card's CTA slots (a byte either side), and 16 MiB + 17 bytes on that
+    grid: against zlib from every start value."""
+    import zlib
+
+    for n in adler_boundary_sizes(checksums._adler_slots(dev)):
+        data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8)
+        data[::3] = 255
+        t = _on(dev, data)
+        for start in ADLER_STARTS:
+            assert checksums.adler32_device(t, start) == zlib.adler32(data.tobytes(), start), n
+
+
+def test_chain_candidates_and_adler32_concurrent_calls(dev):
+    """Eight threads call ``chain_candidates`` and ``adler32_device`` at
+    once, each on an input of its own and a stream of its own (the kernels
+    overlap), three times over: each result equals the plain version (a
+    flag or ticket that calls shared would mix them)."""
+    import concurrent.futures
+    import zlib
+
+    rng = np.random.default_rng(43)
+    inputs = [rng.integers(0, 4 + 36 * i, 40_000 + 4099 * i, dtype=np.uint8) for i in range(8)]
+    on = [_on(dev, d) for d in inputs]
+    want = [lz77_assist.chain_candidates_plain(t, 16) for t in on]
+    sums = [zlib.adler32(d.tobytes(), 7 + i) for i, d in enumerate(inputs)]
+    streams = [torch.cuda.Stream() for _ in range(8)]
+    torch.cuda.synchronize()
+
+    def both(i):
+        with torch.cuda.stream(streams[i]):
+            cand, lens = lz77_assist.chain_candidates(on[i], k=16)
+            got = checksums.adler32_device(on[i], 7 + i)
+        streams[i].synchronize()
+        return torch.equal(cand, want[i][0]) and torch.equal(lens, want[i][1]), got == sums[i]
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+        for _ in range(3):
+            assert list(ex.map(both, range(8))) == [(True, True)] * 8
 
 
 def test_lz77_route_on_the_card_equals_the_host_route(dev):

@@ -26,6 +26,7 @@ from pixo_tpu.ops import lz77_assist as jax_lz77
 from pixo_tpu.options import PngOptions as JaxPngOptions
 from pixo_tpu.parallel.pipeline import encode_png_batch_sharded as jax_encode_batch
 
+from chip_smoke import lz77_edge_cases
 from pixo_tpu_torch import ColorType, PngOptions, encode_png_batch_sharded
 from pixo_tpu_torch.compress import deflate
 from pixo_tpu_torch.compress.checksums import adler32_device, adler32_plain
@@ -152,6 +153,22 @@ def test_chain_candidates_equal_jax(name, k):
     assert np.array_equal(lens.numpy(), np.asarray(ref_lens))
 
 
+EDGES = lz77_edge_cases(np.random.default_rng(20))
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("name", list(EDGES))
+def test_chain_candidates_at_the_kernels_tile_edges_equal_jax(name, k):
+    """``chip_smoke.lz77_edge_cases``: a bucket across the rows' tiles,
+    buckets of k and k + 1, zero runs ending at and near the end, runs of
+    one byte, n at a multiple of the rows' tile and a byte either side."""
+    data = EDGES[name]
+    cand, lens = lz77_assist.chain_candidates(_t(data), k=k)
+    ref_cand, ref_lens = jax_lz77.chain_candidates(jnp.asarray(data), k=k)
+    assert np.array_equal(cand.numpy(), np.asarray(ref_cand))
+    assert np.array_equal(lens.numpy(), np.asarray(ref_lens))
+
+
 @pytest.mark.parametrize("n", range(6))
 def test_chain_candidates_of_tiny_inputs(n):
     for data in (np.zeros(n, np.uint8), np.arange(n, dtype=np.uint8)):
@@ -222,7 +239,7 @@ def test_launch_count_exact_under_threads():
 
 # ---------------------------------------------------------------- Adler-32
 
-ADLER_SIZES = [0, 1, 2047, 2048, 2049, 5552, 5553, 1 << 24]
+ADLER_SIZES = [0, 1, 15, 16, 17, 2047, 2048, 2049, 4095, 4096, 4097, 5552, 5553, 8207, 1 << 24]
 
 
 @pytest.mark.parametrize("start", [1, 0x12345678])
