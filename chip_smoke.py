@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes
-(lossless, the max preset among them, and lossy), its batched JPEG decode
-and its thumbnail pipeline.
+(lossless, the max preset among them, and lossy), its batched JPEG decode,
+its thumbnail pipeline, its JPEG streams, its compression service and its
+command line.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -162,7 +163,23 @@ printing its own lines:
    and (q3) for correctness: both without dithering, RGBA batches with
    graded alpha (the dither's direct redmean, tRNS), and an AUTO batch with
    a declined, an exact-mapped and two quantized images; every file is held
-   against the per-image ``png.encode`` (host quantization);
+   against the per-image ``png.encode`` (host quantization). Then the
+   JPEG streams (``check_stream_path``): ``encode_jpeg_stream`` and
+   ``encode_jpeg_stream_overlapped`` on 8 batches of the main path's
+   gradients (``stream_batches``), every file held to the host encode,
+   with one ``coeffs`` and one ``compact`` launch a batch; 4 batches at the
+   balanced preset (one ``count_symbols`` a batch, every file held to the
+   host tier); a noise batch in mid-stream whose cap escalates on the copy
+   thread; and a mesh of every visible card. Then the CLI (``check_cli``):
+   ``cli.main`` on a JPEG -> PNG transcode and a PNG -> JPEG one with
+   ``--resize`` and ``--grayscale``, the card's bytes equal to ``--device
+   cpu``'s, with the card run's launches. Then the service
+   (``check_service``): ``CompressService(workers=2)`` on the card and with
+   ``device="cpu"``, 32 mixed requests each (``service_requests``: JPEG,
+   balanced PNG, Lanczos3 and the playground's job), every result of the
+   card's equal to the CPU's, a worker's launches probed, with the
+   requests/s of both; then on the card a request past its deadline, a
+   cancelled one and a crash whose respawned workers serve again;
 4. median timings over warm runs: each kernel four ways (``time_kernel``:
    the profiler's device time, the launch alone, the wrapper call and the
    plain version; the AAN contract also its yardstick, one ``torch.matmul``
@@ -213,7 +230,12 @@ printing its own lines:
    the lossy stages (host histograms and median cut, the device stage, the
    copies back, the indexed encode and DEFLATE, the whole call; median,
    least and most of 3 warm runs) beside the per-image host ``png.encode``
-   on 8 threads.
+   on 8 threads; and for the streams (``time_stream``) the batch entry's
+   time a batch beside each stream's wall clock and each batch's time, the
+   overlapped form's stage busy sums (``stats``) against its wall clock,
+   and the card's busy time in a traced run; a JSON line of these, of the
+   service's requests/s and of the CLI's launches precedes the kernels'
+   record.
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -1323,7 +1345,8 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     from pixo_tpu_torch.ops.blockify import scan_layout
     from pixo_tpu_torch.ops.dct import dct8x8_aan as dct_plain
     from pixo_tpu_torch.ops.sparse_pack import sparsify_blocks_padded_batch
-    from pixo_tpu_torch.parallel.pipeline import _fetch_compacted, _pack_hosted, jpeg_coeffs_sharded
+    from pixo_tpu_torch.parallel.pipeline import (_fetch_compacted, _pack_hosted, _to_device,
+                                                  jpeg_coeffs_sharded)
 
     b, size = grad.shape[0], grad.shape[1]
     shape = f"{b}x{size}x{size}"
@@ -1359,7 +1382,10 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     compacted = kernels.compact_padded(zz, 8)
     state = _fetch_compacted(zz, compacted)
     stages = {
-        "h2d": wall_ms(lambda: torch.from_numpy(grad).to(dev)),
+        # the path's copy up (pinned staging, parallel/pipeline.py::_to_device)
+        # beside a pageable .to() of the same batch, as the path made it before
+        "h2d": wall_ms(lambda: _to_device(grad, dev)),
+        "h2d_pageable": wall_ms(lambda: torch.from_numpy(grad).to(dev)),
         "device_kernels": wall_ms(
             lambda: kernels.compact_padded(jpeg_coeffs_sharded(grad_dev, opts, device=dev), 8)),
         "device_plain": wall_ms(lambda: sparsify_blocks_padded_batch(
@@ -1424,7 +1450,8 @@ def time_jpeg_routes(dev, grad, corpus, card: str) -> dict:
     from pixo_tpu_torch.jpeg.tables import QuantizationTables
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.ops.huffman_device import count_symbols_plain
-    from pixo_tpu_torch.parallel.pipeline import _fetch_compacted, _pack_hosted, jpeg_coeffs_sharded
+    from pixo_tpu_torch.parallel.pipeline import (_fetch_compacted, _pack_hosted, _to_device,
+                                                  jpeg_coeffs_sharded)
 
     b, size = grad.shape[0], grad.shape[1]
     shape = f"{b}x{size}x{size}"
@@ -1458,7 +1485,7 @@ def time_jpeg_routes(dev, grad, corpus, card: str) -> dict:
         return kernels.count_symbols(z, pattern), kernels.compact_padded(z, 8)
 
     stages = {
-        "balanced_h2d": wall_ms(lambda: torch.from_numpy(grad).to(dev)),
+        "balanced_h2d": wall_ms(lambda: _to_device(grad, dev)),
         "balanced_device": wall_ms(device_stage),
         "balanced_d2h": wall_ms(lambda: (_fetch_compacted(zz, compacted), [h.cpu() for h in counts])),
         "balanced_host_tables": wall_ms(tables_on_pool),
@@ -1730,6 +1757,7 @@ def time_trellis(dev, cells, card: str) -> dict:
     from pixo_tpu_torch.jpeg.tables import QuantizationTables
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.ops.trellis_device import trellis_quantize_batch_plain
+    from pixo_tpu_torch.parallel.pipeline import _to_device
 
     opts = max_options()
     quant = QuantizationTables(QUALITY)
@@ -1764,7 +1792,7 @@ def time_trellis(dev, cells, card: str) -> dict:
                     zz[i], None, opts, quant, pattern, n), range(b)))
 
         stages = {
-            "max_h2d": wall_stats(lambda: torch.from_numpy(imgs).to(dev)),
+            "max_h2d": wall_stats(lambda: _to_device(imgs, dev)),
             "max_dct_zz": wall_stats(lambda: kernels.dct_zz(imgs_dev, "420")),
             "max_trellis": wall_stats(lambda: kernels.trellis_quantize(dct, lum, chrom, pattern)),
             "max_d2h": wall_stats(lambda: zz_dev.cpu()),
@@ -2193,7 +2221,7 @@ def time_png(dev, corpus, grad, card: str) -> dict:
 
     from pixo_tpu_torch import encode_png_batch_sharded
     from pixo_tpu_torch.ops import kernels, png_filters
-    from pixo_tpu_torch.parallel.pipeline import png_frame
+    from pixo_tpu_torch.parallel.pipeline import _to_device, png_frame
 
     k_ms = {}
     for key, (label, opts, imgs) in png_cases(corpus, grad).items():
@@ -2227,7 +2255,7 @@ def time_png(dev, corpus, grad, card: str) -> dict:
                 return list(ex.map(lambda f: png_frame(f, ct, opts), filtered))
 
         stages = {
-            "png_h2d": wall_ms(lambda: torch.from_numpy(imgs).to(dev)),
+            "png_h2d": wall_ms(lambda: _to_device(imgs, dev)),
             "png_device": wall_ms(lambda: png_device_stage(px, opts, kernels.filter_rows)),
             "png_device_plain": wall_ms(
                 lambda: png_device_stage(px, opts, png_filters.filter_rows_plain)),
@@ -4026,6 +4054,351 @@ def time_lossy(dev, corpus, grad, card: str) -> dict:
     return k_ms
 
 
+STREAM_BATCHES = 8  # the stream's batches of the main path's 16x512x512 gradients
+STREAM_RUNS = 3  # warm runs of each stream timed
+
+
+def stream_batches(grad, n: int = STREAM_BATCHES) -> list:
+    """``n`` batches of the main path's gradient batch, batch i rolled by 3i
+    columns more (so no two batches are equal)."""
+    import numpy as np
+
+    return [np.ascontiguousarray(np.roll(grad, 3 * i, axis=2)) for i in range(n)]
+
+
+def check_stream_path(dev, grad) -> dict:
+    """Phase 3, the streams: ``encode_jpeg_stream`` and
+    ``encode_jpeg_stream_overlapped`` on ``stream_batches`` at q85 4:2:0,
+    every file held to ``_host_reference``, with the launches of each run
+    (``coeffs`` and ``compact`` one a batch); then 4 batches at the balanced
+    preset (every file held to ``host_tier``, ``count_symbols`` one a
+    batch), a noise batch in mid-stream that escalates the cap (one more
+    ``compact``, on the copy thread), and a mesh of every visible card (the
+    batch entry and the overlapped stream). Returns the launches of the
+    overlapped stream's run on the 8 batches, with ``count_symbols``' of
+    the balanced run."""
+    import numpy as np
+
+    from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.parallel import encode_jpeg_stream, encode_jpeg_stream_overlapped, make_mesh
+
+    size = grad.shape[1]
+    opts = JpegOptions(width=size, height=size, quality=QUALITY, subsampling=Subsampling.S420)
+    batches = stream_batches(grad)
+    want = [_host_reference(b, opts) for b in batches]
+    n = len(batches) * len(grad)
+    launches = {}
+    for name, stream in (("stream", encode_jpeg_stream), ("overlapped", encode_jpeg_stream_overlapped)):
+        reset_counts()
+        got = list(stream(batches, opts, device=dev))
+        launches = {"coeffs": kernels.coeffs.launches, "compact": kernels.compact_padded.launches}
+        same = sum(a == b for g, w in zip(got, want) for a, b in zip(g, w))
+        _verdict(f"stream {name} {len(batches)}x{grad.shape[0]}x{size}x{size} q{QUALITY} 4:2:0: {same}/{n} "
+                 f"files byte-equal to the host encode, in order; launches {launches}",
+                 same == n and [len(g) for g in got] == [len(b) for b in batches]
+                 and launches == {"coeffs": len(batches), "compact": len(batches)})
+
+    bopts = balanced_options()
+    reset_counts()
+    got = list(encode_jpeg_stream_overlapped(batches[:4], bopts, device=dev))
+    launches["count_symbols"] = kernels.count_symbols.launches
+    same = sum(a == b for g, imgs in zip(got, batches[:4]) for a, b in zip(g, host_tier(imgs, bopts)))
+    _verdict(f"stream overlapped, balanced preset, 4 batches: {same}/{4 * len(grad)} files byte-equal "
+             f"to the host tier; count_symbols launches {launches['count_symbols']}",
+             same == 4 * len(grad) and launches["count_symbols"] == 4)
+
+    rng = np.random.default_rng(3)
+    base = grad[:4].astype(np.float64)
+    light = (base + rng.normal(0, 4, base.shape)).clip(0, 255).astype(np.uint8)
+    mixed = [grad[:4], light, grad[4:8]]
+    reset_counts()
+    got = list(encode_jpeg_stream_overlapped(mixed, opts, device=dev))
+    same = sum(a == b for g, imgs in zip(got, mixed) for a, b in zip(g, _host_reference(imgs, opts)))
+    escalated = kernels.compact_padded.launches
+    _verdict(f"stream overlapped with a noise batch in mid-stream: {same}/12 files byte-equal to the "
+             f"host encode; compact launches {escalated} (3 batches, one escalated on the copy thread)",
+             same == 12 and escalated == 4)
+
+    mesh = make_mesh(device="cuda")
+    flat = [f for w in want[:2] for f in w]
+    got_batch = encode_jpeg_batch_sharded(np.concatenate(batches[:2]), opts, mesh=mesh)
+    got_stream = list(encode_jpeg_stream_overlapped(batches[:2], opts, mesh=mesh))
+    _verdict(f"mesh of {mesh.size} visible card(s) {[str(d) for d in mesh.devices]}: the batch entry "
+             f"on 32 images and the overlapped stream on 2 batches give the host encode's files",
+             got_batch == flat and got_stream == want[:2])
+    return launches
+
+
+def _busy(intervals) -> float:
+    return sum(b - a for a, b in intervals)
+
+
+def _union(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def _overlap(xs, ys) -> float:
+    """Total length of the pairwise intersections of two interval lists."""
+    return sum(max(0.0, min(b, d) - max(a, c)) for a, b in xs for c, d in ys)
+
+
+def device_busy_ms(fn):
+    """(wall ms of one call of ``fn``, ms in which the card ran a kernel or a
+    copy: the union of the CUDA events of ``torch.profiler``'s trace of it)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return wall, _union(spans) / 1e3 if spans else None
+
+
+def time_stream(dev, grad, card: str) -> dict:
+    """Phase 4, the streams on ``stream_batches``: the batch entry's time a
+    batch (median, least and most of 5 warm runs), then ``STREAM_RUNS`` warm
+    runs of each stream: its wall clock, each batch's time (between
+    consecutive yields, the first from the call), and for the overlapped
+    form the stages' busy sums (``stats``: the copy stage, which waits on
+    the card and copies back, and the pack stage), their overlap, and the
+    card's busy time in one traced run. Returns the numbers printed."""
+    from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
+    from pixo_tpu_torch.parallel import encode_jpeg_stream, encode_jpeg_stream_overlapped
+
+    size = grad.shape[1]
+    opts = JpegOptions(width=size, height=size, quality=QUALITY, subsampling=Subsampling.S420)
+    batches = stream_batches(grad)
+    res = {}
+    batch_ms = wall_stats(lambda: encode_jpeg_batch_sharded(batches[0], opts, device=dev))
+    res["batch_ms"] = batch_ms
+    print(f"stage stream_batch_entry: {batch_ms[0]:.4f} ms a batch of {len(grad)} (least "
+          f"{batch_ms[1]:.4f}, most {batch_ms[2]:.4f}; encode_jpeg_batch_sharded, 5 warm runs) [{card}]")
+    for name, stream in (("stream", encode_jpeg_stream), ("overlapped", encode_jpeg_stream_overlapped)):
+        list(stream(batches[:2], opts, device=dev))  # warm
+        walls, per_batch, stage = [], [], []
+        for _ in range(STREAM_RUNS):
+            stats = {} if name == "overlapped" else None
+            kw = {"stats": stats} if stats is not None else {}
+            marks = [time.perf_counter()]
+            for _files in stream(batches, opts, device=dev, **kw):
+                marks.append(time.perf_counter())
+            walls.append((marks[-1] - marks[0]) * 1e3)
+            per_batch.append([(b - a) * 1e3 for a, b in zip(marks, marks[1:])])
+            if stats is not None:
+                copy, pack = stats["copy_iv"], stats["pack_iv"]
+                stage.append((_busy(copy) * 1e3, _busy(pack) * 1e3, _overlap(copy, pack) * 1e3))
+        k = walls.index(_median(walls))
+        res[name] = {"wall_ms": walls[k], "per_batch_ms": per_batch[k]}
+        print(f"stage stream_{name}: {walls[k]:.4f} ms for {len(batches)} batches of {len(grad)} "
+              f"(median of {STREAM_RUNS}: {sorted(walls)}), {walls[k] / len(batches):.4f} ms a batch "
+              f"against the batch entry's {batch_ms[0]:.4f}; each batch "
+              f"{[round(t, 4) for t in per_batch[k]]} [{card}]")
+        if stage:
+            c, p, o = stage[k]
+            res[name].update(copy_busy_ms=c, pack_busy_ms=p, overlap_ms=o)
+            print(f"stage stream_overlapped_stages: copy busy {c:.4f} ms, pack busy {p:.4f} ms, "
+                  f"sum {c + p:.4f} ms = {(c + p) / walls[k]:.1%} of the wall clock {walls[k]:.4f} ms; "
+                  f"copy and pack in flight together {o:.4f} ms [{card}]")
+    wall, busy = device_busy_ms(lambda: list(encode_jpeg_stream_overlapped(batches, opts, device=dev)))
+    res["traced"] = {"wall_ms": wall, "device_busy_ms": busy}
+    share = "not measured" if busy is None else f"{busy:.4f} ms, {busy / wall:.1%}"
+    print(f"stage stream_overlapped_traced: wall {wall:.4f} ms under the profiler, the card busy "
+          f"(a kernel or a copy) {share} [{card}]")
+    return res
+
+
+SERVICE_REQUESTS = 32
+
+
+def worker_kernel_launches() -> dict:
+    """The kernel launches counted in the worker that runs this (a
+    ``submit_raw`` probe)."""
+    from pixo_tpu_torch.ops import kernels
+
+    return {name: getattr(kernels, name).launches
+            for name in ("coeffs", "compact_padded", "idct_planes", "resize_lanczos3")}
+
+
+def service_requests(grad, corpus) -> list:
+    """The service phase's 32 mixed requests, 8 of each kind: (kind, args),
+    kind one of ``jpeg`` (q85 4:2:0 512x512 gradients), ``png`` (the
+    balanced preset on PNG (a)'s photos), ``resize`` (Lanczos3 512 -> 128)
+    and ``job`` (``compress_bytes`` of a 512x512 JPEG to a 128x128 JPEG)."""
+    from pixo_tpu_torch import ColorType, JpegOptions, PngOptions, Subsampling, jpeg
+    from pixo_tpu_torch.options import ResizeFilter, ResizeOptions
+
+    size = grad.shape[1]
+    jopts = JpegOptions(width=size, height=size, quality=QUALITY, subsampling=Subsampling.S420)
+    popts = PngOptions.balanced(size, size).replace(color_type=ColorType.RGB)
+    ropts = ResizeOptions(src_width=size, src_height=size, dst_width=THUMB, dst_height=THUMB,
+                          color_type=ColorType.RGB, filter=ResizeFilter.LANCZOS3)
+    files = [jpeg.encode(im, jopts.replace(quality=90), device="cpu") for im in corpus[:8]]
+    params = {"name": "photo.jpg", "rw": str(THUMB), "rh": str(THUMB), "quality": str(QUALITY)}
+    reqs = []
+    for i in range(SERVICE_REQUESTS // 4):
+        reqs += [("jpeg", (grad[i], jopts)), ("png", (corpus[i], popts)),
+                 ("resize", (corpus[8 + i], ropts)), ("job", (files[i], params))]
+    return reqs
+
+
+def run_service(device: str, reqs) -> tuple:
+    """The requests ``reqs`` through ``CompressService(workers=2, device=...)``
+    after one warm request of each kind on each worker: (results, requests/s
+    of the 32, the worker launches of one probe)."""
+    import functools
+
+    from pixo_tpu_torch.parallel import CompressService
+    from pixo_tpu_torch.playground import compress_bytes
+
+    job = functools.partial(compress_bytes, device=device)
+
+    def submit(svc, kind, args):
+        if kind == "job":
+            return svc.submit_raw(job, *args)
+        return {"jpeg": svc.submit_jpeg, "png": svc.submit_png, "resize": svc.submit_resize}[kind](*args)
+
+    with CompressService(workers=2, device=device) as svc:
+        warm = [submit(svc, kind, args) for kind, args in reqs[:4] * 2]
+        for r in warm:
+            r.result()
+        t0 = time.perf_counter()
+        handles = [submit(svc, kind, args) for kind, args in reqs]
+        results = [h.result() for h in handles]
+        rps = len(reqs) / (time.perf_counter() - t0)
+        probe = svc.submit_raw(worker_kernel_launches).result()
+    return [r[0] if kind == "job" else r for (kind, _), r in zip(reqs, results)], rps, probe
+
+
+def check_service(dev, grad, corpus, card: str) -> dict:
+    """Phase 3, the service: ``CompressService(workers=2)`` on the card with
+    ``service_requests``' 32 mixed requests, each result equal to the same
+    request on ``device="cpu"`` workers, with the requests/s of both; then on
+    the card a request past its deadline, a cancelled one and a crash whose
+    respawned workers serve a JPEG on the card again. Returns the
+    requests/s."""
+    import os as _os
+
+    import numpy as np
+
+    from pixo_tpu_torch.parallel import (
+        CompressService,
+        RequestCancelled,
+        RequestTimeout,
+        WorkerCrashed,
+    )
+
+    reqs = service_requests(grad, corpus)
+    on_card, card_rps, probe = run_service("cuda", reqs)
+    on_cpu, cpu_rps, cpu_probe = run_service("cpu", reqs)
+    same = sum(bool(np.array_equal(a, b)) if isinstance(a, np.ndarray) else a == b
+               for a, b in zip(on_card, on_cpu))
+    print(f"stage service_requests_per_s: {card_rps:.2f} on the card, {cpu_rps:.2f} with device=cpu "
+          f"(workers=2, {len(reqs)} mixed requests after a warm request of each kind) [{card}]")
+    _verdict(f"service on the card: {same}/{len(reqs)} results equal to device=cpu workers' "
+             f"(8 each of JPEG q85 4:2:0 512x512, balanced PNG, Lanczos3 512 -> {THUMB}, "
+             f"compress_bytes of a JPEG with a resize); a card worker's launches after its share "
+             f"{probe}, a CPU worker's {cpu_probe}",
+             same == len(reqs) and sum(probe.values()) > 0 and sum(cpu_probe.values()) == 0)
+
+    with CompressService(workers=2, timeout_s=120.0, device="cuda") as svc:
+        jpeg_kind, jpeg_args = reqs[0]
+        first = svc.submit_jpeg(*jpeg_args).result()
+        late = svc.submit_raw(time.sleep, 3.0, timeout=0.3)
+        try:
+            late.result()
+            timed_out = False
+        except RequestTimeout:
+            timed_out = True
+        # two workers, each with a task and one more queued ahead: the fifth
+        # request waits in the service's own queue
+        blockers = [svc.submit_raw(time.sleep, 0.5) for _ in range(4)]
+        queued = svc.submit_raw(time.sleep, 0.1)
+        cancelled = svc.cancel(queued)
+        try:
+            queued.result(timeout=5.0)
+            rejected = False
+        except (RequestCancelled, RequestTimeout):
+            rejected = True
+        for b in blockers:
+            b.result()
+        doomed = svc.submit_raw(_os._exit, 17)
+        try:
+            doomed.result(timeout=60.0)
+            crashed = False
+        except WorkerCrashed:
+            crashed = True
+        again = svc.submit_jpeg(*jpeg_args).result(timeout=120.0)
+        respawned = svc.submit_raw(worker_kernel_launches).result(timeout=120.0)
+    _verdict(f"service contract on the card: a request past its 0.3 s deadline raises "
+             f"RequestTimeout ({timed_out}); a queued request cancelled ({cancelled}) is rejected "
+             f"({rejected}); a worker's exit raises WorkerCrashed ({crashed}) and the respawned "
+             f"pool serves the JPEG again, byte-equal ({again == first}); a respawned worker's "
+             f"launches {respawned}",
+             timed_out and cancelled and rejected and crashed and again == first == on_cpu[0])
+    return {"card_rps": card_rps, "cpu_rps": cpu_rps}
+
+
+def check_cli(dev, corpus) -> dict:
+    """Phase 3, the CLI: ``cli.main`` with ``--device cuda`` (the default)
+    and ``--device cpu`` on a JPEG -> PNG transcode and on a PNG -> JPEG
+    one with ``--resize`` and ``--grayscale``, the two outputs byte-equal,
+    with the launches of the card's run (``idct_planes`` for the JPEG
+    input; ``resize_lanczos3``, ``coeffs`` and ``compact`` for the JPEG
+    output). Returns the launches of each card run."""
+    import tempfile
+
+    from pixo_tpu_torch import JpegOptions, Subsampling, cli, jpeg
+    from pixo_tpu_torch.ops import kernels
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    size = corpus.shape[1]
+    photo = jpeg.encode(corpus[0], JpegOptions(width=size, height=size, quality=90,
+                                               subsampling=Subsampling.S420), device="cpu")
+    cases = {
+        "jpeg to png": ("in.jpg", photo, [], "out.png", ("idct_planes",)),
+        "png to jpeg, --resize 256x192 --grayscale": (
+            "in.png", _read(os.path.join(here, "tests", "fixtures", f"corpus_{CORPUS[1]}_512.png")),
+            ["--resize", "256x192", "--grayscale", "-q", "80"], "out.jpg",
+            ("resize_lanczos3", "coeffs", "compact")),
+    }
+    wrappers = {"idct_planes": kernels.idct_planes, "resize_lanczos3": kernels.resize_lanczos3,
+                "coeffs": kernels.coeffs, "compact": kernels.compact_padded}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, (src, data, flags, dst, expect) in cases.items():
+            path = os.path.join(tmp, src)
+            with open(path, "wb") as f:
+                f.write(data)
+            outs = {}
+            for device in ("cuda", "cpu"):
+                reset_counts()
+                rc = cli.main([path, "-o", os.path.join(tmp, f"{device}_{dst}"), "--quiet", *flags,
+                               *(["--device", "cpu"] if device == "cpu" else [])])
+                outs[device] = (rc, _read(os.path.join(tmp, f"{device}_{dst}")))
+                if device == "cuda":
+                    out[label] = {k: fn.launches for k, fn in wrappers.items()}
+            _verdict(f"cli {label}: --device cuda and --device cpu give {len(outs['cuda'][1])} and "
+                     f"{len(outs['cpu'][1])} B, byte-equal; card launches {out[label]}",
+                     outs["cuda"] == outs["cpu"] and outs["cuda"][0] == 0
+                     and all(out[label][k] >= 1 for k in expect))
+    return out
+
+
 def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: int = 8):
     """For ``coeffs`` (in ``mode``) and ``compact`` (at ``cap``) on the batch
     ``imgs_dev``: (the wrapper call, the launch alone). The launch alone
@@ -5682,6 +6055,9 @@ def main() -> int:
         launches.update(check_decode_main_path(dev, cases))
         thumb_launches = check_thumbnail_path(dev, tcases)
         lossy_launches = check_lossy_main_path(dev, corpus, grad)
+        stream_launches = check_stream_path(dev, grad)
+        cli_launches = check_cli(dev, corpus)
+        service_rps = check_service(dev, grad, corpus, card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5693,7 +6069,8 @@ def main() -> int:
                   for k in ("dct_zz", "trellis_quantize") if counts[k] < 1]
                + [f"{k} (png max cell e)" for k, n in max_png_launches.items() if n < 1]
                + (["chain_candidates (png max cell e under PIXO_TPU_LZ77=device)"]
-                  if lz77_launches["chain_candidates"] < 1 else []))
+                  if lz77_launches["chain_candidates"] < 1 else [])
+               + [f"{k} (stream)" for k, n in stream_launches.items() if n < 1])
     if missing:
         print(f"chip_smoke: FAILED: the main path launched no {missing} kernel", file=sys.stderr)
         return 1
@@ -5712,6 +6089,7 @@ def main() -> int:
         k_ms.update(resize_ms)
         k_ms.update(time_lossy(dev, corpus, grad, card))
         print_clocks("after the lossy timings")
+        stream_ms = time_stream(dev, grad, card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5748,6 +6126,7 @@ def main() -> int:
                "dither_fs": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:138"),
                "chain_candidates": ("pixo_tpu_torch/csrc/lz77.cu", "pixo_tpu/ops/lz77_assist.py:85"),
                "adler32": ("pixo_tpu_torch/csrc/adler32.cu", "pixo_tpu/compress/checksums.py:89")}
+    print(json.dumps({"stream": stream_ms, "service": service_rps, "cli_launches": cli_launches}))
     timed = ("at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -5761,7 +6140,8 @@ def main() -> int:
             if name in ("dct_zz", "trellis_quantize") else {}),
          **({"e": {"launches": max_png_launches[name], **{k: k_ms["e"][name][k] for k in timed}}}
             if name in max_png_launches else {}),
-         **({"16 MiB": {k: k_ms[name]["16 MiB"][k] for k in timed}} if "16 MiB" in k_ms[name] else {})}
+         **({"16 MiB": {k: k_ms[name]["16 MiB"][k] for k in timed}} if "16 MiB" in k_ms[name] else {}),
+         **({"stream": {"launches": stream_launches[name]}} if name in stream_launches else {})}
         for name, (src, replaces) in sources.items()
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -15,7 +15,12 @@ optimal DEFLATE among them, Adam7 interlace, 16-bit) and lossy (palette
 quantization with Floyd-Steinberg dithering), the batched baseline and progressive
 JPEG decode, the PNG decode, the resize (nearest, bilinear, Lanczos3) and the
 thumbnail pipeline (decode -> Lanczos3 -> JPEG re-encode, the pixels staying
-on the device from the decode to the compacted streams):
+on the device from the decode to the compacted streams), the JPEG streams
+(``parallel.encode_jpeg_stream`` and its overlapped form, on CUDA streams
+with pinned copies; ``parallel.make_mesh`` for several cards), the
+compression service (``parallel.CompressService``), the command line
+(``python -m pixo_tpu_torch``, ``cli.main``), the flat bindings
+(``bindings``) and the playground's job (``playground.compress_bytes``):
 
     from pixo_tpu_torch import JpegOptions, Subsampling, encode_jpeg_batch_sharded
 
@@ -59,11 +64,20 @@ on the device from the decode to the compacted streams):
     opts = ResizeOptions(src_width=w, src_height=h, dst_width=128, dst_height=128,
                          color_type=ColorType.RGB, filter=ResizeFilter.LANCZOS3)
     small = resize.resize(pixels_u8, opts, device="cuda")  # [128, 128, 3] uint8
+
+    from pixo_tpu_torch.parallel import encode_jpeg_stream_overlapped
+
+    opts = JpegOptions(width=512, height=512, quality=85, subsampling=Subsampling.S420)
+    stats = {}
+    for files in encode_jpeg_stream_overlapped(batches, opts, stats=stats):
+        ...                                                # each batch's files, in order
 """
 
-from . import decode, errors, jpeg, png, resize
-from .color import ColorType, rgb_to_ycbcr
-from .options import (
+__version__ = "0.5.0"  # before the imports: cli.py reads it while the package loads
+
+from . import decode, errors, jpeg, png, resize  # noqa: E402
+from .color import ColorType, rgb_to_ycbcr  # noqa: E402
+from .options import (  # noqa: E402
     FilterStrategy,
     JpegOptions,
     PngOptions,
@@ -73,7 +87,7 @@ from .options import (
     ResizeOptions,
     Subsampling,
 )
-from .parallel import (
+from .parallel import (  # noqa: E402
     decode_jpeg_batch,
     decode_png_batch,
     encode_jpeg_batch_sharded,
@@ -106,4 +120,5 @@ __all__ = [
     "resize",
     "rgb_to_ycbcr",
     "thumbnail_pipeline",
+    "__version__",
 ]

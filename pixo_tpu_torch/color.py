@@ -5,13 +5,15 @@ Counterpart of the JAX package's ``color.py``; behavioral parity with pixo
   - ``ColorType`` enum with bytes/pixel and PNG color-type byte mapping
     (``src/color.rs:9-48``).
   - BT.601 RGB->YCbCr using the same /256 fixed-point arithmetic
-    (``src/color.rs:60-77``) as int32 tensor arithmetic.
+    (``src/color.rs:60-77``) as int32 tensor arithmetic, and its NumPy
+    mirror; the CLI's BT.601 grayscale.
 """
 
 from __future__ import annotations
 
 import enum
 
+import numpy as np
 import torch
 
 
@@ -70,3 +72,22 @@ def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
     cr = ((128 * r - 107 * g - 21 * b + 128) >> 8) + 128
     out = torch.stack([y, cb, cr], dim=-1)
     return out.clamp(0, 255).to(torch.uint8)
+
+
+def rgb_to_ycbcr_np(rgb: np.ndarray) -> np.ndarray:
+    """``rgb_to_ycbcr`` in NumPy over a [..., 3] uint8 array (the scalar
+    path's mirror, as the JAX package's ``color.rgb_to_ycbcr_np``)."""
+    x = rgb.astype(np.int64)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = (77 * r + 150 * g + 29 * b + 128) >> 8
+    cb = ((-43 * r - 85 * g + 128 * b + 128) >> 8) + 128
+    cr = ((128 * r - 107 * g - 21 * b + 128) >> 8) + 128
+    return np.clip(np.stack([y, cb, cr], axis=-1), 0, 255).astype(np.uint8)
+
+
+def to_grayscale_bt601(rgb: np.ndarray) -> np.ndarray:
+    """BT.601 luma of a [..., 3] uint8 array, for the CLI's ``--grayscale``
+    (pixo ``src/bin/pixo.rs:478-502``)."""
+    x = rgb.astype(np.int64)
+    y = (77 * x[..., 0] + 150 * x[..., 1] + 29 * x[..., 2] + 128) >> 8
+    return np.clip(y, 0, 255).astype(np.uint8)

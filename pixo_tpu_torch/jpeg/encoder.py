@@ -100,6 +100,20 @@ def compute_coefficients_host(
                                     quant.chrominance_table)
 
 
+def compute_coefficients(img: np.ndarray, options: JpegOptions, quant: QuantizationTables, *,
+                         device="cuda") -> np.ndarray:
+    """Coefficient pipeline of one [H, W(, 3)] uint8 image: [nblocks, 64]
+    int16 zigzag on the host. On a card the coefficient kernel, as a batch of
+    one; with ``device="cpu"`` the host library's chain
+    (``compute_coefficients_host``). The two are bit-equal."""
+    if _on_cpu(device):
+        return compute_coefficients_host(img, options, quant)
+    x = torch.from_numpy(np.ascontiguousarray(img))[None].to(device)
+    color = "gray" if options.color_type == ColorType.GRAY else "rgb"
+    return _device_coeffs_batch(x, quant.luminance_table, quant.chrominance_table, color=color,
+                                subsampling=options.subsampling.value)[0].cpu().numpy()
+
+
 def zigzag_tables(quant: QuantizationTables):
     """(luminance, chrominance) quantization tables in zigzag order, f32:
     the trellis' tables."""
@@ -281,6 +295,11 @@ def _fused_ok(options: JpegOptions) -> bool:
     need the coefficient array for the counting pass, and progressive ones
     split it into components, so neither fuses."""
     if options.progressive or options.optimize_huffman or options.optimal_huffman:
+        return False
+    if _mode(options) == "422":
+        # the fused call counts 4:2:2's blocks as 4:2:0's (core.cpp:7486-7493)
+        # and fails; the JAX package then packs the two-stage path's
+        # coefficients, and so does this tier
         return False
     from ..native import native_has_fused_encode
 

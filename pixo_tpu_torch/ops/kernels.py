@@ -527,7 +527,7 @@ def compact_padded(zz: torch.Tensor, cap_per_block: int):
                 poss.data_ptr(), vals.data_ptr(), total.data_ptr(), maxcount.data_ptr(), stream,
             )
         _check(lib, rc, "compact")
-        compact_padded.launches += 1
+        count_launch(compact_padded)  # the streams' cap escalation launches from their copy thread
     return outs
 
 

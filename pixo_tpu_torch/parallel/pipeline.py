@@ -1,12 +1,18 @@
-"""Batched JPEG and PNG encode, batched decode and the thumbnail pipeline on
-one device.
+"""Batched JPEG and PNG encode, the JPEG streams, batched decode and the
+thumbnail pipeline.
 
-Counterpart of the JAX package's ``parallel/pipeline.py``, for one device
-named by ``device=`` instead of a mesh:
+Counterpart of the JAX package's ``parallel/pipeline.py``, for the device
+named by ``device=``, or, where a function takes ``mesh=``
+(``parallel/mesh.py``), for each device of the mesh on its contiguous shard
+of the batch (a mesh and an explicit ``device`` together raise):
 
 - ``jpeg_coeffs_sharded``: the whole batch's zigzag coefficients in one
   device call (``jpeg/encoder.py::_device_coeffs_batch``).
-- ``encode_jpeg_batch_sharded``: device coefficients, then by route:
+- ``encode_jpeg_batch_sharded``: three stages, which the streams reuse:
+  ``_device_stage`` (the pixels up through pinned memory, the kernels
+  launched without waiting, an event after the last), ``_fetch`` (the
+  copies back into pinned buffers on a copy stream that waits on that
+  event) and ``_pack_shard`` (host packing on a thread pool). By route:
   - the baseline encode with the standard tables: device compaction
     (``ops/kernels.py::compact_padded``), one copy of the compacted streams
     to the host, and native entropy packing on a thread pool (ctypes
@@ -59,16 +65,23 @@ named by ``device=`` instead of a mesh:
   is the one-device form of the reference's fused thumbnail dispatch
   (``_fused_thumb_jit``).
 
-Every JPEG and PNG encode option is ported. The stream pipelines are not
-(ROADMAP queue 1 item 7).
+- ``encode_jpeg_stream`` and ``encode_jpeg_stream_overlapped``: the batch
+  encode over an iterable of batches, batch i + 1's device stage in flight
+  while batch i is fetched and packed (double-buffered on the calling
+  thread), or each stage on a thread of its own with ``depth`` batches
+  between them and per-stage intervals in ``stats`` (overlapped).
+
+Every JPEG and PNG encode option is ported.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import contextlib
 import functools
 import time
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -82,17 +95,18 @@ from ..decode import jpeg_decoder as jdec
 from ..jpeg import encoder as jenc
 from ..jpeg import markers
 from ..jpeg.tables import HuffmanTables, QuantizationTables
-from ..native import (native_pack_scan, native_pack_scan_batch, native_pack_scan_padded,
-                      native_trellis_quantize)
+from ..native import native_pack_scan, native_pack_scan_padded, native_trellis_quantize
 from ..options import JpegOptions, PngOptions, QuantizationMode
 from ..ops.blockify import scan_layout
-from ..ops.kernels import compact_padded, count_symbols, dct_zz, filter_rows, trellis_quantize
+from ..ops.kernels import (compact_padded, count_symbols, dct_zz, filter_rows, trellis_quantize,
+                           upload_pinned)
 from ..ops.resize_kernels import resize_lanczos3_batch
 from ..ops.reduce_analysis import analyze_png_batch, transform_png_group
 from ..ops.sparse_pack import PADDED_CAP_PER_BLOCK, PADDED_CAP_TIERS
 from ..png import chunks as pchunks
 from ..png import encoder as penc
 from ..png.quantize import quantize_batch
+from .mesh import DEFAULT_DEVICE, Mesh, placement
 
 
 def _color_sub(options: JpegOptions):
@@ -101,26 +115,64 @@ def _color_sub(options: JpegOptions):
 
 
 def _to_device(imgs, device) -> torch.Tensor:
-    if isinstance(imgs, np.ndarray):
-        imgs = torch.from_numpy(np.ascontiguousarray(imgs))
-    return imgs.to(device).contiguous()
+    """``imgs`` (numpy array or tensor) on ``device``, contiguous. From the
+    host to a card the copy goes through pinned memory on the current stream
+    and does not wait (``upload_pinned``); a tensor already on ``device``
+    stays where it is."""
+    dev = torch.device(device)
+    if torch.is_tensor(imgs):
+        if imgs.device.type != "cpu" or dev.type != "cuda":
+            return imgs.to(dev).contiguous()
+        imgs = imgs.numpy()
+    if dev.type != "cuda":
+        return torch.from_numpy(np.ascontiguousarray(imgs)).to(dev)
+    return upload_pinned(imgs, dev)
 
 
-def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda") -> torch.Tensor:
-    """[B, H, W, C] (or [B, H, W] gray) uint8 numpy array or tensor ->
-    [B, nblocks, 64] int16 zigzag coefficients on ``device``."""
-    color, sub = _color_sub(options)
+def _coeffs(x: torch.Tensor, options: JpegOptions) -> torch.Tensor:
+    """[B, nblocks, 64] int16 zigzag coefficients of the batch ``x`` on its
+    device."""
     quant = QuantizationTables(options.quality)
-    return jenc._device_coeffs_batch(
-        _to_device(imgs, device), quant.luminance_table, quant.chrominance_table,
-        color=color, subsampling=sub,
-    )
+    color, sub = _color_sub(options)
+    return jenc._device_coeffs_batch(x, quant.luminance_table, quant.chrominance_table,
+                                     color=color, subsampling=sub)
+
+
+def jpeg_coeffs_sharded(imgs, options: JpegOptions, *, mesh: Optional[Mesh] = None,
+                        device=DEFAULT_DEVICE) -> torch.Tensor:
+    """[B, H, W, C] (or [B, H, W] gray) uint8 numpy array or tensor ->
+    [B, nblocks, 64] int16 zigzag coefficients on ``device``; with ``mesh``,
+    each contiguous shard on its device, gathered on the mesh's first one."""
+    shards = [_coeffs(_to_device(imgs[lo:hi], dev), options)
+              for dev, lo, hi in placement(mesh, device, len(imgs))]
+    if mesh is None:
+        return shards[0]
+    return torch.cat([s.to(mesh.devices[0]) for s in shards])
 
 
 def _use_sparse_fast_path(options: JpegOptions) -> bool:
     """True for the baseline standard-table encode (``trellis_quant`` does
     not change a baseline encode's bytes: its scan never reads the trellis)."""
     return not (options.optimize_huffman or options.optimal_huffman or options.progressive)
+
+
+def _trellis_device(x: torch.Tensor, options: JpegOptions, host_workers: int) -> torch.Tensor:
+    """[B, nblocks, 64] int16 trellis-quantized zigzag coefficients of the
+    batch ``x``, where ``x`` lies: the unquantized DCT in one call, then the
+    trellis of the whole batch once, on a card the trellis kernel, on the CPU
+    the host library's DP on ``host_workers`` threads."""
+    quant = QuantizationTables(options.quality)
+    n_blocks, pattern = jenc._pattern(options)
+    dct = dct_zz(x, jenc._mode(options))
+    b = dct.shape[0]
+    flat = dct.reshape(b * n_blocks, 64)
+    tables = jenc.zigzag_tables(quant)
+    if flat.device.type == "cpu":
+        zz = torch.from_numpy(native_trellis_quantize(flat.numpy(), pattern, *tables,
+                                                      nthreads=host_workers))
+    else:
+        zz = trellis_quantize(flat, *tables, pattern)
+    return zz.reshape(b, n_blocks, 64)
 
 
 def trellis_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda",
@@ -130,25 +182,107 @@ def trellis_coeffs_sharded(imgs, options: JpegOptions, *, device="cuda",
     ``device`` in one call, then the trellis of the whole batch once, where
     the DCT lies: on a card the trellis kernel and one copy of its result;
     on the CPU the host library's DP on ``host_workers`` threads."""
-    quant = QuantizationTables(options.quality)
-    n_blocks, pattern = jenc._pattern(options)
-    dct = dct_zz(_to_device(imgs, device), jenc._mode(options))
-    b = dct.shape[0]
-    flat = dct.reshape(b * n_blocks, 64)
-    tables = jenc.zigzag_tables(quant)
-    if flat.device.type == "cpu":
-        zz = native_trellis_quantize(flat.numpy(), pattern, *tables, nthreads=host_workers)
+    zz = _trellis_device(_to_device(imgs, device), options, host_workers)
+    return _fetch(_Shard(zz, None, None, _recorded(zz)))[0][1]
+
+
+class _Shard(NamedTuple):
+    """One shard of a batch after its device stage (``_device_stage``)."""
+
+    zz: torch.Tensor  # [b, nblocks, 64] int16: the quantized (or trellis) coefficients
+    compacted: Optional[tuple]  # compact_padded's six outputs; None on the progressive routes
+    counts: Optional[tuple]  # count_symbols' (dc, ac) histograms; None for the standard tables
+    done: Optional[torch.cuda.Event]  # recorded after the shard's last launch; None on the CPU
+
+
+def _recorded(t: torch.Tensor) -> Optional[torch.cuda.Event]:
+    """An event recorded now on the current stream of ``t``'s card (the
+    stream the wrappers launched on); None for a tensor off the card."""
+    if t.device.type != "cuda":
+        return None
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return done
+
+
+def _device_stage(imgs, options: JpegOptions, device, host_workers: int) -> _Shard:
+    """The device stage of one shard, by route, launched without waiting:
+    the pixels up, then the standard tables' ``coeffs`` + ``compact``, the
+    optimized or optimal tables' ``coeffs`` + ``count_symbols`` +
+    ``compact``, progressive's ``coeffs`` alone, or the max preset's
+    ``dct_zz`` + ``trellis_quantize``."""
+    x = _to_device(imgs, device)
+    counts = compacted = None
+    if options.progressive:
+        # the progressive pass reads only the trellis' coefficients where it runs
+        zz = _trellis_device(x, options, host_workers) if options.trellis_quant else _coeffs(x, options)
     else:
-        zz = trellis_quantize(flat, *tables, pattern).cpu().numpy()
-    return zz.reshape(b, n_blocks, 64)
+        zz = _coeffs(x, options)
+        if not _use_sparse_fast_path(options):
+            counts = count_symbols(zz, jenc._pattern(options)[1], options.restart_interval)
+        compacted = compact_padded(zz, PADDED_CAP_PER_BLOCK)
+    return _Shard(zz, compacted, counts, _recorded(zz))
+
+
+def _landed(tensors, stream) -> list:
+    """Copies of the card's ``tensors`` into pinned host buffers, made on
+    ``stream`` (which waits for the shard already), then one wait for them
+    all: numpy arrays that share the pinned memory."""
+    host = []
+    for t in tensors:
+        t.record_stream(stream)  # the allocator keeps t until the copy has run
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        host.append(h)
+    stream.synchronize()
+    return [h.numpy() for h in host]
+
+
+def _fetch(shard: _Shard, stream=None):
+    """d2h stage of one shard: (state, hist), ``state`` ("padded", dc,
+    counts, poss, vals) or ("dense", zz) and ``hist`` the (dc, ac)
+    histograms or None, as numpy arrays, for ``_pack_shard``.
+
+    On a card every copy runs on ``stream`` (a copy stream of the shard's
+    card; a new one when None), which first waits on the shard's
+    event, so a later batch's work on the compute stream is not waited for.
+    The maxcount, the four compacted arrays and the histograms go to pinned
+    buffers in one group with one wait. Where a block holds more nonzeros
+    than the cap, the still-resident coefficients are compacted again at the
+    smallest tier that holds the measured maxcount, on ``stream``, and copied
+    again; above the top tier the dense coefficients come back instead."""
+    if shard.done is None:
+        state = (("dense", shard.zz.cpu().numpy()) if shard.compacted is None
+                 else _fetch_compacted(shard.zz, shard.compacted))
+        return state, None if shard.counts is None else tuple(h.cpu().numpy() for h in shard.counts)
+    zz = shard.zz
+    stream = stream or torch.cuda.Stream(zz.device)
+    with torch.cuda.stream(stream):
+        stream.wait_event(shard.done)
+        zz.record_stream(stream)
+        if shard.compacted is None:
+            return ("dense", _landed([zz], stream)[0]), None
+        dc, counts, poss, vals, _total, maxcount = shard.compacted
+        maxc, *arrays = _landed([maxcount, dc, counts, poss, vals, *(shard.counts or ())], stream)
+        state, hist = ("padded", *arrays[:4]), (tuple(arrays[4:]) or None)
+        cap, maxc = poss.shape[2], int(maxc.max())
+        if maxc > cap:
+            tier = next((t for t in PADDED_CAP_TIERS if t > cap and maxc <= t), None)
+            if tier is None:
+                state = ("dense", _landed([zz], stream)[0])
+            else:
+                state = ("padded", *_landed(compact_padded(zz, tier)[:4], stream))
+    return state, hist
 
 
 def _fetch_compacted(zz_dev: torch.Tensor, compacted):
-    """d2h stage: bring the compacted streams (or, above the top cap tier,
-    the dense coefficients) to the host. On a per-block overflow it
-    re-compacts the still-on-device coefficients at the smallest tier that
-    holds the measured maxcount. Returns ("padded", dc, counts, poss, vals)
-    or ("dense", zz) as numpy arrays, for ``_pack_hosted``."""
+    """d2h stage of a compaction launched on the current stream: the
+    compacted streams (or, above the top cap tier, the dense coefficients)
+    on the host, escalating the cap as ``_fetch`` does. Returns ("padded",
+    dc, counts, poss, vals) or ("dense", zz) as numpy arrays, for
+    ``_pack_hosted``."""
+    if zz_dev.device.type == "cuda":
+        return _fetch(_Shard(zz_dev, compacted, None, _recorded(zz_dev)))[0]
     dc, counts, poss, vals, _total, maxcount = compacted
     cap = poss.shape[2]
     maxc = int(maxcount.max())
@@ -157,26 +291,32 @@ def _fetch_compacted(zz_dev: torch.Tensor, compacted):
         if tier is None:
             return ("dense", zz_dev.cpu().numpy())
         dc, counts, poss, vals, _total, maxcount = compact_padded(zz_dev, tier)
-    return ("padded", dc.cpu().numpy(), counts.cpu().numpy(),
-            poss.cpu().numpy(), vals.cpu().numpy())
+    return ("padded", dc.cpu().numpy(), counts.cpu().numpy(), poss.cpu().numpy(), vals.cpu().numpy())
 
 
-def _pack_hosted(state, options: JpegOptions, pattern, host_workers: int,
-                 tables=None) -> List[bytes]:
+@contextlib.contextmanager
+def _pool_of(pool):
+    """``pool`` itself where it is an executor, else a pool of ``pool``
+    threads for the block."""
+    if isinstance(pool, concurrent.futures.Executor):
+        yield pool
+    else:
+        with concurrent.futures.ThreadPoolExecutor(max_workers=pool) as ex:
+            yield ex
+
+
+def _pack_hosted(state, options: JpegOptions, pattern, pool, tables=None) -> List[bytes]:
     """Pack stage: entropy-pack the host-resident streams of every image on
-    ``host_workers`` threads. Pure host work, no device waits. ``tables``:
-    None for the standard tables, else a function of the image index that
-    returns its tables, called in that image's task."""
+    ``pool`` (an executor, or a number of threads for a pool of this call's
+    own). Pure host work, no device waits. ``tables``: None for the standard
+    tables, else a function of the image index that returns its tables,
+    called in that image's task."""
     if state[0] == "dense":
-        if tables is None:
-            return native_pack_scan_batch(
-                state[1], pattern, HuffmanTables.default(), options.restart_interval,
-                nthreads=host_workers,
-            )
         zz = state[1]
 
         def pack_one(i: int) -> bytes:
-            return native_pack_scan(zz[i], pattern, tables(i), options.restart_interval)
+            huff = HuffmanTables.default() if tables is None else tables(i)
+            return native_pack_scan(zz[i], pattern, huff, options.restart_interval)
 
         n = zz.shape[0]
     else:
@@ -189,7 +329,7 @@ def _pack_hosted(state, options: JpegOptions, pattern, host_workers: int,
             )
 
         n = dc.shape[0]
-    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
+    with _pool_of(pool) as ex:
         return list(ex.map(pack_one, range(n)))
 
 
@@ -214,49 +354,166 @@ def _assemble_jpeg(scan: bytes, options: JpegOptions, quant: QuantizationTables,
     return bytes(out)
 
 
+def _pack_shard(host, options: JpegOptions, pool) -> List[bytes]:
+    """Host stage of one shard from ``_fetch``'s (state, hist): the files of
+    its images, in order, packed on the executor ``pool``. Progressive: each image's
+    scans (``_emit_with_sa_fallback``); the standard tables: the padded or
+    dense pack and the frame; optimized or optimal tables: each image's
+    tables from its histograms in its own task, its pack with them and its
+    frame."""
+    state, hist = host
+    quant = QuantizationTables(options.quality)
+    n_blocks, pattern = jenc._pattern(options)
+    if options.progressive:
+        zz = state[1]
+        return list(pool.map(lambda i: jenc._emit_with_sa_fallback(
+            zz[i], None, options, quant, pattern, n_blocks), range(zz.shape[0])))
+    if hist is None:
+        return [_assemble_jpeg(s, options, quant) for s in _pack_hosted(state, options, pattern, pool)]
+    dc, ac = hist
+    # each image's tables are built in its pack task (Python, under the GIL)
+    # and kept for its frame
+    tables = functools.lru_cache(maxsize=None)(lambda i: jenc.tables_from_counts(dc[i], ac[i], options))
+    scans = _pack_hosted(state, options, pattern, pool, tables)
+    return [_assemble_jpeg(s, options, quant, tables(i)) for i, s in enumerate(scans)]
+
+
+def _validate_batch(imgs, options: JpegOptions) -> None:
+    jenc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
+
+
+def _dispatch(imgs, options: JpegOptions, mesh, device, host_workers: int) -> List[_Shard]:
+    """The device stage of every shard of one batch (``placement``)."""
+    return [_device_stage(imgs[lo:hi], options, dev, host_workers)
+            for dev, lo, hi in placement(mesh, device, len(imgs))]
+
+
+class _CopyStreams(dict):
+    """A copy stream per card, made at its first use."""
+
+    def __missing__(self, device: torch.device):
+        self[device] = stream = torch.cuda.Stream(device)
+        return stream
+
+
+def _fetch_all(shards: List[_Shard], streams: _CopyStreams) -> list:
+    return [_fetch(s, None if s.done is None else streams[s.zz.device]) for s in shards]
+
+
+def _pack_all(hosts: list, options: JpegOptions, pool) -> List[bytes]:
+    return [f for host in hosts for f in _pack_shard(host, options, pool)]
+
+
 def encode_jpeg_batch_sharded(
-    imgs, options: JpegOptions, *, device="cuda", host_workers: int = 8
+    imgs, options: JpegOptions, *, mesh: Optional[Mesh] = None, device=DEFAULT_DEVICE,
+    host_workers: int = 8,
 ) -> List[bytes]:
     """Encode a batch of same-shape images ([B, H, W, 3] RGB or [B, H, W]
     gray uint8, numpy or tensor) to JPEG bytes, computing on ``device``
-    ("cpu" or a CUDA device) and entropy-coding on the host.
+    ("cpu" or a CUDA device), or on each device of ``mesh`` for its
+    contiguous shard, and entropy-coding on the host with ``host_workers``
+    threads.
 
     Byte-identical, image by image, to the JAX package's ``jpeg.encode``."""
     if len(imgs) == 0:
         return []
-    jenc._validate(options, imgs[0].numel() if torch.is_tensor(imgs) else imgs[0].size)
-    quant = QuantizationTables(options.quality)
-    color, sub = _color_sub(options)
-    _, _, pattern = scan_layout(options.width, options.height, color, sub)
-    if options.progressive:
-        if options.trellis_quant:  # the progressive pass reads only the trellis' coefficients
-            zz = trellis_coeffs_sharded(imgs, options, device=device, host_workers=host_workers)
-        else:
-            zz = jpeg_coeffs_sharded(imgs, options, device=device).cpu().numpy()
+    _validate_batch(imgs, options)
+    shards = _dispatch(imgs, options, mesh, device, host_workers)
+    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as pool:
+        return _pack_all(_fetch_all(shards, _CopyStreams()), options, pool)
 
-        def emit(i: int) -> bytes:
-            return jenc._emit_with_sa_fallback(zz[i], None, options, quant, pattern, zz.shape[1])
 
-        with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as ex:
-            return list(ex.map(emit, range(zz.shape[0])))
-    zz_dev = jpeg_coeffs_sharded(imgs, options, device=device)
-    counts = None
-    if not _use_sparse_fast_path(options):
-        counts = count_symbols(zz_dev, pattern, options.restart_interval)
-    compacted = compact_padded(zz_dev, PADDED_CAP_PER_BLOCK)
-    state = _fetch_compacted(zz_dev, compacted)
-    if counts is None:
-        scans = _pack_hosted(state, options, pattern, host_workers)
-        return [_assemble_jpeg(s, options, quant) for s in scans]
-    # the histograms were counted before the compaction that
-    # _fetch_compacted waited for: these copies wait for no further work
-    dc, ac = (h.cpu().numpy() for h in counts)
-    # each image's tables are built in its pack task (Python, under the GIL)
-    # and kept for its frame
-    tables = functools.lru_cache(maxsize=None)(
-        lambda i: jenc.tables_from_counts(dc[i], ac[i], options))
-    scans = _pack_hosted(state, options, pattern, host_workers, tables)
-    return [_assemble_jpeg(s, options, quant, tables(i)) for i, s in enumerate(scans)]
+def encode_jpeg_stream(batches, options: JpegOptions, *, mesh: Optional[Mesh] = None,
+                       device=DEFAULT_DEVICE, host_workers: int = 8):
+    """Double-buffered encode of an iterable of batches (each as
+    ``encode_jpeg_batch_sharded`` takes it): while the host fetches and packs
+    batch i, the card already runs batch i + 1, whose pixels went up through
+    pinned memory and whose kernels were launched without waiting; batch
+    i's copies back run on a copy stream that waits only on batch i's event.
+    One pool of ``host_workers`` threads packs every batch. Yields each
+    batch's list of files, in input order, each byte-equal to
+    ``encode_jpeg_batch_sharded``'s."""
+    streams = _CopyStreams()
+    prev = None
+    with concurrent.futures.ThreadPoolExecutor(max_workers=host_workers) as pool:
+        for imgs in batches:
+            if len(imgs):
+                _validate_batch(imgs, options)
+            nxt = _dispatch(imgs, options, mesh, device, host_workers) if len(imgs) else []
+            if prev is not None:
+                yield _pack_all(_fetch_all(prev, streams), options, pool)
+            prev = nxt
+        if prev is not None:
+            yield _pack_all(_fetch_all(prev, streams), options, pool)
+
+
+def encode_jpeg_stream_overlapped(batches, options: JpegOptions, *, mesh: Optional[Mesh] = None,
+                                  device=DEFAULT_DEVICE, host_workers: int = 8, depth: int = 2,
+                                  stats: Optional[dict] = None):
+    """Three-stage overlapped encode of an iterable of batches, every stage in
+    flight at once:
+
+    - **device** (the calling thread): batch i + 2's pixels up through pinned
+      memory and its kernels, launched on the current stream without waiting,
+      then an event;
+    - **copy** (a thread of its own, ``_fetch``): batch i + 1's copies back on
+      a copy stream that waits on that batch's event alone (the cap
+      escalation's second compaction runs there too); the only stage that
+      waits on the card;
+    - **pack** (a coordinator thread and a pool of ``host_workers``
+      threads): batch i's files from host-resident arrays.
+
+    Up to ``depth`` batches may queue between consecutive stages. Yields
+    each batch's list of files, in input order, each byte-equal to
+    ``encode_jpeg_batch_sharded``'s.
+
+    ``stats``, when given, receives ``dispatch_t`` (the wall-clock start of
+    each batch's device stage), ``copy_iv`` and ``pack_iv`` (each batch's
+    (start, end) in its stage), in ``time.perf_counter`` seconds: busy sums
+    past the wall clock show the stages in flight together."""
+    dispatch_t: List[float] = []
+    copy_iv: List[tuple] = []
+    pack_iv: List[tuple] = []
+    streams = _CopyStreams()
+
+    def fetch(shards):
+        t0 = time.perf_counter()
+        hosts = _fetch_all(shards, streams)
+        copy_iv.append((t0, time.perf_counter()))
+        return hosts
+
+    def pack(copy_fut, pool) -> List[bytes]:
+        hosts = copy_fut.result()
+        t0 = time.perf_counter()
+        outs = _pack_all(hosts, options, pool)
+        pack_iv.append((t0, time.perf_counter()))
+        return outs
+
+    copy_futs: collections.deque = collections.deque()
+    pack_futs: collections.deque = collections.deque()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="d2h") as copy_ex, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=1, thread_name_prefix="pack-coord") as coord_ex, \
+            concurrent.futures.ThreadPoolExecutor(max_workers=host_workers, thread_name_prefix="pack") as pool:
+
+        def drain(force: bool):
+            while copy_futs and (force or len(copy_futs) > depth or copy_futs[0].done()):
+                pack_futs.append(coord_ex.submit(pack, copy_futs.popleft(), pool))
+            while pack_futs and (force or len(pack_futs) > depth or pack_futs[0].done()):
+                yield pack_futs.popleft().result()
+
+        for imgs in batches:
+            dispatch_t.append(time.perf_counter())
+            if len(imgs):
+                _validate_batch(imgs, options)
+            shards = _dispatch(imgs, options, mesh, device, host_workers) if len(imgs) else []
+            copy_futs.append(copy_ex.submit(fetch, shards))
+            yield from drain(False)
+        yield from drain(True)
+
+    if stats is not None:
+        stats["dispatch_t"] = dispatch_t
+        stats["copy_iv"] = copy_iv
+        stats["pack_iv"] = pack_iv
 
 
 def _png_route_batch(px: torch.Tensor, options: PngOptions):
@@ -562,12 +819,15 @@ def thumbnail_pipeline(
                                        color=color, subsampling=sub)
         compacted = compact_padded(zz, PADDED_CAP_PER_BLOCK)
         timings["device_s"] += time.perf_counter() - t1
-        return lo, hi, zz, compacted
+        return lo, hi, _Shard(zz, compacted, None, _recorded(zz))
+
+    streams = _CopyStreams()
 
     def pack_stage(state) -> None:
-        lo, hi, zz, compacted = state
+        lo, hi, shard = state
         t0 = time.perf_counter()
-        scans = _pack_hosted(_fetch_compacted(zz, compacted), jopts, pattern, host_workers)
+        host, _ = _fetch(shard, None if shard.done is None else streams[shard.zz.device])
+        scans = _pack_hosted(host, jopts, pattern, host_workers)
         results[lo:hi] = [_assemble_jpeg(s, jopts, quant) for s in scans]
         timings["pack_s"] += time.perf_counter() - t0
 

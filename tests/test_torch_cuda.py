@@ -1211,3 +1211,225 @@ def test_lz77_launch_count_exact_under_threads(dev):
     assert lz77_assist.chain_candidates.launches == before + 64
     ref = lz77_assist.chain_candidates_plain(t, 16)
     assert all(torch.equal(c, ref[0]) and torch.equal(ln, ref[1]) for c, ln in outs)
+
+
+# ------------------------------------- the streams, meshes, service and front ends
+
+STREAM_ROUTES = {
+    "standard 4:2:0": JpegOptions(width=96, height=64, quality=85, subsampling=Subsampling.S420),
+    "balanced": JpegOptions.from_preset(96, 64, 85, 1).replace(subsampling=Subsampling.S420),
+    "optimal, restarts": JpegOptions(width=96, height=64, quality=80, optimal_huffman=True,
+                                     restart_interval=3),
+    "progressive": JpegOptions(width=96, height=64, quality=85, progressive=True),
+    "max": JpegOptions.max(96, 64, 85),
+    "gray": JpegOptions(width=96, height=64, quality=90, color_type=ColorType.GRAY),
+}
+
+
+def _stream_batches(route: str):
+    """A smooth batch, a noise batch (the cap escalates, or the dense
+    stream), a lightly noisy one."""
+    rng = np.random.default_rng(60)
+    base = np.add.outer(np.arange(64) * 3, np.arange(96) * 2)[..., None]
+    smooth = (base + rng.normal(0, 2, (5, 64, 96, 3))).clip(0, 255).astype(np.uint8)
+    noise = rng.integers(0, 256, (3, 64, 96, 3), dtype=np.uint8)
+    light = (base + rng.normal(0, 6, (4, 64, 96, 3))).clip(0, 255).astype(np.uint8)
+    batches = [smooth, noise, light]
+    if STREAM_ROUTES[route].color_type == ColorType.GRAY:
+        batches = [np.ascontiguousarray(b[..., 0]) for b in batches]
+    return batches
+
+
+@pytest.mark.parametrize("route", list(STREAM_ROUTES))
+@pytest.mark.parametrize("overlapped", [False, True])
+def test_streams_on_the_card_equal_the_host_tier(dev, route, overlapped):
+    from pixo_tpu_torch.parallel import encode_jpeg_stream, encode_jpeg_stream_overlapped
+
+    opts = STREAM_ROUTES[route]
+    batches = _stream_batches(route)
+    stream = encode_jpeg_stream_overlapped if overlapped else encode_jpeg_stream
+    want = [[jpeg.encode(im, opts, device="cpu") for im in b] for b in batches]
+    assert list(stream(batches, opts, device=dev)) == want
+    assert list(stream(batches, opts)) == want  # the default device
+
+
+def test_stream_launches_and_stats_on_the_card(dev):
+    """One ``coeffs`` and one ``compact`` a batch, one more ``compact`` (on
+    the copy thread) for the batch whose cap escalates; the stats' order."""
+    from pixo_tpu_torch.parallel import encode_jpeg_stream_overlapped
+
+    opts = JpegOptions(width=96, height=64, quality=75)
+    smooth, noise, light = _stream_batches("standard 4:2:0")
+    base = np.add.outer(np.arange(64) * 3, np.arange(96) * 2)[..., None]
+    cap16 = (base + np.random.default_rng(61).normal(0, 8, (2, 64, 96, 3))).clip(0, 255).astype(np.uint8)
+    zz = kernels.coeffs(torch.from_numpy(cap16).to(dev), QuantizationTables(75).luminance_table,
+                        QuantizationTables(75).chrominance_table, "444")
+    assert int(kernels.compact_padded(zz, 8)[5].max()) > 8  # the cap escalates on this batch
+    before = (kernels.coeffs.launches, kernels.compact_padded.launches)
+    stats = {}
+    got = list(encode_jpeg_stream_overlapped([smooth, cap16, smooth], opts, device=dev, stats=stats))
+    assert got == [[jpeg.encode(im, opts, device="cpu") for im in b] for b in (smooth, cap16, smooth)]
+    assert kernels.coeffs.launches - before[0] == 3 and kernels.compact_padded.launches - before[1] == 4
+    for (c0, c1), (p0, p1), d in zip(stats["copy_iv"], stats["pack_iv"], stats["dispatch_t"]):
+        assert d <= c0 <= c1 <= p0 <= p1
+
+
+def test_streams_on_a_stream_of_the_callers(dev):
+    """The kernels launch on the caller's current stream; each batch's copy
+    stream waits on an event recorded there, not on the default stream."""
+    from pixo_tpu_torch.parallel import encode_jpeg_stream, encode_jpeg_stream_overlapped
+
+    opts = STREAM_ROUTES["balanced"]
+    batches = _stream_batches("balanced")
+    want = [[jpeg.encode(im, opts, device="cpu") for im in b] for b in batches]
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        assert list(encode_jpeg_stream(batches, opts, device=dev)) == want
+        assert list(encode_jpeg_stream_overlapped(batches * 3, opts, device=dev, depth=1)) == want * 3
+        assert encode_jpeg_batch_sharded(batches[1], opts, device=dev) == want[1]
+
+
+def test_mesh_of_the_visible_cards(dev):
+    from pixo_tpu_torch.parallel import (encode_jpeg_stream_overlapped, jpeg_coeffs_sharded,
+                                         make_mesh)
+
+    mesh = make_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(torch.cuda.device_count()))
+    opts = STREAM_ROUTES["standard 4:2:0"]
+    imgs = np.concatenate(_stream_batches("standard 4:2:0"))
+    want = encode_jpeg_batch_sharded(imgs, opts, device=dev)
+    assert encode_jpeg_batch_sharded(imgs, opts, mesh=mesh) == want
+    assert list(encode_jpeg_stream_overlapped([imgs[:5], imgs[5:]], opts, mesh=mesh)) == \
+        [want[:5], want[5:]]
+    coeffs = jpeg_coeffs_sharded(imgs, opts, mesh=mesh)
+    assert coeffs.device == mesh.devices[0]
+    assert torch.equal(coeffs, jpeg_coeffs_sharded(imgs, opts, device=dev).to(mesh.devices[0]))
+    with pytest.raises(ValueError):
+        encode_jpeg_batch_sharded(imgs, opts, mesh=mesh, device="cuda")
+    with pytest.raises(ValueError):
+        make_mesh(torch.cuda.device_count() + 1)
+
+
+def test_pinned_upload_and_copies_back(dev):
+    """The pipeline's copy up through pinned memory from numpy, from a CPU
+    tensor and from a non-contiguous view; a tensor on the card stays; the
+    pinned copies back equal ``.cpu()``."""
+    from pixo_tpu_torch.parallel import pipeline
+
+    host = np.random.default_rng(62).integers(0, 256, (3, 40, 56, 3), dtype=np.uint8)
+    for src in (host, torch.from_numpy(host), host[:, ::-1], torch.from_numpy(host).flip(1)):
+        up = pipeline._to_device(src, dev)
+        ref = src if torch.is_tensor(src) else torch.from_numpy(np.ascontiguousarray(src))
+        assert up.device.type == "cuda" and up.is_contiguous() and torch.equal(up.cpu(), ref)
+    on = torch.from_numpy(host).to(dev)
+    assert pipeline._to_device(on, dev) is on
+    stream = torch.cuda.Stream(dev)
+    with torch.cuda.stream(stream):
+        got = pipeline._landed([on, on[:, ::2]], stream)  # the second not contiguous
+    assert np.array_equal(got[0], host) and np.array_equal(got[1], host[:, ::2])
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_compute_coefficients_on_the_card_equals_the_host(dev, mode):
+    rng = np.random.default_rng(63)
+    img = _pixels(rng, 1, 37, 53, mode)[0]
+    gray = mode == "gray"
+    opts = JpegOptions(width=53, height=37, quality=70, color_type=ColorType.GRAY if gray else ColorType.RGB,
+                       subsampling=Subsampling("444" if gray else mode))
+    q = QuantizationTables(70)
+    assert np.array_equal(jpeg.compute_coefficients(img, opts, q),
+                          jpeg.compute_coefficients(img, opts, q, device="cpu"))
+    out = bytearray(b"x")
+    jpeg.encode_into(out, img, opts)
+    assert bytes(out) == jpeg.encode(img, opts, device="cpu")
+
+
+def test_bindings_on_the_card_equal_the_cpu(dev):
+    from pixo_tpu_torch import bindings
+
+    img = np.random.default_rng(64).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    for preset, sub in ((0, False), (1, True), (2, False)):
+        assert bindings.encode_jpeg(img, 64, 48, 2, 85, preset, sub) == \
+            bindings.encode_jpeg(img, 64, 48, 2, 85, preset, sub, device="cpu")
+        assert bindings.encode_png(img, 64, 48, 2, preset, True) == \
+            bindings.encode_png(img, 64, 48, 2, preset, True, device="cpu")
+    assert bindings.resize_image(img, 64, 48, 20, 15, 2) == \
+        bindings.resize_image(img, 64, 48, 20, 15, 2, device="cpu")
+
+
+def _front_inputs(tmp_path):
+    rng = np.random.default_rng(65)
+    base = np.add.outer(np.arange(96), np.arange(128))[..., None]
+    img = (base + rng.normal(0, 9, (96, 128, 3))).clip(0, 255).astype(np.uint8)
+    photo = jpeg.encode(img, JpegOptions(width=128, height=96, quality=90,
+                                         subsampling=Subsampling.S420), device="cpu")
+    still = png.encode(img, PngOptions.fast(128, 96).replace(color_type=ColorType.RGB), device="cpu")
+    (tmp_path / "in.jpg").write_bytes(photo)
+    (tmp_path / "in.png").write_bytes(still)
+    return photo, still
+
+
+@pytest.mark.parametrize("src, flags, dst, kernel", [
+    ("in.jpg", [], "out.png", "idct_planes"),
+    ("in.jpg", ["--fancy-upsampling", "--resize", "40x30"], "out.jpg", "resize_lanczos3"),
+    ("in.png", ["--resize", "64x48", "--grayscale", "-q", "80"], "out.jpg", "coeffs"),
+    ("in.png", ["--preset", "balanced", "--subsampling", "s420"], "out.jpg", "count_symbols"),
+])
+def test_cli_on_the_card_equals_the_cpu(dev, tmp_path, src, flags, dst, kernel):
+    from pixo_tpu_torch import cli
+
+    _front_inputs(tmp_path)
+    wrapper = getattr(kernels, kernel)
+    before = wrapper.launches
+    assert cli.main([str(tmp_path / src), "-o", str(tmp_path / f"card_{dst}"), "--quiet", *flags]) == 0
+    assert wrapper.launches > before
+    assert cli.main([str(tmp_path / src), "-o", str(tmp_path / f"cpu_{dst}"), "--quiet", *flags,
+                     "--device", "cpu"]) == 0
+    assert (tmp_path / f"card_{dst}").read_bytes() == (tmp_path / f"cpu_{dst}").read_bytes()
+
+
+def test_playground_job_on_the_card_equals_the_cpu(dev, tmp_path):
+    from pixo_tpu_torch.playground import compress_bytes
+
+    photo, still = _front_inputs(tmp_path)
+    for data, params in ((photo, {"name": "a.jpg", "rw": "32", "rh": "24", "sub420": "true"}),
+                         (still, {"name": "a.png", "lossless": "true"}),
+                         (photo, {"name": "a.png"})):
+        out, meta = compress_bytes(data, params)
+        want, want_meta = compress_bytes(data, params, device="cpu")
+        assert out == want and meta["out_size"] == want_meta["out_size"]
+
+
+def test_service_on_the_card_equals_the_cpu(dev, tmp_path):
+    import functools
+
+    from pixo_tpu_torch.parallel import CompressService
+    from pixo_tpu_torch.playground import compress_bytes
+
+    photo, _ = _front_inputs(tmp_path)
+    img = np.random.default_rng(66).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    jopts = JpegOptions(width=96, height=64, quality=85, subsampling=Subsampling.S420)
+    ropts = ResizeOptions(src_width=96, src_height=64, dst_width=24, dst_height=16,
+                          color_type=ColorType.RGB, filter=ResizeFilter.LANCZOS3)
+    params = {"name": "a.jpg", "rw": "32", "rh": "24"}
+    with CompressService(workers=1, device="cuda") as svc:
+        got_jpeg = svc.submit_jpeg(img, jopts).result()
+        got_small = svc.submit_resize(img, ropts).result()
+        got_job = svc.submit_raw(compress_bytes, photo, params).result()[0]
+        assert svc.submit_raw(torch.cuda.is_initialized).result() is True
+    assert got_jpeg == jpeg.encode(img, jopts, device="cpu")
+    assert np.array_equal(got_small, resize(img, ropts, device="cpu"))
+    assert got_job == functools.partial(compress_bytes, device="cpu")(photo, params)[0]
+
+
+def test_profile_trace_sees_the_kernels(dev, tmp_path):
+    import json
+
+    from pixo_tpu_torch.utils import profile_trace
+
+    img = np.random.default_rng(67).integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    opts = JpegOptions(width=64, height=64, quality=85)
+    with profile_trace(str(tmp_path)) as prof:
+        encode_jpeg_batch_sharded(img, opts, device=dev)
+    assert any("coeffs_kernel" in e.key for e in prof.key_averages())
+    assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]

@@ -302,15 +302,26 @@ def test_sort_model_is_the_stable_sort_by_hash(name):
     assert np.array_equal(spos, order) and np.array_equal(skey, keys[order])
 
 
-@pytest.mark.parametrize("k", [1, 5, 16, 33])
-@pytest.mark.parametrize("name", list(CHAIN_INPUTS))
-def test_rows_model_equals_plain(name, k):
+# The two longest cases (about 65 s each in one process) run from
+# tests/test_torch_lz77_rows.py, so that xdist's whole-file scheduling can
+# give them a worker of their own.
+SLOW_ROWS_CASES = [("runs of 1 to 299 bytes of values 0-3", 16), ("runs of 1 to 299 bytes of values 0-3", 33)]
+ROWS_CASES = [(name, k) for k in (1, 5, 16, 33) for name in CHAIN_INPUTS
+              if (name, k) not in SLOW_ROWS_CASES]
+
+
+def rows_model_equals_plain(name, k):
     data = CHAIN_INPUTS[name]
     keys = lz.hash4_plain(torch.from_numpy(data.copy())).numpy()[:len(data) - 3]
     cand, lens = rows_model(data, *sort_model(keys), k)
     ref_cand, ref_lens = lz.chain_candidates_plain(torch.from_numpy(data.copy()), k)
     assert np.array_equal(cand, ref_cand.numpy())
     assert np.array_equal(lens, ref_lens.numpy())
+
+
+@pytest.mark.parametrize("name, k", ROWS_CASES, ids=[f"{name}-{k}" for name, k in ROWS_CASES])
+def test_rows_model_equals_plain(name, k):
+    rows_model_equals_plain(name, k)
 
 
 @pytest.mark.parametrize("name", ["buckets of 1, 2, 4, 5, 16 and 17 positions", "n = 1539, values 0-3"])
