@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch/CUDA port's batched JPEG and PNG encodes
-(lossless, the max preset among them, and lossy), its batched JPEG decode,
-its thumbnail pipeline, its JPEG streams, its compression service and its
-command line.
+(lossless, the max preset among them, and lossy), its batched JPEG decode
+under both pixel tiers, its PNG decode and device unfilter, its thumbnail
+pipeline, its JPEG streams, its compression service, its command line, its
+playground and its two-process batch.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU (built for
 the H100, sm_90a):
@@ -92,7 +93,13 @@ printing its own lines:
    three tiles of the chain sort and 20 bytes, a 37-byte period, n = 0 to
    5), each equal to its plain version, and ``adler32_device`` against its
    plain version and ``zlib.adler32`` at ``ADLER_SIZES`` (0 to 16 MiB,
-   around its 2048-byte chunks) from ``ADLER_STARTS``;
+   around its 2048-byte chunks) from ``ADLER_STARTS``; and the unfilter
+   kernel (``check_unfilter_kernel``) on ``unfilter_edge_cases`` (every bpp
+   1 to 8 and filter id, H = 1, RB < bpp, RB = 1, ids outside 0-4, heights
+   at and across its band of 1024 rows) at byte offsets 0, 1 and 3, bit for
+   bit against its plain version and the host library's ``png_unfilter``,
+   and on the rows ``filter_rows`` filters from PNG (a)'s images under four
+   strategies, which it must give back;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -179,7 +186,17 @@ printing its own lines:
    balanced PNG, Lanczos3 and the playground's job), every result of the
    card's equal to the CPU's, a worker's launches probed, with the
    requests/s of both; then on the card a request past its deadline, a
-   cancelled one and a crash whose respawned workers serve again;
+   cancelled one and a crash whose respawned workers serve again. Then the
+   decode's pixel tiers (``check_decode_tiers``: (d1) and (d3) with
+   ``device="cuda"``, with ``PIXO_TPU_DECODE_PIXELS=host`` on the card and
+   with ``device="cpu"``, every image held to the host library, no tail
+   launch under the host tier), the PNG decode of PNG (a)'s files
+   (``check_png_decode_path``: the unfilter kernel's launches, 0), the
+   playground's HTTP front (``check_playground``: through a service of two
+   workers on the card and inline, a PNG job and two JPEG jobs byte-equal to
+   ``compress_bytes(..., device="cpu")``, 422 on a body that is no image),
+   and two processes over gloo on cuda:0 (``check_dcn``, the payload of
+   ``tests/test_torch_dcn.py``);
 4. median timings over warm runs: each kernel four ways (``time_kernel``:
    the profiler's device time, the launch alone, the wrapper call and the
    plain version; the AAN contract also its yardstick, one ``torch.matmul``
@@ -233,9 +250,14 @@ printing its own lines:
    on 8 threads; and for the streams (``time_stream``) the batch entry's
    time a batch beside each stream's wall clock and each batch's time, the
    overlapped form's stage busy sums (``stats``) against its wall clock,
-   and the card's busy time in a traced run; a JSON line of these, of the
-   service's requests/s and of the CLI's launches precedes the kernels'
-   record.
+   and the card's busy time in a traced run; the unfilter kernel four ways
+   at PNG (a)'s device group beside its byte bound and its critical path
+   (``time_unfilter``); the decode's host tier through ``decode_jpeg_batch``
+   on 8 threads and on 1; and beside ``compact`` and ``idct8x8_int`` their
+   yardsticks (``compact_library``: one ``torch.topk`` of the JAX package's
+   packed key; ``idct_library``: one ``torch.matmul`` by the 64x64 IDCT
+   matrix); a JSON line of these, of the service's requests/s and of the
+   CLI's and the playground's launches precedes the kernels' record.
 
 Any mismatch or error exits non-zero. Without a CUDA device it exits 1
 before printing any result. The line before the last is the kernels' JSON
@@ -282,6 +304,9 @@ an (e) stream and at 16 MiB, each launch as it is and its rows' kernel
 with each part its design has taken out (``LZ77_DESIGNS``:
 ``lz77_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
 pack stage on 1, 2, 4 and 8 threads (``pack_workers``); ``python3
+chip_smoke.py --unfilter-parts`` times the unfilter kernel at PNG (a)'s
+device group as it is, without each of its parts and as the design it
+replaced (``UNFILTER_PARTS``: ``unfilter_parts``); ``python3
 chip_smoke.py --sass NAME``
 counts the instructions of the built kernels whose name holds NAME, loop by
 loop (``sass_loops``).
@@ -448,23 +473,23 @@ def host_decode(data: bytes, fancy: bool = False, fused: bool = False):
     geometry = (scan.mcu_cols, scan.mcu_rows, scan.max_h, scan.max_v, scan.width, scan.height)
     if fused:
         segments, _ = jd._split_entropy(data[scan.pos:])
-        return native.native_jpeg_decode_baseline(
+        return native.native_jpeg_decode_baseline_call(
             segments, scan.restart_interval, scan.mcu_cols * scan.mcu_rows, scan.mcu_cols,
             scan.mcu_rows, ch, cv, scan.max_h, scan.max_v, scan.width, scan.height,
             [scan.dc_specs[c.dc_table] for c in comps], [scan.ac_specs[c.ac_table] for c in comps],
             [scan.qtables[c.quant_id] for c in comps], fancy=fancy,
-        )
+        )()
     planes = [np.zeros((bw * bh, 64), np.int16) for bw, bh in scan.plane_blocks()]
     qtables = jd._decode_entropy(scan, planes)
-    return native.native_jpeg_decode_pixels(planes, qtables, ch, cv, *geometry, fancy=fancy)
+    return native.native_jpeg_decode_pixels_call(planes, qtables, ch, cv, *geometry, fancy=fancy)()
 
 
 def reset_counts() -> None:
     """Set every kernel wrapper's launch count to 0."""
     from pixo_tpu_torch.compress import checksums
-    from pixo_tpu_torch.ops import kernels, lz77_assist
+    from pixo_tpu_torch.ops import kernels, lz77_assist, png_unfilter
 
-    for fn in (kernels.coeffs, kernels.compact_padded, kernels.count_symbols, kernels.dct8x8_aan,
+    for fn in (png_unfilter.unfilter_device_batch, kernels.coeffs, kernels.compact_padded, kernels.count_symbols, kernels.dct8x8_aan,
                kernels.dct_zz, kernels.trellis_quantize, kernels.filter_bank, kernels.filter_rows,
                kernels.idct_planes, kernels.idct8x8_int, kernels.resize_lanczos3,
                kernels.kmeans_refine, kernels.palette_lut, kernels.dither_fs, lz77_assist.hash4,
@@ -704,6 +729,8 @@ def kernel_work(name: str, **shape):
         return s["n"] + 8 * s["n"] * s["k"], 0
     if name == "adler32":  # n bytes in
         return s["n"], 0
+    if name == "unfilter":  # filtered rows and int32 ids in; rows out
+        return s["b"] * s["h"] * (2 * s["rb"] + 4), 0
     if name == "dct8x8_aan":
         return 512 * s["n"], AAN_OPS * s["n"]
     if name == "idct8x8_int":
@@ -1332,6 +1359,71 @@ def aan_library(blocks):
     return lambda: torch.matmul(flat, m)
 
 
+def compact_library(zz, cap: int, kernel_out=None):
+    """The compaction's yardstick, never called by the port: one
+    ``torch.topk`` of ``cap`` over each block's packed key, the key of the
+    JAX package's ``sparsify_blocks_padded`` (``pixo_tpu/ops/sparse_pack.py:
+    111-117``: ``(64 - pos) << 16 | value`` for a nonzero AC, 0 else), built
+    here beforehand from the [B, N, 64] int16 ``zz``. Where ``kernel_out``
+    (``compact_padded``'s result) is given, prints whether the positions and
+    values that the top ``cap`` keys spell equal the kernel's."""
+    import torch
+
+    ac = zz[..., 1:].to(torch.int32)
+    pos = torch.arange(1, 64, dtype=torch.int32, device=zz.device)
+    key = (torch.where(ac != 0, 64 - pos, 0) << 16) | (ac & 0xFFFF)
+    if kernel_out is not None:
+        top = torch.topk(key, cap, dim=-1).values
+        keyk = top >> 16
+        poss = torch.where(keyk > 0, 64 - keyk, 0).to(torch.uint8)
+        vals = (top & 0xFFFF).to(torch.int16)
+        fits = kernel_out[1].to(torch.int32) <= cap
+        same = (torch.equal(poss[fits], kernel_out[2][fits]) and torch.equal(vals[fits], kernel_out[3][fits]))
+        print(f"compact yardstick: torch.topk of {cap} over the packed (64 - pos) << 16 | value key of "
+              f"{tuple(key.shape)} int32 (the JAX package's lax.top_k; yardstick only): its positions "
+              f"and values equal the kernel's in every block within the cap: {same}")
+    return lambda: torch.topk(key, cap, dim=-1)
+
+
+def idct_matrix(device):
+    """[64, 64] f32: row v * 8 + u is the exact float IDCT (T.81 A.3.3) of the
+    unit coefficient at natural position (v, u), without the level shift."""
+    import math
+
+    import torch
+
+    c = [1 / math.sqrt(2)] + [1.0] * 7
+    m = torch.empty(64, 64, dtype=torch.float64)
+    for v in range(8):
+        for u in range(8):
+            for y in range(8):
+                for x in range(8):
+                    m[v * 8 + u, y * 8 + x] = (0.25 * c[u] * c[v] * math.cos((2 * x + 1) * u * math.pi / 16)
+                                               * math.cos((2 * y + 1) * v * math.pi / 16))
+    return m.to(torch.float32).to(device)
+
+
+def idct_library(blocks):
+    """The integer IDCT contract's yardstick, not bit-equal and never called
+    by the port: one ``torch.matmul`` of the [N, 64] blocks (as f32) by the
+    64x64 f32 IDCT matrix (``idct_matrix``), in full f32 (TF32 off); the
+    level shift and clamp are not in the call. Prints the largest difference
+    of its rounded, shifted and clamped result from the kernel's."""
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = blocks.shape[0]
+    m = idct_matrix(blocks.device)
+    flat = blocks.view(n, 64).to(torch.float32)
+    px = (torch.matmul(flat, m).round() + 128).clamp(0, 255).view(n, 8, 8)
+    diff = int((px - kernels.idct8x8_int(blocks).to(torch.float32)).abs().max())
+    print(f"idct8x8_int yardstick: torch.matmul by the 64x64 f32 IDCT matrix, not bit-equal (yardstick "
+          f"only): max_abs_diff from the kernel after rounding, +128 and the clamp {diff}")
+    return lambda: torch.matmul(flat, m)
+
+
 def time_everything(dev, grad, n_dct: int, card: str) -> dict:
     """Phase 4: median times on the card. Kernel times as ``time_kernel``
     gives them; stage times are host-clock times of one call ending in a
@@ -1370,7 +1462,7 @@ def time_everything(dev, grad, n_dct: int, card: str) -> dict:
         "compact": time_kernel(
             "compact", f"{at} cap 8", launchers["compact"][0],
             lambda: sparsify_blocks_padded_batch(zz, 8), launchers["compact"][1],
-            card, b=b, n=zz.shape[1], cap=8),
+            card, library=compact_library(zz, 8, kernels.compact_padded(zz, 8)), b=b, n=zz.shape[1], cap=8),
         "dct8x8_aan": time_kernel(
             "dct8x8_aan", f"{n_dct} blocks", lambda: kernels.dct8x8_aan(blocks),
             lambda: dct_plain(blocks),
@@ -1840,6 +1932,41 @@ def filter_edge_cases(rng, bpp: int):
     return cases
 
 
+UNFILTER_BAND_ROWS = (1023, 1024, 1025, 2100)  # heights around and past csrc/unfilter.cu's band of 1024
+
+
+def unfilter_edge_cases(rng) -> list:
+    """The unfilter kernel's cases, (label, [B, H, RB] uint8 filtered rows,
+    [B, H] int32 filter ids, bpp): for every bpp 1 to 8 a batch whose rows
+    take every filter id 0-4 in turn and at random; one row (H = 1), rows
+    shorter than a pixel (RB < bpp), rows of one byte, all-255 rows (every
+    predictor at its largest); ids outside 0-4, which take no predictor;
+    and batches whose heights end at and cross a band of the kernel
+    (``UNFILTER_BAND_ROWS``), with a band edge inside an image."""
+    import numpy as np
+
+    def case(label, b, h, rb, bpp, filters=None, fill=None):
+        rows = (np.full((b, h, rb), fill, np.uint8) if fill is not None
+                else rng.integers(0, 256, (b, h, rb), dtype=np.uint8))
+        if filters is None:
+            filters = np.where(np.arange(h) < 5, np.arange(h) % 5, rng.integers(0, 5, (b, h)))
+        return (f"{label} {b}x{h}x{rb} bpp={bpp}", rows,
+                np.ascontiguousarray(np.broadcast_to(filters, (b, h)), dtype=np.int32), bpp)
+
+    cases = []
+    for bpp in range(1, 9):
+        cases += [case("every id", 3, 13, 5 * bpp + 3, bpp),
+                  case("one row", 2, 1, 4 * bpp + 1, bpp),
+                  case("one byte", 2, 9, 1, bpp),
+                  case("all 255", 1, 7, 3 * bpp + 2, bpp, fill=255)]
+        if bpp > 1:
+            cases.append(case("RB<bpp", 2, 6, bpp - 1, bpp))
+    cases.append(case("ids 5, 7, 255", 1, 6, 10, 3, filters=np.array([4, 5, 1, 7, 255, 2])))
+    for h in UNFILTER_BAND_ROWS:
+        cases.append(case("band", 2, h, 7, 4 if h % 2 else 3))
+    return cases
+
+
 def bigram_edge_cases(rng, bpp: int):
     """Mode 7's (Bigrams') own edge shapes for ``bpp``, (label, [B, H, RB]
     uint8): rows of 1 and 2 bytes (one pair or none); all-zero rows (every
@@ -2301,23 +2428,23 @@ def time_png_max(dev, corpus, card: str) -> dict:
                     plain_calls=(3, 3, 1), **dict(zip(("b", "h", "rb"), raw.shape)), bigrams=True)
     filtered = kernels.filter_rows(raw, **kw).cpu().numpy()
 
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         stages = {
             "png_max_device": wall_stats(lambda: png_device_stage(px, opts, kernels.filter_rows),
                                          MAX_PNG_RUNS),
             "png_max_deflate": wall_stats(lambda: _pool(lambda f: png_frame(f, ct, opts), filtered),
                                           MAX_PNG_RUNS),
         }
-    with lz77_route(True):
+    with env_var("PIXO_TPU_LZ77", "device"):
         stages["png_max_deflate_lz77_device"] = wall_stats(
             lambda: _pool(lambda f: png_frame(f, ct, opts, dev), filtered), MAX_PNG_RUNS)
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         stages["png_max_end_to_end"] = wall_stats(lambda: encode_png_batch_sharded(imgs, opts, device=dev),
                                                   MAX_PNG_RUNS)
-    with lz77_route(True):
+    with env_var("PIXO_TPU_LZ77", "device"):
         stages["png_max_end_to_end_lz77_device"] = wall_stats(
             lambda: encode_png_batch_sharded(imgs, opts, device=dev), MAX_PNG_RUNS)
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         stages["png_max_host_8_threads"] = wall_stats(lambda: _pool(lambda img: png.encode(img, opts), imgs),
                                                       MAX_PNG_RUNS)
     mp = b * SIZE * SIZE / 1e6
@@ -2443,17 +2570,17 @@ def match_pairs(rng, n: int, m: int):
 
 
 @contextlib.contextmanager
-def lz77_route(on: bool):
-    """``PIXO_TPU_LZ77=device`` set (``on``) or unset while open."""
-    before = os.environ.pop("PIXO_TPU_LZ77", None)
-    if on:
-        os.environ["PIXO_TPU_LZ77"] = "device"
+def env_var(name: str, value):
+    """Environment variable ``name`` set to ``value`` (unset for None) while open."""
+    before = os.environ.pop(name, None)
+    if value is not None:
+        os.environ[name] = value
     try:
         yield
     finally:
-        os.environ.pop("PIXO_TPU_LZ77", None)
+        os.environ.pop(name, None)
         if before is not None:
-            os.environ["PIXO_TPU_LZ77"] = before
+            os.environ[name] = before
 
 
 def png_max_streams(dev, corpus):
@@ -2543,9 +2670,9 @@ def check_lz77_route(dev, corpus, streams) -> int:
     from pixo_tpu_torch.compress import checksums, deflate_optimal_zlib
     from pixo_tpu_torch.ops import lz77_assist as lz
 
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         host = _pool(lambda f: deflate_optimal_zlib(f, 5), streams)
-    with lz77_route(True):
+    with env_var("PIXO_TPU_LZ77", "device"):
         card = _pool(lambda f: deflate_optimal_zlib(f, 5, device=dev), streams)
     same = sum(a == b for a, b in zip(card, host))
     back = sum(zlib.decompress(c) == f.tobytes() for c, f in zip(card, streams))
@@ -2553,10 +2680,10 @@ def check_lz77_route(dev, corpus, streams) -> int:
              f"PIXO_TPU_LZ77=device byte-equal to the host route's, {back}/{len(streams)} inflate back",
              same == back == len(streams))
     label, opts, imgs = png_max_case(corpus)
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         refs = _pool(lambda img: png.encode(img, opts), imgs)
     reset_counts()
-    with lz77_route(True):
+    with env_var("PIXO_TPU_LZ77", "device"):
         outs = encode_png_batch_sharded(imgs, opts, device=dev)
     launches = {"chain_candidates": lz.chain_candidates.launches, "adler32": checksums.adler32_device.launches}
     same = sum(o == r for o, r in zip(outs, refs))
@@ -2975,7 +3102,7 @@ def time_decode(dev, cases, card: str, n_idct: int) -> dict:
                 "idct8x8_int", f"{n_idct} blocks", lambda: kernels.idct8x8_int(nat),
                 lambda: idct_plain(nat),
                 lambda: lib.pixo_idct8x8_int(nat.data_ptr(), px.data_ptr(), n_idct, stream),
-                card, n=n_idct)
+                card, library=idct_library(nat), n=n_idct)
 
         def host_tier(data):  # the reference's CPU tier: fused for baseline files
             return host_decode(data, fused=not jd._parse(data).progressive)
@@ -3000,6 +3127,9 @@ def time_decode(dev, cases, card: str, n_idct: int) -> dict:
             "decode_end_to_end": wall_ms(lambda: decode_jpeg_batch(files, device=dev)),
             "decode_host_library_8_threads": wall_ms(host_decode_all),
             "decode_host_library_1_thread": wall_ms(lambda: [host_tier(d) for d in files]),
+            # the port's own host pixel tier through its entry point (device="cpu")
+            "decode_host_tier_8_threads": wall_ms(lambda: decode_jpeg_batch(files, workers=8, device="cpu")),
+            "decode_host_tier_1_thread": wall_ms(lambda: decode_jpeg_batch(files, workers=1, device="cpu")),
         }
         for name, t in stages.items():
             print(f"stage {name} {at}: median {t:.4f} ms, {mp / (t / 1e3):.1f} MP/s over "
@@ -3446,7 +3576,8 @@ def time_thumbnail(dev, tcases, card: str) -> dict:
             "compact", f"(t1) chunk {'x'.join(map(str, zz.shape))} cap {cap}"
             + ("" if cap == 8 else " (the cap every chunk escalates to)"), launchers["compact"][0],
             lambda: sparsify_blocks_padded_batch(zz, cap), launchers["compact"][1], card,
-            b=chunk, n=zz.shape[1], cap=cap))
+            library=compact_library(zz, cap, kernels.compact_padded(zz, cap)), b=chunk, n=zz.shape[1],
+            cap=cap))
     run = decode_launchers(dev, first)
     shared["idct_planes"].append(time_kernel(
         "idct_planes", f"(t1) chunk {chunk} JPEGs {T1_SIZE}x{T1_SIZE} 4:4:4, {run['zz'].shape[0]} "
@@ -4399,6 +4530,297 @@ def check_cli(dev, corpus) -> dict:
     return out
 
 
+UNFILTER_OFFSETS = (0, 1, 3)  # byte offsets of the filtered rows in their buffer
+UNFILTER_STRATEGIES = ("ADAPTIVE", "PAETH", "AVERAGE", "MIN_SUM")  # filter_rows strategies whose rows go back
+# The unfilter's critical path: pixel (y, x) needs (y, x - 1), (y - 1, x)
+# and (y - 1, x - 1) and nothing else (the bpp bytes of a pixel are
+# independent), so its longest chain is ceil(RB / bpp) + H - 1 pixels
+# (``unfilter_steps``). A step of it holds at least one dependent integer
+# add, the chain of the Sub and Up predictors (out = x + a, out = x + b);
+# the Average and Paeth predictors' chains are longer (Paeth's runs through
+# its whole select), so 4 SM clocks a step at the 1.98 GHz boost clock is a
+# floor for any mix of filters, beside the byte bound.
+UNFILTER_STEP_CLOCKS = 4
+
+
+def unfilter_steps(h: int, rb: int, bpp: int) -> int:
+    """The unfilter's critical path in dependent pixel steps."""
+    return -(-rb // bpp) + h - 1
+
+
+def host_unfilter(rows, filters, bpp: int):
+    """The host library's serial ``png_unfilter`` of each image of the [B, H,
+    RB] rows with their [B, H] filter ids (0-4)."""
+    import numpy as np
+
+    from pixo_tpu_torch.native import native_png_unfilter
+
+    return np.stack([native_png_unfilter(np.concatenate([f[:, None].astype(np.uint8), r], 1), bpp)
+                     for r, f in zip(rows, filters)])
+
+
+def filtered_rows(dev, imgs, strategy):
+    """PNG rows of the [B, H, W, 3] uint8 ``imgs`` as ``filter_rows`` filters
+    them on ``dev`` under ``strategy``: ([B, H, 3W] filtered rows, [B, H]
+    int32 filter ids), both contiguous on the card."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch.ops import kernels
+
+    b, h, w = imgs.shape[:3]
+    x = torch.from_numpy(np.ascontiguousarray(imgs).reshape(b, h, 3 * w)).to(dev)
+    out = kernels.filter_rows(x, bpp=3, strategy=strategy, small_image=False, sticky_fast=False)
+    return out[..., 1:].contiguous(), out[..., 0].to(torch.int32).contiguous()
+
+
+def check_unfilter_kernel(dev, corpus) -> int:
+    """Phase 2, the unfilter kernel (``ops/png_unfilter.py::
+    unfilter_device_batch``; no path calls it): every case of
+    ``unfilter_edge_cases`` (every bpp 1-8 and filter id, H = 1, RB < bpp, RB
+    = 1, ids outside 0-4, heights at and across a band) at byte offsets
+    ``UNFILTER_OFFSETS``, bit for bit against its plain version on the card
+    and, where every id is 0-4, image by image against the host library's
+    ``png_unfilter``; then the rows that ``filter_rows`` filtered from PNG
+    (a)'s 16 images under each of ``UNFILTER_STRATEGIES``, which it must
+    also give back. Returns its largest absolute error."""
+    import numpy as np
+    import torch
+
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain
+
+    err = 0
+    for label, rows, filters, bpp in unfilter_edge_cases(np.random.default_rng(41)):
+        ids = torch.from_numpy(filters).to(dev)
+        plain = unfilter_plain(at_offset(rows, 0, dev), ids, bpp)
+        host = host_unfilter(rows, filters, bpp) if ((filters >= 0) & (filters <= 4)).all() else None
+        errs, host_bad = [], 0
+        for offset in UNFILTER_OFFSETS:
+            got = unfilter_device_batch(at_offset(rows, offset, dev), ids, bpp=bpp, device=dev)
+            errs.append(int((got.int() - plain.int()).abs().max()))
+            host_bad += host is not None and not np.array_equal(got.cpu().numpy(), host)
+        err = max(err, *errs)
+        _verdict(f"check unfilter {label}: max_abs_err vs plain {max(errs)} at byte offsets "
+                 f"{UNFILTER_OFFSETS}; offsets differing from the host library's png_unfilter "
+                 f"{host_bad if host is not None else 'not held (ids outside 0-4)'}",
+                 max(errs) == 0 and host_bad == 0)
+    want = corpus.reshape(corpus.shape[0], corpus.shape[1], -1)
+    for name in UNFILTER_STRATEGIES:
+        rows, ids = filtered_rows(dev, corpus, FilterStrategy[name])
+        got = unfilter_device_batch(rows, ids, bpp=3, device=dev)
+        e = int((got.int() - unfilter_plain(rows, ids, 3).int()).abs().max())
+        err = max(err, e)
+        back = got.cpu().numpy()
+        host = host_unfilter(rows.cpu().numpy(), ids.cpu().numpy(), 3)
+        used = sorted(set(ids.cpu().numpy().ravel().tolist()))
+        _verdict(f"check unfilter PNG (a) {tuple(rows.shape)} filtered by filter_rows under {name} (ids "
+                 f"{used}): max_abs_err vs plain {e}; images given back {int((back == want).all((1, 2)).sum())}"
+                 f"/{len(want)}, equal to the host library's {int((back == host).all((1, 2)).sum())}/{len(want)}",
+                 e == 0 and np.array_equal(back, want) and np.array_equal(back, host))
+    return err
+
+
+def time_unfilter(dev, corpus, card: str) -> dict:
+    """Phase 4, the unfilter kernel four ways (``time_kernel``) at PNG (a)'s
+    device group (8x512x1536: the first 8 images' rows as ``filter_rows``
+    filters them under the balanced preset's ADAPTIVE), beside both of its
+    bounds: its bytes at the memory rate (``bound_ms``) and its critical
+    path, ``unfilter_steps`` dependent steps at ``UNFILTER_STEP_CLOCKS`` a
+    step, with the share of that bound that the kernel reaches and its time
+    a step in ns and SM clocks (the clock read under load)."""
+    import torch
+
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain
+
+    rows, ids = filtered_rows(dev, corpus[:8], FilterStrategy.ADAPTIVE)
+    b, h, rb = rows.shape
+    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(rows)
+
+    def alone():
+        return lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, 3, out.data_ptr(), stream)
+
+    at = f"PNG (a) device group {b}x{h}x{rb}, bpp 3, ADAPTIVE's rows"
+    t = time_kernel("unfilter", at, lambda: unfilter_device_batch(rows, ids, bpp=3, device=dev),
+                    lambda: unfilter_plain(rows, ids, 3), alone, card, plain_calls=(1, 1, 1),
+                    kernel="unfilter_kernel", b=b, h=h, rb=rb)
+    steps = unfilter_steps(h, rb, 3)
+    floor = steps * UNFILTER_STEP_CLOCKS / 1.98e9 * 1e3
+    mhz = busy_sm_mhz(alone, calls=200)
+    ms = t["device_ms"]
+    ns = None if ms is None else ms / steps * 1e6
+    t["critical_path"] = {"steps": steps, "bound_ms": floor, "share": None if ms is None else floor / ms,
+                          "ns_a_step": ns, "clocks_a_step": None if ns is None or mhz is None else ns * mhz / 1e3}
+    share = "not measured" if ms is None else f"{100 * floor / ms:.2f}%"
+    print(f"kernel unfilter {at}: critical path {steps} dependent pixel steps (ceil(RB / bpp) + H - 1), "
+          f"bound {floor:.4f} ms at {UNFILTER_STEP_CLOCKS} SM clocks a step (one add, the Sub and Up "
+          f"chain) at 1.98 GHz; the kernel reaches {share} of it, {step_line(ms, steps, mhz)} "
+          f"(SM clock read under load) [{card}]")
+    return t
+
+
+def check_png_decode_path(dev, corpus) -> int:
+    """Phase 3, the PNG decode: ``decode_png_batch`` of PNG (a)'s 16 files
+    (encoded on the card at the balanced preset), every image equal to its
+    input; the unfilter kernel's launches in that run: 0, as in the JAX
+    package, whose PNG decode reconstructs rows with the host library.
+    Returns those launches."""
+    import numpy as np
+
+    from pixo_tpu_torch import ColorType, PngOptions, png
+    from pixo_tpu_torch.decode import decode_png_batch
+    from pixo_tpu_torch.ops import png_unfilter
+
+    h, w = corpus.shape[1:3]
+    files = png.encode_batch(corpus, PngOptions.balanced(w, h).replace(color_type=ColorType.RGB), device=dev)
+    reset_counts()
+    images = decode_png_batch(files, workers=8)
+    launches = png_unfilter.unfilter_device_batch.launches
+    same = sum(np.array_equal(img.pixels, want) for img, want in zip(images, corpus))
+    _verdict(f"main path PNG decode: decode_png_batch of PNG (a)'s {len(files)} files, {same}/{len(files)} "
+             f"images equal to their input; unfilter launches {launches} (rows reconstructed by the "
+             f"host library)", same == len(files) and launches == 0)
+    return launches
+
+
+DECODE_TIERS = (  # (PIXO_TPU_DECODE_PIXELS, device, the tier that runs)
+    (None, "cuda", "device"), ("host", "cuda", "host"), (None, "cpu", "host"))
+
+
+def check_decode_tiers(dev, cases) -> None:
+    """Phase 3, the decode's two pixel tiers: ``decode_jpeg_batch`` of (d1) and
+    (d3) under each of ``DECODE_TIERS``, every image held against the host
+    library's decodes (``_held_to_host``), ``idct_planes`` launched once
+    under the device tier on the card and never under the host tier."""
+    from pixo_tpu_torch.decode import decode_jpeg_batch
+    from pixo_tpu_torch.ops import kernels
+
+    for key in ("d1", "d3"):
+        label, files, _ = cases[key]
+        for env, device, tier in DECODE_TIERS:
+            with env_var("PIXO_TPU_DECODE_PIXELS", env):
+                reset_counts()
+                images = decode_jpeg_batch(files, workers=8, device=dev if device == "cuda" else device)
+                calls = kernels.idct_planes.launches
+            two, fused, nbase = _held_to_host(images, files, False)
+            _verdict(f"decode tiers ({key}) {label}: device={device}, PIXO_TPU_DECODE_PIXELS="
+                     f"{env or 'unset'} -> the {tier} tier: {two}/{len(files)} images equal to the host "
+                     f"two-stage decode, {fused}/{nbase} baseline images to the fused one; idct_planes "
+                     f"launches {calls}",
+                     two == len(files) and fused == nbase and calls == (tier == "device"))
+
+
+def playground_jobs(corpus) -> list:
+    """(label, body, form) of the playground's card check: a PNG job and two
+    JPEG jobs, one with a resize; inputs made by the port on the host."""
+    from pixo_tpu_torch import ColorType, JpegOptions, PngOptions, Subsampling, jpeg, png
+
+    img = corpus[1, :200, :240]
+    png_src = png.encode(img, PngOptions.fast(240, 200).replace(color_type=ColorType.RGB), device="cpu")
+    jpg_src = jpeg.encode(img, JpegOptions(width=240, height=200, quality=90, subsampling=Subsampling.S444),
+                          device="cpu")
+    return [("png lossless, balanced, from a PNG", png_src,
+             {"format": "png", "preset": "1", "lossless": "true", "name": "a.png"}),
+            ("jpeg q85 4:2:0 from a PNG", png_src,
+             {"format": "jpeg", "preset": "1", "quality": "85", "sub420": "true", "name": "a.png"}),
+            ("jpeg q70 from a JPEG, resized to 120x100", jpg_src,
+             {"format": "auto", "preset": "0", "quality": "70", "rw": "120", "rh": "100", "name": "b.jpg"})]
+
+
+def check_playground(dev, corpus) -> dict:
+    """Phase 3, the playground's HTTP front on the card
+    (``playground.make_handler``, served on 127.0.0.1): through its
+    ``CompressService`` of two workers on the card, then inline. ``GET /``
+    serves the page and another path 404; each of ``playground_jobs`` comes
+    back byte-equal to ``compress_bytes(..., device="cpu")`` with the same
+    meta; a body that is no image gives 422. Returns the launches of the
+    inline run's jobs."""
+    import http.client
+    import threading
+    from http.server import ThreadingHTTPServer
+    from urllib.parse import urlencode
+
+    from pixo_tpu_torch import playground
+    from pixo_tpu_torch.ops import kernels
+
+    jobs = playground_jobs(corpus)
+    want = [playground.compress_bytes(body, form, device="cpu") for _, body, form in jobs]
+    wrappers = {"idct_planes": kernels.idct_planes, "resize_lanczos3": kernels.resize_lanczos3,
+                "coeffs": kernels.coeffs, "compact": kernels.compact_padded,
+                "filter_rows": kernels.filter_rows}
+
+    def request(port, method, path, body=None):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        headers = dict(resp.getheaders())
+        conn.close()
+        return resp.status, headers, data
+
+    launches = {}
+    for mode in ("service", "inline"):
+        t0 = time.perf_counter()
+        with env_var("PIXO_TPU_PLAYGROUND_INLINE", "1" if mode == "inline" else None):
+            handler = playground.make_handler(dev)
+        started = time.perf_counter() - t0
+        srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        port = srv.server_address[1]
+        try:
+            page = request(port, "GET", "/")
+            missing = request(port, "GET", "/nothing")[0]
+            reset_counts()
+            same = []
+            for (label, body, form), (out, meta) in zip(jobs, want):
+                status, headers, got = request(port, "POST", "/compress?" + urlencode(form), body)
+                got_meta = json.loads(headers.get("X-Pixo-Result", "{}"))
+                got_meta.pop("elapsed_ms", None)
+                meta = {k: v for k, v in meta.items() if k != "elapsed_ms"}
+                same.append(status == 200 and got == out and got_meta == meta)
+            if mode == "inline":
+                launches = {k: fn.launches for k, fn in wrappers.items()}
+            bad = request(port, "POST", "/compress?format=png&name=x.png", b"no image here")
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            handler.close()
+        _verdict(f"playground on the card, {mode} (started in {started:.1f} s): GET / {page[0]}, "
+                 f"another path {missing}; jobs byte-equal to compress_bytes(device=\"cpu\") with the "
+                 f"same meta: {sum(same)}/{len(jobs)} ({', '.join(j[0] for j in jobs)}); a body that is no "
+                 f"image {bad[0]} {bad[2].decode()[:60]!r}"
+                 + (f"; launches {launches}" if mode == "inline" else ""),
+                 page[0] == 200 and b"pixo-tpu" in page[2] and missing == 404 and all(same)
+                 and bad[0] == 422 and (mode != "inline" or (launches["coeffs"] >= 2
+                                                              and launches["resize_lanczos3"] >= 1
+                                                              and launches["idct_planes"] >= 1)))
+    return launches
+
+
+def check_dcn() -> None:
+    """Phase 3, two processes over gloo with both ranks on cuda:0: the payload
+    of ``tests/test_torch_dcn.py`` (each rank encodes its half of the 8
+    gradients on the card; the gathered files equal one process's
+    ``jpeg.encode_batch`` of all 8, the all-reduced coefficient digest the
+    local one)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "test_torch_dcn.py")
+    spec = importlib.util.spec_from_file_location("torch_dcn_payload", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    t0 = time.perf_counter()
+    try:
+        outs = mod.run_pair("cuda:0")
+        ok, what = True, "; ".join(line for out in outs for line in out.splitlines() if "DCN-OK" in line)
+    except AssertionError as e:
+        ok, what = False, str(e)
+    _verdict(f"two processes over gloo on cuda:0 ({time.perf_counter() - t0:.1f} s): {what}", ok)
+
+
 def main_path_launchers(kernels, imgs_dev, lum, chrom, mode: str = "420", cap: int = 8):
     """For ``coeffs`` (in ``mode``) and ``compact`` (at ``cap``) on the batch
     ``imgs_dev``: (the wrapper call, the launch alone). The launch alone
@@ -4667,7 +5089,7 @@ def measure_lz77(res: dict, dev, corpus) -> None:
     ct = png_group(dev, opts, imgs)[2]
     for on in (False, True):
         suffix = "_lz77_device" if on else ""
-        with lz77_route(on):
+        with env_var("PIXO_TPU_LZ77", "device" if on else None):
             res["stages"][f"png_max_deflate{suffix} (e)"] = wall_stats(
                 lambda: _pool(lambda f: png_frame(f, ct, opts, dev), streams), MAX_PNG_RUNS)[0]
             res["stages"][f"png_max_end_to_end{suffix} (e)"] = wall_stats(
@@ -5239,6 +5661,85 @@ def dither_parts(card: str) -> int:
               f"as it is {base:.4f} ms ({step_line(base, plan.steps, mhz)}); without "
               + "; ".join(f"{k} {t:.4f} ms ({step_line(t, plan.steps, mhz)})" for k, t in times.items())
               + f" [{card}]")
+    return 0
+
+
+# Parts of the unfilter kernel (csrc/unfilter.cu) that ``unfilter_parts``
+# takes out, one at a time, and one design it replaced: (name, [(source
+# text, replacement)]). A part's time is what the kernel saves without it;
+# the results are wrong, only timed.
+_UNFILTER_STEP_END = "        __syncthreads();\n      }\n    }\n  }\n}"
+UNFILTER_PARTS = {
+    "the barrier": [(_UNFILTER_STEP_END, "      }\n    }\n  }\n}")],
+    "the predictor": [("static_cast<uint8_t>(byte + predictor(f, a, b, c))",
+                       "static_cast<uint8_t>(byte + (b ^ a ^ c ^ f))")],
+    "the row's bytes": [("          const int byte = raw.byte(x);", "          const int byte = x & 255;")],
+    "the ring's copies": [("      raw.advance(t0 - r);\n", "")],
+    "the output stores": [("          if (p == 7 || x == rb - 1) {  // the word is done",
+                           "          if (p == 99) {  // the word is done")],
+    "the byte above": [("last[((t - 1) & 1) * threads + r - 1]", "byte")],
+    "(design) the predictor as branches": [
+        ("static_cast<uint8_t>(byte + predictor(f, a, b, c))",
+         "static_cast<uint8_t>(byte + (f == 1 ? a : f == 2 ? b : f == 3 ? (a + b) >> 1 : f == 4 ? "
+         "(abs(b - c) <= abs(a - c) && abs(b - c) <= abs(a + b - 2 * c) ? a : "
+         "abs(a - c) <= abs(a + b - 2 * c) ? b : c) : 0))")],
+}
+
+
+def unfilter_parts(card: str) -> int:
+    """The unfilter kernel alone at PNG (a)'s device group (``time_unfilter``'s
+    rows): the profiler's device time of its launch (the C function) as it is,
+    without each of ``UNFILTER_PARTS`` and as the design it replaced (all
+    built at once), each as ns and SM clocks a step of the function's
+    critical path (``unfilter_steps``) and as the share of its bound
+    (``UNFILTER_STEP_CLOCKS`` a step), the clock read under load. The kernel as it is must equal the
+    wrapper's result, which phase 2 holds to the plain version and the host
+    library. Exit code 1 on a difference or a failed launch."""
+    import ctypes
+
+    import torch
+
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch
+
+    libs = variant_libs("unfilter.cu", UNFILTER_PARTS, "unfilter_part")
+    dev = torch.device("cuda")
+    rows, ids = filtered_rows(dev, corpus_batch()[:8], FilterStrategy.ADAPTIVE)
+    b, h, rb = rows.shape
+    want = unfilter_device_batch(rows, ids, bpp=3, device=dev)
+    out = torch.empty_like(rows)
+    stream = torch.cuda.current_stream().cuda_stream
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    steps = unfilter_steps(h, rb, 3)
+    floor = steps * UNFILTER_STEP_CLOCKS / 1.98e9 * 1e3
+    times, mhz = {}, None
+    for name, path in libs.items():
+        lib = ctypes.CDLL(path)
+        lib.pixo_unfilter.restype = ctypes.c_int
+        lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, vp, vp]
+
+        def alone(lib=lib):
+            return lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, 3, out.data_ptr(), stream)
+
+        rc = alone()
+        if rc:
+            err = kernels.load().pixo_cuda_error_string(rc).decode()
+            print(f"unfilter parts: the launch without {name!r} failed: {err}", file=sys.stderr)
+            return 1
+        if name == "as it is":
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                print("unfilter parts: the kernel as it is differs from the wrapper's result", file=sys.stderr)
+                return 1
+            mhz = busy_sm_mhz(alone, calls=200)
+        times[name] = profiler_ms(alone, "unfilter_kernel")
+    base = times.pop("as it is")
+    fmt = lambda t: ("not measured" if t is None  # noqa: E731
+                     else f"{t:.4f} ms ({step_line(t, steps, mhz)}, {100 * floor / t:.2f}% of the bound)")
+    print(f"unfilter parts at PNG (a)'s device group {b}x{h}x{rb}, bpp 3, {steps} steps of the "
+          f"critical path, bound {floor:.4f} ms: as it is "
+          f"{fmt(base)}; without " + "; ".join(f"{k} {fmt(t)}" for k, t in times.items()) + f" [{card}]")
     return 0
 
 
@@ -5980,7 +6481,7 @@ def main() -> int:
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
                          ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--count-parts"],
-                         ["--lz77-parts"], ["--pack-workers"]):
+                         ["--lz77-parts"], ["--pack-workers"], ["--unfilter-parts"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -5997,7 +6498,7 @@ def main() -> int:
             return dct_zz_parts(card, sys.argv[3:])
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
-                "--kmeans-parts": kmeans_parts,
+                "--kmeans-parts": kmeans_parts, "--unfilter-parts": unfilter_parts,
                 "--pack-workers": pack_workers}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
@@ -6038,6 +6539,7 @@ def main() -> int:
         errs.update(check_png_kernels(dev, corpus))
         streams = png_max_streams(dev, corpus)
         errs.update(check_lz77_kernels(dev, streams))
+        errs["unfilter"] = check_unfilter_kernel(dev, corpus)
         cases = decode_cases(dev, grad, corpus)
         errs.update(check_decode_kernels(dev, cases, 100_000))
         errs.update(check_resize_kernel(dev))
@@ -6053,11 +6555,15 @@ def main() -> int:
         lz77_launches = check_lz77_route(dev, corpus, streams)
         check_png_options(dev, corpus)
         launches.update(check_decode_main_path(dev, cases))
+        check_decode_tiers(dev, cases)
+        unfilter_launches = check_png_decode_path(dev, corpus)
         thumb_launches = check_thumbnail_path(dev, tcases)
         lossy_launches = check_lossy_main_path(dev, corpus, grad)
         stream_launches = check_stream_path(dev, grad)
         cli_launches = check_cli(dev, corpus)
         service_rps = check_service(dev, grad, corpus, card)
+        playground_launches = check_playground(dev, corpus)
+        check_dcn()
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6076,6 +6582,7 @@ def main() -> int:
         return 1
     launches["resize_lanczos3"] = thumb_launches["resize_lanczos3"]
     launches.update(lz77_launches)  # adler32's: 0 where no path calls it, as in the JAX package
+    launches["unfilter"] = unfilter_launches  # 0: the PNG decode unfilters on the host, as the JAX package
     launches.update(lossy_launches["q1"])
     k_ms = time_everything(dev, grad, 100_000, card)
     k_ms.update(time_png(dev, corpus, grad, card))
@@ -6090,6 +6597,7 @@ def main() -> int:
         k_ms.update(time_lossy(dev, corpus, grad, card))
         print_clocks("after the lossy timings")
         stream_ms = time_stream(dev, grad, card)
+        k_ms["unfilter"] = time_unfilter(dev, corpus, card)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6110,7 +6618,10 @@ def main() -> int:
     # (e) are under "e". chain_candidates has the launches of the (e) call
     # under PIXO_TPU_LZ77=device and the times at one (e) stream; its times
     # at 16 MiB are under "16 MiB". adler32 is on no path (0 launches), as
-    # adler32_jnp in the JAX package.
+    # adler32_jnp in the JAX package; nor is unfilter (its launches are those
+    # of the PNG decode's run, 0, as unfilter_device_batch's in the JAX
+    # package), whose times are at PNG (a)'s device group, with its critical
+    # path's bound beside the byte bound under "critical_path".
     sources = {"coeffs": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "dct_zz": ("pixo_tpu_torch/csrc/coeffs.cu", "pixo_tpu/ops/pallas_kernels.py:169"),
                "trellis_quantize": ("pixo_tpu_torch/csrc/trellis.cu", "pixo_tpu/ops/trellis_device.py:179"),
@@ -6125,8 +6636,10 @@ def main() -> int:
                "palette_lut": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:118"),
                "dither_fs": ("pixo_tpu_torch/csrc/quantize.cu", "pixo_tpu/ops/quantize_device.py:138"),
                "chain_candidates": ("pixo_tpu_torch/csrc/lz77.cu", "pixo_tpu/ops/lz77_assist.py:85"),
-               "adler32": ("pixo_tpu_torch/csrc/adler32.cu", "pixo_tpu/compress/checksums.py:89")}
-    print(json.dumps({"stream": stream_ms, "service": service_rps, "cli_launches": cli_launches}))
+               "adler32": ("pixo_tpu_torch/csrc/adler32.cu", "pixo_tpu/compress/checksums.py:89"),
+               "unfilter": ("pixo_tpu_torch/csrc/unfilter.cu", "pixo_tpu/ops/png_unfilter.py:29")}
+    print(json.dumps({"stream": stream_ms, "service": service_rps, "cli_launches": cli_launches,
+                      "playground_launches": playground_launches}))
     timed = ("at", "ms", "plain_ms", "device_ms", "launch_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -6141,6 +6654,7 @@ def main() -> int:
          **({"e": {"launches": max_png_launches[name], **{k: k_ms["e"][name][k] for k in timed}}}
             if name in max_png_launches else {}),
          **({"16 MiB": {k: k_ms[name]["16 MiB"][k] for k in timed}} if "16 MiB" in k_ms[name] else {}),
+         **({"critical_path": k_ms[name]["critical_path"]} if "critical_path" in k_ms[name] else {}),
          **({"stream": {"launches": stream_launches[name]}} if name in stream_launches else {})}
         for name, (src, replaces) in sources.items()
     ]}))

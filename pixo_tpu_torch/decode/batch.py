@@ -5,9 +5,11 @@ Counterpart of the JAX package's ``decode/batch.py``. Its
 each file's pixel tail on its own; here every file's entropy stage writes
 into one coefficient buffer (the baseline scans' native calls, which release
 the GIL, on host threads), and the pixel tail runs once for the whole batch
-on ``device`` (``jpeg_decoder.decode_files``). ``decode_png_batch`` maps the
-per-file PNG decode over host threads, as the JAX package does: INFLATE and
-the row reconstruction are library calls that release the GIL.
+on ``device`` (``jpeg_decoder.decode_files``); under the host pixel tier,
+the CPU's default, each file decodes through the host library on the
+threads. ``decode_png_batch`` maps the per-file PNG decode over host
+threads, as the JAX package does: INFLATE and the row reconstruction are
+library calls that release the GIL.
 """
 
 from __future__ import annotations
@@ -43,9 +45,11 @@ def decode_jpeg_batch(
     device="cuda",
 ) -> List[JpegImage]:
     """Decode many JPEGs, baseline or progressive, of any sizes and
-    samplings (order preserved): entropy on the host (the baseline scans'
-    library calls on ``workers`` threads), the pixel tail on ``device``
-    ("cpu" or a CUDA device) in one pass. Each image equals the JAX
-    package's ``decode_jpeg``; the first file, in order, that fails raises
-    its error."""
+    samplings (order preserved), under the pixel tier ``device`` selects
+    (``jpeg_decoder._pixel_tier``, ``PIXO_TPU_DECODE_PIXELS``): on a card,
+    entropy on the host (the baseline scans' library calls on ``workers``
+    threads) and the pixel tail on the card in one pass; for "cpu", each
+    file through the host library on ``workers`` threads. Each image equals
+    the JAX package's ``decode_jpeg``; the first file, in order, that fails
+    raises its error."""
     return decode_files(files, fancy_upsampling, workers, device)

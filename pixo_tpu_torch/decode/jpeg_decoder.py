@@ -23,17 +23,30 @@ two host stages and one device stage:
 one, and ``_decode_entropy`` the entropy stage of one file.
 A caller whose next stage runs on the same device (the thumbnail pipeline)
 takes the stages apart: ``_host_stage``, then ``_device_tail``, which leaves
-the pixels on the device, laid out as ``_pixel_groups`` says. The reference's
-choice of pixel tier (``_pixel_tier``, ``PIXO_TPU_DECODE_PIXELS``) has no
-counterpart: ``device=`` decides, and the tail runs as plain PyTorch for
-"cpu" and through the kernel on a CUDA device. Its CPU latency tier, the
-fused native decode, is not ported.
+the pixels on the device, laid out as ``_pixel_groups`` says.
+
+``decode_files`` picks the pixel tier as the reference does
+(``_pixel_tier``), keyed on the call's device where the reference reads
+JAX's backend: ``PIXO_TPU_DECODE_PIXELS=host`` or ``=device`` where set,
+else the host tier for ``device="cpu"`` and the device tier for a card. The
+device tier is the batch's tail above: the kernel on a card, plain PyTorch
+for "cpu". The host tier, the reference's CPU latency tier
+(``_host_tier``), decodes each file on its own, its Python work on the
+calling thread and its library calls, which release the GIL, on the
+``workers`` threads: a baseline file through the
+host library's fused decode (entropy, IDCT, upsampling and colour in one
+call), a progressive one through its scans, then the library's pixel tail;
+where a fused call fails (a corrupt stream, a geometry it declines) the
+file takes the two-stage route, so the reference's error surfaces, and
+where the library declines the geometry the plain PyTorch tail on the CPU
+gives the pixels of the reference's NumPy and jnp fallbacks.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import os
 import threading
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -44,6 +57,8 @@ from .. import errors
 from ..color import ColorType
 from ..native import (
     NativeDecodeError,
+    native_jpeg_decode_baseline_call,
+    native_jpeg_decode_pixels_call,
     native_jpeg_decode_scan_call,
     native_jpeg_prog_ac_scan,
     native_jpeg_prog_dc_scan,
@@ -815,12 +830,7 @@ def _host_stage(files: Sequence[bytes], workers: int, pinned: bool = False) -> _
             _finish_baseline, scans[k], prep[0], planes[k],
             running[k].result() if pool else running[k])
     decoded = iter(outcome)
-    results = [p if isinstance(p, Exception) else next(decoded) for p in parsed]
-    failed = next((k for k, r in enumerate(results) if isinstance(r, Exception)), None)
-    if failed is not None:
-        # which file it was, for a caller that orders it among other inputs
-        results[failed].file_index = failed
-        raise results[failed]
+    _raise_first([p if isinstance(p, Exception) else next(decoded) for p in parsed])
     table.set_qtables(np.stack([_qtables(scans[i])[ci] for i, ci in layout.qtable_of]))
     if staging is not None:
         staging.numpy()[coeffs.nbytes:] = table.packed.reshape(-1).view(np.uint8)
@@ -890,23 +900,152 @@ def _device_tail(batch: _HostBatch, fancy_upsampling: bool, dev: torch.device) -
     return _upsample_colour(planes, batch, fancy_upsampling)
 
 
+def _pixel_tier(dev: torch.device) -> str:
+    """"host" (the host library's pixel tail, file by file) or "device" (the
+    batch's tail on ``dev``): ``PIXO_TPU_DECODE_PIXELS`` where it names one,
+    else "host" for the CPU and "device" for a card, as the reference keys
+    its default on JAX's backend."""
+    mode = os.environ.get("PIXO_TPU_DECODE_PIXELS")
+    if mode in ("host", "device"):
+        return mode
+    return "host" if dev.type == "cpu" else "device"
+
+
+def _image(scan: _Scan, pixels: np.ndarray) -> JpegImage:
+    ct = ColorType.GRAY if len(scan.components) == 1 else ColorType.RGB
+    return JpegImage(scan.width, scan.height, ct, pixels)
+
+
+def _plain_tail(scan: _Scan, coeffs: List[np.ndarray], fancy_upsampling: bool) -> JpegImage:
+    """The device tier's tail in plain PyTorch on the CPU, for one file whose
+    coefficients are ``coeffs`` (one [blocks, 64] array a component)."""
+    layout = _Layout([scan])
+    layout.table.set_qtables(np.stack(_qtables(scan)))
+    batch = _HostBatch([scan], layout, np.concatenate(coeffs), layout.table.qtables, None)
+    pixels = _device_tail(batch, fancy_upsampling, torch.device("cpu"))
+    return _images(pixels.numpy(), _pixel_groups(batch))[0]
+
+
+def _fused_call(scan: _Scan, fancy_upsampling: bool) -> Tuple[int, Callable[[], Optional[np.ndarray]]]:
+    """A baseline file's restart segment count, and its fused library decode
+    (entropy, IDCT, upsampling and colour) made ready to run on any thread."""
+    comps = scan.components
+    segments, _ = _split_entropy(scan.data[scan.pos:])
+    return len(segments), native_jpeg_decode_baseline_call(
+        segments, scan.restart_interval, scan.mcu_cols * scan.mcu_rows, scan.mcu_cols,
+        scan.mcu_rows, [c.h for c in comps], [c.v for c in comps], scan.max_h, scan.max_v,
+        scan.width, scan.height, [scan.dc_specs[c.dc_table] for c in comps],
+        [scan.ac_specs[c.ac_table] for c in comps], _qtables(scan), fancy=fancy_upsampling)
+
+
+def _tail_call(scan: _Scan, coeffs: List[np.ndarray], fancy_upsampling: bool):
+    """The library's pixel tail of the file's decoded ``coeffs``, made ready
+    to run on any thread."""
+    comps = scan.components
+    return native_jpeg_decode_pixels_call(
+        coeffs, _qtables(scan), [c.h for c in comps], [c.v for c in comps], scan.mcu_cols,
+        scan.mcu_rows, scan.max_h, scan.max_v, scan.width, scan.height, fancy=fancy_upsampling)
+
+
+def _progressive_tail(scan: _Scan, fancy_upsampling: bool):
+    """A progressive file's scans decoded, and its pixel tail made ready:
+    (coefficients, the library call)."""
+    coeffs = [np.zeros((bw * bh, 64), np.int16) for bw, bh in scan.plane_blocks()]
+    _decode_progressive(scan, coeffs)
+    return coeffs, _tail_call(scan, coeffs, fancy_upsampling)
+
+
+def _tail_image(scan: _Scan, coeffs: List[np.ndarray], pixels: Optional[np.ndarray],
+                fancy_upsampling: bool) -> JpegImage:
+    """The file's image from the library's pixel tail, or, where it declined
+    the geometry (None), from the plain PyTorch tail."""
+    return _plain_tail(scan, coeffs, fancy_upsampling) if pixels is None else _image(scan, pixels)
+
+
+def _fused_image(scan: _Scan, nsegments: int, pixels: Optional[np.ndarray],
+                 fancy_upsampling: bool) -> JpegImage:
+    """A baseline file's image after its fused call: the reference's restart
+    count on a success; where the call returned None (a corrupt stream, a
+    declined geometry), the two-stage route, so that the reference's error
+    surfaces: the entropy stage, then the library's pixel tail."""
+    if pixels is None:
+        coeffs = [np.zeros((bw * bh, 64), np.int16) for bw, bh in scan.plane_blocks()]
+        _decode_entropy(scan, coeffs)
+        return _tail_image(scan, coeffs, _tail_call(scan, coeffs, fancy_upsampling)(), fancy_upsampling)
+    total_mcus, ri = scan.mcu_cols * scan.mcu_rows, scan.restart_interval
+    if ri and nsegments < -(-total_mcus // ri):
+        raise errors.InvalidDecode("missing restart segment")
+    return _image(scan, pixels)
+
+
+def _raise_first(results: list) -> None:
+    """Raise the first exception of ``results`` (in file order), with that
+    file's index as its ``file_index``."""
+    failed = next((k for k, r in enumerate(results) if isinstance(r, Exception)), None)
+    if failed is not None:
+        # which file it was, for a caller that orders it among other inputs
+        results[failed].file_index = failed
+        raise results[failed]
+
+
+def _host_tier(files: Sequence[bytes], fancy_upsampling: bool, workers: int) -> List[JpegImage]:
+    """The host pixel tier of a non-empty batch (the reference's
+    ``_decode_scan`` and ``_finish_scan`` under
+    ``PIXO_TPU_DECODE_PIXELS=host``): a baseline file through the fused
+    library decode (``_fused_image``), a progressive file's scans then the
+    library's pixel tail, or the plain PyTorch tail where the library
+    declines the geometry. As in ``_host_stage``, the Python work (markers,
+    entropy splitting, the progressive scans, each call's arguments, and
+    the two-stage route of a file whose fused call returned None) runs on
+    the calling thread; with ``workers`` > 1 only the library calls, which
+    release the GIL, go to that many threads, the fused calls once every one
+    is ready, each pixel tail as its file's scans are done. Raises the error
+    of the first file, in order, that fails."""
+    parsed = [_attempt(_parse, data) for data in files]
+    pool = _pool(workers) if workers > 1 and len(files) > 1 else None
+    start = pool.submit if pool else (lambda call: call())  # a future, or the call's result
+    fused = {k: _attempt(_fused_call, s, fancy_upsampling) for k, s in enumerate(parsed)
+             if isinstance(s, _Scan) and not s.progressive}
+    running = {k: start(prep[1]) for k, prep in fused.items() if not isinstance(prep, Exception)}
+    tails = {}
+    for k, s in enumerate(parsed):
+        if isinstance(s, _Scan) and s.progressive:
+            tails[k] = _attempt(_progressive_tail, s, fancy_upsampling)
+            if not isinstance(tails[k], Exception):
+                running[k] = start(tails[k][1])
+    results = list(parsed)
+    for k, prep in {**fused, **tails}.items():
+        finish = _fused_image if k in fused else _tail_image
+        results[k] = prep if isinstance(prep, Exception) else _attempt(
+            finish, parsed[k], prep[0], running[k].result() if pool else running[k], fancy_upsampling)
+    _raise_first(results)
+    return results
+
+
 def decode_files(files: Sequence[bytes], fancy_upsampling: bool, workers: int,
                  device) -> List[JpegImage]:
-    """Decode a batch of JPEG files: the host stages (the baseline scans'
-    library calls on ``workers`` threads), the pixel tail for the whole batch
-    on ``device`` (``_device_tail``), then one copy of every pixel back to the
-    host. Raises the error of the first file, in order, that fails."""
+    """Decode a batch of JPEG files. Under the device tier (``_pixel_tier``):
+    the host stages (the baseline scans' library calls on ``workers``
+    threads), the pixel tail for the whole batch on ``device``
+    (``_device_tail``), then one copy of every pixel back to the host. Under
+    the host tier: each file through the host library on ``workers``
+    threads (``_host_tier``). Raises the error of the first file, in order,
+    that fails."""
     if not files:
         return []
     dev = torch.device(device)
+    if _pixel_tier(dev) == "host":
+        return _host_tier(files, fancy_upsampling, workers)
     batch = _host_stage(files, workers, pinned=dev.type == "cuda")
     pixels = _device_tail(batch, fancy_upsampling, dev)
     return _images(pixels.cpu().numpy(), _pixel_groups(batch))
 
 
 def decode_jpeg(data: bytes, fancy_upsampling: bool = False, *, device="cuda") -> JpegImage:
-    """Decode one baseline or progressive JPEG, its pixel tail on ``device``
-    ("cpu" or a CUDA device). ``fancy_upsampling=True`` uses libjpeg-style
-    triangle chroma interpolation; the default nearest matches the pixo
-    reference decoder. Pixels equal the JAX package's ``decode_jpeg``."""
+    """Decode one baseline or progressive JPEG, its pixels by the tier that
+    ``device`` ("cpu" or a CUDA device) selects (``_pixel_tier``: the host
+    library for "cpu", the tail on the card for a card).
+    ``fancy_upsampling=True`` uses libjpeg-style triangle chroma
+    interpolation; the default nearest matches the pixo reference decoder.
+    Pixels equal the JAX package's ``decode_jpeg``."""
     return decode_files([data], fancy_upsampling, 1, device)[0]

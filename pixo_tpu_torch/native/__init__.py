@@ -856,13 +856,15 @@ def _pixels_out(ncomp: int, width: int, height: int) -> np.ndarray:
     return np.empty((height, width, 3) if ncomp == 3 else (height, width), np.uint8)
 
 
-def native_jpeg_decode_pixels(comp_coeffs, qtables_zz, comp_h, comp_v, mcu_cols: int,
-                              mcu_rows: int, max_h: int, max_v: int, width: int, height: int,
-                              fancy: bool = False):
-    """Host pixel tail (oracle): dequantize, un-zigzag, jidctint, assemble,
-    upsample and colour-convert. ``comp_coeffs``: one int16 [nblocks, 64]
-    zigzag array per component; ``qtables_zz``: one [64] zigzag table each.
-    Returns [H, W, 3] (or [H, W] gray) uint8, or None where the host tier
+def native_jpeg_decode_pixels_call(comp_coeffs, qtables_zz, comp_h, comp_v, mcu_cols: int,
+                                   mcu_rows: int, max_h: int, max_v: int, width: int, height: int,
+                                   fancy: bool = False) -> Callable[[], Optional[np.ndarray]]:
+    """The host pixel tail (dequantize, un-zigzag, jidctint, assemble,
+    upsample and colour-convert), with its arguments made ready here.
+    ``comp_coeffs``: one int16 [nblocks, 64] zigzag array per component;
+    ``qtables_zz``: one [64] zigzag table each. The returned call runs it in
+    one library call, which releases the GIL, so it may run on any thread;
+    it returns [H, W, 3] (or [H, W] gray) uint8, or None where the host tier
     declines the geometry."""
     lib = load()
     coeffs = np.ascontiguousarray(np.concatenate([np.asarray(c, np.int16) for c in comp_coeffs]))
@@ -872,21 +874,27 @@ def native_jpeg_decode_pixels(comp_coeffs, qtables_zz, comp_h, comp_v, mcu_cols:
     ch = np.asarray(comp_h, np.int32)
     cv = np.asarray(comp_v, np.int32)
     out = _pixels_out(len(comp_coeffs), width, height)
-    rc = lib.jpeg_decode_pixels(
+    args = (
         _ptr(coeffs, _i16p), _ptr(offs, _i64p), _ptr(qt, _u16p), _ptr(ch, _i32p),
         _ptr(cv, _i32p), len(ch), mcu_cols, mcu_rows, max_h, max_v, width, height,
         int(fancy), _ptr(out, _u8p),
-    )
-    return out if rc == 0 else None
+    )  # each pointer keeps its array alive (numpy's data_as)
+
+    def call() -> Optional[np.ndarray]:
+        return out if lib.jpeg_decode_pixels(*args) == 0 else None
+
+    return call
 
 
-def native_jpeg_decode_baseline(segments, restart_interval: int, total_mcus: int, mcu_cols: int,
-                                mcu_rows: int, comp_h, comp_v, max_h: int, max_v: int,
-                                width: int, height: int, dc_specs, ac_specs, qtables_zz,
-                                fancy: bool = False):
-    """Fused host baseline decode (oracle): entropy, IDCT, upsample and
-    colour in one call. Returns the pixels as ``native_jpeg_decode_pixels``
-    does, or None for a corrupt stream or a geometry it declines."""
+def native_jpeg_decode_baseline_call(segments, restart_interval: int, total_mcus: int, mcu_cols: int,
+                                     mcu_rows: int, comp_h, comp_v, max_h: int, max_v: int,
+                                     width: int, height: int, dc_specs, ac_specs, qtables_zz,
+                                     fancy: bool = False) -> Callable[[], Optional[np.ndarray]]:
+    """The fused host baseline decode (entropy, IDCT, upsample and colour in
+    one library call), with its arguments made ready here. The returned
+    call releases the GIL, so it may run on any thread; it returns the
+    pixels as ``native_jpeg_decode_pixels_call``'s does, or None for a
+    corrupt stream or a geometry it declines."""
     lib = load()
     seg, seg_off = _segments(segments)
     ch = np.asarray(comp_h, np.int32)
@@ -894,13 +902,17 @@ def native_jpeg_decode_baseline(segments, restart_interval: int, total_mcus: int
     dc, ac = _huff_arrays(dc_specs), _huff_arrays(ac_specs)
     qt = np.ascontiguousarray(np.stack([np.asarray(q, np.uint16) for q in qtables_zz]))
     out = _pixels_out(len(ch), width, height)
-    rc = lib.jpeg_decode_baseline(
+    args = (
         _ptr(seg, _u8p), _ptr(seg_off, _i64p), len(segments), restart_interval, total_mcus,
         mcu_cols, mcu_rows, len(ch), _ptr(ch, _i32p), _ptr(cv, _i32p), max_h, max_v,
         width, height, *_huff_ptrs(dc), *_huff_ptrs(ac), _ptr(qt, _u16p), int(fancy),
         _ptr(out, _u8p),
-    )
-    return out if rc == 0 else None
+    )  # each pointer keeps its array alive (numpy's data_as)
+
+    def call() -> Optional[np.ndarray]:
+        return out if lib.jpeg_decode_baseline(*args) == 0 else None
+
+    return call
 
 
 class NativeInflateError(Exception):

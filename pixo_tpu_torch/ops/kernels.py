@@ -59,6 +59,10 @@ stream.
   ``ops/lz77_assist.py``; and ``adler32`` (``csrc/adler32.cu``), wrapped in
   ``compress/checksums.py::adler32_device``. They replace the jit functions
   of the JAX package's ``ops/lz77_assist.py`` and ``adler32_jnp``.
+- ``unfilter`` (``csrc/unfilter.cu``): the PNG row reconstruction as a
+  wavefront, a thread a row, wrapped in ``ops/png_unfilter.py::
+  unfilter_device_batch``; it replaces the jit ``unfilter_device_batch`` of
+  the JAX package's ``ops/png_unfilter.py``, which has no Pallas kernel.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -104,7 +108,8 @@ from .trellis_device import RATE_LUT, trellis_quantize_batch_plain
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 SOURCES = [os.path.join(CSRC, f) for f in ("coeffs.cu", "compact.cu", "filter_bank.cu", "idct.cu",
                                            "resize.cu", "quantize.cu", "huffman.cu", "trellis.cu",
-                                           "lz77.cu", "adler32.cu", "aan.cuh", "idct.cuh", "redmean.cuh")]
+                                           "lz77.cu", "adler32.cu", "unfilter.cu", "aan.cuh", "idct.cuh",
+                                           "redmean.cuh")]
 
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -fmad=false: no mul+add pair may become an FMA (the AAN DCT is bit-exact
@@ -187,6 +192,8 @@ def load():
             lib.pixo_adler32_ctas_per_sm.argtypes = []
             lib.pixo_adler32.restype = ctypes.c_int
             lib.pixo_adler32.argtypes = [vp, i64, ctypes.c_uint32, i64, i64, vp, vp]
+            lib.pixo_unfilter.restype = ctypes.c_int
+            lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib

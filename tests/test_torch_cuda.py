@@ -32,11 +32,12 @@ from chip_smoke import (
     dither_inputs,
     dither_repeat_case,
     bigram_edge_cases,
+    env_var,
     filter_edge_cases,
     host_decode,
+    host_unfilter,
     lossy_options,
     lz77_cases,
-    lz77_route,
     match_pairs,
     plane_edge_case,
     quantize_edge_cases,
@@ -45,6 +46,7 @@ from chip_smoke import (
     trellis_edge_blocks,
     trellis_mixed_blocks,
     trellis_random_blocks,
+    unfilter_edge_cases,
 )
 from pixo_tpu_torch import (
     ColorType,
@@ -77,6 +79,7 @@ from pixo_tpu_torch.ops import (
     kernels,
     lz77_assist,
     png_filters,
+    png_unfilter,
     quantize_device,
     resize_kernels,
     sparse_pack,
@@ -1188,9 +1191,9 @@ def test_lz77_route_on_the_card_equals_the_host_route(dev):
     rng = np.random.default_rng(37)
     data = rng.integers(-3, 4, 200_000).astype(np.int8).astype(np.uint8)
     data[rng.random(data.size) < 0.6] = 0
-    with lz77_route(False):
+    with env_var("PIXO_TPU_LZ77", None):
         host = deflate.deflate_optimal_zlib(data.tobytes(), 5)
-    with lz77_route(True):
+    with env_var("PIXO_TPU_LZ77", "device"):
         before = lz77_assist.chain_candidates.launches
         got = deflate.deflate_optimal_zlib(data.tobytes(), 5, device=dev)
         assert lz77_assist.chain_candidates.launches == before + 1
@@ -1433,3 +1436,65 @@ def test_profile_trace_sees_the_kernels(dev, tmp_path):
         encode_jpeg_batch_sharded(img, opts, device=dev)
     assert any("coeffs_kernel" in e.key for e in prof.key_averages())
     assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+
+
+UNFILTER_CASES = unfilter_edge_cases(np.random.default_rng(41))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("case", range(len(UNFILTER_CASES)), ids=[c[0] for c in UNFILTER_CASES])
+def test_unfilter_kernel_equals_plain_and_host(dev, case, offset):
+    """Every bpp and filter id, the edge shapes and the band heights, at byte
+    offsets 0, 1 and 3: one launch, bit for bit its plain version on the
+    card and, for ids 0-4, the host library's png_unfilter."""
+    label, rows, filters, bpp = UNFILTER_CASES[case]
+    t = at_offset(rows, offset, dev)
+    ids = torch.from_numpy(filters).to(dev)
+    before = png_unfilter.unfilter_device_batch.launches
+    got = png_unfilter.unfilter_device_batch(t, ids, bpp=bpp, device=dev)
+    torch.cuda.synchronize()
+    assert png_unfilter.unfilter_device_batch.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.uint8 and got.shape == t.shape
+    assert torch.equal(got, png_unfilter.unfilter_plain(t, ids, bpp)), label
+    if ((filters >= 0) & (filters <= 4)).all():
+        np.testing.assert_array_equal(got.cpu().numpy(), host_unfilter(rows, filters, bpp))
+
+
+@pytest.mark.parametrize("strategy", [FilterStrategy.ADAPTIVE, FilterStrategy.PAETH, FilterStrategy.BIGRAMS])
+def test_unfilter_kernel_undoes_filter_rows(dev, strategy):
+    rng = np.random.default_rng(44)
+    y, x = np.mgrid[0:300, 0:3 * 333]
+    raw = ((x + 2 * y) % 256 + rng.integers(0, 6, (3, 300, 999))).astype(np.uint8)
+    out = kernels.filter_rows(torch.from_numpy(raw).to(dev), bpp=3, strategy=strategy, small_image=False,
+                              sticky_fast=False)
+    got = png_unfilter.unfilter_device_batch(out[..., 1:].contiguous(), out[..., 0], bpp=3, device=dev)
+    np.testing.assert_array_equal(got.cpu().numpy(), raw)
+
+
+def test_unfilter_kernel_on_numpy_input_and_bad_input(dev):
+    label, rows, filters, bpp = UNFILTER_CASES[0]
+    got = png_unfilter.unfilter_device(rows[0], filters[0], bpp=bpp)  # the card by default
+    assert got.device.type == "cuda"
+    np.testing.assert_array_equal(got.cpu().numpy(), host_unfilter(rows[:1], filters[:1], bpp)[0])
+    before = png_unfilter.unfilter_device_batch.launches
+    with pytest.raises(ValueError):
+        png_unfilter.unfilter_device_batch(rows, filters, bpp=9, device=dev)
+    empty = png_unfilter.unfilter_device_batch(np.zeros((2, 0, 5), np.uint8), np.zeros((2, 0), np.int32), bpp=1,
+                                               device=dev)
+    assert empty.shape == (2, 0, 5) and png_unfilter.unfilter_device_batch.launches == before
+
+
+def test_decode_host_tier_on_the_card(dev, monkeypatch):
+    """PIXO_TPU_DECODE_PIXELS=host with a CUDA device: the host library's
+    tier, no tail launch, the same pixels as the device tier."""
+    rng = np.random.default_rng(45)
+    imgs = rng.integers(0, 256, (3, 40, 56, 3), dtype=np.uint8)
+    files = encode_jpeg_batch_sharded(imgs, JpegOptions(width=56, height=40, quality=85), device="cpu")
+    monkeypatch.delenv("PIXO_TPU_DECODE_PIXELS", raising=False)
+    device_tier = decode_jpeg_batch(files, device=dev)
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", "host")
+    before = kernels.idct_planes.launches
+    host_tier = decode_jpeg_batch(files, device=dev)
+    assert kernels.idct_planes.launches == before
+    for a, b in zip(device_tier, host_tier):
+        np.testing.assert_array_equal(a.pixels, b.pixels)

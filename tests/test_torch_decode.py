@@ -5,9 +5,12 @@ upsampling and the colour conversion are integer arithmetic, and the port
 holds the reference's int32 wraparound. Inputs come from seeded numpy
 generators; files come from the golden oracle set, the port's own encoder,
 Pillow, and a small writer below that frames random coefficients under any
-sampling factors (Pillow cannot write h1v2). The reference runs under both
-of its pixel tiers: the host tier (its default on the CPU) and the jnp
-device tier (``PIXO_TPU_DECODE_PIXELS=device``).
+sampling factors (Pillow cannot write h1v2). Both packages pick their pixel
+tier by ``PIXO_TPU_DECODE_PIXELS``, and a file's decode runs under each
+(``TIERS``, set by ``monkeypatch``), the port's against the reference's
+under the same tier: the host tier (the host library's tail, the default of
+both on the CPU) and the device tier (the reference's jnp tail, the port's
+plain PyTorch tail).
 """
 
 import glob
@@ -133,17 +136,22 @@ def _same(a, b) -> bool:
     return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
 
 
+TIERS = ["host", "device"]
+
+
 def _reference(monkeypatch, data, fancy, tier):
     monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
     return _outcome(lambda: ref_decode_jpeg(data, fancy).pixels)
 
 
-def _check_decode(monkeypatch, data, fancy, tiers=("host", "device")):
+def _check_decode(monkeypatch, data, fancy, tier, ref_tier=None):
+    """The port's decode with ``device="cpu"`` under pixel tier ``tier``
+    against the reference's under the same tier (or ``ref_tier``)."""
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
     got = _outcome(lambda: decode_jpeg(data, fancy, device="cpu").pixels)
-    for tier in tiers:
-        ref = _reference(monkeypatch, data, fancy, tier)
-        assert _same(got, ref), (tier, got if isinstance(got, tuple) else "pixels",
-                                 ref if isinstance(ref, tuple) else "pixels")
+    ref = _reference(monkeypatch, data, fancy, ref_tier or tier)
+    assert _same(got, ref), (tier, got if isinstance(got, tuple) else "pixels",
+                             ref if isinstance(ref, tuple) else "pixels")
     return got
 
 
@@ -371,13 +379,14 @@ def test_assemble_plane_equals_jnp():
 
 @pytest.mark.parametrize("fancy", [False, True], ids=["nearest", "fancy"])
 @pytest.mark.parametrize("path", ORACLE, ids=lambda p: os.path.basename(p)[5:13])
-def test_oracle_files_equal_reference(monkeypatch, path, fancy):
+@pytest.mark.parametrize("tier", TIERS)
+def test_oracle_files_equal_reference(monkeypatch, path, fancy, tier):
     """The 16 golden oracle JPEGs, baseline and progressive, up to
     3220x1812. The 7 progressive ones are the pixo encoder's output, which
     the reference decoder rejects: the port raises the same error."""
     with open(path, "rb") as f:
         data = f.read()
-    _check_decode(monkeypatch, data, fancy)
+    _check_decode(monkeypatch, data, fancy, tier)
 
 
 def test_oracle_set_is_whole():
@@ -395,12 +404,13 @@ PORT_CASES = [
 
 @pytest.mark.parametrize("restart", [None, 1, 3], ids=["no-rst", "rst1", "rst3"])
 @pytest.mark.parametrize("label,sub,size", PORT_CASES, ids=[c[0] for c in PORT_CASES])
-def test_port_encoded_files_equal_reference(monkeypatch, label, sub, size, restart):
+@pytest.mark.parametrize("tier", TIERS)
+def test_port_encoded_files_equal_reference(monkeypatch, label, sub, size, restart, tier):
     h, w = size
     img = _photo(np.random.default_rng(19), h, w, 1 if label == "gray" else 3)
     data = _port_jpeg(img, sub, restart=restart)
     for fancy in (False, True):
-        _check_decode(monkeypatch, data, fancy)
+        _check_decode(monkeypatch, data, fancy, tier)
 
 
 PILLOW_CASES = [
@@ -413,18 +423,20 @@ PILLOW_CASES = [
 
 
 @pytest.mark.parametrize("label,kw", PILLOW_CASES, ids=[c[0] for c in PILLOW_CASES])
-def test_pillow_files_equal_reference(monkeypatch, label, kw):
+@pytest.mark.parametrize("tier", TIERS)
+def test_pillow_files_equal_reference(monkeypatch, label, kw, tier):
     img = _photo(np.random.default_rng(20), 45, 61, 1 if "gray" in label else 3)
     data = _pillow_jpeg(img, **kw)
     for fancy in (False, True):
-        _check_decode(monkeypatch, data, fancy)
+        _check_decode(monkeypatch, data, fancy, tier)
 
 
 FIXTURES = sorted(glob.glob(os.path.join(os.path.dirname(__file__), "fixtures", "progressive_*.jpg")))
 
 
 @pytest.mark.parametrize("path", FIXTURES, ids=lambda p: os.path.basename(p)[12:-4])
-def test_progressive_fixtures_equal_reference(monkeypatch, path):
+@pytest.mark.parametrize("tier", TIERS)
+def test_progressive_fixtures_equal_reference(monkeypatch, path, tier):
     """Progressive photos that the card's checks decode (it has no Pillow):
     Pillow 12.1 saves of the corpus fixtures, cropped to (h, w), with
     progressive=True and: browser 512x512 4:2:0 q85 restart_marker_rows=1;
@@ -434,7 +446,7 @@ def test_progressive_fixtures_equal_reference(monkeypatch, path):
         data = f.read()
     assert b"\xff\xc2" in data  # SOF2
     for fancy in (False, True):
-        assert not isinstance(_check_decode(monkeypatch, data, fancy), tuple)
+        assert not isinstance(_check_decode(monkeypatch, data, fancy, tier), tuple)
 
 
 def test_progressive_fixtures_are_all_there():
@@ -454,13 +466,14 @@ SYNTH_CASES = [
 
 @pytest.mark.parametrize("restart", [None, 2], ids=["no-rst", "rst2"])
 @pytest.mark.parametrize("label,sampling", SYNTH_CASES, ids=[c[0] for c in SYNTH_CASES])
-def test_sampling_factors_equal_reference(monkeypatch, label, sampling, restart):
+@pytest.mark.parametrize("tier", TIERS)
+def test_sampling_factors_equal_reference(monkeypatch, label, sampling, restart, tier):
     """Sampling factors past the port's encoder: h1v2, the ratio 3 that the
     host library declines, ratio 4, chroma planes of different sizes, and
     luma smaller than chroma."""
     data = _synth_jpeg(np.random.default_rng(21), 53, 35, sampling, restart)
     for fancy in (False, True):
-        assert not isinstance(_check_decode(monkeypatch, data, fancy), tuple)
+        assert not isinstance(_check_decode(monkeypatch, data, fancy, tier), tuple)
 
 
 def _progressive_small():
@@ -473,28 +486,40 @@ def _declined(*args):
     return lambda: False
 
 
+def _decline_baseline(monkeypatch):
+    """Both native baseline decodes of the port decline: the scan call of the
+    device tier, and the fused call that the host tier takes first."""
+    monkeypatch.setattr(jpeg_decoder, "native_jpeg_decode_scan_call", _declined)
+    monkeypatch.setattr(jpeg_decoder, "native_jpeg_decode_baseline_call", lambda *a, **k: lambda: None)
+
+
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("kind", ["baseline", "baseline-rst"])
-def test_python_entropy_tier_equals_reference(monkeypatch, kind):
+def test_python_entropy_tier_equals_reference(monkeypatch, kind, tier):
     """With the native baseline decoder declined, the port's Python bit
-    reader equals the reference's Python tier (native library disabled)."""
+    reader equals the reference's Python tier (native library disabled),
+    under either of the port's pixel tiers."""
     rng = np.random.default_rng(23)
     data = {
         "baseline": lambda: _port_jpeg(_photo(rng, 21, 34)),
         "baseline-rst": lambda: _synth_jpeg(rng, 30, 20, ((1, 2), (1, 1), (1, 1)), restart=2),
     }[kind]()
-    monkeypatch.setattr(jpeg_decoder, "native_jpeg_decode_scan_call", _declined)
+    _decline_baseline(monkeypatch)
     monkeypatch.setenv("PIXO_TPU_DISABLE_NATIVE", "1")
     for fancy in (False, True):
-        _check_decode(monkeypatch, data, fancy, tiers=("host",))
+        _check_decode(monkeypatch, data, fancy, tier, ref_tier="host")
 
 
-def test_python_entropy_tier_in_a_threaded_batch(monkeypatch):
+@pytest.mark.parametrize("tier", TIERS)
+def test_python_entropy_tier_in_a_threaded_batch(monkeypatch, tier):
     """A batch whose baseline calls all decline: the Python tier decodes
-    each on the calling thread, beside the progressive files, and every
-    image equals its decode through the native calls."""
+    each (the device tier's on the calling thread, beside the progressive
+    files; the host tier's on the pool), and every image equals its decode
+    through the native calls."""
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
     files = _mixed_batch()
     want = decode_jpeg_batch(files, workers=4, device="cpu")
-    monkeypatch.setattr(jpeg_decoder, "native_jpeg_decode_scan_call", _declined)
+    _decline_baseline(monkeypatch)
     got = decode_jpeg_batch(files, workers=4, device="cpu")
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.pixels, w.pixels)
@@ -548,18 +573,20 @@ def _error_cases():
     }
 
 
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("name", list(_error_cases()))
-def test_errors_equal_reference(monkeypatch, name):
+def test_errors_equal_reference(monkeypatch, name, tier):
     data = _error_cases()[name]
-    got = _check_decode(monkeypatch, data, False)
+    got = _check_decode(monkeypatch, data, False, tier)
     assert isinstance(got, tuple), "the case must fail"
 
 
-def test_missing_restart_segment_is_named(monkeypatch):
+@pytest.mark.parametrize("tier", TIERS)
+def test_missing_restart_segment_is_named(monkeypatch, tier):
     data = _error_cases()["missing-restart-segment"]
-    assert _check_decode(monkeypatch, data, False) == (
+    assert _check_decode(monkeypatch, data, False, tier) == (
         "InvalidDecode", "invalid encoded data: missing restart segment")
-    assert _check_decode(monkeypatch, _error_cases()["fractional-4:3"], False) == (
+    assert _check_decode(monkeypatch, _error_cases()["fractional-4:3"], False, tier) == (
         "UnsupportedDecode", "unsupported feature: fractional sampling ratios")
 
 
@@ -581,9 +608,11 @@ def _mixed_batch():
     ]
 
 
+@pytest.mark.parametrize("tier", TIERS)
 @pytest.mark.parametrize("workers", [1, 4])
 @pytest.mark.parametrize("fancy", [False, True], ids=["nearest", "fancy"])
-def test_batch_equals_per_image_decode(fancy, workers):
+def test_batch_equals_per_image_decode(monkeypatch, fancy, workers, tier):
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
     files = _mixed_batch()
     got = decode_jpeg_batch(files, fancy_upsampling=fancy, workers=workers, device="cpu")
     assert len(got) == len(files)
@@ -596,7 +625,9 @@ def test_batch_equals_per_image_decode(fancy, workers):
         assert all(np.array_equal(a.pixels, g.pixels) for a, g in zip(alias, got))
 
 
-def test_batch_raises_the_first_failing_file():
+@pytest.mark.parametrize("tier", TIERS)
+def test_batch_raises_the_first_failing_file(monkeypatch, tier):
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
     files = _mixed_batch()
     cases = _error_cases()
     # an entropy error (second host stage) before a header error (first stage)
@@ -609,6 +640,8 @@ def test_batch_raises_the_first_failing_file():
 
 
 def test_batch_runs_one_tail(monkeypatch):
+    """The device tier's batch: one tail launch for every file."""
+    monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", "device")
     calls = []
     real = jpeg_decoder.idct_planes_table  # the launch with the batch's packed table
 
@@ -636,11 +669,11 @@ FUSED_CASES = [
 @pytest.mark.parametrize("restart", [None, 1, 5], ids=["no-rst", "rst1", "rst5"])
 @pytest.mark.parametrize("size", [(33, 47), (8, 8), (97, 15)], ids=["33x47", "8x8", "97x15"])
 @pytest.mark.parametrize("label,sub,gray", FUSED_CASES, ids=[c[0] for c in FUSED_CASES])
-def test_native_fused_decode_equals_two_stage(label, sub, gray, size, restart, fancy):
+def test_native_fused_decode_equals_two_stage(monkeypatch, label, sub, gray, size, restart, fancy):
     """The test that core.cpp's jpeg_decode_baseline comment promises: the
     fused host decode equals the two-stage jpeg_decode_scan +
     jpeg_decode_pixels, through the port's bindings; and both equal the
-    port's decode."""
+    port's decode under each of its pixel tiers."""
     h, w = size
     data = _port_jpeg(_photo(np.random.default_rng(26), h, w, 1 if gray else 3), sub,
                       quality=90, restart=restart)
@@ -648,4 +681,6 @@ def test_native_fused_decode_equals_two_stage(label, sub, gray, size, restart, f
     two_stage = host_decode(data, fancy)
     assert fused is not None and two_stage is not None
     np.testing.assert_array_equal(fused, two_stage)
-    np.testing.assert_array_equal(decode_jpeg(data, fancy, device="cpu").pixels, two_stage)
+    for tier in TIERS:
+        monkeypatch.setenv("PIXO_TPU_DECODE_PIXELS", tier)
+        np.testing.assert_array_equal(decode_jpeg(data, fancy, device="cpu").pixels, two_stage)
