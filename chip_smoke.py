@@ -96,10 +96,13 @@ printing its own lines:
    around its 2048-byte chunks) from ``ADLER_STARTS``; and the unfilter
    kernel (``check_unfilter_kernel``) on ``unfilter_edge_cases`` (every bpp
    1 to 8 and filter id, H = 1, RB < bpp, RB = 1, ids outside 0-4, heights
-   at and across its band of 1024 rows) at byte offsets 0, 1 and 3, bit for
-   bit against its plain version and the host library's ``png_unfilter``,
-   and on the rows ``filter_rows`` filters from PNG (a)'s images under four
-   strategies, which it must give back;
+   around a warp's group of 32 rows, a CTA's 16 warps, a cluster's split
+   and groups wrapping round the warps, and 1023 to 2100 rows) at byte
+   offsets 0, 1 and 3, bit for bit against its plain version and the host
+   library's ``png_unfilter``, under ``unfilter_plan``'s split and under
+   forced ones (``UNFILTER_FORCED``: one SM an image, each cluster split,
+   the global rings), and on the rows ``filter_rows`` filters from PNG (a)'s
+   images under four strategies, which it must give back;
 3. the JPEG main path, ``encode_jpeg_batch_sharded(..., device="cuda")`` on
    the 16x512x512 gradient batch at q85 4:2:0, with each image's bytes held
    against the host library's fused encode in the same marker frame, and
@@ -274,7 +277,8 @@ of its shape), decode-tail and resize kernels, the AAN contract at
 100,000 blocks and ``dct_zz`` at (m1) and (m2) three ways, the quantization
 kernels at (q1), the LZ77 route's ``chain_candidates`` (with its rows'
 kernel and scans) at an (e) stream and at 16 MiB and ``adler32`` at 16 MiB,
-the device stages and the
+``unfilter`` at PNG (a)'s device group (``measure_unfilter``, through each
+tree's own C entry), the device stages and the
 end-to-end stages, the (e) call's under ``PIXO_TPU_LZ77=device`` too; what a tree lacks
 is skipped and printed as absent), and prints the numbers side by side. ``python3 chip_smoke.py --coeffs-parts`` times the coefficient
 kernel as it is and with each of its parts taken out (``coeffs_parts``);
@@ -305,8 +309,10 @@ with each part its design has taken out (``LZ77_DESIGNS``:
 ``lz77_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
 pack stage on 1, 2, 4 and 8 threads (``pack_workers``); ``python3
 chip_smoke.py --unfilter-parts`` times the unfilter kernel at PNG (a)'s
-device group as it is, without each of its parts and as the design it
-replaced (``UNFILTER_PARTS``: ``unfilter_parts``); ``python3
+device group as it is, without each of its parts (``UNFILTER_PARTS``: the
+shuffle, the ring's hand-off, the row's copies, the pixel reads, the
+predictor, the stores) and on one SM an image beside each cluster split of
+its warps (``unfilter_parts``); ``--compare`` times it there too; ``python3
 chip_smoke.py --sass NAME``
 counts the instructions of the built kernels whose name holds NAME, loop by
 loop (``sass_loops``).
@@ -1932,7 +1938,14 @@ def filter_edge_cases(rng, bpp: int):
     return cases
 
 
-UNFILTER_BAND_ROWS = (1023, 1024, 1025, 2100)  # heights around and past csrc/unfilter.cu's band of 1024
+UNFILTER_BAND_ROWS = (1023, 1024, 1025, 2100)  # heights around and past 1024 rows: groups wrap round the warps
+# (label, B, H, RB, bpp): heights around csrc/unfilter.cu's warp group (32
+# rows), a CTA of 16 warps (512) and the plan's clusters of 8 CTAs: at rows
+# of 513 pixels, 24 warps (769 rows wrap round them); at 2051, 64 warps
+# (2049 rows wrap)
+UNFILTER_SCHEDULE_CASES = (("group", 2, 31, 10, 3), ("group", 2, 32, 11, 3), ("group", 2, 33, 9, 3),
+                           ("CTA", 1, 513, 1537, 3), ("cluster", 2, 768, 1539, 3), ("cluster wrap", 1, 769, 1537, 3),
+                           ("cluster wrap", 1, 2049, 2051, 1))
 
 
 def unfilter_edge_cases(rng) -> list:
@@ -1941,8 +1954,9 @@ def unfilter_edge_cases(rng) -> list:
     take every filter id 0-4 in turn and at random; one row (H = 1), rows
     shorter than a pixel (RB < bpp), rows of one byte, all-255 rows (every
     predictor at its largest); ids outside 0-4, which take no predictor;
-    and batches whose heights end at and cross a band of the kernel
-    (``UNFILTER_BAND_ROWS``), with a band edge inside an image."""
+    batches whose heights end around the kernel's warp group, CTA and
+    cluster split (``UNFILTER_SCHEDULE_CASES``) and whose groups wrap round
+    the warps (``UNFILTER_BAND_ROWS``)."""
     import numpy as np
 
     def case(label, b, h, rb, bpp, filters=None, fill=None):
@@ -1964,6 +1978,8 @@ def unfilter_edge_cases(rng) -> list:
     cases.append(case("ids 5, 7, 255", 1, 6, 10, 3, filters=np.array([4, 5, 1, 7, 255, 2])))
     for h in UNFILTER_BAND_ROWS:
         cases.append(case("band", 2, h, 7, 4 if h % 2 else 3))
+    for label, b, h, rb, bpp in UNFILTER_SCHEDULE_CASES:
+        cases.append(case(label, b, h, rb, bpp))
     return cases
 
 
@@ -4574,6 +4590,30 @@ def filtered_rows(dev, imgs, strategy):
     return out[..., 1:].contiguous(), out[..., 0].to(torch.int32).contiguous()
 
 
+# Splits that ``check_unfilter_kernel`` forces on every case beside the
+# plan's own: (label, unfilter_plan's ctas, warps, ring).
+UNFILTER_FORCED = (("one SM an image", 1, None, None), ("2 CTAs", 2, None, None),
+                   ("8 CTAs of one warp", 8, 1, None), ("global rings on 3 CTAs", 3, None, "global"))
+
+
+def unfilter_launcher(lib, rows, ids, bpp: int, plan, out):
+    """A launch of csrc/unfilter.cu's C entry under ``plan`` (the wrapper's
+    ``unfilter_plan`` or a forced one) on the [B, H, RB] ``rows`` and [B, H]
+    int32 ``ids`` into ``out``, its global rings (if any) allocated once
+    here: a call that returns the entry's code."""
+    import torch
+
+    b, h, rb = rows.shape
+    ring = torch.empty(b * plan.scratch, dtype=torch.uint8, device=rows.device) if plan.ring == "global" else None
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        return lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, bpp, plan.ctas, plan.warps,
+                                 plan.ring_slots, None if ring is None else ring.data_ptr(), out.data_ptr(),
+                                 stream)
+    return launch
+
+
 def check_unfilter_kernel(dev, corpus) -> int:
     """Phase 2, the unfilter kernel (``ops/png_unfilter.py::
     unfilter_device_batch``; no path calls it): every case of
@@ -4581,30 +4621,43 @@ def check_unfilter_kernel(dev, corpus) -> int:
     = 1, ids outside 0-4, heights at and across a band) at byte offsets
     ``UNFILTER_OFFSETS``, bit for bit against its plain version on the card
     and, where every id is 0-4, image by image against the host library's
-    ``png_unfilter``; then the rows that ``filter_rows`` filtered from PNG
-    (a)'s 16 images under each of ``UNFILTER_STRATEGIES``, which it must
-    also give back. Returns its largest absolute error."""
+    ``png_unfilter``, through the wrapper (``unfilter_plan``'s split) and
+    under each of ``UNFILTER_FORCED``; then the rows that ``filter_rows``
+    filtered from PNG (a)'s 16 images under each of
+    ``UNFILTER_STRATEGIES``, which it must also give back. Returns its
+    largest absolute error."""
     import numpy as np
     import torch
 
     from pixo_tpu_torch import FilterStrategy
-    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain, unfilter_plan
 
-    err = 0
+    err, lib = 0, kernels.load()
     for label, rows, filters, bpp in unfilter_edge_cases(np.random.default_rng(41)):
         ids = torch.from_numpy(filters).to(dev)
         plain = unfilter_plain(at_offset(rows, 0, dev), ids, bpp)
         host = host_unfilter(rows, filters, bpp) if ((filters >= 0) & (filters <= 4)).all() else None
-        errs, host_bad = [], 0
+        errs, host_bad, forced_bad = [], 0, []
         for offset in UNFILTER_OFFSETS:
-            got = unfilter_device_batch(at_offset(rows, offset, dev), ids, bpp=bpp, device=dev)
+            t = at_offset(rows, offset, dev)
+            got = unfilter_device_batch(t, ids, bpp=bpp, device=dev)
             errs.append(int((got.int() - plain.int()).abs().max()))
             host_bad += host is not None and not np.array_equal(got.cpu().numpy(), host)
+            for name, ctas, warps, ring in UNFILTER_FORCED:
+                plan = unfilter_plan(*rows.shape, bpp, ctas=ctas, warps=warps, ring=ring)
+                out = torch.empty_like(plain)
+                rc = unfilter_launcher(lib, t, ids, bpp, plan, out)()
+                if rc:
+                    raise Failed(f"unfilter {label} under {name} {plan}: {lib.pixo_cuda_error_string(rc).decode()}")
+                if not torch.equal(out, plain):
+                    forced_bad.append(f"{name} at offset {offset}")
         err = max(err, *errs)
-        _verdict(f"check unfilter {label}: max_abs_err vs plain {max(errs)} at byte offsets "
-                 f"{UNFILTER_OFFSETS}; offsets differing from the host library's png_unfilter "
-                 f"{host_bad if host is not None else 'not held (ids outside 0-4)'}",
-                 max(errs) == 0 and host_bad == 0)
+        _verdict(f"check unfilter {label} ({unfilter_plan(*rows.shape, bpp, kernels._sm_count(dev))[:4]}): "
+                 f"max_abs_err vs plain {max(errs)} at byte offsets {UNFILTER_OFFSETS}; offsets differing from "
+                 f"the host library's png_unfilter {host_bad if host is not None else 'not held (ids outside 0-4)'}; "
+                 f"forced splits differing from plain {forced_bad or 'none'}",
+                 max(errs) == 0 and host_bad == 0 and not forced_bad)
     want = corpus.reshape(corpus.shape[0], corpus.shape[1], -1)
     for name in UNFILTER_STRATEGIES:
         rows, ids = filtered_rows(dev, corpus, FilterStrategy[name])
@@ -4633,17 +4686,13 @@ def time_unfilter(dev, corpus, card: str) -> dict:
 
     from pixo_tpu_torch import FilterStrategy
     from pixo_tpu_torch.ops import kernels
-    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plain, unfilter_plan
 
     rows, ids = filtered_rows(dev, corpus[:8], FilterStrategy.ADAPTIVE)
     b, h, rb = rows.shape
-    lib, stream = kernels.load(), torch.cuda.current_stream().cuda_stream
-    out = torch.empty_like(rows)
-
-    def alone():
-        return lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, 3, out.data_ptr(), stream)
-
-    at = f"PNG (a) device group {b}x{h}x{rb}, bpp 3, ADAPTIVE's rows"
+    plan = unfilter_plan(b, h, rb, 3, kernels._sm_count(dev))
+    alone = unfilter_launcher(kernels.load(), rows, ids, 3, plan, torch.empty_like(rows))
+    at = f"PNG (a) device group {b}x{h}x{rb}, bpp 3, ADAPTIVE's rows, {plan.ctas} CTAs of {plan.warps} warps an image"
     t = time_kernel("unfilter", at, lambda: unfilter_device_batch(rows, ids, bpp=3, device=dev),
                     lambda: unfilter_plain(rows, ids, 3), alone, card, plain_calls=(1, 1, 1),
                     kernel="unfilter_kernel", b=b, h=h, rb=rb)
@@ -4876,8 +4925,9 @@ def measure_tree(root: str) -> dict:
     ``dct_zz`` and ``trellis_quantize`` at the max cells (m1) and (m2), and
     the max call there beside the host tier on 8 threads (the median of
     THUMB_RUNS); the ``PIXO_TPU_LZ77=device`` route's kernels and its (e)
-    stages (``measure_lz77``). Every kernel result is first held against
-    its plain version."""
+    stages (``measure_lz77``); ``unfilter`` at PNG (a)'s device group
+    (``measure_unfilter``). Every kernel result is first held against its
+    plain version."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -5037,7 +5087,40 @@ def measure_tree(root: str) -> dict:
             lambda: encode_png_batch_sharded(imgs, popts, device=dev), LOSSY_RUNS)[0]
     if hasattr(png_filters, "MODE_BIGRAMS"):  # a checkout from before the LZ77 route has none
         measure_lz77(res, dev, corpus)
+    measure_unfilter(res, dev, corpus)
     return res
+
+
+def measure_unfilter(res: dict, dev, corpus) -> None:
+    """``measure_tree``'s numbers of the unfilter kernel at PNG (a)'s device
+    group (``time_unfilter``'s rows), held first to its plain version: the
+    wrapper's call, and its launch alone through the checkout's own C entry
+    (a thread a row and a CTA an image before ``unfilter_plan``; the plan's
+    split after)."""
+    import importlib.util
+
+    import torch
+
+    if importlib.util.find_spec("pixo_tpu_torch.ops.png_unfilter") is None:
+        return
+    from pixo_tpu_torch import FilterStrategy
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.ops import png_unfilter as pu
+
+    rows, ids = filtered_rows(dev, corpus[:8], FilterStrategy.ADAPTIVE)
+    b, h, rb = rows.shape
+    lib, out = kernels.load(), torch.empty_like(rows)
+    if hasattr(pu, "unfilter_plan"):
+        alone = unfilter_launcher(lib, rows, ids, 3, pu.unfilter_plan(b, h, rb, 3, kernels._sm_count(dev)), out)
+    else:
+        stream = torch.cuda.current_stream().cuda_stream
+        alone = lambda: lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, 3,  # noqa: E731
+                                          out.data_ptr(), stream)
+    call = lambda: pu.unfilter_device_batch(rows, ids, bpp=3, device=dev)  # noqa: E731
+    if not torch.equal(call(), pu.unfilter_plain(rows, ids, 3)):
+        raise Failed(f"unfilter of {res['tree']} differs from its plain version")
+    res["kernels"]["unfilter (a)"] = {"device_ms": profiler_ms(call, "unfilter_kernel"),
+                                      "launch_ms": event_ms(alone), "call_ms": event_ms(call)}
 
 
 def measure_lz77(res: dict, dev, corpus) -> None:
@@ -5568,16 +5651,21 @@ DITHER_PARTS["all three"] = [r for edits in list(DITHER_PARTS.values()) for r in
 VARIANT_FLAGS = ("-Xcompiler", "-fno-gnu-unique")
 
 
-def variant_libs(source: str, parts: dict, prefix: str) -> dict:
+def variant_libs(source: str, parts: dict, prefix: str, common=()) -> dict:
     """Builds csrc/``source`` (or the file at the absolute path ``source``)
     as it is and with each of ``parts`` taken out, one library each, all at
     once, beside the kernel library and the host library: {part name or "as
-    it is": library path}."""
+    it is": library path}. ``common``: edits made to every one of them, "as
+    it is" too (leaving out what none of them times)."""
     from pixo_tpu_torch import native
     from pixo_tpu_torch.ops import kernels
     from pixo_tpu_torch.utils.build import BUILD_DIR, build_shared_library
 
     src = open(os.path.join(kernels.CSRC, source)).read()
+    for old, new in common:
+        if old not in src:
+            raise Failed(f"{prefix}: a common edit no longer matches csrc/{source}")
+        src = src.replace(old, new)
     variants = {"as it is": src}
     for name, edits in parts.items():
         text = src
@@ -5665,67 +5753,109 @@ def dither_parts(card: str) -> int:
 
 
 # Parts of the unfilter kernel (csrc/unfilter.cu) that ``unfilter_parts``
-# takes out, one at a time, and one design it replaced: (name, [(source
-# text, replacement)]). A part's time is what the kernel saves without it;
-# the results are wrong, only timed.
-_UNFILTER_STEP_END = "        __syncthreads();\n      }\n    }\n  }\n}"
+# takes out, one at a time, and the designs it was measured against
+# ("(design) ..."): (name, [(source text, replacement)]). A part's time is
+# what the kernel saves without it; the results are wrong, only timed.
+# Without the ring's hand-off a warp neither waits for the warp before it
+# nor fills the ring of the one after; without the hand-off's waits it
+# still loads and fills the slots.
+_UNFILTER_ROOM = ("        while (static_cast<int>(ring.read_room() - (out_base + static_cast<uint32_t>(need))) < 0) {\n"
+                  "        }\n", "")  # the writer's wait for room
+_UNFILTER_ONE_CTA = ("  const int64_t smem = unfilter_smem<BPP>(warps, ring_slots, ring != nullptr);",
+                     "  const int64_t smem = unfilter_smem<BPP>(warps, ring_slots, ring != nullptr) + 120 * 1024;")
 UNFILTER_PARTS = {
-    "the barrier": [(_UNFILTER_STEP_END, "      }\n    }\n  }\n}")],
-    "the predictor": [("static_cast<uint8_t>(byte + predictor(f, a, b, c))",
-                       "static_cast<uint8_t>(byte + (b ^ a ^ c ^ f))")],
-    "the row's bytes": [("          const int byte = raw.byte(x);", "          const int byte = x & 255;")],
-    "the ring's copies": [("      raw.advance(t0 - r);\n", "")],
-    "the output stores": [("          if (p == 7 || x == rb - 1) {  // the word is done",
-                           "          if (p == 99) {  // the word is done")],
-    "the byte above": [("last[((t - 1) & 1) * threads + r - 1]", "byte")],
-    "(design) the predictor as branches": [
-        ("static_cast<uint8_t>(byte + predictor(f, a, b, c))",
-         "static_cast<uint8_t>(byte + (f == 1 ? a : f == 2 ? b : f == 3 ? (a + b) >> 1 : f == 4 ? "
-         "(abs(b - c) <= abs(a - c) && abs(b - c) <= abs(a + b - 2 * c) ? a : "
-         "abs(a - c) <= abs(a + b - 2 * c) ? b : c) : 0))")],
+    "the shuffle": [("            recv = __shfl_up_sync(0xFFFFFFFFu, w, 1);", "            recv = w;")],
+    "the ring's hand-off": [
+        ("        if (reads) take(ring, ring_slots, in_base + static_cast<uint32_t>(s0 + t0), pixels - s0 - t0, above);\n",
+         ""),
+        ("          if (on && lane == 31 && writes) ring.put(ring_slots, out_base + x, v);\n", ""),
+        _UNFILTER_ROOM],
+    "the hand-off's waits": [("    if (ok) break;", "    break;"), _UNFILTER_ROOM],
+    "the row's copies": [("      in.send_through(s0 + (kAhead + 1) * kChunk, lane);\n", ""),
+                         ("    for (int c = 0; c < kAhead; c++) in.send_through((c + 1) * kChunk, lane);\n", "")],
+    "the pixel reads": [("      for (int i = 0; i < kChunk; i++) raws[i] = in.pixel(qin + i * BPP);",
+                         "      for (int i = 0; i < kChunk; i++) raws[i] = static_cast<P>(qin + i);")],
+    "the predictor": [("            w = step4(m, raw, own, b, up);", "            w = raw ^ own ^ b ^ up;")],
+    "the stores": [("          if (on) wr.put(stage + i * BPP, v);\n", ""),
+                   ("      if (row_ok) wr.flush(s0 - lane, pixels);\n", "")],
+    "(design) chunks of 32 steps": [("constexpr int kChunk = 16; ", "constexpr int kChunk = 32; ")],
+    "(design) a take of 16 steps": [("constexpr int kTake = 8; ", "constexpr int kTake = 16;")],
+    "(design) a take of 4 steps": [("constexpr int kTake = 8; ", "constexpr int kTake = 4; ")],
+    "(design) one CTA an SM": [_UNFILTER_ONE_CTA],
+    "(design) the predictor a byte at a time": [("  return add4(raw, predict4(m, a, b, c));", """  uint32_t r = 0;
+#pragma unroll
+  for (int j = 0; j < 32; j += 8) {
+    const int aj = (a >> j) & 255, bj = (b >> j) & 255, cj = (c >> j) & 255;
+    const int p = aj + bj - cj, pa = abs(p - aj), pb = abs(p - bj), pc = abs(p - cj);
+    const int paeth = (pa <= pb) & (pa <= pc) ? aj : pb <= pc ? bj : cj;
+    const int pred = (aj & m.sub) | (bj & m.up) | (((aj + bj) >> 1) & m.avg) | (paeth & m.paeth);
+    r |= static_cast<uint32_t>((((raw >> j) & 255) + pred) & 255) << j;
+  }
+  return r;""")],
 }
+UNFILTER_SPLITS = (1, 2, 4, 8)  # CTAs an image that ``unfilter_parts`` times (1: one SM, 16 warps)
+# Every variant keeps only the bpp 3 instances (PNG (a)'s): the C entry's
+# other cases go, which cuts each build to an eighth.
+UNFILTER_BPP3_ONLY = [(f"    case {k}: return static_cast<int>(launch_unfilter<{k}>(rows, filters, b, h, w, ctas, warps, "
+                       f"ring_slots, g, out, s));\n", "") for k in (1, 2, 4, 5, 6, 7)] + [
+    ("    default: return static_cast<int>(launch_unfilter<8>(rows, filters, b, h, w, ctas, warps, ring_slots, g, "
+     "out, s));", "    default: return static_cast<int>(cudaErrorInvalidValue);")]
 
 
 def unfilter_parts(card: str) -> int:
     """The unfilter kernel alone at PNG (a)'s device group (``time_unfilter``'s
-    rows): the profiler's device time of its launch (the C function) as it is,
-    without each of ``UNFILTER_PARTS`` and as the design it replaced (all
-    built at once), each as ns and SM clocks a step of the function's
-    critical path (``unfilter_steps``) and as the share of its bound
-    (``UNFILTER_STEP_CLOCKS`` a step), the clock read under load. The kernel as it is must equal the
-    wrapper's result, which phase 2 holds to the plain version and the host
-    library. Exit code 1 on a difference or a failed launch."""
+    rows): the profiler's device time of its launch (the C function) under
+    ``unfilter_plan``'s split as it is, without each of ``UNFILTER_PARTS``
+    and as each design it was measured against (all built at once, with
+    only the bpp 3 instances); then as it is and without the hand-off's
+    waits on the first 32 to 512 rows (a group more, a hand-off more); then
+    as it is on one SM an image and on each cluster split of
+    ``UNFILTER_SPLITS`` (the image's 16 warps over that many CTAs), with the
+    global rings and with rings of 512 slots. Each time as ns and SM clocks a
+    step of the function's critical path (``unfilter_steps``), the clock
+    read under load, and as the share of its two bounds (the bytes; the
+    path at ``UNFILTER_STEP_CLOCKS`` a step), printed as it is measured. The
+    kernel as it is must equal the wrapper's result, which phase 2 holds to
+    the plain version and the host library, under every split. Exit code 1
+    on a difference or a failed launch."""
     import ctypes
 
     import torch
 
     from pixo_tpu_torch import FilterStrategy
     from pixo_tpu_torch.ops import kernels
-    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch
+    from pixo_tpu_torch.ops.png_unfilter import unfilter_device_batch, unfilter_plan
 
-    libs = variant_libs("unfilter.cu", UNFILTER_PARTS, "unfilter_part")
+    libs = variant_libs("unfilter.cu", UNFILTER_PARTS, "unfilter_part", UNFILTER_BPP3_ONLY)
     dev = torch.device("cuda")
     rows, ids = filtered_rows(dev, corpus_batch()[:8], FilterStrategy.ADAPTIVE)
     b, h, rb = rows.shape
     want = unfilter_device_batch(rows, ids, bpp=3, device=dev)
     out = torch.empty_like(rows)
-    stream = torch.cuda.current_stream().cuda_stream
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     steps = unfilter_steps(h, rb, 3)
     floor = steps * UNFILTER_STEP_CLOCKS / 1.98e9 * 1e3
-    times, mhz = {}, None
-    for name, path in libs.items():
-        lib = ctypes.CDLL(path)
-        lib.pixo_unfilter.restype = ctypes.c_int
-        lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, vp, vp]
+    byte_ms = kernel_bound("unfilter", b=b, h=h, rb=rb)[0]
+    plan = unfilter_plan(b, h, rb, 3, kernels._sm_count(dev))
+    times, mhz, loaded = {}, None, {}
+    fmt = lambda t: ("not measured" if t is None  # noqa: E731
+                     else f"{t:.4f} ms ({step_line(t, steps, mhz)}, {100 * floor / t:.2f}% of the path's bound, "
+                          f"{100 * byte_ms / t:.2f}% of the bytes')")
 
-        def alone(lib=lib):
-            return lib.pixo_unfilter(rows.data_ptr(), ids.data_ptr(), b, h, rb, 3, out.data_ptr(), stream)
-
-        rc = alone()
+    def run(name, launch):
+        rc = launch()
         if rc:
-            err = kernels.load().pixo_cuda_error_string(rc).decode()
-            print(f"unfilter parts: the launch without {name!r} failed: {err}", file=sys.stderr)
+            print(f"unfilter parts: {name} failed: {kernels.load().pixo_cuda_error_string(rc).decode()}",
+                  file=sys.stderr)
+            return False
+        return True
+
+    for name, path in libs.items():
+        lib = loaded[name] = ctypes.CDLL(path)
+        lib.pixo_unfilter.restype = ctypes.c_int
+        lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, i32, i32, i32, vp, vp, vp]
+        alone = unfilter_launcher(lib, rows, ids, 3, plan, out)
+        if not run(f"the launch without {name!r}", alone):
             return 1
         if name == "as it is":
             torch.cuda.synchronize()
@@ -5734,12 +5864,34 @@ def unfilter_parts(card: str) -> int:
                 return 1
             mhz = busy_sm_mhz(alone, calls=200)
         times[name] = profiler_ms(alone, "unfilter_kernel")
-    base = times.pop("as it is")
-    fmt = lambda t: ("not measured" if t is None  # noqa: E731
-                     else f"{t:.4f} ms ({step_line(t, steps, mhz)}, {100 * floor / t:.2f}% of the bound)")
-    print(f"unfilter parts at PNG (a)'s device group {b}x{h}x{rb}, bpp 3, {steps} steps of the "
-          f"critical path, bound {floor:.4f} ms: as it is "
-          f"{fmt(base)}; without " + "; ".join(f"{k} {fmt(t)}" for k, t in times.items()) + f" [{card}]")
+        print(f"unfilter parts at PNG (a)'s device group {b}x{h}x{rb}, bpp 3, {steps} steps of the critical "
+              f"path, bound {floor:.4f} ms, bytes {byte_ms:.4f} ms; plan {tuple(plan)}: "
+              + ("as it is" if name == "as it is" else f"without {name}") + f" {fmt(times[name])} [{card}]")
+    for hh in (32, 64, 128, 256, 512):  # a group more: a hand-off more
+        part = rows[:, :hh].contiguous(), ids[:, :hh].contiguous()
+        split = unfilter_plan(b, hh, rb, 3, kernels._sm_count(dev))
+        line = []
+        for name in ("as it is", "the hand-off's waits"):
+            sub = torch.empty_like(part[0])
+            line.append(fmt(profiler_ms(unfilter_launcher(loaded[name], *part, 3, split, sub), "unfilter_kernel")))
+        print(f"unfilter parts height {hh} ({tuple(split)[:2]}): as it is {line[0]}; without the waits {line[1]}")
+    forced = [(f"{ctas} CTAs an image", dict(ctas=ctas, warps=16 if ctas == 1 else None)) for ctas in UNFILTER_SPLITS]
+    forced.append((f"global rings, {plan.ctas} CTAs an image", dict(ctas=plan.ctas, ring="global")))
+    forced.append(("rings of 512 slots", dict(ctas=plan.ctas)))
+    for name, kw in forced:
+        split = unfilter_plan(b, h, rb, 3, **kw)
+        if name == "rings of 512 slots":
+            split = split._replace(ring_slots=512, smem=None)
+        alone = unfilter_launcher(loaded["as it is"], rows, ids, 3, split, out)
+        out.zero_()
+        if not run(name, alone):
+            return 1
+        torch.cuda.synchronize()
+        if not torch.equal(out, want):
+            print(f"unfilter parts: {name} {tuple(split)} differs from the wrapper's result", file=sys.stderr)
+            return 1
+        print(f"unfilter parts split: {name}, {split.ctas} x {split.warps} warps, {split.ring} rings of "
+              f"{split.ring_slots} slots: {fmt(profiler_ms(alone, 'unfilter_kernel'))} [{card}]")
     return 0
 
 

@@ -60,9 +60,11 @@ stream.
   ``compress/checksums.py::adler32_device``. They replace the jit functions
   of the JAX package's ``ops/lz77_assist.py`` and ``adler32_jnp``.
 - ``unfilter`` (``csrc/unfilter.cu``): the PNG row reconstruction as a
-  wavefront, a thread a row, wrapped in ``ops/png_unfilter.py::
-  unfilter_device_batch``; it replaces the jit ``unfilter_device_batch`` of
-  the JAX package's ``ops/png_unfilter.py``, which has no Pallas kernel.
+  wavefront, a pixel a step, a lane a row, warps of 32 rows handed on
+  through rings, an image on a cluster of CTAs, wrapped in
+  ``ops/png_unfilter.py::unfilter_device_batch``; it replaces the jit
+  ``unfilter_device_batch`` of the JAX package's ``ops/png_unfilter.py``,
+  which has no Pallas kernel.
 
 Each wrapper takes its plain PyTorch version for a tensor on the CPU, and
 for a CUDA tensor launches its kernel or raises; it never falls back. Each
@@ -193,7 +195,7 @@ def load():
             lib.pixo_adler32.restype = ctypes.c_int
             lib.pixo_adler32.argtypes = [vp, i64, ctypes.c_uint32, i64, i64, vp, vp]
             lib.pixo_unfilter.restype = ctypes.c_int
-            lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, vp, vp]
+            lib.pixo_unfilter.argtypes = [vp, vp, i64, i64, i64, i32, i32, i32, i32, vp, vp, vp]
             lib.pixo_cuda_error_string.restype = ctypes.c_char_p
             lib.pixo_cuda_error_string.argtypes = [ctypes.c_int]
             _lib = lib

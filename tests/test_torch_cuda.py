@@ -46,7 +46,9 @@ from chip_smoke import (
     trellis_edge_blocks,
     trellis_mixed_blocks,
     trellis_random_blocks,
+    UNFILTER_FORCED,
     unfilter_edge_cases,
+    unfilter_launcher,
 )
 from pixo_tpu_torch import (
     ColorType,
@@ -1444,9 +1446,11 @@ UNFILTER_CASES = unfilter_edge_cases(np.random.default_rng(41))
 @pytest.mark.parametrize("offset", [0, 1, 3])
 @pytest.mark.parametrize("case", range(len(UNFILTER_CASES)), ids=[c[0] for c in UNFILTER_CASES])
 def test_unfilter_kernel_equals_plain_and_host(dev, case, offset):
-    """Every bpp and filter id, the edge shapes and the band heights, at byte
-    offsets 0, 1 and 3: one launch, bit for bit its plain version on the
-    card and, for ids 0-4, the host library's png_unfilter."""
+    """Every bpp and filter id, the edge shapes, the heights around the
+    schedule's group, CTA and cluster and those whose groups wrap round the
+    warps, at byte offsets 0, 1 and 3: one launch under the plan's split,
+    bit for bit its plain version on the card and, for ids 0-4, the host
+    library's png_unfilter."""
     label, rows, filters, bpp = UNFILTER_CASES[case]
     t = at_offset(rows, offset, dev)
     ids = torch.from_numpy(filters).to(dev)
@@ -1458,6 +1462,38 @@ def test_unfilter_kernel_equals_plain_and_host(dev, case, offset):
     assert torch.equal(got, png_unfilter.unfilter_plain(t, ids, bpp)), label
     if ((filters >= 0) & (filters <= 4)).all():
         np.testing.assert_array_equal(got.cpu().numpy(), host_unfilter(rows, filters, bpp))
+
+
+@pytest.mark.parametrize("forced", range(len(UNFILTER_FORCED)), ids=[f[0] for f in UNFILTER_FORCED])
+@pytest.mark.parametrize("case", range(len(UNFILTER_CASES)), ids=[c[0] for c in UNFILTER_CASES])
+def test_unfilter_kernel_under_forced_splits(dev, case, forced):
+    """The C entry under each of ``UNFILTER_FORCED`` (one SM an image, a
+    cluster of 2 CTAs, 8 CTAs of one warp, global rings) on every edge case
+    at byte offset 3: bit for bit the plain version."""
+    label, rows, filters, bpp = UNFILTER_CASES[case]
+    name, ctas, warps, ring = UNFILTER_FORCED[forced]
+    t = at_offset(rows, 3, dev)
+    ids = torch.from_numpy(filters).to(dev)
+    plan = png_unfilter.unfilter_plan(*rows.shape, bpp, ctas=ctas, warps=warps, ring=ring)
+    out = torch.empty(rows.shape, dtype=torch.uint8, device=dev)
+    lib = kernels.load()
+    assert unfilter_launcher(lib, t, ids, bpp, plan, out)() == 0, f"{label} {name}"
+    torch.cuda.synchronize()
+    assert torch.equal(out, png_unfilter.unfilter_plain(t, ids, bpp)), f"{label} {name} {plan}"
+
+
+def test_unfilter_entry_refuses_rings_below_the_rule(dev):
+    """Groups that wrap round two warps with rows of 200 pixels need rings
+    of at least ceil(200 / 2) + 8 slots: 64 are refused, the plan's 128
+    taken."""
+    rows = torch.zeros((1, 96, 200), dtype=torch.uint8, device=dev)
+    ids = torch.zeros((1, 96), dtype=torch.int32, device=dev)
+    plan = png_unfilter.unfilter_plan(1, 96, 200, 1, ctas=1, warps=2)
+    lib, out = kernels.load(), torch.empty_like(rows)
+    assert unfilter_launcher(lib, rows, ids, 1, plan._replace(ring_slots=64), out)() != 0
+    assert unfilter_launcher(lib, rows, ids, 1, plan, out)() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, rows)
 
 
 @pytest.mark.parametrize("strategy", [FilterStrategy.ADAPTIVE, FilterStrategy.PAETH, FilterStrategy.BIGRAMS])
