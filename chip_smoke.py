@@ -15,7 +15,9 @@ printing its own lines:
 
 1. the card (``nvidia-smi`` name and power limit), the torch and CUDA
    versions, and the build of both native libraries from the checkout's
-   sources (the CUDA kernels and the C++ host tier), with their build times;
+   sources (the CUDA kernels and the C++ host tier), with their build times:
+   which build of the host tier was loaded (profile-guided, or plain under
+   ``PIXO_TPU_NO_PGO=1``) and the seconds of each of its build steps;
 2. every kernel of both paths against its plain PyTorch version on the
    card, for bit equality: the coefficient kernel in all four modes on the
    16x512x512 gradient batch, on a 4x517x389 noise batch (odd sizes pad)
@@ -308,6 +310,9 @@ an (e) stream and at 16 MiB, each launch as it is and its rows' kernel
 with each part its design has taken out (``LZ77_DESIGNS``:
 ``lz77_parts``); ``python3 chip_smoke.py --pack-workers`` times the host
 pack stage on 1, 2, 4 and 8 threads (``pack_workers``); ``python3
+chip_smoke.py --host-build`` times phase 4's host stages under the host
+library's profile-guided build and under its plain one
+(``PIXO_TPU_NO_PGO=1``), in alternating processes (``host_build``); ``python3
 chip_smoke.py --unfilter-parts`` times the unfilter kernel at PNG (a)'s
 device group as it is, without each of its parts (``UNFILTER_PARTS``: the
 shuffle, the ring's hand-off, the row's copies, the pixel reads, the
@@ -6574,6 +6579,169 @@ def pack_workers(card: str) -> int:
     return 0
 
 
+HOST_BUILD_ROUNDS = 6  # rounds of --host-build, each a process of either build, in alternating order
+
+
+def host_stage_calls(dev) -> dict:
+    """Phase 4's host stages as phase 4 sets them up, each with its warm runs:
+    {stage: (call, runs)}. The JPEG encode's padded pack on 8 threads, with
+    the standard tables and the balanced route's (``host_pack``,
+    ``balanced_host_pack``), the progressive scans of (p1) on 8 threads
+    (``progressive_host``), the DEFLATE and framing of PNG (a), (b) and (e)
+    on 8 threads (``png_deflate``, ``png_max_deflate``) and the decode's
+    host stage at (d1) and (d3) (``decode_host_entropy``). Every input is
+    made on the card as the path makes it."""
+    import torch
+
+    from pixo_tpu_torch import JpegOptions, Subsampling
+    from pixo_tpu_torch.jpeg import encoder as jenc
+    from pixo_tpu_torch.jpeg.tables import QuantizationTables
+    from pixo_tpu_torch.ops import kernels
+    from pixo_tpu_torch.parallel.pipeline import _fetch_compacted, _pack_hosted, jpeg_coeffs_sharded, png_frame
+
+    grad, corpus = gradient_batch(BATCH, SIZE), corpus_batch()
+    grad_dev, corpus_dev = torch.from_numpy(grad).to(dev), torch.from_numpy(corpus).to(dev)
+    calls = {}
+    for name, opts in (("host_pack", JpegOptions(width=SIZE, height=SIZE, quality=QUALITY,
+                                                 subsampling=Subsampling.S420)),
+                       ("balanced_host_pack", balanced_options())):
+        _, pattern = jenc._pattern(opts)
+        zz = jpeg_coeffs_sharded(grad_dev, opts, device=dev)
+        state = _fetch_compacted(zz, kernels.compact_padded(zz, 8))
+        tables = None
+        if opts.optimize_huffman:
+            dc, ac = (h.cpu().numpy() for h in kernels.count_symbols(zz, pattern))
+            tables = [jenc.tables_from_counts(dc[i], ac[i], opts) for i in range(BATCH)].__getitem__
+        calls[name] = ((lambda state=state, opts=opts, pattern=pattern, tables=tables:
+                        _pack_hosted(state, opts, pattern, 8, tables)), WARM_RUNS)
+    popts = balanced_options(progressive=True)
+    _, pattern = jenc._pattern(popts)
+    quant = QuantizationTables(QUALITY)
+    zz_host = jpeg_coeffs_sharded(corpus_dev, popts, device=dev).cpu().numpy()
+    calls["progressive_host (p1)"] = (lambda: _pool(lambda z: jenc._emit_with_sa_fallback(
+        z, None, popts, quant, pattern, zz_host.shape[1]), zz_host), THUMB_RUNS)
+    for key, (_, opts, imgs) in {**png_cases(corpus, grad), "e": png_max_case(corpus)}.items():
+        _, raw, ct, kw = png_group(dev, opts, imgs)
+        filtered = kernels.filter_rows(raw, **kw).cpu().numpy()
+        name = "png_max_deflate" if key == "e" else "png_deflate"
+        calls[f"{name} ({key})"] = ((lambda filtered=filtered, ct=ct, opts=opts:
+                                     _pool(lambda f: png_frame(f, ct, opts), filtered)),
+                                    MAX_PNG_RUNS if key == "e" else WARM_RUNS)
+    cases = decode_cases(dev, grad, corpus)
+    for key in ("d1", "d3"):
+        calls[f"decode_host_entropy ({key})"] = (decode_launchers(dev, cases[key][1])["host"], WARM_RUNS)
+    return calls
+
+
+def host_stages() -> dict:
+    """``--host-stages``, one process of ``--host-build``: the library it
+    loaded and the median ms of each of ``host_stage_calls``."""
+    import torch
+
+    from pixo_tpu_torch import native
+
+    native.load()
+    with env_var("PIXO_TPU_LZ77", None):
+        times = {name: wall_stats(call, runs)[0]
+                 for name, (call, runs) in host_stage_calls(torch.device("cuda")).items()}
+    return {"library": os.path.basename(native.library_path), "profile_guided": native.profile_guided,
+            "ms": times}
+
+
+def host_stages_paired() -> dict:
+    """``--host-stages paired``, the last process of ``--host-build``: both
+    builds loaded in one process, each stage of ``host_stage_calls`` called
+    under either library in turns (pgo, plain, plain, pgo, ...; one untimed
+    call after each switch), its runs' times in pairs. {stage: {"pgo": ms
+    list, "plain": ms list}}."""
+    import torch
+
+    from pixo_tpu_torch import native
+
+    libs = {"pgo": native._open(native._build(True).path), "plain": native._open(native._build(False).path)}
+    native._lib = libs["plain"]
+    out = {}
+    with env_var("PIXO_TPU_LZ77", None):
+        for name, (call, runs) in host_stage_calls(torch.device("cuda")).items():
+            out[name] = {"pgo": [], "plain": []}
+            for i in range(runs):
+                for kind in (("pgo", "plain") if i % 2 == 0 else ("plain", "pgo")):
+                    native._lib = libs[kind]
+                    call()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    call()
+                    torch.cuda.synchronize()
+                    out[name][kind].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def host_build(card: str) -> int:
+    """``--host-build``: phase 4's host stages (``host_stage_calls``) under
+    the host library's two builds, the default (profile-guided) and the one
+    ``PIXO_TPU_NO_PGO=1`` gives (plain), in HOST_BUILD_ROUNDS rounds of one
+    process each, the order alternating (pgo, plain, plain, pgo, ...). Both
+    libraries and the kernels are built first, each build step printed. For
+    each stage and build: the median, least and most of the rounds' medians;
+    the ratio of the medians. Then both libraries in one process, in turns
+    (``host_stages_paired``): each build's median, least and most, and the
+    pairs' ratios. Output bytes are the same under both builds
+    (``tests/test_torch_pgo.py``)."""
+    from pixo_tpu_torch import native
+    from pixo_tpu_torch.ops import kernels
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=3) as ex:
+        builds = {"pgo": ex.submit(native._build, True), "plain": ex.submit(native._build, False)}
+        ex.submit(kernels.load).result()
+        for kind, built in builds.items():
+            steps = ", ".join(f"{k} {v:.1f} s" for k, v in built.result().steps.items()) or "already built"
+            print(f"host build {kind}: {os.path.basename(built.result().path)}: {steps} [{card}]")
+    here = os.path.dirname(os.path.abspath(__file__))
+    runs = {"pgo": [], "plain": []}
+    for r in range(HOST_BUILD_ROUNDS):
+        for kind in (("pgo", "plain") if r % 2 == 0 else ("plain", "pgo")):
+            env = {k: v for k, v in os.environ.items() if k != "PIXO_TPU_NO_PGO"}
+            if kind == "plain":
+                env["PIXO_TPU_NO_PGO"] = "1"
+            proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "--host-stages"],
+                                  cwd=here, env=env, capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                print(f"chip_smoke: FAILED: --host-stages under the {kind} build:\n{proc.stderr[-4000:]}",
+                      file=sys.stderr)
+                return 1
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            if res["profile_guided"] != (kind == "pgo") or res["library"] != os.path.basename(
+                    builds[kind].result().path):
+                print(f"chip_smoke: FAILED: the {kind} round loaded {res}", file=sys.stderr)
+                return 1
+            runs[kind].append(res["ms"])
+            print(f"host build round {r} {kind}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in res["ms"].items()))
+    for stage in runs["pgo"][0]:
+        line = []
+        meds = {}
+        for kind in ("pgo", "plain"):
+            xs = [ms[stage] for ms in runs[kind]]
+            meds[kind] = _median(xs)
+            line.append(f"{kind} median {meds[kind]:.4f} ms ({min(xs):.4f} to {max(xs):.4f})")
+        print(f"host build stage {stage}: " + "; ".join(line) + f"; pgo / plain {meds['pgo'] / meds['plain']:.4f} "
+              f"(medians of {HOST_BUILD_ROUNDS} processes each) [{card}]")
+    proc = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"), "--host-stages", "paired"],
+                          cwd=here, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        print(f"chip_smoke: FAILED: --host-stages paired:\n{proc.stderr[-4000:]}", file=sys.stderr)
+        return 1
+    for stage, times in json.loads(proc.stdout.strip().splitlines()[-1]).items():
+        ratios = [a / b for a, b in zip(times["pgo"], times["plain"])]
+        wins = sum(r < 1 for r in ratios)
+        print(f"host build paired {stage}: pgo median {_median(times['pgo']):.4f} ms "
+              f"({min(times['pgo']):.4f} to {max(times['pgo']):.4f}); plain median "
+              f"{_median(times['plain']):.4f} ms ({min(times['plain']):.4f} to {max(times['plain']):.4f}); "
+              f"pgo / plain, median of the pairs {_median(ratios):.4f} ({min(ratios):.4f} to "
+              f"{max(ratios):.4f}), pgo faster in {wins} of {len(ratios)} pairs (one process, the two "
+              f"libraries in turns) [{card}]")
+    return 0
+
+
 def sass_loops(kernel: str) -> int:
     """The machine code of the kernels whose name holds ``kernel``, from
     ``cuobjdump -sass`` on the library built from the checkout: each kernel's
@@ -6628,12 +6796,16 @@ def main() -> int:
     if sys.argv[1:2] == ["--measure"]:
         print(json.dumps(measure_tree(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--host-stages"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        print(json.dumps(host_stages_paired() if sys.argv[2:3] == ["paired"] else host_stages()))
+        return 0
     if sys.argv[1:2] == ["--sass"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         return sass_loops(sys.argv[2])
     if sys.argv[1:2] in (["--compare"], ["--coeffs-parts"], ["--filter-parts"], ["--resize-parts"],
                          ["--dither-parts"], ["--kmeans-parts"], ["--trellis-parts"], ["--count-parts"],
-                         ["--lz77-parts"], ["--pack-workers"], ["--unfilter-parts"]):
+                         ["--lz77-parts"], ["--pack-workers"], ["--unfilter-parts"], ["--host-build"]):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                               capture_output=True, text=True, timeout=60).stdout.strip()
         print(card)
@@ -6651,7 +6823,7 @@ def main() -> int:
         return {"--coeffs-parts": coeffs_parts, "--filter-parts": filter_parts,
                 "--resize-parts": resize_parts, "--dither-parts": dither_parts,
                 "--kmeans-parts": kmeans_parts, "--unfilter-parts": unfilter_parts,
-                "--pack-workers": pack_workers}[sys.argv[1]](card)
+                "--pack-workers": pack_workers, "--host-build": host_build}[sys.argv[1]](card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.stdout.reconfigure(line_buffering=True)  # a crash keeps every line printed before it
 
@@ -6675,7 +6847,9 @@ def main() -> int:
         for built in [ex.submit(kernels.load), ex.submit(native.load)]:
             built.result()
     print(f"build: cuda kernels {kernels.build_seconds:.1f} s, host library "
-          f"{native.build_seconds:.1f} s")
+          f"{'profile-guided' if native.profile_guided else 'plain (PIXO_TPU_NO_PGO)'} "
+          f"{os.path.basename(native.library_path)}: "
+          + (", ".join(f"{k} {v:.1f} s" for k, v in native.build_seconds.items()) or "already built"))
     for line in kernels.build_log.splitlines():
         if any(k in line for k in ("registers", "spill", "entry function")):
             print(f"ptxas: {line.strip()}")

@@ -2,9 +2,13 @@
 
 The port shares the JAX package's ``native/core.cpp`` (read by path, not
 copied) and compiles it into its own library in ``pixo_tpu_torch/_build/``
-with the plain flags of the JAX package's build. The JAX package's
-profile-guided build is not used: its training script imports the JAX
-package. Only the entry points of the ported slices are bound:
+with the JAX package's flags, profile-guided as the JAX package builds it:
+an instrumented compile, the port's own training battery
+(``_pgo_train.py``, the port's ``device="cpu"`` paths on synthetic inputs)
+run in a subprocess on that library, and a compile that reads the profile
+(``utils/build.py``). ``PIXO_TPU_NO_PGO=1`` builds the plain library
+instead; the two sit side by side in ``_build/``, and their output bytes
+are the same. Only the entry points of the ported slices are bound:
 
 - ``jpeg_pack_scan`` / ``jpeg_pack_scan_batch``: dense [nblocks, 64] packers
   (the compaction-overflow fallback);
@@ -58,21 +62,23 @@ package. Only the entry points of the ported slices are bound:
   opaque LUT, sequential Floyd-Steinberg), and the oracles that the
   quantization kernels are held to.
 
-Unlike the JAX package, a failed build or load raises: there is no Python
-fallback tier here, and a silent ``None`` would hide the failure.
+Unlike the JAX package, a failed build or load raises, and a failed step of
+the profile-guided build does not fall back to the plain build: there is no
+Python fallback tier here, and a silent ``None`` would hide the failure.
 """
 
 from __future__ import annotations
 
 import ctypes
 import os
+import sys
 import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 
 from ..ops.blockify import num_blocks
-from ..utils.build import build_shared_library
+from ..utils.build import Built, Training, build_shared_library
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 SOURCE = os.path.join(_REPO, "pixo_tpu", "native", "core.cpp")
@@ -91,9 +97,19 @@ COMMAND = [
 # Coefficient modes, as numbered by the host library and the CUDA kernel.
 MODES = {"gray": 0, "444": 1, "420": 2, "422": 3}
 
+# the training battery of the profile-guided build, run as
+# ``python -m pixo_tpu_torch.native._pgo_train <instrumented library>``
+TRAINING = Training(
+    command=[sys.executable, "-m", "pixo_tpu_torch.native._pgo_train"],
+    files=[os.path.join(os.path.dirname(os.path.abspath(__file__)), "_pgo_train.py")],
+    cwd=_REPO,
+)
+
 _lib = None
 _lock = threading.Lock()
-build_seconds = 0.0  # time the first load() of this process spent compiling
+library_path = ""  # the library load() loaded
+profile_guided = False  # whether it was built with a profile
+build_seconds = {}  # each step of its build in this process: seconds; empty when already built
 
 
 def _cpu_flags() -> str:
@@ -106,19 +122,38 @@ def _cpu_flags() -> str:
         return ""
 
 
+def _build(pgo: bool) -> Built:
+    """The host library, profile-guided or plain, built at first use."""
+    return build_shared_library("pixo_core", COMMAND, [SOURCE], timeout=600, key=_cpu_flags(),
+                                training=TRAINING if pgo else None)
+
+
+def _open(path: str):
+    lib = ctypes.CDLL(path)
+    _configure(lib)
+    return lib
+
+
 def load():
-    """Build (at first use) and load the host library; raises on failure."""
-    global _lib, build_seconds
+    """Build (at first use) and load the host library, profile-guided unless
+    ``PIXO_TPU_NO_PGO`` is set; raises on failure."""
+    global _lib, library_path, profile_guided, build_seconds
     with _lock:
         if _lib is None:
-            built = build_shared_library(
-                "pixo_core", COMMAND, [SOURCE], timeout=600, key=_cpu_flags()
-            )
-            build_seconds = built.seconds
-            lib = ctypes.CDLL(built.path)
-            _configure(lib)
-            _lib = lib
+            pgo = not os.environ.get("PIXO_TPU_NO_PGO")
+            built = _build(pgo)
+            _lib = _open(built.path)
+            library_path, profile_guided, build_seconds = built.path, pgo, dict(built.steps)
     return _lib
+
+
+def _load_instrumented(path: str) -> None:
+    """Make the library at ``path`` (the profile-guided build's instrumented
+    one) the one every binding calls: the training battery's, which never
+    builds."""
+    global _lib
+    with _lock:
+        _lib = _open(path)
 
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
