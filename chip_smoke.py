@@ -6847,6 +6847,7 @@ def main() -> int:
         for built in [ex.submit(kernels.load), ex.submit(native.load)]:
             built.result()
     print(f"build: cuda kernels {kernels.build_seconds:.1f} s, host library "
+          f"{os.path.relpath(native.SOURCE, os.path.dirname(os.path.abspath(__file__)))} "
           f"{'profile-guided' if native.profile_guided else 'plain (PIXO_TPU_NO_PGO)'} "
           f"{os.path.basename(native.library_path)}: "
           + (", ".join(f"{k} {v:.1f} s" for k, v in native.build_seconds.items()) or "already built"))

@@ -1,19 +1,25 @@
 """ctypes bindings to the C++ host tier.
 
-The port shares the JAX package's ``native/core.cpp`` (read by path, not
-copied) and compiles it into its own library in ``pixo_tpu_torch/_build/``
-with the JAX package's flags, profile-guided as the JAX package builds it:
+The port's host library is its own ``native/core.cpp``: a copy of the JAX
+package's in which the two checksum exports are named ``pixo_crc32`` and
+``pixo_adler32``, so that nothing it exports carries zlib's names. A change
+to it must leave every output as it was: ``tests/test_torch_native_parity.py``
+holds each export to the JAX package's library. It is compiled into the
+port's library in ``pixo_tpu_torch/_build/`` with the JAX package's flags,
+profile-guided as the JAX package builds it:
 an instrumented compile, the port's own training battery
 (``_pgo_train.py``, the port's ``device="cpu"`` paths on synthetic inputs)
 run in a subprocess on that library, and a compile that reads the profile
 (``utils/build.py``). ``PIXO_TPU_NO_PGO=1`` builds the plain library
 instead; the two sit side by side in ``_build/``, and their output bytes
-are the same. Only the entry points of the ported slices are bound:
+are the same. Every export of the library is bound:
 
 - ``jpeg_pack_scan`` / ``jpeg_pack_scan_batch``: dense [nblocks, 64] packers
   (the compaction-overflow fallback);
 - ``jpeg_pack_scan_padded``: the packer that reads the device's padded
   per-block streams (``ops/sparse_pack.py``);
+- ``jpeg_pack_scan_sparse``: the packer of the flat compaction route
+  (``ops/sparse_pack.py::sparsify_blocks``), which no entry point takes;
 - ``jpeg_coefficients`` and ``jpeg_encode_scan_fused``: the host
   coefficient pipeline and the fused host encode: the JPEG encode's host
   tier (``jpeg/encoder.py``, ``device="cpu"``), and the references that
@@ -40,7 +46,7 @@ are the same. Only the entry points of the ported slices are bound:
   route, byte-identical to the plain entry;
 - ``png_filter_apply``: the host PNG filter tier of the per-image encode,
   and an oracle for the filter kernel;
-- ``crc32`` and ``adler32``: the PNG chunk checksum and zlib's
+- ``pixo_crc32`` and ``pixo_adler32``: the PNG chunk checksum and zlib's
   (``compress/checksums.py``);
 - ``jpeg_decode_scan``, ``jpeg_prog_dc_segment`` and ``jpeg_prog_ac_segment``:
   the JPEG decode's entropy stage, baseline and progressive, writing int16
@@ -81,16 +87,15 @@ from ..ops.blockify import num_blocks
 from ..utils.build import Built, Training, build_shared_library
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-SOURCE = os.path.join(_REPO, "pixo_tpu", "native", "core.cpp")
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "core.cpp")
 
 COMMAND = [
     "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
     "-march=native", "-fno-exceptions", "-fvisibility=hidden", "-pthread",
     # the AAN DCT of jpeg_coefficients is bit-exact only without FMA contraction
     "-ffp-contract=off",
-    # core.cpp exports crc32 and adler32 under zlib's names and calls them
-    # itself; without this, in a process that loaded libz first (torch's CUDA
-    # libraries do), those calls bind to zlib's functions of other signatures
+    # the library's own calls bind to its own definitions, whatever a process
+    # loaded first (torch's CUDA libraries load libz)
     "-Wl,-Bsymbolic",
 ]
 
@@ -172,6 +177,15 @@ def _configure(lib) -> None:
     lib.jpeg_pack_scan.restype = ctypes.c_int64
     lib.jpeg_pack_scan.argtypes = [
         _i16p, ctypes.c_int64,           # zz coeffs, nblocks
+        _u8p, ctypes.c_int32,            # pattern, blocks per mcu
+        *_HUFF,
+        ctypes.c_int32,                  # restart interval (0 = off)
+        _u8p, ctypes.c_int64,            # out buffer, capacity
+    ]
+    lib.jpeg_pack_scan_sparse.restype = ctypes.c_int64
+    lib.jpeg_pack_scan_sparse.argtypes = [
+        _i16p, _u8p, _u8p, _i16p,        # dc, counts, flat positions, flat values
+        ctypes.c_int64,                  # nblocks
         _u8p, ctypes.c_int32,            # pattern, blocks per mcu
         *_HUFF,
         ctypes.c_int32,                  # restart interval (0 = off)
@@ -296,10 +310,10 @@ def _configure(lib) -> None:
         ctypes.c_int32,                        # sticky (0/1)
         _u8p,                                  # out [height, row bytes + 1]
     ]
-    lib.crc32.restype = ctypes.c_uint32
-    lib.crc32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
-    lib.adler32.restype = ctypes.c_uint32
-    lib.adler32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
+    lib.pixo_crc32.restype = ctypes.c_uint32
+    lib.pixo_crc32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
+    lib.pixo_adler32.restype = ctypes.c_uint32
+    lib.pixo_adler32.argtypes = [_u8p, ctypes.c_int64, ctypes.c_uint32]
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     huff = [_u8p, _u8p, _i32p]           # bits [n x 16], values, value offsets [n]
     lib.jpeg_decode_scan.restype = i32
@@ -411,6 +425,43 @@ def native_pack_scan(
     )
     if n < 0:
         raise RuntimeError("native jpeg_pack_scan failed")
+    return out[:n].tobytes()
+
+
+def native_pack_scan_sparse(
+    dc: np.ndarray,
+    counts: np.ndarray,
+    poss: np.ndarray,
+    vals: np.ndarray,
+    pattern: Sequence[int],
+    tables,
+    restart_interval: Optional[int],
+) -> bytes:
+    """Pack one scan from the flat compacted streams
+    (``ops/sparse_pack.py::sparsify_blocks``): block i's ``counts[i]``
+    nonzero ACs follow those of the blocks before it in ``poss``/``vals``.
+    Byte-identical to ``native_pack_scan`` on the dense blocks the streams
+    were compacted from."""
+    lib = load()
+    dc = np.ascontiguousarray(dc, dtype=np.int16)
+    counts = np.ascontiguousarray(counts, dtype=np.uint8)
+    poss = np.ascontiguousarray(poss, dtype=np.uint8)
+    vals = np.ascontiguousarray(vals, dtype=np.int16)
+    nblocks = dc.shape[0]
+    if counts.shape != (nblocks,) or poss.ndim != 1 or poss.shape != vals.shape:
+        raise ValueError("flat streams disagree in shape")
+    if int(counts.sum(dtype=np.int64)) > len(poss):
+        raise ValueError("the blocks' counts add up to more entries than the flat streams hold")
+    pat = np.asarray(pattern, dtype=np.uint8)
+    cap = _scan_capacity(nblocks)
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.jpeg_pack_scan_sparse(
+        _ptr(dc, _i16p), _ptr(counts, _u8p), _ptr(poss, _u8p), _ptr(vals, _i16p), nblocks,
+        _ptr(pat, _u8p), len(pattern),
+        *_huff_args(tables), restart_interval or 0, _ptr(out, _u8p), cap,
+    )
+    if n < 0:
+        raise RuntimeError("native jpeg_pack_scan_sparse failed")
     return out[:n].tobytes()
 
 
@@ -762,14 +813,14 @@ def native_crc32(data: bytes, crc: int = 0) -> int:
     """CRC-32 (the zlib polynomial) of ``data``, continuing from ``crc``."""
     lib = load()
     src = _byte_view(data)
-    return int(lib.crc32(_ptr(src, _u8p), len(data), crc))
+    return int(lib.pixo_crc32(_ptr(src, _u8p), len(data), crc))
 
 
 def native_adler32(data: bytes, adler: int = 1) -> int:
     """Adler-32 of ``data``, continuing from ``adler``."""
     lib = load()
     src = _byte_view(data)
-    return int(lib.adler32(_ptr(src, _u8p), len(data), adler))
+    return int(lib.pixo_adler32(_ptr(src, _u8p), len(data), adler))
 
 
 class NativeDecodeError(Exception):

@@ -10,9 +10,15 @@ Exactness: every multiply and add is its own eager tensor op, so nothing is
 contracted into a fused multiply-add. Do not rewrite a step with ``addcmul``
 or another fused op: one rounding fewer changes the bytes. The CUDA kernel
 (``csrc/aan.cuh``) keeps the same order with ``__fmul_rn``/``__fadd_rn``.
+
+``dct8x8_matmul`` and ``idct8x8`` are the DCT and its inverse as two
+products with the orthonormal matrix ``DCT_MATRIX``, in float32: fast but
+not bit-exact, as in the JAX package, whose encode and decode use neither.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -96,3 +102,29 @@ def dct8x8_aan(blocks: torch.Tensor) -> torch.Tensor:
     t = torch.stack(rows_done, dim=-1)  # [..., 8(row), 8(col)]
     cols_done = _aan_1d([t[..., i, :] for i in range(8)])
     return torch.stack(cols_done, dim=-2)
+
+
+def _dct_matrix() -> np.ndarray:
+    """Orthonormal 8-point DCT-II matrix (f32)."""
+    m = np.zeros((8, 8), dtype=np.float64)
+    for k in range(8):
+        ck = math.sqrt(0.25) if k else math.sqrt(0.125)
+        for n in range(8):
+            m[k, n] = ck * math.cos((2 * n + 1) * k * math.pi / 16.0)
+    return m.astype(np.float32)
+
+
+DCT_MATRIX = _dct_matrix()
+
+
+def dct8x8_matmul(blocks: torch.Tensor) -> torch.Tensor:
+    """2-D DCT of [..., 8, 8] blocks as two f32 products: D @ X @ D^T."""
+    d = torch.from_numpy(DCT_MATRIX).to(blocks.device)
+    return d @ blocks.to(torch.float32) @ d.T
+
+
+def idct8x8(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse 2-D DCT of [..., 8, 8] blocks as two f32 products:
+    D^T @ X @ D (``DCT_MATRIX`` is orthonormal)."""
+    d = torch.from_numpy(DCT_MATRIX).to(blocks.device)
+    return d.T @ blocks.to(torch.float32) @ d

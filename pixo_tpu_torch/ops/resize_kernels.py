@@ -131,6 +131,18 @@ def lanczos_taps(src: int, dst: int, a: float = 3.0):
     return np.asarray(starts, np.int32), weights
 
 
+def lanczos_weight_matrix(src: int, dst: int, a: float = 3.0) -> np.ndarray:
+    """Dense [dst, src] f32 weight matrix of ``lanczos_taps``' windows, for
+    analyses by matrix products. No path resizes with it: a product sums in
+    another order than the serial f32 taps, and changes bytes."""
+    starts, weights = lanczos_taps(src, dst, a)
+    mat = np.zeros((dst, src), dtype=np.float32)
+    for d in range(dst):
+        end = min(starts[d] + weights.shape[1], src)
+        mat[d, starts[d]:end] = weights[d, : end - starts[d]]
+    return mat
+
+
 def pad_taps(weights: torch.Tensor) -> torch.Tensor:
     """[dst, K] weights -> [dst, K rounded up to a multiple of 4], zero
     weights appended (as ``lanczos_taps`` pads its windows: each adds +0.0,

@@ -65,6 +65,21 @@ def should_quantize_auto(pixels: np.ndarray, max_colors: int) -> bool:
     return max_colors < unique <= threshold
 
 
+def perceptual_distance_sq(c1: np.ndarray, c2: np.ndarray) -> np.ndarray:
+    """Redmean distance, broadcastable over [..., 4] int arrays (``:1405-1430``)."""
+    c1 = c1.astype(np.int64)
+    c2 = c2.astype(np.int64)
+    dr = c1[..., 0] - c2[..., 0]
+    dg = c1[..., 1] - c2[..., 1]
+    db = c1[..., 2] - c2[..., 2]
+    da = c1[..., 3] - c2[..., 3]
+    r_mean = (c1[..., 0] + c2[..., 0]) >> 1
+    r_weight = 512 + r_mean
+    b_weight = 767 - r_mean
+    dist = (r_weight * dr * dr + 1024 * dg * dg + b_weight * db * db) >> 8
+    return dist + da * da
+
+
 def nearest_palette_indices(colors: np.ndarray, palette: np.ndarray) -> np.ndarray:
     """[N, 4] colors x [K, 4] palette -> [N] uint8 argmin redmean distance,
     the first on ties (the host library)."""

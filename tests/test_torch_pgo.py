@@ -48,6 +48,7 @@ REPO = str(Path(__file__).resolve().parents[1])
 # the balanced and optimal routes, the progressive scans, the max preset's
 # trellis, the PNG DEFLATE, the decode's entropy stage), then the host
 # tiers' own. Bound but called by no path: jpeg_pack_scan_batch,
+# jpeg_pack_scan_sparse (the flat compaction route's packer),
 # deflate_optimal_parity (the reference mirror under
 # PIXO_TPU_DEFLATE_PARITY=1), resize_lanczos3_host (an oracle).
 ENTRY_POINTS = (
@@ -62,7 +63,7 @@ ENTRY_POINTS = (
     "jpeg_decode_pixels", "jpeg_decode_baseline",
     "inflate_decompress", "png_unfilter", "png_palette_expand",
     "nearest_palette_batch", "palette_lut_build", "dither_fs",
-    "crc32", "adler32",
+    "pixo_crc32", "pixo_adler32",
 )
 
 

@@ -424,11 +424,12 @@ def test_verbose_filter_log(capsys):
 
 
 def test_host_library_keeps_its_own_checksums_when_zlib_is_loaded_first():
-    """core.cpp exports crc32/adler32 under zlib's names; the port's build
-    binds the library's own calls to its own definitions even when libz.so.1
-    is already loaded in the process, as it is next to torch's CUDA
-    libraries. Without that, DEFLATE's Adler-32 call lands in zlib and
-    crashes."""
+    """The port's core.cpp exports its checksums as pixo_crc32/pixo_adler32,
+    not under zlib's names, and its build binds the library's own calls to
+    its own definitions (``-Wl,-Bsymbolic``): with libz.so.1 already loaded
+    in the process, as it is next to torch's CUDA libraries, DEFLATE's
+    Adler-32 call and the bindings still reach the library's own code. When
+    the exports shared zlib's names, that call landed in zlib and crashed."""
     code = (
         "import ctypes, zlib\n"
         "ctypes.CDLL('libz.so.1', mode=ctypes.RTLD_GLOBAL)\n"
